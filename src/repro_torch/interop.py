@@ -1,0 +1,48 @@
+"""Carry the JAX reference's state objects across to the port.
+
+:func:`from_reference` turns a ``repro`` ``FatTree``, ``LinkState``,
+``Workload``, ``LBScheme`` or ``ProbeSpec`` into the port's counterpart,
+reading public attributes only (numpy arrays are copied).  It never imports
+``repro``: objects are recognised by their class name, so both packages can
+simulate the identical tree, workload, failure pattern and scheme.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from .core.lb_schemes import LBScheme
+from .net.topology import FatTree, LinkState
+from .net.workloads import Workload
+from .obs.probes import ProbeSpec
+
+
+def _fields(cls, obj) -> dict:
+    out = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(obj, f.name)
+        out[f.name] = np.array(v) if isinstance(v, np.ndarray) else v
+    return out
+
+
+def from_reference(obj):
+    """The port's counterpart of a reference object (see module doc);
+    ``None`` and plain scalars pass through."""
+    if obj is None or isinstance(obj, (int, float, str, np.generic)):
+        return obj
+    name = type(obj).__name__
+    if name == "FatTree":
+        return FatTree(int(obj.k))
+    if name == "LinkState":
+        return LinkState(from_reference(obj.tree), np.array(obj.ea, bool),
+                         np.array(obj.ac, bool))
+    if name == "Workload":
+        return Workload(**_fields(Workload, obj))
+    if name == "LBScheme":
+        kw = _fields(LBScheme, obj)
+        kw["quanta"] = tuple(kw["quanta"])
+        return LBScheme(**kw)
+    if name == "ProbeSpec":
+        return ProbeSpec(int(obj.stride), int(obj.samples))
+    raise TypeError(f"from_reference: unsupported object {name}")

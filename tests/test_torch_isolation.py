@@ -1,0 +1,58 @@
+"""The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
+reference package, and its entry points run on CUDA or raise."""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.net import fastsim
+from repro_torch.net.topology import FatTree
+from repro_torch.net import workloads
+from repro_torch.core import lb_schemes as lbs
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def test_port_imports_without_jax_or_reference():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None          # any import of jax now fails
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        leaked = sorted(m for m in sys.modules
+                        if m == "repro" or m.startswith("repro.")
+                        or (m.startswith("jax") and sys.modules[m] is not None))
+        assert not leaked, leaked
+        assert "repro_torch.net.fastsim" in names, names
+        assert "repro_torch.kernels.jsq_scan.ops" in names, names
+        print(len(names))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device works")
+    tree = FatTree(4)
+    wl = workloads.permutation(tree, 4, np.random.default_rng(0))
+    s = lbs.host_pkt()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fastsim.simulate(tree, wl, s)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fastsim.simulate_batch(tree, wl, s, [0, 1])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fastsim.simulate_megabatch([(tree, wl, s, [0], None)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fastsim.simulate(tree, wl, s, device="cuda")
