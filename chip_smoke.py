@@ -22,14 +22,29 @@ Phases, each timed on its own line; any failure exits non-zero:
    ``backend="torch"`` run (plain versions) on the card bitwise, and seed 0
    must match the JAX reference's digests in
    ``tests/torch_golden/fastsim_k8.json``;
-4. time each kernel and its plain version on the largest inputs the main
-   path gave it, beside the bound of the card.
+4. hold the slotted engine's three slot-step kernels (``jsq_pick``,
+   ``enqueue``, ``agg_jsq_enqueue``) bitwise against their plain versions:
+   random operands at the k=8 sizes (640 lanes and queues, 195-packet
+   buffers, 4 ports) and the k=16 sizes (5,120 lanes, 8 ports), and
+   operands recorded from engine calls at a few slots;
+5. drive the slotted engine's main path on the k=8 fat tree: the 1 MB
+   permutation ``permutation(tree, 256, default_rng(1))`` failure-free, and
+   fig 3's point (1 % of links failed, ``rho = rho_max``, ``rto_slots=300``,
+   G = infinity), through ``loopsim.simulate_megabatch`` for seeds 0-1, one
+   fused dispatch per pipeline identity, with the launch counts set to 0
+   just before each dispatch and read just after.  Every fused result must
+   equal the port's serial ``simulate`` (seed 0) and an ``impl="torch"``
+   run (plain versions) on the card bitwise, and seed 0 must match the JAX
+   reference's digests in ``tests/torch_golden/loopsim_k8.json``;
+6. time each kernel and its plain version on the largest inputs the main
+   paths gave it, beside the bound of the card.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -39,6 +54,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 GOLDEN = ROOT / "tests" / "torch_golden" / "fastsim_k8.json"
+LOOP_GOLDEN = ROOT / "tests" / "torch_golden" / "loopsim_k8.json"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor fp32.
 HBM_BYTES_PER_S = 3.35e12
@@ -47,6 +63,17 @@ FP32_FLOP_PER_S = 67e12
 SCHEME_GROUPS = (("flow_ecmp", "host_pkt", "host_dr"), ("switch_pkt",),
                  ("switch_pkt_ar",), ("ofan",))
 SEEDS = (0, 1, 2, 3)
+LOOP_SEEDS = (0, 1)       # the slotted engine's main path: seeds 0-1
+# The slotted engine's fused dispatches: one per pipeline identity.
+LOOP_GROUPS = {
+    "free": (("host_pkt", "flow_ecmp", "host_dr"), ("host_pkt_ar",),
+             ("host_flowlet_ar",), ("switch_pkt",), ("switch_pkt_ar",),
+             ("jsq",), ("ofan",)),
+    "fig3": (("host_pkt",), ("switch_pkt",), ("host_pkt_ar",),
+             ("switch_pkt_ar",), ("ofan",)),
+}
+LOOP_MAX_SLOTS = 60_000
+SLOT_KERNELS = ("jsq_pick", "enqueue", "agg_jsq_enqueue")
 CUMMAX_SIZES = (0, 1, 1023, 1025, (1 << 20) + 3, 6_242_304)
 DENSITIES = ("first", 1e-3, 0.5, "all")
 
@@ -98,6 +125,25 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, kernel_re: str):
+    """Mean device milliseconds per call of the CUDA kernels whose names
+    match ``kernel_re``, from a ``torch.profiler`` trace of ``reps`` calls
+    after one warm-up call (None when the trace holds no device time)."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    pat = re.compile(kernel_re)
+    total_us = sum(getattr(e, "device_time_total", 0.0)
+                   for e in prof.key_averages() if pat.search(e.key))
+    return total_us / reps / 1e3 if total_us > 0 else None
+
+
 def cuda_once(fn):
     """(result, milliseconds) of one call on the card."""
     import torch
@@ -120,14 +166,15 @@ def max_abs_err(a, b) -> float:
 
 class Recorder:
     """Wraps a kernel wrapper to keep the largest call's arguments, and with
-    ``keep_all`` every call's (the wrapped call and its launch count are
-    unchanged)."""
+    ``keep_every=k`` every k-th call's (the wrapped call and its launch
+    count are unchanged)."""
 
-    def __init__(self, module, name, size_of, keep_all=False):
+    def __init__(self, module, name, size_of, keep_every=0):
         self.module, self.name, self.size_of = module, name, size_of
-        self.keep_all = keep_all
+        self.keep_every = keep_every
         self.orig = getattr(module, name)
         self.calls = []
+        self.n_calls = 0
         self.largest = None
 
     def __enter__(self):
@@ -135,8 +182,9 @@ class Recorder:
             if self.largest is None or (self.size_of(args)
                                         > self.size_of(self.largest[0])):
                 self.largest = (args, kw)
-            if self.keep_all:
+            if self.keep_every and self.n_calls % self.keep_every == 0:
                 self.calls.append((args, kw))
+            self.n_calls += 1
             return self.orig(*args, **kw)
         setattr(self.module, self.name, rec)
         return self
@@ -183,12 +231,295 @@ def sane(res, wl, tree) -> bool:
             and res.cct >= float(wl.t_release.max()))
 
 
+def slot_operands(seed, B, M, cap, h, n_aggs, dev):
+    """Random operands of the slot-step kernels at engine sizes (queues =
+    lanes = M; few distinct target queues, so arrivals rank and overflow)."""
+    import numpy as np
+    import torch
+    from repro_torch.net._batching import port_pad_penalty
+    r = np.random.default_rng(seed)
+    t = torch.from_numpy
+    P = 32768
+    o = dict(qcnt=t(r.integers(0, cap, (B, M)).astype(np.int32)),
+             qbuf=t(r.integers(-1, P, (B, M, cap)).astype(np.int32)),
+             qhead=t(r.integers(0, cap, (B, M)).astype(np.int32)),
+             qbase=t(r.integers(0, M - h, (B, M)).astype(np.int32)),
+             ids=t(r.integers(0, P, (B, M)).astype(np.int32)),
+             dead=t(r.random((B, M, h)) < 0.2),
+             pad_pen=port_pad_penalty(h, torch.tensor(
+                 [h - (b % 2) for b in range(B)], dtype=torch.int32)),
+             alive=t(r.random((B, M)) < 0.95),
+             apk=t(np.where(r.random((B, M)) < 0.8,
+                            r.integers(0, P, (B, M)), -1).astype(np.int32)),
+             aq=t(r.integers(0, M // 4, (B, M)).astype(np.int32) * 4),
+             asw=t(r.integers(0, n_aggs, (B, M)).astype(np.int32)),
+             seed_lo=t(r.integers(0, 2**32, B).astype(np.int64)),
+             seed_hi=t(r.integers(0, 2**32, B).astype(np.int64)))
+    o["avalid"] = o["apk"] >= 0
+    o["to_agg"] = o["avalid"] & t(r.random((B, M)) < 0.5)
+    return {k: v.to(dev) for k, v in o.items()}
+
+
+def same_loop(a, b) -> bool:
+    import numpy as np
+    return (all(np.array_equal(getattr(a, k), getattr(b, k))
+                for k in ("delivered_slot", "flow_complete_slot",
+                          "flow_data_done_slot"))
+            and all(getattr(a, k) == getattr(b, k)
+                    for k in ("cct_slots", "cct_acked_slots", "drops",
+                              "retransmissions", "max_queue", "avg_queue",
+                              "finished", "mean_cwnd")))
+
+
+def loop_sane(res, wl) -> bool:
+    import numpy as np
+    d = res.delivered_slot
+    # Erasure coding needs any fsize symbols of a flow, so a packet whose
+    # copies were all dropped may stay undelivered (-1).
+    return (d.shape == (wl.n_packets,) and res.finished
+            and d.min() >= -1 and d.max() > 0
+            and (res.flow_complete_slot >= 0).all()
+            and res.cct_acked_slots >= res.cct_slots > 0
+            and np.isfinite(res.avg_queue) and res.max_queue > 0)
+
+
+# Integer and float operations of one Threefry-2x32 draw and its score,
+# per (chooser, port): 20 rounds of add, rotate (3 ops) and xor, 5 key
+# injections, the counter set-up, the uniform and the score.
+PRF_OPS = 125
+
+
+def slot_timing(name, largest, err, launches):
+    """The kernel's row of the ``kernels`` line, at the largest input the
+    main path gave it: ms per launch, its plain version's, and the bound."""
+    import torch
+    from repro_torch.kernels.slot_step import ops as slot_ops
+    args, kw = largest
+    kw = {k: v for k, v in kw.items() if k != "backend"}
+    fn = getattr(slot_ops, name)
+    got = fn(*args, **kw)
+    want = fn(*args, backend="torch", **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"{name}: kernel != plain on the main path's largest input")
+    ms = cuda_ms(lambda: fn(*args, **kw), 50)
+    dev_ms = device_ms(lambda: fn(*args, **kw), 50, rf"\b{name}_kernel\(")
+    plain_ms = cuda_ms(lambda: fn(*args, backend="torch", **kw), 5)
+    if name == "jsq_pick":
+        qcnt, qbase, _, dead = args[:4]
+        B, M = qbase.shape
+        h = dead.shape[-1]
+        nbytes = qcnt.numel() * 4 + B * M * (4 + 4 + h + 4) + B * h * 4
+        ops = B * M * h * PRF_OPS
+        shape = [B, M, h]
+    else:
+        qbuf, aq = args[0], args[5]
+        B, NQ, cap = qbuf.shape
+        M = aq.shape[1]
+        enq_try = want[3] if name == "agg_jsq_enqueue" else want[2]
+        # The rank compares each enqueue-trying lane with every earlier
+        # lane: this input's pairs, a compare and an add each.
+        lane = torch.arange(M, device=aq.device, dtype=torch.float64)
+        ops = 2 * float((enq_try.double() * lane).sum())
+        nbytes = (2 * qbuf.numel() * 4 + B * NQ * (4 + 4 + 1 + 4)
+                  + B * M * (4 + 4 + 1) + B * M * (1 + 1 + 4 + 1))
+        shape = [B, NQ, cap, M]
+        if name == "agg_jsq_enqueue":
+            h = args[8].shape[-1]
+            nbytes += B * M * (1 + 4 + h + 4) + B * h * 4
+            ops += B * M * h * PRF_OPS
+            shape.append(h)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return dict(
+        name=name, route="cuda", source="src/repro_torch/csrc/slot_step.cu",
+        replaces={"jsq_pick": "src/repro/kernels/slot_step/kernel.py:126",
+                  "enqueue": "src/repro/kernels/slot_step/kernel.py:203",
+                  "agg_jsq_enqueue":
+                  "src/repro/kernels/slot_step/kernel.py:240"}[name],
+        launches=launches, max_abs_err=err, ms=ms, device_ms=dev_ms,
+        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, n=int(B * M), shape=shape)
+
+
+def loop_phases(tree, dev, errs, launches, loop_golden):
+    """The slotted engine's phases: its three slot-step kernels against
+    their plain versions, then its main path (``LOOP_GROUPS`` at seeds
+    ``LOOP_SEEDS``), with launches added to ``launches`` and errors to
+    ``errs``.
+    Returns the main path's slot-step launches and the recorders that kept
+    each kernel's largest main-path input."""
+    import numpy as np
+    import torch
+    from repro_torch.core import lb_schemes
+    from repro_torch.kernels.lindley import ops as lindley_ops
+    from repro_torch.kernels.slot_step import ops as slot_ops
+    from repro_torch.net import loopsim, workloads
+    from repro_torch.net.topology import LinkState, rho_max
+    from repro_torch.obs.digest import loop_result_digest
+
+    # ---- the slotted engine ------------------------------------------------
+    for name in SLOT_KERNELS:
+        errs[name] = 0.0
+    kw_of = {
+        "jsq_pick": lambda o, q: dict(site=3, quanta=q,
+                                      cap=o["qbuf"].shape[2]),
+        "enqueue": lambda o, q: dict(cap=o["qbuf"].shape[2], ecn_thresh=97),
+        "agg_jsq_enqueue": lambda o, q: dict(
+            site=4, quanta=q, cap=o["qbuf"].shape[2], ecn_thresh=97,
+            off1=o["qbuf"].shape[1] // 5, h=o["pad_pen"].shape[1])}
+    arg_keys = {
+        "jsq_pick": ("qcnt", "qbase", "ids", "dead", "pad_pen", "seed_lo",
+                     "seed_hi"),
+        "enqueue": ("qbuf", "qhead", "qcnt", "alive", "apk", "aq", "avalid"),
+        "agg_jsq_enqueue": ("qbuf", "qhead", "qcnt", "alive", "apk", "aq",
+                            "to_agg", "asw", "dead", "pad_pen", "seed_lo",
+                            "seed_hi")}
+
+    def slot_check(name, args, kw, what):
+        fn = getattr(slot_ops, name)
+        kw = {k: v for k, v in kw.items() if k != "backend"}
+        got = fn(*args, **kw)
+        want = fn(*args, backend="torch", **kw)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            err = max_abs_err(g, w)
+            errs[name] = max(errs[name], err)
+            check(g.dtype == w.dtype and torch.equal(g, w),
+                  f"{name} {what}: kernel != plain (err {err})")
+
+    quanta3 = (0.05, 0.10, 0.20)
+    lwl = workloads.permutation(tree, 256, np.random.default_rng(1))
+    links3 = LinkState.random_failures(tree, 0.01, seed=42)
+    rho3 = float(rho_max(tree, links3, lwl.flow_src, lwl.flow_dst))
+    check(rho3 == loop_golden["fig3"]["rho"], "fig 3 rho_max differs")
+    loop_pts = {
+        "free": (loopsim.LoopConfig(max_slots=LOOP_MAX_SLOTS), None),
+        "fig3": (loopsim.LoopConfig(max_slots=LOOP_MAX_SLOTS, rho=rho3,
+                                    rto_slots=300), links3)}
+
+    with Phase("loop_kernels_vs_plain"):
+        n_cases = 0
+        for B, M, h, n_aggs in ((4, 640, 4, 32), (4, 5120, 8, 128)):
+            for quanta in (None, quanta3):
+                o = slot_operands(M + 10 * h + (quanta is None), B, M, 195, h,
+                                  n_aggs, dev)
+                for name in SLOT_KERNELS:
+                    if name == "enqueue" and quanta is not None:
+                        continue
+                    args = [o[k] for k in arg_keys[name]]
+                    if name != "enqueue":
+                        args.append(77)
+                    slot_check(name, args, kw_of[name](o, quanta),
+                               f"random B={B} M={M} h={h} quanta={quanta}")
+                    n_cases += 1
+        # Operands recorded from engine calls, every 100th slot.
+        recs = [Recorder(slot_ops, name, lambda a: a[0].numel(),
+                         keep_every=100) for name in SLOT_KERNELS]
+        for r in recs:
+            r.__enter__()
+        try:
+            for pname, scheme in (("free", "jsq"), ("fig3", "ofan"),
+                                  ("fig3", "switch_pkt_ar")):
+                cfg, links = loop_pts[pname]
+                loopsim.simulate(tree, lwl, lb_schemes.by_name(scheme), cfg,
+                                 seed=1, links=links)
+        finally:
+            for r in recs:
+                r.__exit__()
+        for r in recs:
+            check(r.calls, f"{r.name}: no engine call recorded")
+            for i, (args, kw) in enumerate(r.calls):
+                slot_check(r.name, args, kw, f"engine call {i}")
+                n_cases += 1
+        print(f"slot-step kernels: {n_cases} cases bitwise equal to the plain "
+              f"versions (tolerance: bitwise, max_abs_err 0)", flush=True)
+
+    loop_launches = {name: 0 for name in SLOT_KERNELS}
+    size_of = {"jsq_pick": lambda a: a[1].numel(),
+               "enqueue": lambda a: a[0].numel() + a[5].numel(),
+               "agg_jsq_enqueue": lambda a: a[0].numel() + a[5].numel()}
+    recs = {name: Recorder(slot_ops, name, size_of[name])
+            for name in SLOT_KERNELS}
+    with Phase("loop_main_path"), recs["jsq_pick"], recs["enqueue"], \
+            recs["agg_jsq_enqueue"]:
+        for pname, groups in LOOP_GROUPS.items():
+            cfg, links = loop_pts[pname]
+            for group in groups:
+                items = [(tree, lwl, lb_schemes.by_name(s), cfg,
+                          list(LOOP_SEEDS), links, None) for s in group]
+                for name in SLOT_KERNELS:
+                    slot_ops.LAUNCHES[name] = 0
+                lindley_ops.LAUNCHES = 0
+                loopsim.STEPS = 0
+                t0 = time.perf_counter()
+                fused = loopsim.simulate_megabatch(items)
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = dict(slot_ops.LAUNCHES)
+                n_cummax, steps = lindley_ops.LAUNCHES, loopsim.STEPS
+                for name in SLOT_KERNELS:
+                    loop_launches[name] += counts[name]
+                launches["segmented_cummax"] += n_cummax
+                tag = f"{pname}/{'+'.join(group)}"
+                if group[0] in ("jsq", "switch_pkt_ar"):
+                    check(counts["jsq_pick"] > 0
+                          and counts["agg_jsq_enqueue"] > 0,
+                          f"{tag}: a JSQ kernel never launched")
+                else:
+                    check(counts["enqueue"] > 0,
+                          f"{tag}: enqueue never launched")
+                if group[0] in ("switch_pkt", "ofan"):
+                    check(n_cummax > 0,
+                          f"{tag}: segmented_cummax never launched")
+                t0 = time.perf_counter()
+                for tr, w, scheme, c, seeds, l, g in items:
+                    plan = loopsim._prepare(tr, w, scheme, c, l, g)
+                    for sd in seeds:
+                        loopsim._draw_seed_inputs(plan, sd)
+                host_ms = (time.perf_counter() - t0) * 1e3
+                for (_, _, scheme, _, _, _, _), res in zip(items, fused):
+                    key = f"{pname}/{scheme.name}"
+                    r0 = res[0]
+                    print(f"loop point {key} seeds={len(LOOP_SEEDS)} "
+                          f"cct_acked_slots={r0.cct_acked_slots!r} "
+                          f"cct_slots={r0.cct_slots!r} drops={r0.drops} "
+                          f"max_queue={r0.max_queue} slots={steps} "
+                          f"dispatch_ms={ms:.1f} host_prep_ms={host_ms:.1f} "
+                          f"launches={counts} segmented_cummax={n_cummax} "
+                          f"(fused with {'+'.join(group)})", flush=True)
+                    check(all(loop_sane(r, lwl) for r in res),
+                          f"{key}: malformed result")
+                    check(loop_result_digest(r0) == loop_golden["points"][key],
+                          f"{key}: seed 0 differs from the JAX digests")
+                    serial = loopsim.simulate(tree, lwl, scheme, cfg, seed=0,
+                                              links=links)
+                    check(same_loop(serial, r0),
+                          f"{key}: fused != serial simulate")
+                plain_cfg = dataclasses.replace(cfg, impl="torch")
+                plain = loopsim.simulate_megabatch(
+                    [it[:3] + (plain_cfg,) + it[4:] for it in items])
+                for (_, _, scheme, _, _, _, _), res, ref in zip(items, fused,
+                                                                plain):
+                    check(all(same_loop(a, b) for a, b in zip(res, ref)),
+                          f"{pname}/{scheme.name}: kernels != plain versions")
+                print(f"compared {tag}: fused == serial == impl='torch' == "
+                      f"JAX digest", flush=True)
+        check(all(v > 0 for v in loop_launches.values()),
+              "a slot-step kernel of the main path was never launched")
+
+    return loop_launches, recs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch").is_dir() or not GOLDEN.is_file():
+    if not ((SRC / "repro_torch").is_dir() and GOLDEN.is_file()
+            and LOOP_GOLDEN.is_file()):
         print("chip_smoke: run from the root of a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -245,7 +576,7 @@ def main() -> int:
         for wl_name, wl in wls.items():
             for scheme in ("jsq", "switch_pkt_ar"):
                 with Recorder(jsq_ops, "jsq_scan", lambda a: a[0].numel(),
-                              keep_all=True) as rec:
+                              keep_every=1) as rec:
                     fastsim.simulate(tree, wl, lb_schemes.by_name(scheme),
                                      seed=0, prop_slots=prop_slots)
                 check(len(rec.calls) == 2, "expected two JSQ layers")
@@ -323,6 +654,9 @@ def main() -> int:
         check(launches["segmented_cummax"] > 0 and launches["jsq_scan"] > 0,
               "a kernel of the main path was never launched")
 
+    loop_launches, recs = loop_phases(
+        tree, dev, errs, launches, json.loads(LOOP_GOLDEN.read_text()))
+
     kernels = []
     with Phase("timing"):
         # The largest inputs the main path gave each kernel; the kernel is
@@ -335,6 +669,9 @@ def main() -> int:
         check(torch.equal(got, want), "segmented_cummax: kernel != plain on "
               "the main path's largest input")
         ms = cuda_ms(lambda: lindley_ops.segmented_cummax(v, flags), 20)
+        dev_ms = device_ms(lambda: lindley_ops.segmented_cummax(v, flags),
+                           20, r"\b(tile_aggregate|scan_aggregates|"
+                           r"tile_apply)\(")
         plain_ms = cuda_ms(lambda: lindley_ops.segmented_cummax(
             v, flags, backend="torch"), 3)
         nbytes = n * (4 + flags.element_size() + 4)
@@ -343,7 +680,8 @@ def main() -> int:
             source="src/repro_torch/csrc/lindley.cu",
             replaces="src/repro/kernels/lindley/kernel.py:61",
             launches=launches["segmented_cummax"],
-            max_abs_err=errs["segmented_cummax"], ms=ms, plain_ms=plain_ms,
+            max_abs_err=errs["segmented_cummax"], ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms,
             bound_ms=max(nbytes / HBM_BYTES_PER_S, n / FP32_FLOP_PER_S) * 1e3,
             bound_by="bytes", library_ms=None, n=n,
             shape=list(v.shape)))
@@ -359,6 +697,8 @@ def main() -> int:
               "jsq_scan: kernel != plain on the main path's largest grid")
         del got, want
         ms = cuda_ms(lambda: jsq_ops.jsq_scan(*args[:5]), 3)
+        dev_ms = device_ms(lambda: jsq_ops.jsq_scan(*args[:5]), 3,
+                           r"\bjsq_scan_kernel\(")
         nq = 0 if thresholds is None else thresholds.numel()
         nbytes = cells * (4 + 1 + 4 * h + 4 + 4 + 4) + B * h * 4 + nq * 4
         flops = cells * h * (6 + nq)
@@ -368,15 +708,19 @@ def main() -> int:
             replaces="src/repro/net/fastsim.py:224 (lax.scan, no Pallas "
                      "kernel)",
             launches=launches["jsq_scan"], max_abs_err=errs["jsq_scan"],
-            ms=ms, plain_ms=plain_ms,
+            ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
             bound_ms=max(nbytes / HBM_BYTES_PER_S,
                          flops / FP32_FLOP_PER_S) * 1e3,
             bound_by="bytes" if nbytes / HBM_BYTES_PER_S
             >= flops / FP32_FLOP_PER_S else "operations",
             library_ms=None, n=cells, shape=[B, S, pad, h]))
+        for name in SLOT_KERNELS:
+            kernels.append(slot_timing(name, recs[name].largest, errs[name],
+                                       loop_launches[name]))
         for k in kernels:
             print(f"kernel {k['name']}: launches={k['launches']} "
                   f"shape={k['shape']} ms={k['ms']:.4f} "
+                  f"device_ms={k['device_ms']} "
                   f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.4f}",
                   flush=True)
 

@@ -16,9 +16,12 @@ recomputed in isolation.
 
 The PRF is Threefry-2x32 with 20 rounds (`Salmon et al., SC'11
 <https://doi.org/10.1145/2063384.2063405>`_), bit-identical to the JAX
-reference's ``repro.core.entropy`` (known-answer tested).  This is the
-host-side numpy half the fast engine needs for its JSQ noise grids and
-link-failure draws; the slotted engine's in-loop draws are not ported yet.
+reference's ``repro.core.entropy`` (known-answer tested).  It comes in two
+halves with the same streams: the numpy half (the fast engine's JSQ noise
+grids, link-failure draws) and the torch half (``*_torch``: the slotted
+engine's in-loop draws, on any device).  The torch half works on int64
+tensors masked with ``& 0xFFFFFFFF``, because torch on the CPU has no
+uint32 ``+``, ``<<``, ``>>`` or ``%``; one code path serves both devices.
 
 Key/counter packing (injective over the tuples the engines use)::
 
@@ -34,6 +37,7 @@ tested statistically in ``tests/test_entropy.py``.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # ---------------------------------------------------------------------------
 # Draw-site tags.  One per randomness consumer; adding a site never perturbs
@@ -134,3 +138,66 @@ def uniform_grid(seed: int, site: int, n_ids: int, n_slots: int,
         ids=np.arange(n_ids, dtype=np.uint32)[:, None, None],
         slot=np.arange(n_slots, dtype=np.uint32)[None, :, None],
         lane=np.arange(n_lanes, dtype=np.uint32)[None, None, :]))
+
+
+# ---------------------------------------------------------------------------
+# Torch half: the same streams on int64 tensors holding uint32 values.
+# ---------------------------------------------------------------------------
+
+def _u32_torch(x, device=None) -> torch.Tensor:
+    """int64 tensor of ``x`` taken mod 2**32 (python ints, numpy values and
+    integer tensors of any width; negative values wrap as uint32 would)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64) & _MASK32
+    return torch.as_tensor(np.asarray(x).astype(np.int64) & _MASK32,
+                           dtype=torch.int64, device=device)
+
+
+def _rotl32_torch(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK32
+
+
+def threefry2x32_torch(k0, k1, c0, c1):
+    """:func:`threefry2x32` on int64 tensors holding uint32 values
+    (broadcast together); every sum is masked back to 32 bits."""
+    ks0, ks1 = k0, k1
+    ks2 = ks0 ^ ks1 ^ _PARITY
+    x0 = (c0 + ks0) & _MASK32
+    x1 = (c1 + ks1) & _MASK32
+    schedule = ((ks1, ks2), (ks2, ks0), (ks0, ks1), (ks1, ks2), (ks2, ks0))
+    for block, (inj0, inj1) in enumerate(schedule):
+        for r in _ROTATIONS[block % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = _rotl32_torch(x1, r) ^ x0
+        x0 = (x0 + inj0) & _MASK32
+        x1 = (x1 + inj1 + (block + 1)) & _MASK32
+    return x0, x1
+
+
+def draw_u32_torch(seed_lo, seed_hi, site, ids, slot, lane=0) -> torch.Tensor:
+    """:func:`draw_u32` as an int64 tensor of uint32 values.  ``seed_lo``
+    and ``seed_hi`` are scalars or per-row tensors already shaped to
+    broadcast against ``ids``/``slot``/``lane``."""
+    dev = next((x.device for x in (ids, slot, lane, seed_lo, seed_hi)
+                if isinstance(x, torch.Tensor)), None)
+    k0 = _u32_torch(seed_lo, dev)
+    k1 = _u32_torch(seed_hi, dev) ^ ((site << 16) ^ _u32_torch(lane, dev))
+    x0, _ = threefry2x32_torch(k0, k1, _u32_torch(slot, dev),
+                               _u32_torch(ids, dev))
+    return x0
+
+
+def draw_int_torch(seed_lo, seed_hi, site, ids, slot, bound,
+                   lane=0) -> torch.Tensor:
+    """:func:`draw_int` as an int32 tensor; ``bound`` may be a per-row
+    tensor."""
+    u = draw_u32_torch(seed_lo, seed_hi, site, ids, slot, lane=lane)
+    return torch.remainder(u, _u32_torch(bound, u.device)).to(torch.int32)
+
+
+def draw_uniform_torch(seed_lo, seed_hi, site, ids, slot,
+                       lane=0) -> torch.Tensor:
+    """:func:`draw_uniform` as a float32 tensor (the 24-bit integer is exact
+    in float32 and the scale is a power of two)."""
+    u = draw_u32_torch(seed_lo, seed_hi, site, ids, slot, lane=lane)
+    return (u >> 8).to(torch.float32) * float(_INV_2_24)

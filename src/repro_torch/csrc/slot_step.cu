@@ -1,0 +1,354 @@
+// Slot-step kernels of the slotted feedback engine, for Hopper (sm_90a).
+//
+// Replace the Pallas TPU kernels of repro/kernels/slot_step/kernel.py:
+//   slot_jsq_pick        <- jsq_pick         (kernel.py:126)
+//   slot_enqueue         <- enqueue          (kernel.py:203)
+//   slot_agg_jsq_enqueue <- agg_jsq_enqueue  (kernel.py:240)
+// Every operand carries a leading row axis B (the fused megabatch); the
+// plain versions are repro_torch/kernels/slot_step/ref.py.
+//
+// jsq_pick: one thread per (row, chooser), a loop over h <= 32 ports.  Per
+// port: the queue length, Threefry-2x32 (20 rounds, native uint32) keyed
+// k0 = seed_lo, k1 = seed_hi ^ ((site << 16) ^ lane), counter c0 = t,
+// c1 = id, the uniform (x0 >> 8) * 2^-24, and the score
+//   JSQ:       fmaf(nz, 1e-3f, len)  -- one rounding, as XLA:CPU contracts
+//              `lens + nz * 1e-3` in the reference's engine;
+//   quantized: #{edges < len} + nz * 0.5 (exact either way);
+// then + pad_pen and + (dead ? 1e9 : 0), each rounded on its own
+// (__fadd_rn; the file is built with --fmad=false).  A strict `<` keeps the
+// first minimum, as jnp.argmin does.
+// Bound: bytes -- per chooser the h queue lengths and dead flags read and
+// one int written; the 20-round PRF per port is ~200 integer operations.
+//
+// enqueue / agg_jsq_enqueue: one block per row, lanes strided over the
+// block, so any M works (M = 5,120 at k=16).  The block first copies the
+// row's ring buffers and occupancy to the outputs (the kernels write new
+// tensors and never their inputs: the engine freezes finished rows by
+// selecting the old state with torch.where, so a frozen row comes out
+// bitwise unchanged), then stages each lane's target queue and enqueue-try
+// flag in shared memory.  A lane's rank is the count of earlier lanes that
+// try the same queue -- the stable order by lane of the reference, an
+// O(M^2) masked count, never the order of atomics.  Room, ring position
+// (qhead + qcnt + rank) % cap, the ring write (cells are distinct by
+// construction), occupancy-after and the ECN mark are per lane; the
+// occupancy add is an integer atomicAdd, whose result does not depend on
+// order.  The fused agg variant first picks each lane's core sub-link with
+// the jsq_pick body (ids = max(apk, 0), qbase = off1 + asw * h) from the
+// start-of-slot occupancy, and rewrites the target of agg-bound lanes.
+// Bound: the row copy (NQ * cap ints read and written) by bytes, or the
+// M^2 / 2 rank comparisons by operations at large M; a row runs on one SM.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr uint32_t PARITY = 0x1BD11BDAu;
+constexpr int PICK_THREADS = 128;
+constexpr int ROW_THREADS = 512;
+constexpr int MAX_EDGES = 8;
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+// First output word of Threefry-2x32 with 20 rounds.
+__device__ __forceinline__ uint32_t threefry_x0(uint32_t k0, uint32_t k1,
+                                                uint32_t c0, uint32_t c1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ PARITY};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  uint32_t x0 = c0 + ks[0];
+  uint32_t x1 = c1 + ks[1];
+#pragma unroll
+  for (int b = 0; b < 5; ++b) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x0 += x1;
+      x1 = rotl32(x1, rot[b & 1][i]) ^ x0;
+    }
+    x0 += ks[(b + 1) % 3];
+    x1 += ks[(b + 2) % 3] + (uint32_t)(b + 1);
+  }
+  return x0;
+}
+
+struct PickArgs {
+  const float* edges;  // quantization bin edges (nq of them)
+  int nq;
+  uint32_t site_key;   // site << 16
+  uint32_t t;
+  int h;
+};
+
+// Port of least score for one chooser (first occurrence on ties).
+__device__ int pick_port(const int32_t* qcnt_row, int qbase, uint32_t id,
+                         const uint8_t* dead, const float* pen,
+                         uint32_t k0, uint32_t k1_site, const PickArgs& a) {
+  float best = 0.0f;
+  int arg = 0;
+  for (int l = 0; l < a.h; ++l) {
+    const float len = (float)qcnt_row[qbase + l];
+    const uint32_t u = threefry_x0(k0, k1_site ^ (uint32_t)l, a.t, id);
+    const float nz = __fmul_rn((float)(u >> 8), 5.9604644775390625e-08f);
+    float score;
+    if (a.nq == 0) {
+      score = fmaf(nz, 1e-3f, len);
+    } else {
+      int bins = 0;
+      for (int q = 0; q < a.nq; ++q) bins += len > a.edges[q];
+      score = __fadd_rn((float)bins, __fmul_rn(nz, 0.5f));
+    }
+    score = __fadd_rn(score, pen[l]);
+    score = __fadd_rn(score, dead[l] ? 1e9f : 0.0f);
+    if (l == 0 || score < best) {
+      best = score;
+      arg = l;
+    }
+  }
+  return arg;
+}
+
+__global__ void __launch_bounds__(PICK_THREADS)
+jsq_pick_kernel(const int32_t* __restrict__ qcnt,
+                const int32_t* __restrict__ qbase,
+                const int32_t* __restrict__ ids,
+                const uint8_t* __restrict__ dead,
+                const float* __restrict__ pad_pen,
+                const int32_t* __restrict__ seed_lo,
+                const int32_t* __restrict__ seed_hi, PickArgs a, int rows,
+                int m, int nq_queues, int32_t* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * PICK_THREADS + threadIdx.x;
+  if (i >= (int64_t)rows * m) return;
+  const int64_t b = i / m;
+  out[i] = pick_port(qcnt + b * nq_queues, qbase[i], (uint32_t)ids[i],
+                     dead + i * a.h, pad_pen + b * a.h, (uint32_t)seed_lo[b],
+                     (uint32_t)seed_hi[b] ^ a.site_key, a);
+}
+
+// Copy one row's ring buffers and occupancy to the outputs.
+__device__ void copy_row(const int32_t* qbuf, const int32_t* qcnt,
+                         int64_t cells, int nq, int32_t* qbuf_out,
+                         int32_t* qcnt_out) {
+  for (int64_t c = threadIdx.x; c < cells; c += blockDim.x)
+    qbuf_out[c] = qbuf[c];
+  for (int q = threadIdx.x; q < nq; q += blockDim.x) qcnt_out[q] = qcnt[q];
+}
+
+// The enqueue update of one row, after s_aq / s_try are staged and the row
+// copied (callers __syncthreads() first).
+__device__ void enqueue_lanes(const int32_t* qhead, const int32_t* qcnt,
+                              const int32_t* apk, const int32_t* s_aq,
+                              const uint8_t* s_try, int m, int nq, int cap,
+                              int ecn_thresh, int32_t* qbuf_out,
+                              int32_t* qcnt_out, uint8_t* enq_try,
+                              uint8_t* do_enq, int32_t* occ_after,
+                              uint8_t* marked) {
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const int aq = s_aq[i];
+    const bool tr = s_try[i] != 0;
+    int rk = 0;
+    if (tr) {
+      for (int j = 0; j < i; ++j) rk += (s_try[j] != 0) & (s_aq[j] == aq);
+    }
+    const int aqc = min(max(aq, 0), nq - 1);
+    const int qa = qcnt[aqc];
+    const bool d = tr && (qa + rk < cap);
+    if (d && aq >= 0 && aq < nq) {
+      const int pos = (qhead[aqc] + qa + rk) % cap;
+      qbuf_out[(int64_t)aq * cap + pos] = apk[i];
+      atomicAdd(&qcnt_out[aq], 1);
+    }
+    const int occ = qa + rk + 1;
+    enq_try[i] = tr;
+    do_enq[i] = d;
+    occ_after[i] = occ;
+    marked[i] = d && occ > ecn_thresh;
+  }
+}
+
+__global__ void __launch_bounds__(ROW_THREADS)
+enqueue_kernel(const int32_t* __restrict__ qbuf,
+               const int32_t* __restrict__ qhead,
+               const int32_t* __restrict__ qcnt,
+               const uint8_t* __restrict__ alive,
+               const int32_t* __restrict__ apk,
+               const int32_t* __restrict__ aq,
+               const uint8_t* __restrict__ avalid, int cap, int ecn_thresh,
+               int m, int nq, int32_t* __restrict__ qbuf_out,
+               int32_t* __restrict__ qcnt_out, uint8_t* __restrict__ enq_try,
+               uint8_t* __restrict__ do_enq, int32_t* __restrict__ occ_after,
+               uint8_t* __restrict__ marked) {
+  extern __shared__ int32_t smem[];
+  int32_t* s_aq = smem;
+  uint8_t* s_try = reinterpret_cast<uint8_t*>(smem + m);
+  const int64_t b = blockIdx.x;
+  const int64_t cells = (int64_t)nq * cap;
+  const int32_t* qcnt_b = qcnt + b * nq;
+  const uint8_t* alive_b = alive + b * nq;
+  copy_row(qbuf + b * cells, qcnt_b, cells, nq, qbuf_out + b * cells,
+           qcnt_out + b * nq);
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const int a = aq[b * m + i];
+    const int aqc = min(max(a, 0), nq - 1);
+    s_aq[i] = a;
+    s_try[i] = (avalid[b * m + i] != 0) && (alive_b[aqc] != 0);
+  }
+  __syncthreads();
+  enqueue_lanes(qhead + b * nq, qcnt_b, apk + b * m, s_aq, s_try, m, nq, cap,
+                ecn_thresh, qbuf_out + b * cells, qcnt_out + b * nq,
+                enq_try + b * m, do_enq + b * m, occ_after + b * m,
+                marked + b * m);
+}
+
+__global__ void __launch_bounds__(ROW_THREADS)
+agg_jsq_enqueue_kernel(
+    const int32_t* __restrict__ qbuf, const int32_t* __restrict__ qhead,
+    const int32_t* __restrict__ qcnt, const uint8_t* __restrict__ alive,
+    const int32_t* __restrict__ apk, const int32_t* __restrict__ aq,
+    const uint8_t* __restrict__ to_agg, const int32_t* __restrict__ asw,
+    const uint8_t* __restrict__ dead, const float* __restrict__ pad_pen,
+    const int32_t* __restrict__ seed_lo, const int32_t* __restrict__ seed_hi,
+    PickArgs a, int cap, int ecn_thresh, int off1, int m, int nq,
+    int32_t* __restrict__ qbuf_out, int32_t* __restrict__ qcnt_out,
+    int32_t* __restrict__ c_fin, uint8_t* __restrict__ enq_try,
+    uint8_t* __restrict__ do_enq, int32_t* __restrict__ occ_after,
+    uint8_t* __restrict__ marked) {
+  extern __shared__ int32_t smem[];
+  int32_t* s_aq = smem;
+  uint8_t* s_try = reinterpret_cast<uint8_t*>(smem + m);
+  const int64_t b = blockIdx.x;
+  const int64_t cells = (int64_t)nq * cap;
+  const int32_t* qcnt_b = qcnt + b * nq;
+  const uint8_t* alive_b = alive + b * nq;
+  const uint32_t k0 = (uint32_t)seed_lo[b];
+  const uint32_t k1 = (uint32_t)seed_hi[b] ^ a.site_key;
+  copy_row(qbuf + b * cells, qcnt_b, cells, nq, qbuf_out + b * cells,
+           qcnt_out + b * nq);
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const int64_t li = b * m + i;
+    const int pk = apk[li];
+    const int qb = off1 + asw[li] * a.h;
+    const int c = pick_port(qcnt_b, qb, (uint32_t)max(pk, 0),
+                            dead + li * a.h, pad_pen + b * a.h, k0, k1, a);
+    c_fin[li] = c;
+    const int tq = to_agg[li] ? qb + c : aq[li];
+    const int aqc = min(max(tq, 0), nq - 1);
+    s_aq[i] = tq;
+    s_try[i] = (pk >= 0) && (alive_b[aqc] != 0);
+  }
+  __syncthreads();
+  enqueue_lanes(qhead + b * nq, qcnt_b, apk + b * m, s_aq, s_try, m, nq, cap,
+                ecn_thresh, qbuf_out + b * cells, qcnt_out + b * nq,
+                enq_try + b * m, do_enq + b * m, occ_after + b * m,
+                marked + b * m);
+}
+
+size_t row_smem(int m) { return (size_t)m * 4 + (size_t)m; }
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  if (bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+PickArgs pick_args(const void* edges, int nq_edges, int site, int t, int h) {
+  PickArgs a;
+  a.edges = static_cast<const float*>(edges);
+  a.nq = nq_edges;
+  a.site_key = (uint32_t)site << 16;
+  a.t = (uint32_t)t;
+  a.h = h;
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+// (rows, m) choosers; qcnt (rows, nq); dead (rows, m, h) uint8; pad_pen
+// (rows, h); seeds (rows,) int32 bit patterns of the uint32 key words;
+// edges holds nq_edges floats (0: plain JSQ).  Returns cudaGetLastError().
+int slot_jsq_pick(const void* qcnt, const void* qbase, const void* ids,
+                  const void* dead, const void* pad_pen, const void* seed_lo,
+                  const void* seed_hi, int t, int site, const void* edges,
+                  int nq_edges, int rows, int m, int nq, int h, void* out,
+                  void* stream) {
+  if (h < 1 || h > 32 || rows < 1 || m < 1 || nq < 1 || t < 0 ||
+      nq_edges < 0 || nq_edges > MAX_EDGES)
+    return (int)cudaErrorInvalidValue;
+  const int64_t n = (int64_t)rows * m;
+  const int64_t blocks = (n + PICK_THREADS - 1) / PICK_THREADS;
+  jsq_pick_kernel<<<(unsigned)blocks, PICK_THREADS, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(qcnt), static_cast<const int32_t*>(qbase),
+      static_cast<const int32_t*>(ids), static_cast<const uint8_t*>(dead),
+      static_cast<const float*>(pad_pen),
+      static_cast<const int32_t*>(seed_lo),
+      static_cast<const int32_t*>(seed_hi),
+      pick_args(edges, nq_edges, site, t, h), rows, m, nq,
+      static_cast<int32_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+// qbuf (rows, nq, cap); qhead, qcnt, alive (rows, nq); apk, aq, avalid
+// (rows, m).  Writes new qbuf/qcnt and the per-lane outputs.
+int slot_enqueue(const void* qbuf, const void* qhead, const void* qcnt,
+                 const void* alive, const void* apk, const void* aq,
+                 const void* avalid, int cap, int ecn_thresh, int rows, int m,
+                 int nq, void* qbuf_out, void* qcnt_out, void* enq_try,
+                 void* do_enq, void* occ_after, void* marked, void* stream) {
+  if (rows < 1 || m < 1 || nq < 1 || cap < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = row_smem(m);
+  int err = set_smem(enqueue_kernel, smem);
+  if (err != 0) return err;
+  enqueue_kernel<<<rows, ROW_THREADS, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(qbuf), static_cast<const int32_t*>(qhead),
+      static_cast<const int32_t*>(qcnt), static_cast<const uint8_t*>(alive),
+      static_cast<const int32_t*>(apk), static_cast<const int32_t*>(aq),
+      static_cast<const uint8_t*>(avalid), cap, ecn_thresh, m, nq,
+      static_cast<int32_t*>(qbuf_out), static_cast<int32_t*>(qcnt_out),
+      static_cast<uint8_t*>(enq_try), static_cast<uint8_t*>(do_enq),
+      static_cast<int32_t*>(occ_after), static_cast<uint8_t*>(marked));
+  return (int)cudaGetLastError();
+}
+
+// slot_enqueue's operands plus to_agg (rows, m) uint8, asw (rows, m), dead
+// (rows, m, h) uint8, pad_pen (rows, h), seeds and the pick's constants;
+// also writes c_fin (rows, m).
+int slot_agg_jsq_enqueue(const void* qbuf, const void* qhead,
+                         const void* qcnt, const void* alive, const void* apk,
+                         const void* aq, const void* to_agg, const void* asw,
+                         const void* dead, const void* pad_pen,
+                         const void* seed_lo, const void* seed_hi, int t,
+                         int site, const void* edges, int nq_edges, int cap,
+                         int ecn_thresh, int off1, int h, int rows, int m,
+                         int nq, void* qbuf_out, void* qcnt_out, void* c_fin,
+                         void* enq_try, void* do_enq, void* occ_after,
+                         void* marked, void* stream) {
+  if (h < 1 || h > 32 || rows < 1 || m < 1 || nq < 1 || cap < 1 || t < 0 ||
+      nq_edges < 0 || nq_edges > MAX_EDGES)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = row_smem(m);
+  int err = set_smem(agg_jsq_enqueue_kernel, smem);
+  if (err != 0) return err;
+  agg_jsq_enqueue_kernel<<<rows, ROW_THREADS, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(qbuf), static_cast<const int32_t*>(qhead),
+      static_cast<const int32_t*>(qcnt), static_cast<const uint8_t*>(alive),
+      static_cast<const int32_t*>(apk), static_cast<const int32_t*>(aq),
+      static_cast<const uint8_t*>(to_agg), static_cast<const int32_t*>(asw),
+      static_cast<const uint8_t*>(dead), static_cast<const float*>(pad_pen),
+      static_cast<const int32_t*>(seed_lo),
+      static_cast<const int32_t*>(seed_hi),
+      pick_args(edges, nq_edges, site, t, h), cap, ecn_thresh, off1, m, nq,
+      static_cast<int32_t*>(qbuf_out), static_cast<int32_t*>(qcnt_out),
+      static_cast<int32_t*>(c_fin), static_cast<uint8_t*>(enq_try),
+      static_cast<uint8_t*>(do_enq), static_cast<int32_t*>(occ_after),
+      static_cast<uint8_t*>(marked));
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

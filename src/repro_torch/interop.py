@@ -1,10 +1,11 @@
 """Carry the JAX reference's state objects across to the port.
 
 :func:`from_reference` turns a ``repro`` ``FatTree``, ``LinkState``,
-``Workload``, ``LBScheme`` or ``ProbeSpec`` into the port's counterpart,
-reading public attributes only (numpy arrays are copied).  It never imports
-``repro``: objects are recognised by their class name, so both packages can
-simulate the identical tree, workload, failure pattern and scheme.
+``Workload``, ``LBScheme``, ``ProbeSpec`` or ``LoopConfig`` into the port's
+counterpart, reading public attributes only (numpy arrays are copied).  It
+never imports ``repro``: objects are recognised by their class name, so
+both packages can simulate the identical tree, workload, failure pattern,
+scheme and engine configuration.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import numpy as np
 from .core.lb_schemes import LBScheme
 from .net.topology import FatTree, LinkState
 from .net.workloads import Workload
+from .net.loopsim import LoopConfig
 from .obs.probes import ProbeSpec
 
 
@@ -45,4 +47,13 @@ def from_reference(obj):
         return LBScheme(**kw)
     if name == "ProbeSpec":
         return ProbeSpec(int(obj.stride), int(obj.samples))
+    if name == "LoopConfig":
+        # The reference's body implementations ('lax', 'pallas', 'auto')
+        # agree bitwise; the port has one body, whose kernels dispatch on
+        # the device ('auto').
+        kw = _fields(LoopConfig, obj)
+        if kw["impl"] not in ("lax", "pallas", "auto"):
+            raise ValueError(f"unknown LoopConfig.impl {kw['impl']!r}")
+        kw["impl"] = "auto"
+        return LoopConfig(**kw)
     raise TypeError(f"from_reference: unsupported object {name}")

@@ -23,9 +23,9 @@ JSQ_NOISE_SCALE = 1e-3      # float32(1e-3) multiplies the tie-break noise
 QUANT_NOISE_SCALE = 0.5
 
 
-def fma32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
+def fma32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     """``a * b + c`` with one rounding to float32 (float32 ``a``, ``c``;
-    ``b`` is rounded to float32 first).
+    ``b`` a float32 tensor, or a python float rounded to float32 first).
 
     ``a * b`` is exact in float64 (24 + 24 bits).  The float64 sum ``s`` and
     its exact error ``e`` (TwoSum) give the correctly rounded float32 result:
@@ -33,7 +33,10 @@ def fma32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
     between two float32 values and ``e`` pushes the exact sum past that
     midpoint, in which case the neighbour on ``e``'s side is the answer.
     """
-    p = a.double() * float(torch.tensor(b, dtype=torch.float32))
+    if isinstance(b, torch.Tensor):
+        p = a.double() * b.double()
+    else:
+        p = a.double() * float(torch.tensor(b, dtype=torch.float32))
     c64 = c.double()
     s = p + c64
     bb = s - p

@@ -1,0 +1,177 @@
+"""ctypes bindings of the CUDA slot-step kernels (``csrc/slot_step.cu``).
+
+The CUDA source replaces the Pallas TPU kernels ``jsq_pick``, ``enqueue``
+and ``agg_jsq_enqueue`` of ``repro/kernels/slot_step/kernel.py``; its header
+states the design and the bounds.  Each function here launches its kernel on
+contiguous CUDA tensors on the current stream, returns new output tensors
+(the inputs are never written) and raises if the launch fails.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .. import _build
+from .._common import check_cuda
+from .ref import thresholds
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+MAX_PORTS = 32              # one loop iteration per port, h <= 32
+MAX_EDGES = 8               # quantization bin edges
+_EDGES: Dict[Tuple, torch.Tensor] = {}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("slot_step")
+    if not getattr(lib, "_typed", False):
+        lib.slot_jsq_pick.argtypes = [_VP] * 7 + [_I, _I, _VP] + [_I] * 5 + [
+            _VP, _VP]
+        lib.slot_enqueue.argtypes = [_VP] * 7 + [_I] * 5 + [_VP] * 7
+        lib.slot_agg_jsq_enqueue.argtypes = (
+            [_VP] * 12 + [_I, _I, _VP] + [_I] * 8 + [_VP] * 8)
+        for f in (lib.slot_jsq_pick, lib.slot_enqueue,
+                  lib.slot_agg_jsq_enqueue):
+            f.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _edges(quanta, cap: int, device) -> Tuple[torch.Tensor, int]:
+    """Device copy of the float32 bin edges (cached per quanta/cap/device);
+    a one-element placeholder and 0 edges for plain JSQ."""
+    key = (quanta, int(cap), str(device))
+    t = _EDGES.get(key)
+    if t is None:
+        vals = [0.0] if quanta is None else thresholds(quanta, cap)
+        t = torch.tensor(vals, dtype=torch.float32, device=device)
+        _EDGES[key] = t
+    n = 0 if quanta is None else len(quanta)
+    if n > MAX_EDGES:
+        raise ValueError(f"slot_step kernels: at most {MAX_EDGES} bin edges")
+    return t, n
+
+
+def _u8(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.uint8) if x.dtype == torch.bool else x
+
+
+def _seed32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit pattern of uint32 key words (held as int32 bit patterns
+    already, or as values in a wider integer tensor)."""
+    if x.dtype == torch.int32:
+        return x
+    x = x.to(torch.int64)
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _check_int32(name, *ts):
+    for t in ts:
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: int32 operands expected, got {t.dtype}")
+
+
+def jsq_pick(qcnt, qbase, ids, dead, pad_pen, seed_lo, seed_hi, t: int, *,
+             site: int, quanta: Optional[tuple], cap: int) -> torch.Tensor:
+    """Launch ``slot_jsq_pick``; shapes and meaning as ``ref.jsq_pick``."""
+    B, M = qbase.shape
+    h = pad_pen.shape[-1]
+    if not 1 <= h <= MAX_PORTS:
+        raise ValueError(f"jsq_pick kernel: {h} ports, at most {MAX_PORTS}")
+    if dead.shape != (B, M, h) or qcnt.shape[0] != B or ids.shape != (B, M):
+        raise ValueError("jsq_pick kernel: mismatched operand shapes")
+    _check_int32("jsq_pick", qcnt, qbase, ids)
+    dead = _u8(dead)
+    lo, hi = _seed32(seed_lo), _seed32(seed_hi)
+    edges, n_edges = _edges(quanta, cap, qcnt.device)
+    check_cuda("jsq_pick", qcnt, qbase, ids, dead, pad_pen, lo, hi, edges)
+    out = torch.empty((B, M), dtype=torch.int32, device=qcnt.device)
+    with torch.cuda.device(qcnt.device):
+        err = _lib().slot_jsq_pick(
+            qcnt.data_ptr(), qbase.data_ptr(), ids.data_ptr(),
+            dead.data_ptr(), pad_pen.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            int(t), int(site), edges.data_ptr(), n_edges, B, M,
+            qcnt.shape[1], h, out.data_ptr(), _stream(qcnt.device))
+    _check("slot_jsq_pick", err)
+    return out
+
+
+def _enqueue_outs(qbuf, B, M):
+    dev = qbuf.device
+    return (torch.empty_like(qbuf),
+            torch.empty(qbuf.shape[:2], dtype=torch.int32, device=dev),
+            torch.empty((B, M), dtype=torch.bool, device=dev),
+            torch.empty((B, M), dtype=torch.bool, device=dev),
+            torch.empty((B, M), dtype=torch.int32, device=dev),
+            torch.empty((B, M), dtype=torch.bool, device=dev))
+
+
+def _out_ptrs(outs):
+    return [(_u8(o)).data_ptr() for o in outs]
+
+
+def enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, avalid, *, cap: int,
+            ecn_thresh: int):
+    """Launch ``slot_enqueue``; shapes and meaning as ``ref.enqueue``."""
+    B, NQ, C = qbuf.shape
+    M = aq.shape[1]
+    if C != cap or qcnt.shape != (B, NQ) or apk.shape != (B, M):
+        raise ValueError("enqueue kernel: mismatched operand shapes")
+    _check_int32("enqueue", qbuf, qhead, qcnt, apk, aq)
+    alive_row, avalid = _u8(alive_row), _u8(avalid)
+    check_cuda("enqueue", qbuf, qhead, qcnt, alive_row, apk, aq, avalid)
+    outs = _enqueue_outs(qbuf, B, M)
+    with torch.cuda.device(qbuf.device):
+        err = _lib().slot_enqueue(
+            qbuf.data_ptr(), qhead.data_ptr(), qcnt.data_ptr(),
+            alive_row.data_ptr(), apk.data_ptr(), aq.data_ptr(),
+            avalid.data_ptr(), int(cap), int(ecn_thresh), B, M, NQ,
+            *_out_ptrs(outs), _stream(qbuf.device))
+    _check("slot_enqueue", err)
+    return outs
+
+
+def agg_jsq_enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, to_agg, asw,
+                    dead, pad_pen, seed_lo, seed_hi, t: int, *, site: int,
+                    quanta, cap: int, ecn_thresh: int, off1: int, h: int):
+    """Launch ``slot_agg_jsq_enqueue``; shapes and meaning as
+    ``ref.agg_jsq_enqueue``."""
+    B, NQ, C = qbuf.shape
+    M = aq.shape[1]
+    if not 1 <= h <= MAX_PORTS or pad_pen.shape != (B, h):
+        raise ValueError(f"agg_jsq_enqueue kernel: {h} ports, at most "
+                         f"{MAX_PORTS}, and a (B, h) pad penalty")
+    if (C != cap or qcnt.shape != (B, NQ) or dead.shape != (B, M, h)
+            or asw.shape != (B, M)):
+        raise ValueError("agg_jsq_enqueue kernel: mismatched operand shapes")
+    _check_int32("agg_jsq_enqueue", qbuf, qhead, qcnt, apk, aq, asw)
+    alive_row, to_agg, dead = _u8(alive_row), _u8(to_agg), _u8(dead)
+    lo, hi = _seed32(seed_lo), _seed32(seed_hi)
+    edges, n_edges = _edges(quanta, cap, qbuf.device)
+    check_cuda("agg_jsq_enqueue", qbuf, qhead, qcnt, alive_row, apk, aq,
+               to_agg, asw, dead, pad_pen, lo, hi, edges)
+    outs = _enqueue_outs(qbuf, B, M)
+    c_fin = torch.empty((B, M), dtype=torch.int32, device=qbuf.device)
+    with torch.cuda.device(qbuf.device):
+        err = _lib().slot_agg_jsq_enqueue(
+            qbuf.data_ptr(), qhead.data_ptr(), qcnt.data_ptr(),
+            alive_row.data_ptr(), apk.data_ptr(), aq.data_ptr(),
+            to_agg.data_ptr(), asw.data_ptr(), dead.data_ptr(),
+            pad_pen.data_ptr(), lo.data_ptr(), hi.data_ptr(), int(t),
+            int(site), edges.data_ptr(), n_edges, int(cap), int(ecn_thresh),
+            int(off1), int(h), B, M, NQ, outs[0].data_ptr(),
+            outs[1].data_ptr(), c_fin.data_ptr(), *_out_ptrs(outs[2:]),
+            _stream(qbuf.device))
+    _check("slot_agg_jsq_enqueue", err)
+    return outs[:2] + (c_fin,) + outs[2:]

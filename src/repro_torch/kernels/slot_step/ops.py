@@ -1,0 +1,72 @@
+"""Public wrappers of the slot-step kernels.
+
+Each dispatches on the device of its first tensor operand: a CPU tensor
+takes the plain version (``ref.py``), a CUDA tensor launches the CUDA kernel
+(``kernel.py``).  ``backend="torch"`` takes the plain version on any device.
+``LAUNCHES`` counts, per kernel, the launches made through these wrappers.
+The ``sack_*`` kernels of the reference are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import kernel as _kernel
+from . import ref as _ref
+from .._common import resolve_backend
+
+LAUNCHES = {"jsq_pick": 0, "enqueue": 0, "agg_jsq_enqueue": 0}
+
+
+def _plain(backend: str, x: torch.Tensor, name: str) -> bool:
+    if resolve_backend(backend) == "torch" or x.device.type == "cpu":
+        return True
+    if not x.is_cuda:
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return False
+
+
+def _c(*ts):
+    return [t.contiguous() for t in ts]
+
+
+def jsq_pick(qcnt, qbase, ids, dead, pad_pen, seed_lo, seed_hi, t, *,
+             site, quanta, cap, backend="auto"):
+    """See ``ref.jsq_pick``: (B, M) int32 ports."""
+    if _plain(backend, qcnt, "jsq_pick"):
+        return _ref.jsq_pick(qcnt, qbase, ids, dead, pad_pen, seed_lo,
+                             seed_hi, t, site=site, quanta=quanta, cap=cap)
+    if qbase.numel() == 0:
+        return torch.zeros(qbase.shape, dtype=torch.int32, device=qcnt.device)
+    out = _kernel.jsq_pick(*_c(qcnt, qbase, ids, dead, pad_pen, seed_lo,
+                               seed_hi), t, site=site, quanta=quanta, cap=cap)
+    LAUNCHES["jsq_pick"] += 1
+    return out
+
+
+def enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, avalid, *, cap,
+            ecn_thresh, backend="auto"):
+    """See ``ref.enqueue``: ``(qbuf', qcnt', enq_try, do_enq, occ_after,
+    marked)``."""
+    if _plain(backend, qbuf, "enqueue"):
+        return _ref.enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, avalid,
+                            cap=cap, ecn_thresh=ecn_thresh)
+    out = _kernel.enqueue(*_c(qbuf, qhead, qcnt, alive_row, apk, aq, avalid),
+                          cap=cap, ecn_thresh=ecn_thresh)
+    LAUNCHES["enqueue"] += 1
+    return out
+
+
+def agg_jsq_enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, to_agg, asw,
+                    dead, pad_pen, seed_lo, seed_hi, t, *, site, quanta, cap,
+                    ecn_thresh, off1, h, backend="auto"):
+    """See ``ref.agg_jsq_enqueue``: ``(qbuf', qcnt', c_fin, enq_try,
+    do_enq, occ_after, marked)``."""
+    args = (qbuf, qhead, qcnt, alive_row, apk, aq, to_agg, asw, dead,
+            pad_pen, seed_lo, seed_hi)
+    kw = dict(site=site, quanta=quanta, cap=cap, ecn_thresh=ecn_thresh,
+              off1=off1, h=h)
+    if _plain(backend, qbuf, "agg_jsq_enqueue"):
+        return _ref.agg_jsq_enqueue(*args, t, **kw)
+    out = _kernel.agg_jsq_enqueue(*_c(*args), t, **kw)
+    LAUNCHES["agg_jsq_enqueue"] += 1
+    return out

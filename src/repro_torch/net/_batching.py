@@ -173,10 +173,16 @@ def port_pad_penalty(h: int, h_log: torch.Tensor) -> torch.Tensor:
                                     device=h_log.device))
 
 
-def rank_by(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def rank_by(keys: torch.Tensor, valid: torch.Tensor,
+            backend: str = "auto") -> torch.Tensor:
     """Rank of each element among same-key valid elements (sort-based),
-    along the last axis; invalid elements get 0."""
-    from ..kernels.lindley import ref as lindley_ref
+    along the last axis; invalid elements get 0.
+
+    The segment starts come from ``kernels.lindley.ops.segmented_cummax``:
+    on a CUDA tensor that is the CUDA kernel, one launch over all rows (each
+    row starts with a flag); ``backend="torch"`` takes the plain version on
+    any device."""
+    from ..kernels.lindley import ops as lindley_ops
     m = keys.shape[-1]
     if m == 0:
         return torch.zeros_like(keys, dtype=torch.int32)
@@ -187,8 +193,8 @@ def rank_by(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
                        device=keys.device).expand(ks.shape)
     flag = torch.cat([torch.ones_like(ks[..., :1], dtype=torch.bool),
                       ks[..., 1:] != ks[..., :-1]], dim=-1)
-    start = lindley_ref.segmented_cummax(
-        torch.where(flag, idx, torch.full_like(idx, -1.0)), flag)
+    start = lindley_ops.segmented_cummax(
+        torch.where(flag, idx, torch.full_like(idx, -1.0)), flag, backend)
     rank_sorted = (idx - start).to(torch.int32)
     inv = torch.empty_like(order).scatter_(
         -1, order, torch.arange(m, device=keys.device).expand(order.shape))

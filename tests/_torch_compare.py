@@ -37,3 +37,23 @@ def assert_same_result(ref, port, tag=""):
         assert ref.probe.stride == port.probe.stride
         np.testing.assert_array_equal(np.asarray(ref.probe.series),
                                       port.probe.series, err_msg=tag)
+
+
+LOOP_SCALARS = ("cct_slots", "cct_acked_slots", "drops", "retransmissions",
+                "max_queue", "avg_queue", "finished", "mean_cwnd")
+
+
+def assert_same_loop_result(ref, port, tag=""):
+    """Bitwise equality of two LoopSimResults (reference or port)."""
+    for k in ("delivered_slot", "flow_complete_slot", "flow_data_done_slot"):
+        a, b = np.asarray(getattr(ref, k)), np.asarray(getattr(port, k))
+        assert a.dtype == b.dtype, (tag, k, a.dtype, b.dtype)
+        np.testing.assert_array_equal(a, b, err_msg=f"{tag} {k}")
+    for k in LOOP_SCALARS:
+        a, b = getattr(ref, k), getattr(port, k)
+        assert type(a) is type(b) and a == b, (tag, k, a, b)
+    assert (ref.probe is None) == (port.probe is None), tag
+    if ref.probe is not None:
+        assert ref.probe.stride == port.probe.stride
+        np.testing.assert_array_equal(np.asarray(ref.probe.series),
+                                      port.probe.series, err_msg=tag)

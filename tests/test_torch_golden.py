@@ -39,3 +39,31 @@ def test_golden_file_is_current():
     assert result_digest(ref) == want
     assert result_digest(port) == want
     assert np.isfinite(port.delivery).all()
+
+
+def test_loop_golden_file_is_current():
+    import make_loopsim_golden as loop_maker
+    from repro.net import loopsim as ref_loopsim
+    from repro_torch.net import loopsim
+    from repro_torch.obs.digest import loop_result_digest
+
+    doc = json.loads((GOLDEN_DIR / "loopsim_k8.json").read_text())
+    assert doc["k"] == loop_maker.K == 8 and doc["seed"] == 0
+    assert sorted(doc["points"]) == sorted(
+        f"{p}/{s}" for p, schemes in loop_maker.POINTS.items()
+        for s in schemes)
+    want = doc["points"]["free/host_pkt"]
+
+    tree = FatTree(8)
+    wl, cfg, links = loop_maker.point(tree, "free")
+    assert wl.n_packets == 32768 and links is None
+    scheme = lb_schemes.host_pkt()
+    ref = ref_loopsim.simulate(tree, wl, scheme, cfg, seed=0)
+    port = loopsim.simulate(from_reference(tree), from_reference(wl),
+                            from_reference(scheme), from_reference(cfg),
+                            seed=0, device="cpu")
+    assert loop_result_digest(ref) == want
+    assert loop_result_digest(port) == want
+    assert port.finished and port.drops == 0
+    _, cfg3, _ = loop_maker.point(tree, "fig3")
+    assert cfg3.rho == doc["fig3"]["rho"]

@@ -1,5 +1,5 @@
 """Tests of the PyTorch port that need a CUDA card: each kernel against its
-plain version, and the engine on the card against the engine on the CPU.
+plain version, and both engines on the card against the engines on the CPU.
 
 They skip without a card.  The machine with the card has no JAX, and
 ``tests/conftest.py`` imports it, so run them there with
@@ -14,12 +14,14 @@ import torch
 
 from repro_torch.kernels.lindley import ops as lindley_ops, ref as lindley_ref
 from repro_torch.kernels.jsq_scan import ops as jsq_ops
-from repro_torch.net import fastsim, workloads
+from repro_torch.kernels.slot_step import ops as slot_ops
+from repro_torch.net import fastsim, loopsim, workloads
 from repro_torch.net._batching import port_pad_penalty
 from repro_torch.net.topology import FatTree
 from repro_torch.core import lb_schemes as lbs
 
-from _torch_compare import assert_same_result, cuda_or_skip
+from _torch_compare import (assert_same_loop_result, assert_same_result,
+                            cuda_or_skip)
 
 pytestmark = pytest.mark.gpu
 
@@ -103,3 +105,76 @@ def test_card_matches_cpu(scheme):
     card = fastsim.simulate_batch(tree, wl, s, [0, 1], device=dev)
     for a, b in zip(cpu, card):
         assert_same_result(a, b, scheme)
+
+
+def _slot_operands(seed, B, M, NQ, cap, h, n_aggs):
+    rng = np.random.default_rng(seed)
+    t = torch.from_numpy
+    P = 4096
+    o = dict(qcnt=t(rng.integers(0, cap, (B, NQ)).astype(np.int32)),
+             qbuf=t(rng.integers(-1, P, (B, NQ, cap)).astype(np.int32)),
+             qhead=t(rng.integers(0, cap, (B, NQ)).astype(np.int32)),
+             qbase=t(rng.integers(0, NQ - h, (B, M)).astype(np.int32)),
+             ids=t(rng.integers(0, P, (B, M)).astype(np.int32)),
+             dead=t(rng.random((B, M, h)) < 0.2),
+             pad_pen=port_pad_penalty(h, torch.tensor(
+                 [h - (b % 2) for b in range(B)], dtype=torch.int32)),
+             alive=t(rng.random((B, NQ)) < 0.9),
+             apk=t(np.where(rng.random((B, M)) < 0.8,
+                            rng.integers(0, P, (B, M)), -1).astype(np.int32)),
+             aq=t(rng.integers(0, NQ // 4, (B, M)).astype(np.int32) * 4),
+             asw=t(rng.integers(0, n_aggs, (B, M)).astype(np.int32)),
+             seed_lo=t(rng.integers(0, 2**32, B).astype(np.int64)),
+             seed_hi=t(rng.integers(0, 2**32, B).astype(np.int64)))
+    o["avalid"] = o["apk"] >= 0
+    o["to_agg"] = o["avalid"] & t(rng.random((B, M)) < 0.5)
+    return o
+
+
+_PICK = ("qcnt", "qbase", "ids", "dead", "pad_pen", "seed_lo", "seed_hi")
+_ENQ = ("qbuf", "qhead", "qcnt", "alive", "apk", "aq", "avalid")
+_AGG = ("qbuf", "qhead", "qcnt", "alive", "apk", "aq", "to_agg", "asw",
+        "dead", "pad_pen", "seed_lo", "seed_hi")
+
+
+@pytest.mark.parametrize("quanta", [None, (0.05, 0.10, 0.20)])
+@pytest.mark.parametrize("size", [(3, 640, 4, 195, 32), (2, 5120, 8, 195, 128),
+                                  (1, 7, 2, 5, 2)])
+def test_slot_step_kernels_match_plain(size, quanta):
+    dev = cuda_or_skip()
+    B, M, h, cap, n_aggs = size
+    o = _slot_operands(M, B, M, M, cap, h, n_aggs)
+    c = {k: v.to(dev) for k, v in o.items()}
+    before = dict(slot_ops.LAUNCHES)
+    kw = dict(site=3, quanta=quanta, cap=cap)
+    want = slot_ops.jsq_pick(*[o[k] for k in _PICK], 123, **kw)
+    got = slot_ops.jsq_pick(*[c[k] for k in _PICK], 123, **kw)
+    assert torch.equal(got.cpu(), want)
+    ekw = dict(cap=cap, ecn_thresh=cap // 2)
+    for g, w in zip(slot_ops.enqueue(*[c[k] for k in _ENQ], **ekw),
+                    slot_ops.enqueue(*[o[k] for k in _ENQ], **ekw)):
+        assert torch.equal(g.cpu(), w)
+    akw = dict(site=4, quanta=quanta, cap=cap, ecn_thresh=cap // 2,
+               off1=M // 5, h=h)
+    for g, w in zip(slot_ops.agg_jsq_enqueue(*[c[k] for k in _AGG], 9, **akw),
+                    slot_ops.agg_jsq_enqueue(*[o[k] for k in _AGG], 9, **akw)):
+        assert torch.equal(g.cpu(), w)
+    torch.cuda.synchronize()
+    assert all(slot_ops.LAUNCHES[k] == before[k] + 1 for k in before)
+    # the inputs are not written
+    assert torch.equal(c["qbuf"].cpu(), o["qbuf"])
+    assert torch.equal(c["qcnt"].cpu(), o["qcnt"])
+
+
+@pytest.mark.parametrize("scheme", ["jsq", "simple_rr", "host_pkt_ar"])
+def test_loop_engine_card_matches_cpu(scheme):
+    dev = cuda_or_skip()
+    tree = FatTree(4)
+    wl = workloads.permutation(tree, 32, np.random.default_rng(1),
+                               inter_pod_only=True)
+    s = lbs.by_name(scheme)
+    cfg = loopsim.LoopConfig(max_slots=4000)
+    cpu = loopsim.simulate_batch(tree, wl, s, [0, 1], cfg, device="cpu")
+    card = loopsim.simulate_batch(tree, wl, s, [0, 1], cfg, device=dev)
+    for a, b in zip(cpu, card):
+        assert_same_loop_result(a, b, scheme)

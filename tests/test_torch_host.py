@@ -4,6 +4,7 @@ entropy streams, tree padding maps and the torch batching helpers."""
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from repro.net import topology as r_topo, workloads as r_wl
@@ -194,3 +195,80 @@ def test_rank_by(m):
     batched = t_bat.rank_by(torch.from_numpy(np.stack([keys, keys[::-1]])),
                             torch.from_numpy(np.stack([valid, valid[::-1]])))
     _eq(batched[0].numpy(), got.numpy())
+
+
+def test_threefry_torch_known_answers():
+    """The torch Threefry against JAX's own ``threefry_2x32`` (the
+    known-answer test of ``tests/test_entropy.py``) and the numpy half."""
+    from jax._src import prng as jprng
+    rng = np.random.default_rng(0)
+    for _ in range(8):
+        k = rng.integers(0, 2**32, 2, dtype=np.uint32)
+        c = rng.integers(0, 2**32, 64, dtype=np.uint32)
+        ref = np.asarray(jprng.threefry_2x32(k, c))
+        x0, x1 = t_ent.threefry2x32_torch(
+            *(torch.from_numpy(np.asarray(v).astype(np.int64))
+              for v in (k[0], k[1], c[:32], c[32:])))
+        _eq(np.concatenate([x0.numpy(), x1.numpy()]).astype(np.uint32), ref)
+
+
+@pytest.mark.parametrize("seed", [0, 11, 2**40 + 3])
+def test_entropy_torch_streams(seed):
+    """draw_u32/draw_int/draw_uniform in torch equal the reference on grids
+    of ids, slots and lanes, ids >= 2**31 and negative int32 ids included
+    (both take them mod 2**32)."""
+    lo, hi = r_ent.key_words(seed)
+    ids = np.concatenate([np.arange(300), [2**31 - 1, 2**31, 2**32 - 1]])
+    slots = np.array([0, 1, 77, 4095])
+    for site in (t_ent.SITE_EDGE_RAND, t_ent.SITE_AGG_JSQ):
+        i3, s3, l3 = ids[:, None, None], slots[None, :, None], np.arange(
+            4)[None, None, :]
+        ref = r_ent.draw_u32(lo, hi, site, i3.astype(np.uint32),
+                             s3.astype(np.uint32),
+                             lane=l3.astype(np.uint32))
+        got = t_ent.draw_u32_torch(
+            torch.tensor(int(lo)), torch.tensor(int(hi)), site,
+            torch.from_numpy(i3), torch.from_numpy(s3),
+            lane=torch.from_numpy(l3))
+        _eq(got.numpy().astype(np.uint32), ref)
+        _eq(t_ent.draw_uniform_torch(lo, hi, site, torch.from_numpy(i3), 5,
+                                     lane=torch.from_numpy(l3)).numpy(),
+            r_ent.draw_uniform(lo, hi, site, i3.astype(np.uint32), 5,
+                               lane=l3.astype(np.uint32)))
+        bound = np.array([[3], [9]] * 150 + [[4]] * 3)[:, :, None]
+        _eq(t_ent.draw_int_torch(lo, hi, site, torch.from_numpy(i3), 9,
+                                 torch.from_numpy(bound)).numpy(),
+            r_ent.draw_int(lo, hi, site, i3.astype(np.uint32), 9,
+                           bound.astype(np.uint32)))
+    neg = torch.tensor([-1, -5], dtype=torch.int32)
+    _eq(t_ent.draw_u32_torch(lo, hi, 1, neg, 3).numpy().astype(np.uint32),
+        r_ent.draw_u32(lo, hi, 1, np.array([-1, -5], np.int32)
+                       .astype(np.uint32), 3))
+    # jitted (the reference engine's in-loop path)
+    jit = jax.jit(lambda a, b: r_ent.draw_uniform(
+        a, b, 4, jnp.arange(64)[:, None], 33, lane=jnp.arange(4)[None]))
+    _eq(t_ent.draw_uniform_torch(torch.tensor([int(lo)])[:, None, None],
+                                 torch.tensor([int(hi)])[:, None, None], 4,
+                                 torch.arange(64)[None, :, None], 33,
+                                 lane=torch.arange(4))[0].numpy(),
+        np.asarray(jit(lo, hi)))
+
+
+@pytest.mark.parametrize("m", [1, 37, 300])
+def test_rank_by_rows_match_reference(m):
+    """Rows of keys and masks, with ties and an all-invalid row, against the
+    reference's ``rank_by`` vmapped over rows; backend 'torch' agrees."""
+    rng = np.random.default_rng(m)
+    keys = rng.integers(0, 5, (4, m)).astype(np.int32)
+    valid = rng.random((4, m)) < 0.6
+    valid[2] = False
+    ref = np.asarray(jax.vmap(r_bat.rank_by)(jnp.asarray(keys),
+                                             jnp.asarray(valid)))
+    got = t_bat.rank_by(torch.from_numpy(keys), torch.from_numpy(valid))
+    _eq(got.numpy(), ref)
+    _eq(t_bat.rank_by(torch.from_numpy(keys), torch.from_numpy(valid),
+                      backend="torch").numpy(), ref)
+    assert (got[2] == 0).all()
+    with pytest.raises(ValueError):
+        t_bat.rank_by(torch.from_numpy(keys), torch.from_numpy(valid),
+                      backend="cuda")

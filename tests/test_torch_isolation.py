@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.net import fastsim
+from repro_torch.net import fastsim, loopsim
 from repro_torch.net.topology import FatTree
 from repro_torch.net import workloads
 from repro_torch.core import lb_schemes as lbs
@@ -33,6 +33,12 @@ def test_port_imports_without_jax_or_reference():
         assert not leaked, leaked
         assert "repro_torch.net.fastsim" in names, names
         assert "repro_torch.kernels.jsq_scan.ops" in names, names
+        for name in ("repro_torch.net.loopsim",
+                     "repro_torch.kernels.slot_step.ops",
+                     "repro_torch.kernels.slot_step.kernel",
+                     "repro_torch.kernels.slot_step.ref",
+                     "repro_torch.core.entropy"):
+            assert name in names, name
         print(len(names))
     """)
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -56,3 +62,10 @@ def test_entry_points_raise_without_a_card():
         fastsim.simulate_megabatch([(tree, wl, s, [0], None)])
     with pytest.raises(RuntimeError, match="CUDA"):
         fastsim.simulate(tree, wl, s, device="cuda")
+    cfg = loopsim.LoopConfig(max_slots=100)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loopsim.simulate(tree, wl, s, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loopsim.simulate_batch(tree, wl, s, [0, 1], cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loopsim.simulate_megabatch([(tree, wl, s, cfg, [0], None, None)])

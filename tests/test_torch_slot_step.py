@@ -1,0 +1,170 @@
+"""The plain slot-step versions of the port (``kernels/slot_step/ref.py``)
+against the JAX reference's oracles and its interpret-mode Pallas kernels,
+bitwise, on random engine-shaped operands with several rows; and where the
+reference rounds its float mul-adds once (XLA on the CPU contracts them)."""
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from repro.core import entropy as r_ent
+from repro.kernels.slot_step import kernel as qk, ref as qr
+
+from repro_torch.kernels.slot_step import ops as t_ops, ref as t_ref
+from repro_torch.kernels.jsq_scan.ref import fma32
+
+ROWS = 3
+QUANTA = (0.05, 0.10, 0.20)
+
+
+def _operands(seed, m=40, h=4, nq=120, cap=12, n_aggs=8, pad_ports=1):
+    """Random engine-shaped operands for one slot step, ``ROWS`` rows; the
+    last ``pad_ports`` port columns of odd rows carry the pad penalty."""
+    r = np.random.default_rng(seed)
+    p = 600
+    o = dict(
+        qcnt=r.integers(0, cap, (ROWS, nq)).astype(np.int32),
+        qbuf=r.integers(-1, p, (ROWS, nq, cap)).astype(np.int32),
+        qhead=r.integers(0, cap, (ROWS, nq)).astype(np.int32),
+        qbase=r.integers(0, nq - h, (ROWS, m)).astype(np.int32),
+        ids=r.integers(0, p, (ROWS, m)).astype(np.int32),
+        dead=r.random((ROWS, m, h)) < 0.2,
+        pad_pen=np.where((np.arange(h) >= h - pad_ports)
+                         & (np.arange(ROWS)[:, None] % 2 == 1),
+                         np.float32(1e9), np.float32(0.0)),
+        alive=r.random((ROWS, nq)) < 0.9,
+        apk=np.where(r.random((ROWS, m)) < 0.8,
+                     r.integers(0, p, (ROWS, m)), -1).astype(np.int32),
+        # few distinct queues, so same-queue arrivals rank and overflow
+        aq=r.integers(0, nq // 8, (ROWS, m)).astype(np.int32) * 8,
+        asw=r.integers(0, n_aggs, (ROWS, m)).astype(np.int32),
+        seed_lo=r.integers(0, 2**32, ROWS).astype(np.uint32),
+        seed_hi=r.integers(0, 2**32, ROWS).astype(np.uint32),
+        t=int(r.integers(0, 4000)))
+    o["avalid"] = o["apk"] >= 0
+    o["to_agg"] = o["avalid"] & (r.random((ROWS, m)) < 0.5)
+    return o
+
+
+def _t(o, k):
+    v = o[k]
+    if k in ("seed_lo", "seed_hi"):
+        return torch.from_numpy(v.astype(np.int64))
+    return torch.from_numpy(np.ascontiguousarray(v))
+
+
+def _row(o, k, b):
+    return jnp.asarray(o[k][b])
+
+
+PICK = ("qcnt", "qbase", "ids", "dead", "pad_pen", "seed_lo", "seed_hi")
+ENQ = ("qbuf", "qhead", "qcnt", "alive", "apk", "aq", "avalid")
+AGG = ("qbuf", "qhead", "qcnt", "alive", "apk", "aq", "to_agg", "asw", "dead",
+       "pad_pen", "seed_lo", "seed_hi")
+
+
+def _same(port_outs, ref_outs, b):
+    for p, r in zip(port_outs, ref_outs):
+        r = np.asarray(r)
+        got = p[b].numpy()
+        assert got.dtype == r.dtype, (got.dtype, r.dtype)
+        np.testing.assert_array_equal(got, r)
+
+
+@pytest.mark.parametrize("quanta", [None, QUANTA])
+def test_jsq_pick_matches_oracle_and_interpret_kernel(quanta):
+    o = _operands(1)
+    kw = dict(site=r_ent.SITE_EDGE_JSQ, quanta=quanta, cap=12)
+    got = t_ops.jsq_pick(*[_t(o, k) for k in PICK], o["t"], **kw)
+    score = t_ref.jsq_score(*[_t(o, k) for k in PICK], o["t"], **kw)
+    for b in range(ROWS):
+        args = [_row(o, k, b) for k in PICK] + [o["t"]]
+        _same([got], [qr.jsq_pick(*args, **kw)], b)
+        _same([got], [qk.jsq_pick(*args, interpret=True, **kw)], b)
+        _same([score], [jax.jit(lambda *a: qr.jsq_score(*a, **kw))(*args)],
+              b)
+    # the padded column of odd rows is never elected
+    assert (got[1::2] < 3).all()
+
+
+def test_enqueue_matches_oracle_and_interpret_kernel():
+    o = _operands(3)
+    kw = dict(cap=12, ecn_thresh=7)
+    got = t_ops.enqueue(*[_t(o, k) for k in ENQ], **kw)
+    assert int(got[2].sum()) > int(got[3].sum()) > 0   # capacity drops
+    for b in range(ROWS):
+        args = [_row(o, k, b) for k in ENQ]
+        _same(got, qr.enqueue(*args, **kw), b)
+        _same(got, qk.enqueue(*args, interpret=True, **kw), b)
+
+
+@pytest.mark.parametrize("quanta", [None, QUANTA])
+def test_agg_jsq_enqueue_matches_oracle_and_interpret_kernel(quanta):
+    o = _operands(4)
+    kw = dict(site=r_ent.SITE_AGG_JSQ, quanta=quanta, cap=12, ecn_thresh=7,
+              off1=24, h=4)
+    got = t_ops.agg_jsq_enqueue(*[_t(o, k) for k in AGG], o["t"], **kw)
+    for b in range(ROWS):
+        args = [_row(o, k, b) for k in AGG] + [o["t"]]
+        _same(got, qr.agg_jsq_enqueue(*args, **kw), b)
+        _same(got, qk.agg_jsq_enqueue(*args, interpret=True, **kw), b)
+
+
+def test_wrappers_validate_backend():
+    o = _operands(6)
+    with pytest.raises(ValueError):
+        t_ops.jsq_pick(*[_t(o, k) for k in PICK], 0, site=3, quanta=None,
+                       cap=12, backend="pallas")
+    plain = t_ops.jsq_pick(*[_t(o, k) for k in PICK], 0, site=3, quanta=None,
+                           cap=12, backend="torch")
+    assert torch.equal(plain, t_ops.jsq_pick(*[_t(o, k) for k in PICK], 0,
+                                             site=3, quanta=None, cap=12))
+
+
+def test_jsq_score_is_one_rounding_like_xla():
+    """``lens + nz * 1e-3`` (reference ``slot_step/ref.py:35``, the
+    engine's ``loopsim.py:1230, 1310``): the jitted oracle equals an exact
+    FMA on 2**20 elements and differs from separate rounding; the plain
+    version matches it bitwise."""
+    rng = np.random.default_rng(0)
+    m, h, nq = 1 << 18, 4, 1 << 12
+    qcnt = rng.integers(0, 8, nq).astype(np.int32)
+    qbase = rng.integers(0, nq - h, m).astype(np.int32)
+    ids = np.arange(m, dtype=np.int32)
+    lo, hi = r_ent.key_words(5)
+    args = (qcnt, qbase, ids, np.zeros((m, h), bool), np.zeros(h, np.float32),
+            lo, hi, 17)
+    kw = dict(site=r_ent.SITE_EDGE_JSQ, quanta=None, cap=195)
+    xla = np.asarray(jax.jit(lambda *a: qr.jsq_score(*a, **kw))(*args))
+    port = t_ref.jsq_score(
+        torch.from_numpy(qcnt)[None], torch.from_numpy(qbase)[None],
+        torch.from_numpy(ids)[None], torch.zeros((1, m, h), dtype=torch.bool),
+        torch.zeros((1, h)), torch.tensor([int(lo)]), torch.tensor([int(hi)]),
+        17, **kw)[0].numpy()
+    np.testing.assert_array_equal(port, xla)
+    lens = qcnt[qbase[:, None] + np.arange(h)].astype(np.float32)
+    nz = np.asarray(r_ent.draw_uniform(lo, hi, kw["site"], ids[:, None], 17,
+                                       lane=np.arange(h)[None]))
+    assert (lens + nz * np.float32(1e-3) != xla).sum() > 0
+
+
+def test_plb_ewma_is_one_rounding_like_xla():
+    """The PLB EWMA ``ewma * (1 - w*dec) + w*inc`` (``loopsim.py:1434``):
+    XLA on the CPU rounds it once, ``fma(ewma, 1 - w*dec, w*inc)``, which
+    the port's engine computes with ``fma32``."""
+    rng = np.random.default_rng(1)
+    n = 1 << 20
+    ewma = rng.random(n).astype(np.float32)
+    dec = (rng.random(n) < 0.7).astype(np.float32)
+    inc = dec * (rng.random(n) < 0.5).astype(np.float32)
+    w = jnp.float32(0.125)
+    xla = np.asarray(jax.jit(lambda e, d, i: e * (1 - w * d) + w * i)(
+        ewma, dec, inc))
+    t = torch.from_numpy
+    w_t = torch.tensor(0.125)
+    port = fma32(t(ewma), 1.0 - w_t * t(dec), w_t * t(inc)).numpy()
+    np.testing.assert_array_equal(port, xla)
+    separate = ewma * (np.float32(1) - np.float32(0.125) * dec) \
+        + np.float32(0.125) * inc
+    assert (separate != xla).any()
