@@ -10,17 +10,19 @@ Phases, each timed on its own line; any failure exits non-zero:
    source, all at once);
 2. hold each kernel bitwise against its plain PyTorch version on the card:
    ``segmented_cummax`` on random inputs at the engine's sizes and flag
-   densities, ``jsq_scan`` on the grids the k=8 permutation and all-to-all
-   points give it (edge and agg layers, ``jsq`` and ``jsq_quant``);
+   densities, ``jsq_scan`` on the grids the k=8 points give it (the
+   permutation's edge and agg layers and the all-to-all's edge layer,
+   ``jsq`` and ``jsq_quant``; the largest all-to-all agg grid is held to the
+   plain version in the timing phase);
 3. drive the fast engine's main path: on the paper's k=8 fat tree, the
    1 MB inter-pod permutation (32,768 packets) and the all-to-all at 32
    packets per destination (520,192 packets) through ``simulate_megabatch``
-   for seeds 0-3 in four fused dispatches per workload ({flow_ecmp,
+   for seeds 0-1 in four fused dispatches per workload ({flow_ecmp,
    host_pkt, host_dr}, switch_pkt, switch_pkt_ar, ofan), with the kernel
    launch counts set to 0 just before each dispatch and read just after.
-   Every fused result must equal the port's serial ``simulate`` and a
-   ``backend="torch"`` run (plain versions) on the card bitwise, and seed 0
-   must match the JAX reference's digests in
+   Every fused result must equal the port's serial ``simulate`` (seed 0)
+   and a ``backend="torch"`` run (plain versions, seed 0) on the card
+   bitwise, and seed 0 must match the JAX reference's digests in
    ``tests/torch_golden/fastsim_k8.json``;
 4. hold the slotted engine's three slot-step kernels (``jsq_pick``,
    ``enqueue``, ``agg_jsq_enqueue``) bitwise against their plain versions:
@@ -36,8 +38,29 @@ Phases, each timed on its own line; any failure exits non-zero:
    equal the port's serial ``simulate`` (seed 0) and an ``impl="torch"``
    run (plain versions) on the card bitwise, and seed 0 must match the JAX
    reference's digests in ``tests/torch_golden/loopsim_k8.json``;
-6. time each kernel and its plain version on the largest inputs the main
-   paths gave it, beside the bound of the card.
+6. hold the SACK kernels (``sack_update_scan``, ``sack_advance``) bitwise
+   against their plain versions: random operands at the k=8 sizes (32,768
+   packets, 128 flows, 640 lanes) and the k=16 sizes (262,144-packet rows,
+   1,024 flows, 5,120 lanes) with empty flows, fully received windows and
+   repeated delivery targets, and operands recorded from engine calls;
+7. drive the SACK main path on the k=8 fat tree, one fused dispatch per
+   pipeline identity for seeds 0-1: the ``fig12`` preset's grid
+   (``sack_thresh=32``) and fig 9's 20-packet buffers (``sack_thresh=8``,
+   whose drops make the retransmit path run), with the same equalities as
+   phase 5 against ``tests/torch_golden/sack_faults_phases_k8.json``;
+8. drive both engines under a fault schedule: a link flap (down at slot 64,
+   up at 192; hosts react 16 slots later, switches 48) on the inter-pod 1 MB
+   permutation, on the slotted engine (erasure, ``rto_slots=250``) for the
+   ``flap`` preset's schemes and on the fast engine for host_pkt,
+   switch_pkt and ofan, whose packets bind to all three epochs;
+9. drive the fast engine on the ``train_iter`` preset's collective phases:
+   DeepSeek-V3 671B at ep = dp = 8, two iterations, 8 and 16 packets per
+   flow, for its four schemes;
+10. time each kernel and its plain version on the largest inputs the main
+    paths gave it, beside the bound of the card.
+
+Every main-path dispatch of phases 3, 5 and 7-9 sets the kernels' launch
+counts to 0 just before it and reads them just after.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -55,6 +78,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 GOLDEN = ROOT / "tests" / "torch_golden" / "fastsim_k8.json"
 LOOP_GOLDEN = ROOT / "tests" / "torch_golden" / "loopsim_k8.json"
+SFP_GOLDEN = ROOT / "tests" / "torch_golden" / "sack_faults_phases_k8.json"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor fp32.
 HBM_BYTES_PER_S = 3.35e12
@@ -62,7 +86,7 @@ FP32_FLOP_PER_S = 67e12
 
 SCHEME_GROUPS = (("flow_ecmp", "host_pkt", "host_dr"), ("switch_pkt",),
                  ("switch_pkt_ar",), ("ofan",))
-SEEDS = (0, 1, 2, 3)
+SEEDS = (0, 1)            # the fast engine's main path: seeds 0-1
 LOOP_SEEDS = (0, 1)       # the slotted engine's main path: seeds 0-1
 # The slotted engine's fused dispatches: one per pipeline identity.
 LOOP_GROUPS = {
@@ -74,6 +98,19 @@ LOOP_GROUPS = {
 }
 LOOP_MAX_SLOTS = 60_000
 SLOT_KERNELS = ("jsq_pick", "enqueue", "agg_jsq_enqueue")
+SACK_KERNELS = ("sack_update_scan", "sack_advance")
+# The SACK, fault-schedule and phase points (phases 7-9), one fused dispatch
+# per pipeline identity; their JAX digests are in SFP_GOLDEN.
+SACK_GROUPS = {"fig12": (("host_pkt", "host_dr"), ("switch_pkt_ar",),
+                         ("host_pkt_ar",), ("ofan",)),
+               "fig9": (("host_pkt",),)}
+FLAP = dict(layer="ea", pod=0, i=0, j=1, t0=64, period=128, cycles=1,
+            host_react=16, switch_react=48)
+FLAP_LOOP_GROUPS = (("host_pkt_ar",), ("switch_pkt_ar",), ("ofan",))
+FLAP_FAST_GROUPS = (("host_pkt",), ("switch_pkt",), ("ofan",))
+TRAIN_GROUPS = (("flow_ecmp", "host_pkt", "host_dr"), ("ofan",))
+TRAIN_LOADS = (8, 16)
+TRAIN_PROP = 12.0            # the train_iter campaign's prop_slots
 CUMMAX_SIZES = (0, 1, 1023, 1025, (1 << 20) + 3, 6_242_304)
 DENSITIES = ("first", 1e-3, 0.5, "all")
 
@@ -194,6 +231,38 @@ class Recorder:
         return False
 
 
+class HostTimer:
+    """Sums the time a dispatch spends in its engine module's host-side
+    preparation (``_prepare`` and ``_draw_seed_inputs``, numpy) by wrapping
+    both for the duration of the block."""
+
+    NAMES = ("_prepare", "_draw_seed_inputs")
+
+    def __init__(self, module):
+        self.module = module
+        self.ms = 0.0
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.module, n) for n in self.NAMES}
+
+        def timed(fn):
+            def call(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    self.ms += (time.perf_counter() - t0) * 1e3
+            return call
+        for n, fn in self.orig.items():
+            setattr(self.module, n, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.module, n, fn)
+        return False
+
+
 def cummax_inputs(n, density, gen, dev):
     import torch
     v = torch.randn(n, generator=gen, device="cpu").mul_(100).to(dev)
@@ -271,15 +340,18 @@ def same_loop(a, b) -> bool:
                               "finished", "mean_cwnd")))
 
 
-def loop_sane(res, wl) -> bool:
+def loop_sane(res, wl, cfg) -> bool:
     import numpy as np
     d = res.delivered_slot
     # Erasure coding needs any fsize symbols of a flow, so a packet whose
-    # copies were all dropped may stay undelivered (-1).
+    # copies were all dropped may stay undelivered (-1); SACK delivers every
+    # packet, and completes a flow when its cumulative ack reaches the end,
+    # which may come before the slot its last delivery is counted at.
+    erasure = cfg.loss == "erasure"
     return (d.shape == (wl.n_packets,) and res.finished
-            and d.min() >= -1 and d.max() > 0
-            and (res.flow_complete_slot >= 0).all()
-            and res.cct_acked_slots >= res.cct_slots > 0
+            and d.min() >= (-1 if erasure else 0) and d.max() > 0
+            and (res.flow_complete_slot >= 0).all() and res.cct_slots > 0
+            and res.cct_acked_slots >= (res.cct_slots if erasure else 1)
             and np.isfinite(res.avg_queue) and res.max_queue > 0)
 
 
@@ -353,11 +425,9 @@ def loop_phases(tree, dev, errs, launches, loop_golden):
     import numpy as np
     import torch
     from repro_torch.core import lb_schemes
-    from repro_torch.kernels.lindley import ops as lindley_ops
     from repro_torch.kernels.slot_step import ops as slot_ops
     from repro_torch.net import loopsim, workloads
     from repro_torch.net.topology import LinkState, rho_max
-    from repro_torch.obs.digest import loop_result_digest
 
     # ---- the slotted engine ------------------------------------------------
     for name in SLOT_KERNELS:
@@ -438,7 +508,7 @@ def loop_phases(tree, dev, errs, launches, loop_golden):
         print(f"slot-step kernels: {n_cases} cases bitwise equal to the plain "
               f"versions (tolerance: bitwise, max_abs_err 0)", flush=True)
 
-    loop_launches = {name: 0 for name in SLOT_KERNELS}
+    loop_launches = {name: 0 for name in SLOT_KERNELS + SACK_KERNELS}
     size_of = {"jsq_pick": lambda a: a[1].numel(),
                "enqueue": lambda a: a[0].numel() + a[5].numel(),
                "agg_jsq_enqueue": lambda a: a[0].numel() + a[5].numel()}
@@ -450,67 +520,353 @@ def loop_phases(tree, dev, errs, launches, loop_golden):
             cfg, links = loop_pts[pname]
             for group in groups:
                 items = [(tree, lwl, lb_schemes.by_name(s), cfg,
-                          list(LOOP_SEEDS), links, None) for s in group]
-                for name in SLOT_KERNELS:
-                    slot_ops.LAUNCHES[name] = 0
-                lindley_ops.LAUNCHES = 0
-                loopsim.STEPS = 0
-                t0 = time.perf_counter()
-                fused = loopsim.simulate_megabatch(items)
-                ms = (time.perf_counter() - t0) * 1e3
-                counts = dict(slot_ops.LAUNCHES)
-                n_cummax, steps = lindley_ops.LAUNCHES, loopsim.STEPS
-                for name in SLOT_KERNELS:
-                    loop_launches[name] += counts[name]
-                launches["segmented_cummax"] += n_cummax
-                tag = f"{pname}/{'+'.join(group)}"
-                if group[0] in ("jsq", "switch_pkt_ar"):
-                    check(counts["jsq_pick"] > 0
-                          and counts["agg_jsq_enqueue"] > 0,
-                          f"{tag}: a JSQ kernel never launched")
-                else:
-                    check(counts["enqueue"] > 0,
-                          f"{tag}: enqueue never launched")
+                          list(LOOP_SEEDS), links, None, None)
+                         for s in group]
+                want = (("jsq_pick", "agg_jsq_enqueue")
+                        if group[0] in ("jsq", "switch_pkt_ar")
+                        else ("enqueue",))
                 if group[0] in ("switch_pkt", "ofan"):
-                    check(n_cummax > 0,
-                          f"{tag}: segmented_cummax never launched")
-                t0 = time.perf_counter()
-                for tr, w, scheme, c, seeds, l, g in items:
-                    plan = loopsim._prepare(tr, w, scheme, c, l, g)
-                    for sd in seeds:
-                        loopsim._draw_seed_inputs(plan, sd)
-                host_ms = (time.perf_counter() - t0) * 1e3
-                for (_, _, scheme, _, _, _, _), res in zip(items, fused):
-                    key = f"{pname}/{scheme.name}"
-                    r0 = res[0]
-                    print(f"loop point {key} seeds={len(LOOP_SEEDS)} "
-                          f"cct_acked_slots={r0.cct_acked_slots!r} "
-                          f"cct_slots={r0.cct_slots!r} drops={r0.drops} "
-                          f"max_queue={r0.max_queue} slots={steps} "
-                          f"dispatch_ms={ms:.1f} host_prep_ms={host_ms:.1f} "
-                          f"launches={counts} segmented_cummax={n_cummax} "
-                          f"(fused with {'+'.join(group)})", flush=True)
-                    check(all(loop_sane(r, lwl) for r in res),
-                          f"{key}: malformed result")
-                    check(loop_result_digest(r0) == loop_golden["points"][key],
-                          f"{key}: seed 0 differs from the JAX digests")
-                    serial = loopsim.simulate(tree, lwl, scheme, cfg, seed=0,
-                                              links=links)
-                    check(same_loop(serial, r0),
-                          f"{key}: fused != serial simulate")
-                plain_cfg = dataclasses.replace(cfg, impl="torch")
-                plain = loopsim.simulate_megabatch(
-                    [it[:3] + (plain_cfg,) + it[4:] for it in items])
-                for (_, _, scheme, _, _, _, _), res, ref in zip(items, fused,
-                                                                plain):
-                    check(all(same_loop(a, b) for a, b in zip(res, ref)),
-                          f"{pname}/{scheme.name}: kernels != plain versions")
-                print(f"compared {tag}: fused == serial == impl='torch' == "
-                      f"JAX digest", flush=True)
-        check(all(v > 0 for v in loop_launches.values()),
+                    want += ("segmented_cummax",)
+                loop_group(f"{pname}/{'+'.join(group)}", items,
+                           loop_golden["points"], loop_launches, launches,
+                           want)
+        check(all(loop_launches[k] > 0 for k in SLOT_KERNELS),
               "a slot-step kernel of the main path was never launched")
 
     return loop_launches, recs
+
+
+def sack_operands(seed, B, F, M, max_flow, dev):
+    """Random SACK scoreboard operands: flows of 0..max_flow packets back to
+    back (every 5th empty), some received whole (full 64-windows),
+    cumulative acks anywhere in [0, fsize] (some at fsize - 1), deliveries
+    with repeated targets."""
+    import numpy as np
+    import torch
+    r = np.random.default_rng(seed)
+    fsize = r.integers(1, max_flow + 1, (B, F)).astype(np.int32)
+    fsize[:, ::5] = 0
+    pbase = (np.cumsum(fsize, axis=1) - fsize).astype(np.int32)
+    P = int(fsize.sum(axis=1).max()) + 3
+    f_cum = (r.random((B, F)) * (fsize + 1)).astype(np.int32)
+    f_cum[:, 1::6] = np.maximum(fsize[:, 1::6] - 1, 0)
+    p_recv = r.random((B, P)) < 0.8
+    for b in range(B):
+        for f in range(3, F, 4):
+            p_recv[b, pbase[b, f]:pbase[b, f] + fsize[b, f]] = True
+    pk = r.integers(0, P, (B, M)).astype(np.int32)
+    pk[:, 1::2] = pk[:, 0::2][:, :M // 2]
+    deliv = r.random((B, M)) < 0.5
+    pk = np.where(deliv | (r.random((B, M)) < 0.5), pk, -1)
+    t = torch.from_numpy
+    return {k: t(np.ascontiguousarray(v)).to(dev) for k, v in dict(
+        p_recv=p_recv, pk=pk, deliv=deliv, f_cum=f_cum, fsize=fsize,
+        pbase=pbase).items()}
+
+
+SACK_ARGS = {"sack_update_scan": ("p_recv", "pk", "deliv", "f_cum", "fsize",
+                                  "pbase"),
+             "sack_advance": ("p_recv", "f_cum", "fsize", "pbase")}
+
+
+def sack_reads(p_recv, f_cum, fsize, pbase):
+    """Bitmap entries ``sack_advance`` must read on these inputs: per round,
+    the window entries up to and including the first one not received."""
+    import torch
+    from repro_torch.kernels.slot_step import ref
+    n = 0
+    cum = f_cum
+    for _ in range(2):
+        ahead = cum[..., None] + torch.arange(4, device=cum.device)
+        got = ref._window_bits(p_recv, pbase, torch.minimum(
+            ahead, fsize[..., None] - 1)) & (ahead < fsize[..., None])
+        run = torch.cumprod(got.to(torch.int32), dim=2)
+        in_flow = (ahead < fsize[..., None]).to(torch.int32)
+        # entry w is read when entries 0..w-1 were all received
+        prev = torch.cat([torch.ones_like(run[..., :1]), run[..., :-1]], 2)
+        n += int((prev * in_flow).sum())
+        cum = ref.sack_advance(p_recv, cum, fsize, pbase, rounds=1)
+    return n
+
+
+def sack_timing(name, largest, err, launches):
+    """The SACK kernel's row of the ``kernels`` line at the largest input
+    the main path gave it."""
+    import torch
+    from repro_torch.kernels.slot_step import ops as slot_ops
+    args, kw = largest
+    kw = {k: v for k, v in kw.items() if k != "backend"}
+    fn = getattr(slot_ops, name)
+    got = fn(*args, **kw)
+    want = fn(*args, backend="torch", **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"{name}: kernel != plain on the main path's largest input")
+    ms = cuda_ms(lambda: fn(*args, **kw), 50)
+    dev_ms = device_ms(lambda: fn(*args, **kw), 50, rf"\b{name}_kernel\(")
+    plain_ms = cuda_ms(lambda: fn(*args, backend="torch", **kw), 5)
+    p_recv = args[0]
+    B, P = p_recv.shape
+    if name == "sack_update_scan":
+        M, F = args[1].shape[1], args[3].shape[1]
+        # the bitmap row in and out, the lanes, three flow operands in and
+        # one out; per flow 64 window entries (min, load, compare, ballot)
+        nbytes = 2 * B * P + B * M * 5 + B * F * 16
+        ops = B * F * 64 * 4 + B * M * 2
+        shape = [B, P, M, F]
+    else:
+        F = args[1].shape[1]
+        reads = sack_reads(*args[:4])
+        nbytes = reads + B * F * 16
+        ops = reads * 4 + B * F * 2 * 2
+        shape = [B, P, F]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return dict(
+        name=name, route="cuda", source="src/repro_torch/csrc/slot_step.cu",
+        replaces={"sack_update_scan":
+                  "src/repro/kernels/slot_step/kernel.py:281",
+                  "sack_advance":
+                  "src/repro/kernels/slot_step/kernel.py:320"}[name],
+        launches=launches, max_abs_err=err, ms=ms, device_ms=dev_ms,
+        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, n=int(B * F), shape=shape)
+
+
+def loop_group(tag, items, golden, slot_launches, launches, want):
+    """One fused slotted-engine dispatch of ``items`` (8-tuples, seeds
+    ``LOOP_SEEDS``) with the launch counts set to 0 just before it and read
+    just after; every kernel named in ``want`` must have launched.  Holds
+    each result to the port's serial ``simulate`` (seed 0), to an
+    ``impl="torch"`` run on the card and to the JAX digest
+    ``golden[f"{point}/{scheme}"]``; returns the fused results."""
+    from repro_torch.kernels.lindley import ops as lindley_ops
+    from repro_torch.kernels.slot_step import ops as slot_ops
+    from repro_torch.net import loopsim
+    from repro_torch.obs.digest import loop_result_digest
+    for name in slot_ops.LAUNCHES:
+        slot_ops.LAUNCHES[name] = 0
+    lindley_ops.LAUNCHES = 0
+    loopsim.STEPS = 0
+    t0 = time.perf_counter()
+    with HostTimer(loopsim) as host:
+        fused = loopsim.simulate_megabatch(items)
+    ms = (time.perf_counter() - t0) * 1e3
+    host_ms = host.ms
+    counts = dict(slot_ops.LAUNCHES)
+    counts["segmented_cummax"] = lindley_ops.LAUNCHES
+    steps = loopsim.STEPS
+    for name in slot_ops.LAUNCHES:
+        slot_launches[name] += counts[name]
+    launches["segmented_cummax"] += counts["segmented_cummax"]
+    for name in want:
+        check(counts[name] > 0, f"{tag}: {name} never launched")
+    point = tag.split("/")[0]
+    for (tr, w, scheme, c, seeds, l, g, fz), res in zip(items, fused):
+        key = f"{point}/{scheme.name}"
+        r0 = res[0]
+        print(f"loop point {key} seeds={len(seeds)} "
+              f"cct_acked_slots={r0.cct_acked_slots!r} "
+              f"cct_slots={r0.cct_slots!r} drops={r0.drops} "
+              f"rtx={r0.retransmissions} max_queue={r0.max_queue} "
+              f"slots={steps} dispatch_ms={ms:.1f} host_prep_ms={host_ms:.1f} "
+              f"launches={counts} (fused with {tag})", flush=True)
+        check(all(loop_sane(r, w, c) for r in res),
+              f"{key}: malformed result")
+        check(loop_result_digest(r0) == golden[key],
+              f"{key}: seed 0 differs from the JAX digests")
+        serial = loopsim.simulate(tr, w, scheme, c, seed=0, links=l,
+                                  g_converge=g, fault=fz)
+        check(same_loop(serial, r0), f"{key}: fused != serial simulate")
+    plain = loopsim.simulate_megabatch(
+        [it[:3] + (dataclasses.replace(it[3], impl="torch"),) + it[4:]
+         for it in items])
+    for (_, _, scheme, *_), res, ref in zip(items, fused, plain):
+        check(all(same_loop(a, b) for a, b in zip(res, ref)),
+              f"{point}/{scheme.name}: kernels != plain versions")
+    print(f"compared {tag}: fused == serial == impl='torch' == JAX digest",
+          flush=True)
+    return fused
+
+
+def fast_group(tag, items, keys, golden, prop, launches, tree,
+               want=("segmented_cummax",)):
+    """One fused fast-engine dispatch of ``items`` (6-tuples) with the
+    launch counts set to 0 just before it and read just after; every kernel
+    named in ``want`` must have launched.  Seed 0 of each result is held to
+    serial ``simulate``, to a ``backend="torch"`` run (plain versions; seed
+    0 only, as the host-label all-to-all's per-seed host draws take ~10 s a
+    seed) and to the JAX digest ``golden[keys[i]]``."""
+    from repro_torch.kernels.jsq_scan import ops as jsq_ops
+    from repro_torch.kernels.lindley import ops as lindley_ops
+    from repro_torch.net import fastsim
+    from repro_torch.obs.digest import result_digest
+    lindley_ops.LAUNCHES = jsq_ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with HostTimer(fastsim) as host:
+        fused = fastsim.simulate_megabatch(items, prop_slots=prop)
+    ms = (time.perf_counter() - t0) * 1e3
+    host_ms = host.ms
+    counts = {"segmented_cummax": lindley_ops.LAUNCHES,
+              "jsq_scan": jsq_ops.LAUNCHES}
+    for name, n in counts.items():
+        launches[name] += n
+    for name in want:
+        check(counts[name] > 0, f"{tag}: {name} never launched")
+    for (tr, w, scheme, seeds, l, fz), key, res in zip(items, keys, fused):
+        r0 = res[0]
+        layers = " ".join(f"{k}={v.max_queue:g}" for k, v in r0.layers.items())
+        print(f"point {key} seeds={len(seeds)} cct={r0.cct!r} "
+              f"max_queue[{layers}] packets={w.n_packets} "
+              f"dispatch_ms={ms:.1f} host_prep_ms={host_ms:.1f} "
+              f"launches={counts} (fused with {tag})", flush=True)
+        check(all(sane(r, w, tree) for r in res), f"{key}: malformed result")
+        check(result_digest(r0) == golden[key],
+              f"{key}: seed 0 differs from the JAX digests")
+        serial = fastsim.simulate(tr, w, scheme, seed=0, prop_slots=prop,
+                                  links=l, fault=fz)
+        check(same_results(serial, r0), f"{key}: fused != serial simulate")
+    plain = fastsim.simulate_megabatch(
+        [it[:3] + ([0],) + it[4:] for it in items], backend="torch",
+        prop_slots=prop)
+    for key, res, ref in zip(keys, fused, plain):
+        check(same_results(res[0], ref[0]),
+              f"{key}: kernels != plain versions")
+    print(f"compared {tag}: fused == serial == backend='torch' == JAX digest",
+          flush=True)
+    return fused
+
+
+def dynamic_phases(tree, dev, errs, launches, slot_launches, golden,
+                   fast_prop):
+    """Phases 6-9: the SACK kernels against their plain versions, then the
+    SACK, fault-schedule and collective-phase main paths.  Launches are
+    added to ``launches`` and ``slot_launches``, kernel errors to ``errs``.
+    Returns the recorders that kept each SACK kernel's largest main-path
+    input."""
+    import numpy as np
+    import torch
+    from repro_torch.core import lb_schemes
+    from repro_torch.faults import FaultSchedule
+    from repro_torch.kernels.slot_step import ops as slot_ops
+    from repro_torch.net import fastsim, loopsim, workloads
+    from repro_torch.phases import PhaseSchedule
+
+    pts = golden["points"]
+    check(golden["flap"] == FLAP, "the flap differs from the golden file's")
+    wl = workloads.permutation(tree, 256, np.random.default_rng(1))
+    wl_inter = workloads.permutation(tree, 256, np.random.default_rng(1),
+                                     inter_pod_only=True)
+    sack_cfgs = {
+        "fig12": loopsim.LoopConfig(loss="sack", sack_thresh=32,
+                                    max_slots=LOOP_MAX_SLOTS),
+        "fig9": loopsim.LoopConfig(loss="sack", sack_thresh=8,
+                                   buffer_pkts=20, max_slots=LOOP_MAX_SLOTS)}
+
+    def sack_check(name, args, what):
+        fn = getattr(slot_ops, name)
+        got = fn(*args)
+        want = fn(*args, backend="torch")
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            err = max_abs_err(g, w)
+            errs[name] = max(errs[name], err)
+            check(g.dtype == w.dtype and torch.equal(g, w),
+                  f"{name} {what}: kernel != plain (err {err})")
+
+    with Phase("sack_kernels_vs_plain"):
+        for name in SACK_KERNELS:
+            errs[name] = 0.0
+        n_cases = 0
+        for B, F, M, max_flow in ((4, 128, 640, 512), (4, 1024, 5120, 512),
+                                  (1, 1, 1, 3)):
+            o = sack_operands(F + M, B, F, M, max_flow, dev)
+            for name in SACK_KERNELS:
+                sack_check(name, [o[k] for k in SACK_ARGS[name]],
+                           f"random B={B} F={F} M={M}")
+                n_cases += 1
+        recs = [Recorder(slot_ops, name, lambda a: a[0].numel(),
+                         keep_every=50) for name in SACK_KERNELS]
+        for r in recs:
+            r.__enter__()
+        try:      # fig 9's first 600 slots: its buffers fill and drop early
+            loopsim.simulate(tree, wl, lb_schemes.host_pkt(),
+                             dataclasses.replace(sack_cfgs["fig9"],
+                                                 max_slots=600), seed=1)
+        finally:
+            for r in recs:
+                r.__exit__()
+        for r in recs:
+            check(r.calls, f"{r.name}: no engine call recorded")
+            for i, (args, _) in enumerate(r.calls):
+                sack_check(r.name, args, f"engine call {i}")
+                n_cases += 1
+        print(f"SACK kernels: {n_cases} cases bitwise equal to the plain "
+              f"versions (tolerance: bitwise, max_abs_err 0)", flush=True)
+
+    size_of = lambda a: a[0].numel()             # noqa: E731
+    sack_recs = {name: Recorder(slot_ops, name, size_of)
+                 for name in SACK_KERNELS}
+    with Phase("sack_main_path"), sack_recs["sack_update_scan"], \
+            sack_recs["sack_advance"]:
+        for point, groups in SACK_GROUPS.items():
+            cfg = sack_cfgs[point]
+            for group in groups:
+                items = [(tree, wl, lb_schemes.by_name(s), cfg,
+                          list(LOOP_SEEDS), None, None, None) for s in group]
+                want = SACK_KERNELS + (
+                    ("jsq_pick", "agg_jsq_enqueue") if group[0] ==
+                    "switch_pkt_ar" else ("enqueue",))
+                fused = loop_group(f"{point}/{'+'.join(group)}", items, pts,
+                                   slot_launches, launches, want)
+                if point == "fig9":
+                    check(all(r.retransmissions > 0 for r in fused[0]),
+                          "fig9: the SACK retransmit path never ran")
+        check(all(slot_launches[k] > 0 for k in SACK_KERNELS),
+              "a SACK kernel of the main path was never launched")
+
+    with Phase("fault_main_path"):
+        flap = FaultSchedule.flap(**FLAP)
+        cfg = loopsim.LoopConfig(rto_slots=250, max_slots=LOOP_MAX_SLOTS)
+        for group in FLAP_LOOP_GROUPS:
+            items = [(tree, wl_inter, lb_schemes.by_name(s), cfg,
+                      list(LOOP_SEEDS), None, None, flap) for s in group]
+            want = (("jsq_pick", "agg_jsq_enqueue")
+                    if group[0] == "switch_pkt_ar" else ("enqueue",))
+            loop_group(f"flap_loop/{'+'.join(group)}", items, pts,
+                       slot_launches, launches, want)
+        for group in FLAP_FAST_GROUPS:
+            items = [(tree, wl_inter, lb_schemes.by_name(s),
+                      list(LOOP_SEEDS), None, flap) for s in group]
+            plan = fastsim._prepare(tree, wl_inter, items[0][2], fast_prop,
+                                    None, "auto", 4.0, fault=flap)
+            check(plan.ep_host.max() == plan.static_args["ep_sw"].max() == 2,
+                  "the flap does not bind packets to all three epochs")
+            fast_group(f"flap_fast/{'+'.join(group)}", items,
+                       [f"flap_fast/{s}" for s in group], pts, fast_prop,
+                       launches, tree)
+
+    with Phase("phases_main_path"):
+        sched = PhaseSchedule.from_model("deepseek-v3-671b", ep=8, dp=8,
+                                         iterations=2)
+        check(sched.label() == golden["train_schedule"],
+              "the phase schedule differs from the golden file's")
+        wls = {m: sched.compile(tree, m, rng_seed=golden["train_rng_seed"]
+                                ).workload for m in TRAIN_LOADS}
+        for group in TRAIN_GROUPS:
+            items, keys = [], []
+            for m, w in wls.items():
+                for s in group:
+                    items.append((tree, w, lb_schemes.by_name(s),
+                                  list(LOOP_SEEDS), None, None))
+                    keys.append(f"train_iter/{m}/{s}")
+            fast_group(f"train_iter/{'+'.join(group)}", items, keys, pts,
+                       TRAIN_PROP, launches, tree)
+
+    return sack_recs
 
 
 def main() -> int:
@@ -519,7 +875,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     if not ((SRC / "repro_torch").is_dir() and GOLDEN.is_file()
-            and LOOP_GOLDEN.is_file()):
+            and LOOP_GOLDEN.is_file() and SFP_GOLDEN.is_file()):
         print("chip_smoke: run from the root of a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -531,7 +887,6 @@ def main() -> int:
     from repro_torch.net import fastsim, workloads
     from repro_torch.net.topology import FatTree
     from repro_torch.core import lb_schemes
-    from repro_torch.obs.digest import result_digest
 
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -580,7 +935,13 @@ def main() -> int:
                     fastsim.simulate(tree, wl, lb_schemes.by_name(scheme),
                                      seed=0, prop_slots=prop_slots)
                 check(len(rec.calls) == 2, "expected two JSQ layers")
-                for layer, (args, kw) in zip(("edge", "agg"), rec.calls):
+                # The all-to-all's agg grid (57,408 arrival ranks) takes its
+                # plain version ~22 s; the timing phase holds the largest
+                # such grid to it.
+                grids = list(zip(("edge", "agg"), rec.calls))
+                if wl_name == "all_to_all":
+                    grids = grids[:1]
+                for layer, (args, kw) in grids:
                     got = jsq_ops.jsq_scan(*args[:5])
                     want = jsq_ops.jsq_scan(*args[:5], backend="torch")
                     torch.cuda.synchronize()
@@ -602,60 +963,20 @@ def main() -> int:
             Recorder(jsq_ops, "jsq_scan", lambda a: a[0].numel()) as rec_j:
         for wl_name, wl in wls.items():
             for group in SCHEME_GROUPS:
-                items = [(tree, wl, lb_schemes.by_name(s), list(SEEDS), None)
-                         for s in group]
-                lindley_ops.LAUNCHES = jsq_ops.LAUNCHES = 0
-                t0 = time.perf_counter()
-                fused = fastsim.simulate_megabatch(items,
-                                                   prop_slots=prop_slots)
-                ms = (time.perf_counter() - t0) * 1e3
-                launches["segmented_cummax"] += lindley_ops.LAUNCHES
-                launches["jsq_scan"] += jsq_ops.LAUNCHES
-                check(lindley_ops.LAUNCHES > 0,
-                      f"{wl_name}/{group}: segmented_cummax never launched")
-                if group == ("switch_pkt_ar",):
-                    check(jsq_ops.LAUNCHES > 0,
-                          f"{wl_name}/{group}: jsq_scan never launched")
-                # The dispatch's host-side numpy share: the entry point's own
-                # preparation and per-seed draws, rerun alone.
-                t0 = time.perf_counter()
-                for tr, w, scheme, seeds, _ in items:
-                    plan = fastsim._prepare(tr, w, scheme, prop_slots, None,
-                                            "auto", 4.0)
-                    for s in seeds:
-                        fastsim._draw_seed_inputs(plan, s)
-                host_ms = (time.perf_counter() - t0) * 1e3
-                for (_, _, scheme, _, _), res in zip(items, fused):
-                    key = f"{wl_name}/{scheme.name}"
-                    r0 = res[0]
-                    layers = " ".join(f"{k}={v.max_queue:g}"
-                                      for k, v in r0.layers.items())
-                    print(f"point {key} seeds={len(SEEDS)} cct={r0.cct!r} "
-                          f"max_queue[{layers}] dispatch_ms={ms:.1f} "
-                          f"host_prep_ms={host_ms:.1f} "
-                          f"(fused with {'+'.join(group)})", flush=True)
-                    check(all(sane(r, wl, tree) for r in res),
-                          f"{key}: malformed result")
-                    check(result_digest(r0) == golden["points"][key],
-                          f"{key}: seed 0 differs from the JAX digests")
-                    serial = fastsim.simulate(tree, wl, scheme, seed=0,
-                                              prop_slots=prop_slots)
-                    check(same_results(serial, r0),
-                          f"{key}: fused != serial simulate")
-                plain = fastsim.simulate_megabatch(items, backend="torch",
-                                                   prop_slots=prop_slots)
-                for (_, _, scheme, _, _), res, ref in zip(items, fused,
-                                                          plain):
-                    check(all(same_results(a, b) for a, b in zip(res, ref)),
-                          f"{wl_name}/{scheme.name}: kernels != plain "
-                          f"versions")
-                print(f"compared {wl_name}/{'+'.join(group)}: fused == serial "
-                      f"== backend='torch' == JAX digest", flush=True)
+                items = [(tree, wl, lb_schemes.by_name(s), list(SEEDS), None,
+                          None) for s in group]
+                want = ("segmented_cummax",) + (
+                    ("jsq_scan",) if group == ("switch_pkt_ar",) else ())
+                fast_group(f"{wl_name}/{'+'.join(group)}", items,
+                           [f"{wl_name}/{s}" for s in group],
+                           golden["points"], prop_slots, launches, tree, want)
         check(launches["segmented_cummax"] > 0 and launches["jsq_scan"] > 0,
               "a kernel of the main path was never launched")
 
     loop_launches, recs = loop_phases(
         tree, dev, errs, launches, json.loads(LOOP_GOLDEN.read_text()))
+    sack_recs = dynamic_phases(tree, dev, errs, launches, loop_launches,
+                               json.loads(SFP_GOLDEN.read_text()), prop_slots)
 
     kernels = []
     with Phase("timing"):
@@ -717,6 +1038,9 @@ def main() -> int:
         for name in SLOT_KERNELS:
             kernels.append(slot_timing(name, recs[name].largest, errs[name],
                                        loop_launches[name]))
+        for name in SACK_KERNELS:
+            kernels.append(sack_timing(name, sack_recs[name].largest,
+                                       errs[name], loop_launches[name]))
         for k in kernels:
             print(f"kernel {k['name']}: launches={k['launches']} "
                   f"shape={k['shape']} ms={k['ms']:.4f} "

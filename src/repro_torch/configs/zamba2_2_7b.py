@@ -1,0 +1,12 @@
+"""Zamba2-2.7B [arXiv:2411.15242; hf]: Mamba2 backbone + shared attention
+block every 6 layers (single parameter copy, per-application KV caches)."""
+from .base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="zamba2-2.7b", family="hybrid",
+    n_layers=54, d_model=2560, n_heads=32, n_kv_heads=32,
+    d_ff=10240, vocab=32000, head_dim=80,
+    ssm_state=64, ssm_head_dim=64, ssm_expand=2, ssm_groups=1,
+    shared_attn_every=6,
+    optimizer="adamw", microbatch=4,
+))

@@ -4,6 +4,8 @@
 //   slot_jsq_pick        <- jsq_pick         (kernel.py:126)
 //   slot_enqueue         <- enqueue          (kernel.py:203)
 //   slot_agg_jsq_enqueue <- agg_jsq_enqueue  (kernel.py:240)
+//   slot_sack_update_scan <- sack_update_scan (kernel.py:281)
+//   slot_sack_advance    <- sack_advance     (kernel.py:320)
 // Every operand carries a leading row axis B (the fused megabatch); the
 // plain versions are repro_torch/kernels/slot_step/ref.py.
 //
@@ -37,6 +39,20 @@
 // start-of-slot occupancy, and rewrites the target of agg-bound lanes.
 // Bound: the row copy (NQ * cap ints read and written) by bytes, or the
 // M^2 / 2 rank comparisons by operations at large M; a row runs on one SM.
+//
+// sack_update_scan: one block per row.  The block copies the row's receiver
+// bitmap to the output (out of place, as above), sets out[pk] = 1 for every
+// delivering lane (duplicate targets all write 1, so the order of the
+// writes cannot matter), then gives each flow one warp: lane l holds the
+// window entries w = l and w = l + 32, cand_w = min(cum + w, fsize - 1),
+// and two ballots find the first entry not received.  The result is that
+// entry's candidate, or cand_0 when all 64 are received (argmin's first
+// occurrence).  A zero-size flow gives -1 without reading the bitmap.
+// sack_advance: one thread per (row, flow), two rounds of the 4-wide
+// running product of received bits, masked to cum + w < fsize.  Both are
+// integer-only, without atomics.
+// Bound: bytes -- the bitmap row read and written once, the lanes and the
+// per-flow counters; a few integer operations per window entry.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -242,6 +258,77 @@ agg_jsq_enqueue_kernel(
                 marked + b * m);
 }
 
+constexpr int SACK_THREADS = 512;
+constexpr int SACK_WINDOW = 64;
+
+__global__ void __launch_bounds__(SACK_THREADS)
+sack_update_scan_kernel(const uint8_t* __restrict__ p_recv,
+                        const int32_t* __restrict__ pk,
+                        const uint8_t* __restrict__ deliv,
+                        const int32_t* __restrict__ f_cum,
+                        const int32_t* __restrict__ fsize,
+                        const int32_t* __restrict__ pbase, int p, int m,
+                        int f, uint8_t* __restrict__ out,
+                        int32_t* __restrict__ fm) {
+  const int64_t b = blockIdx.x;
+  const uint8_t* src = p_recv + b * p;
+  uint8_t* dst = out + b * p;
+  for (int i = threadIdx.x; i < p; i += blockDim.x) dst[i] = src[i];
+  __syncthreads();
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const int q = pk[b * m + i];
+    if (deliv[b * m + i] && q >= 0 && q < p) dst[q] = 1;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  for (int fl = threadIdx.x >> 5; fl < f; fl += n_warps) {
+    const int64_t k = b * f + fl;
+    const int cum = f_cum[k];
+    const int fs = fsize[k];
+    if (fs <= 0) {                 // every candidate is fsize - 1 = -1
+      if (lane == 0) fm[k] = fs - 1;
+      continue;
+    }
+    const int base = pbase[k];
+    const int c_lo = min(cum + lane, fs - 1);
+    const int c_hi = min(cum + lane + 32, fs - 1);
+    const unsigned miss_lo =
+        __ballot_sync(0xffffffffu, dst[base + c_lo] == 0);
+    const unsigned miss_hi =
+        __ballot_sync(0xffffffffu, dst[base + c_hi] == 0);
+    if (lane == 0) {
+      const int w = miss_lo ? __ffs(miss_lo) - 1
+                  : miss_hi ? 32 + __ffs(miss_hi) - 1 : 0;
+      fm[k] = min(cum + w, fs - 1);
+    }
+  }
+}
+
+__global__ void sack_advance_kernel(const uint8_t* __restrict__ p_recv,
+                                    const int32_t* __restrict__ f_cum,
+                                    const int32_t* __restrict__ fsize,
+                                    const int32_t* __restrict__ pbase, int p,
+                                    int f, int64_t n,
+                                    int32_t* __restrict__ out) {
+  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  const uint8_t* row = p_recv + (k / f) * p;
+  const int fs = fsize[k];
+  const int base = pbase[k];
+  int cum = f_cum[k];
+  for (int r = 0; r < 2; ++r) {
+    int adv = 0;
+    bool run = true;
+    for (int w = 0; w < 4; ++w) {
+      run = run && cum + w < fs && row[base + min(cum + w, fs - 1)] != 0;
+      adv += run;
+    }
+    cum = min(cum + adv, fs);
+  }
+  out[k] = cum;
+}
+
 size_t row_smem(int m) { return (size_t)m * 4 + (size_t)m; }
 
 template <typename K>
@@ -348,6 +435,40 @@ int slot_agg_jsq_enqueue(const void* qbuf, const void* qhead,
       static_cast<int32_t*>(c_fin), static_cast<uint8_t*>(enq_try),
       static_cast<uint8_t*>(do_enq), static_cast<int32_t*>(occ_after),
       static_cast<uint8_t*>(marked));
+  return (int)cudaGetLastError();
+}
+
+// p_recv (rows, p) uint8 0/1; pk, deliv (rows, m) int32 / uint8; f_cum,
+// fsize, pbase (rows, f) int32.  Writes the new bitmap (rows, p) and the
+// first missing sequence fm (rows, f).  Delivering lanes target [0, p) and
+// the windows of flows with fsize > 0 lie in the row.
+int slot_sack_update_scan(const void* p_recv, const void* pk,
+                          const void* deliv, const void* f_cum,
+                          const void* fsize, const void* pbase, int rows,
+                          int p, int m, int f, void* out, void* fm,
+                          void* stream) {
+  if (rows < 1 || p < 1 || m < 0 || f < 0) return (int)cudaErrorInvalidValue;
+  sack_update_scan_kernel<<<rows, SACK_THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(p_recv), static_cast<const int32_t*>(pk),
+      static_cast<const uint8_t*>(deliv), static_cast<const int32_t*>(f_cum),
+      static_cast<const int32_t*>(fsize), static_cast<const int32_t*>(pbase),
+      p, m, f, static_cast<uint8_t*>(out), static_cast<int32_t*>(fm));
+  return (int)cudaGetLastError();
+}
+
+// Operands as slot_sack_update_scan; writes the advanced f_cum (rows, f).
+int slot_sack_advance(const void* p_recv, const void* f_cum,
+                      const void* fsize, const void* pbase, int rows, int p,
+                      int f, void* out, void* stream) {
+  if (rows < 1 || p < 1 || f < 1) return (int)cudaErrorInvalidValue;
+  const int64_t n = (int64_t)rows * f;
+  const int threads = 128;
+  sack_advance_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(p_recv), static_cast<const int32_t*>(f_cum),
+      static_cast<const int32_t*>(fsize), static_cast<const int32_t*>(pbase),
+      p, f, n, static_cast<int32_t*>(out));
   return (int)cudaGetLastError();
 }
 

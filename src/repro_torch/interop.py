@@ -1,11 +1,12 @@
 """Carry the JAX reference's state objects across to the port.
 
 :func:`from_reference` turns a ``repro`` ``FatTree``, ``LinkState``,
-``Workload``, ``LBScheme``, ``ProbeSpec`` or ``LoopConfig`` into the port's
+``Workload``, ``LBScheme``, ``ProbeSpec``, ``LoopConfig``, ``LinkEvent``,
+``FaultSchedule``, ``Phase`` or ``PhaseSchedule`` into the port's
 counterpart, reading public attributes only (numpy arrays are copied).  It
 never imports ``repro``: objects are recognised by their class name, so
 both packages can simulate the identical tree, workload, failure pattern,
-scheme and engine configuration.
+scheme, engine configuration, fault schedule and phase schedule.
 """
 from __future__ import annotations
 
@@ -14,10 +15,12 @@ import dataclasses
 import numpy as np
 
 from .core.lb_schemes import LBScheme
+from .faults import FaultSchedule, LinkEvent
 from .net.topology import FatTree, LinkState
 from .net.workloads import Workload
 from .net.loopsim import LoopConfig
 from .obs.probes import ProbeSpec
+from .phases import Phase, PhaseSchedule
 
 
 def _fields(cls, obj) -> dict:
@@ -56,4 +59,16 @@ def from_reference(obj):
             raise ValueError(f"unknown LoopConfig.impl {kw['impl']!r}")
         kw["impl"] = "auto"
         return LoopConfig(**kw)
+    if name == "LinkEvent":
+        return LinkEvent(**_fields(LinkEvent, obj))
+    if name == "FaultSchedule":
+        kw = _fields(FaultSchedule, obj)
+        kw["events"] = tuple(from_reference(e) for e in kw["events"])
+        return FaultSchedule(**kw)
+    if name == "Phase":
+        return Phase(**_fields(Phase, obj))
+    if name == "PhaseSchedule":
+        kw = _fields(PhaseSchedule, obj)
+        kw["phases"] = tuple(from_reference(p) for p in kw["phases"])
+        return PhaseSchedule(**kw)
     raise TypeError(f"from_reference: unsupported object {name}")

@@ -1,7 +1,8 @@
 """ctypes bindings of the CUDA slot-step kernels (``csrc/slot_step.cu``).
 
-The CUDA source replaces the Pallas TPU kernels ``jsq_pick``, ``enqueue``
-and ``agg_jsq_enqueue`` of ``repro/kernels/slot_step/kernel.py``; its header
+The CUDA source replaces the Pallas TPU kernels ``jsq_pick``, ``enqueue``,
+``agg_jsq_enqueue``, ``sack_update_scan`` and ``sack_advance`` of
+``repro/kernels/slot_step/kernel.py``; its header
 states the design and the bounds.  Each function here launches its kernel on
 contiguous CUDA tensors on the current stream, returns new output tensors
 (the inputs are never written) and raises if the launch fails.
@@ -32,8 +33,11 @@ def _lib() -> ctypes.CDLL:
         lib.slot_enqueue.argtypes = [_VP] * 7 + [_I] * 5 + [_VP] * 7
         lib.slot_agg_jsq_enqueue.argtypes = (
             [_VP] * 12 + [_I, _I, _VP] + [_I] * 8 + [_VP] * 8)
+        lib.slot_sack_update_scan.argtypes = [_VP] * 6 + [_I] * 4 + [_VP] * 3
+        lib.slot_sack_advance.argtypes = [_VP] * 4 + [_I] * 3 + [_VP] * 2
         for f in (lib.slot_jsq_pick, lib.slot_enqueue,
-                  lib.slot_agg_jsq_enqueue):
+                  lib.slot_agg_jsq_enqueue, lib.slot_sack_update_scan,
+                  lib.slot_sack_advance):
             f.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -175,3 +179,49 @@ def agg_jsq_enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, to_agg, asw,
             _stream(qbuf.device))
     _check("slot_agg_jsq_enqueue", err)
     return outs[:2] + (c_fin,) + outs[2:]
+
+
+def _sack_shapes(name, p_recv, f_cum, fsize, pbase):
+    B, P = p_recv.shape
+    if f_cum.shape != fsize.shape or f_cum.shape != pbase.shape \
+            or f_cum.shape[0] != B or p_recv.dtype != torch.bool:
+        raise ValueError(f"{name} kernel: a (B, P) bool bitmap and (B, F) "
+                         f"flow operands expected")
+    _check_int32(name, f_cum, fsize, pbase)
+    return B, P, f_cum.shape[1]
+
+
+def sack_update_scan(p_recv, pk, deliv, f_cum, fsize, pbase):
+    """Launch ``slot_sack_update_scan``; shapes and meaning as
+    ``ref.sack_update_scan`` (window 64)."""
+    B, P, F = _sack_shapes("sack_update_scan", p_recv, f_cum, fsize, pbase)
+    M = pk.shape[1]
+    if pk.shape != (B, M) or deliv.shape != (B, M) \
+            or deliv.dtype != torch.bool:
+        raise ValueError("sack_update_scan kernel: (B, M) int32 lanes and a "
+                         "bool delivery mask expected")
+    _check_int32("sack_update_scan", pk)
+    check_cuda("sack_update_scan", p_recv, pk, deliv, f_cum, fsize, pbase)
+    out = torch.empty_like(p_recv)
+    fm = torch.empty((B, F), dtype=torch.int32, device=p_recv.device)
+    with torch.cuda.device(p_recv.device):
+        err = _lib().slot_sack_update_scan(
+            _u8(p_recv).data_ptr(), pk.data_ptr(), _u8(deliv).data_ptr(),
+            f_cum.data_ptr(), fsize.data_ptr(), pbase.data_ptr(), B, P, M, F,
+            _u8(out).data_ptr(), fm.data_ptr(), _stream(p_recv.device))
+    _check("slot_sack_update_scan", err)
+    return out, fm
+
+
+def sack_advance(p_recv, f_cum, fsize, pbase):
+    """Launch ``slot_sack_advance``; shapes and meaning as
+    ``ref.sack_advance`` (2 rounds, window 4)."""
+    B, P, F = _sack_shapes("sack_advance", p_recv, f_cum, fsize, pbase)
+    check_cuda("sack_advance", p_recv, f_cum, fsize, pbase)
+    out = torch.empty_like(f_cum)
+    with torch.cuda.device(p_recv.device):
+        err = _lib().slot_sack_advance(
+            _u8(p_recv).data_ptr(), f_cum.data_ptr(), fsize.data_ptr(),
+            pbase.data_ptr(), B, P, F, out.data_ptr(), _stream(p_recv.device))
+    _check("slot_sack_advance", err)
+    return out

@@ -4,7 +4,6 @@ Each dispatches on the device of its first tensor operand: a CPU tensor
 takes the plain version (``ref.py``), a CUDA tensor launches the CUDA kernel
 (``kernel.py``).  ``backend="torch"`` takes the plain version on any device.
 ``LAUNCHES`` counts, per kernel, the launches made through these wrappers.
-The ``sack_*`` kernels of the reference are not ported yet.
 """
 from __future__ import annotations
 
@@ -14,7 +13,8 @@ from . import kernel as _kernel
 from . import ref as _ref
 from .._common import resolve_backend
 
-LAUNCHES = {"jsq_pick": 0, "enqueue": 0, "agg_jsq_enqueue": 0}
+LAUNCHES = {"jsq_pick": 0, "enqueue": 0, "agg_jsq_enqueue": 0,
+            "sack_update_scan": 0, "sack_advance": 0}
 
 
 def _plain(backend: str, x: torch.Tensor, name: str) -> bool:
@@ -69,4 +69,26 @@ def agg_jsq_enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, to_agg, asw,
         return _ref.agg_jsq_enqueue(*args, t, **kw)
     out = _kernel.agg_jsq_enqueue(*_c(*args), t, **kw)
     LAUNCHES["agg_jsq_enqueue"] += 1
+    return out
+
+
+def sack_update_scan(p_recv, pk, deliv, f_cum, fsize, pbase, *,
+                     backend="auto"):
+    """See ``ref.sack_update_scan``: ``(p_recv', first_missing)``."""
+    if _plain(backend, p_recv, "sack_update_scan"):
+        return _ref.sack_update_scan(p_recv, pk, deliv, f_cum, fsize, pbase)
+    out = _kernel.sack_update_scan(*_c(p_recv, pk, deliv, f_cum, fsize,
+                                       pbase))
+    LAUNCHES["sack_update_scan"] += 1
+    return out
+
+
+def sack_advance(p_recv, f_cum, fsize, pbase, *, backend="auto"):
+    """See ``ref.sack_advance``: the advanced ``f_cum``."""
+    if _plain(backend, p_recv, "sack_advance"):
+        return _ref.sack_advance(p_recv, f_cum, fsize, pbase)
+    if f_cum.numel() == 0:
+        return f_cum.clone()
+    out = _kernel.sack_advance(*_c(p_recv, f_cum, fsize, pbase))
+    LAUNCHES["sack_advance"] += 1
     return out

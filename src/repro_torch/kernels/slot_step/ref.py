@@ -125,3 +125,60 @@ def agg_jsq_enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, to_agg, asw,
     out = enqueue(qbuf, qhead, qcnt, alive_row, apk, aq2, apk >= 0, cap=cap,
                   ecn_thresh=ecn_thresh)
     return out[:2] + (c_fin,) + out[2:]
+
+
+def sack_update_scan(p_recv, pk, deliv, f_cum, fsize, pbase, *,
+                     window: int = 64):
+    """Receiver-bitmap update and per-flow first missing sequence (the SACK
+    retransmit candidate), over rows.
+
+    ``p_recv`` (B, P) bool; ``pk``/``deliv`` (B, M) int32 / bool: this
+    slot's popped packets and delivery mask (delivering lanes target
+    ``[0, P)``); ``f_cum``/``fsize``/``pbase`` (B, F) int32.  Returns new
+    ``(p_recv', first_missing (B, F) int32)``: the bitmap with every
+    delivered packet set, and per flow the candidate
+    ``min(f_cum + w, fsize - 1)`` at the first ``w < window`` whose packet
+    is not received (``w = 0`` when all are, ``argmin``'s first-occurrence
+    rule).  A zero-size flow gives ``-1``; the reference reads its window at
+    ``pbase - 1`` with numpy's wrap, which is done here too.
+    """
+    B, P = p_recv.shape
+    ok = deliv & (pk >= 0) & (pk < P)
+    bm = torch.cat([p_recv, torch.zeros((B, 1), dtype=p_recv.dtype,
+                                        device=p_recv.device)], dim=1)
+    bm.scatter_(1, torch.where(ok, pk, P).long(),
+                torch.ones(pk.shape, dtype=p_recv.dtype,
+                           device=p_recv.device))
+    p_recv2 = bm[:, :P]
+    offs = torch.arange(window, dtype=torch.int32, device=p_recv.device)
+    cand = torch.minimum(f_cum[..., None] + offs, fsize[..., None] - 1)
+    got = _window_bits(p_recv2, pbase, cand)
+    first = torch.argmin(got.to(torch.uint8), dim=2, keepdim=True)
+    return p_recv2, torch.gather(cand, 2, first)[..., 0]
+
+
+def sack_advance(p_recv, f_cum, fsize, pbase, *, rounds: int = 2,
+                 window: int = 4):
+    """Cumulative-ack advance: ``rounds`` passes, each moving ``f_cum`` past
+    up to ``window`` contiguously received sequences (the sum of a running
+    product of the window's received bits, masked to ``f_cum + w <
+    fsize``), capped at ``fsize``.  Operands as :func:`sack_update_scan`;
+    returns the new ``f_cum`` (B, F) int32."""
+    offs = torch.arange(window, dtype=torch.int32, device=p_recv.device)
+    for _ in range(rounds):
+        ahead = f_cum[..., None] + offs
+        cand = torch.minimum(ahead, fsize[..., None] - 1)
+        got = _window_bits(p_recv, pbase, cand) & (ahead < fsize[..., None])
+        adv = torch.cumprod(got.to(torch.int32), dim=2).sum(
+            2, dtype=torch.int32)
+        f_cum = torch.minimum(f_cum + adv, fsize)
+    return f_cum
+
+
+def _window_bits(bitmap, pbase, cand):
+    """``bitmap[b, pbase[b, f] + cand[b, f, w]]`` with the reference's index
+    rules: a negative index wraps once, then the index clamps to the row."""
+    B, P = bitmap.shape
+    idx = pbase[..., None].long() + cand.long()
+    idx = torch.clamp(torch.where(idx < 0, idx + P, idx), 0, P - 1)
+    return torch.gather(bitmap, 1, idx.reshape(B, -1)).reshape(idx.shape)

@@ -29,8 +29,12 @@ Timing model
 
 Supported schemes: everything without ACK/ECN feedback -- ECMP, subflows,
 host packet spraying, HOST DR, SIMPLE RR, SWITCH PKT, RSQ, JSQ, SWITCH PKT
-AR (quantized JSQ), OFAN.  Static link failures (``links=``) are supported;
-dynamic fault schedules (``fault=``) are not ported yet.
+AR (quantized JSQ), OFAN.  Link failures are static (``links=``) or a
+dynamic fault schedule (``fault=``, a
+:class:`repro_torch.faults.FaultSchedule`): each packet's routing state is
+bound to the fault epoch its integer release slot has reached (after the
+scheme class's reaction delay), per-epoch host choices and OFAN pointer
+tables are drawn host-side, and the pipeline gathers them by epoch.
 
 Dispatch granularities: :func:`simulate` (one point), :func:`simulate_batch`
 (one point, many seeds) and :func:`simulate_megabatch` (many points sharing
@@ -543,8 +547,13 @@ class SimPlan:
     backend: str
     jsq_pad_factor: float
     static_args: dict = dataclasses.field(default_factory=dict)
-    # (n_flows, k/2, k/2) alive paths of host-labelled schemes under failures
-    pv: Optional[np.ndarray] = None
+    # Fault-epoch state: one LinkState per epoch ([links] for static points),
+    # per-epoch (n_flows, k/2, k/2) alive paths of host-labelled schemes
+    # (None entries for failure-free epochs; None when no epoch fails) and
+    # the host-reaction epoch index of each packet (see _prepare).
+    ep_links: list = dataclasses.field(default_factory=list)
+    pv: Optional[list] = None
+    ep_host: Optional[np.ndarray] = None
     n_reset_epochs: int = 1
     pad_e: int = 0
     pad_a: int = 0
@@ -580,12 +589,24 @@ class SimPlan:
 
 def _prepare(tree: FatTree, wl: Workload, scheme: LBScheme, prop_slots: float,
              links: Optional[LinkState], backend: str,
-             jsq_pad_factor: float) -> SimPlan:
+             jsq_pad_factor: float, fault=None) -> SimPlan:
     """Host-side precomputation shared by every seed of a simulation point."""
     if scheme.needs_feedback:
         raise ValueError(f"{scheme.name} needs ACK feedback; use net.loopsim")
+    if fault is not None:
+        if links is not None:
+            raise ValueError("pass either links= or fault=, not both")
+        comp = fault.compile(tree)
+        ep_links = list(comp.links)
+        links = ep_links[0]             # epoch-0 state for host-side consumers
+        host_starts = comp.react_starts("host")
+        switch_starts = comp.react_starts("switch")
+    else:
+        ep_links = [links]
+        host_starts = switch_starts = np.zeros(1, np.int32)
     plan = SimPlan(tree=tree, wl=wl, scheme=scheme, prop_slots=prop_slots,
                    links=links, backend=backend, jsq_pad_factor=jsq_pad_factor)
+    plan.ep_links = ep_links
     src, dst = wl.src, wl.dst
     p1 = tree.host_pod(src).astype(np.int32)
     e1 = tree.host_edge(src).astype(np.int32)
@@ -593,21 +614,34 @@ def _prepare(tree: FatTree, wl: Workload, scheme: LBScheme, prop_slots: float,
     e2 = tree.host_edge(dst).astype(np.int32)
     inter_pod = (p1 != p2)
     leaves_edge = inter_pod | (e1 != e2)
+    # Per-packet fault-epoch binding at the seed-independent integer release
+    # slot (before the per-seed phase jitter): reaction starts are
+    # nondecreasing, so the epoch a packet sees is the last one whose
+    # reaction slot its release has reached, floored at 0.  Static points
+    # get all zeros.
+    ep_host = np.maximum(
+        np.searchsorted(host_starts, wl.t_release, side="right") - 1,
+        0).astype(np.int32)
+    ep_sw = np.maximum(
+        np.searchsorted(switch_starts, wl.t_release, side="right") - 1,
+        0).astype(np.int32)
+    plan.ep_host = ep_host
     plan.static_args = dict(p1=p1, e1=e1, p2=p2, e2=e2,
                             dst=dst.astype(np.int32), inter_pod=inter_pod,
-                            leaves_edge=leaves_edge,
-                            # Per-packet link-state epoch of the OFAN tables:
-                            # one epoch until fault schedules are ported.
-                            ep_sw=np.zeros(wl.n_packets, np.int32),
+                            leaves_edge=leaves_edge, ep_sw=ep_sw,
                             # Logical port count: an operand, so a point
                             # padded onto a larger tree's pipeline still
                             # rotates/sprays over its own k/2 ports.
                             h_log=np.int32(tree.half))
 
     # ---- path validity under failures (host visibility: converged state) --
-    if scheme.edge_mode == "pre" and links is not None and links.any_failure():
-        plan.pv = np.stack([links.path_matrix(int(s), int(d))
-                            for s, d in zip(wl.flow_src, wl.flow_dst)])
+    if scheme.edge_mode == "pre":
+        pv = [np.stack([l.path_matrix(int(s), int(d))
+                        for s, d in zip(wl.flow_src, wl.flow_dst)])
+              if (l is not None and l.any_failure()) else None
+              for l in ep_links]
+        if any(x is not None for x in pv):
+            plan.pv = pv
 
     h = tree.half
     plan.tables_e_keys = plan.tables_a_keys = scheme.table_keys()
@@ -651,9 +685,19 @@ def _draw_seed_inputs(plan: SimPlan, seed: int) -> dict:
 
     a_pre = c_pre = None
     if scheme.edge_mode == "pre":
-        a_pre, c_pre = precompute_host_choices(
-            scheme, tree, wl.flow, wl.seq, wl.flow_src, wl.flow_dst, rng,
-            path_valid=plan.pv)
+        if plan.pv is None:
+            a_pre, c_pre = precompute_host_choices(
+                scheme, tree, wl.flow, wl.seq, wl.flow_src, wl.flow_dst, rng)
+        else:
+            # One sequential draw per epoch, in epoch order (a one-epoch
+            # schedule consumes exactly the static path's draws), then each
+            # packet takes its host-reaction epoch's choice.
+            per_ep = [precompute_host_choices(
+                scheme, tree, wl.flow, wl.seq, wl.flow_src, wl.flow_dst, rng,
+                path_valid=pv_e) for pv_e in plan.pv]
+            pk = np.arange(npk)
+            a_pre = np.stack([a for a, _ in per_ep])[plan.ep_host, pk]
+            c_pre = np.stack([c for _, c in per_ep])[plan.ep_host, pk]
         a_pre = a_pre.astype(np.int32)
         c_pre = c_pre.astype(np.int32)
     rand_a = rng.integers(0, h, npk).astype(np.int32)
@@ -674,12 +718,21 @@ def _draw_seed_inputs(plan: SimPlan, seed: int) -> dict:
             tables_a["rr_perms"] = np.argsort(
                 rng.random((n_aggs, n_ep, h)), axis=-1).astype(np.int32)
     elif scheme.edge_mode == "ofan":
-        # Pointer tables carry a leading link-state epoch axis (one epoch).
-        ot = ofan_mod.build_tables(tree, rng, links=plan.links)
-        tables_e = {"orders": ot.edge_orders[None],
-                    "starts": ot.edge_starts[None], "lens": ot.edge_len[None]}
-        tables_a = {"orders": ot.agg_orders[None],
-                    "starts": ot.agg_starts[None], "lens": ot.agg_len[None]}
+        # One table build per fault epoch, in epoch order ([links] for
+        # static points, so one epoch consumes the static stream).  Pointer
+        # tables carry a leading epoch axis, width-padded to the widest
+        # epoch; pad columns lie beyond every epoch's ``lens`` modulo.
+        ots = [ofan_mod.build_tables(tree, rng, links=l)
+               for l in plan.ep_links]
+
+        def _eps(arrs):
+            return np.stack(pad_to_group_max([np.asarray(a) for a in arrs]))
+        tables_e = {"orders": _eps([ot.edge_orders for ot in ots]),
+                    "starts": _eps([ot.edge_starts for ot in ots]),
+                    "lens": _eps([ot.edge_len for ot in ots])}
+        tables_a = {"orders": _eps([ot.agg_orders for ot in ots]),
+                    "starts": _eps([ot.agg_starts for ot in ots]),
+                    "lens": _eps([ot.agg_len for ot in ots])}
 
     # JSQ tie-break noise from the counter streams (core.entropy), keyed on
     # (seed, site, logical switch id, arrival rank, port): growing the rank
@@ -729,13 +782,6 @@ def _postprocess(out: dict, wl: Workload, probes=None) -> FastSimResult:
                          c_used=out["c_used"], probe=probe)
 
 
-def _check_args(backend: str, fault) -> None:
-    resolve_backend(backend)
-    if fault is not None:
-        raise NotImplementedError(
-            "dynamic fault schedules are not ported yet; pass static links=")
-
-
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
@@ -747,13 +793,15 @@ def simulate(tree: FatTree, wl: Workload, scheme: LBScheme, seed: int = 0,
              probes=None, fault=None, device=None) -> FastSimResult:
     """Run one collective under ``scheme`` on the fast engine.
 
-    ``device=None`` runs on CUDA and raises when no card is visible;
-    ``device="cpu"`` runs the plain PyTorch versions of the kernels.
+    ``fault``: a :class:`repro_torch.faults.FaultSchedule` (mutually
+    exclusive with ``links``).  ``device=None`` runs on CUDA and raises when
+    no card is visible; ``device="cpu"`` runs the plain PyTorch versions of
+    the kernels.
     """
-    _check_args(backend, fault)
+    resolve_backend(backend)
     device = resolve_device(device)
     plan = _prepare(tree, wl, scheme, prop_slots, links, backend,
-                    jsq_pad_factor)
+                    jsq_pad_factor, fault=fault)
     elem = {**plan.static_args, **_draw_seed_inputs(plan, seed)}
     out = _row(_run(plan.pipe_shape(probes=probes), _stack([elem]), device),
                0)
@@ -763,7 +811,7 @@ def simulate(tree: FatTree, wl: Workload, scheme: LBScheme, seed: int = 0,
         return simulate(tree, wl, scheme, seed=seed, prop_slots=prop_slots,
                         collect_stats=collect_stats, links=links,
                         backend=backend, jsq_pad_factor=jsq_pad_factor * 2,
-                        probes=probes, device=device)
+                        probes=probes, fault=fault, device=device)
     return _postprocess(out, wl, probes)
 
 
@@ -781,13 +829,13 @@ def simulate_batch(tree: FatTree, wl: Workload, scheme: LBScheme,
     :func:`simulate`; JSQ pad overflows re-run with a larger pad only for the
     seeds that overflowed, matching the serial retry.
     """
-    _check_args(backend, fault)
+    resolve_backend(backend)
     device = resolve_device(device)
     seeds = list(seeds)
     if not seeds:
         return []
     plan = _prepare(tree, wl, scheme, prop_slots, links, backend,
-                    jsq_pad_factor)
+                    jsq_pad_factor, fault=fault)
     stacked = _stack([{**plan.static_args, **_draw_seed_inputs(plan, s)}
                       for s in seeds])
     out = _run(plan.pipe_shape(probes=probes), stacked, device)
@@ -807,7 +855,7 @@ def simulate_batch(tree: FatTree, wl: Workload, scheme: LBScheme,
                                 collect_stats=collect_stats, links=links,
                                 backend=backend,
                                 jsq_pad_factor=jsq_pad_factor * 2,
-                                probes=probes, device=device)
+                                probes=probes, fault=fault, device=device)
         results.update(dict(zip(retry, redone)))
     return [results[s] for s in seeds]
 
@@ -867,9 +915,12 @@ def simulate_megabatch(items, *, prop_slots: float = 12.0,
                        device=None) -> list:
     """Run many simulation points as ONE fused dispatch.
 
-    ``items`` is a sequence of ``(tree, wl, scheme, seeds, links)`` tuples
-    whose points lower to the same pipeline (equal
-    ``LBScheme.shape_key()``, same backend).  Per-seed inputs are drawn
+    ``items`` is a sequence of ``(tree, wl, scheme, seeds, links)`` tuples,
+    or 6-tuples with a trailing fault schedule (``links`` then None), whose
+    points lower to the same pipeline (equal ``LBScheme.shape_key()``, same
+    backend).  Fault epochs are per-packet gather indices bounded by each
+    member's own epoch count, so the epoch axes of the scheme tables pad
+    to the group maximum like their other axes.  Per-seed inputs are drawn
     host-side exactly as :func:`simulate` draws them, padded to shared
     shapes (packet arrays up to ``npk_pad``, JSQ noise grids and scheme
     tables up to group-wide maxima, switch-indexed tables scattered into the
@@ -884,17 +935,16 @@ def simulate_megabatch(items, *, prop_slots: float = 12.0,
     :func:`simulate` call with the same arguments, including the JSQ
     pad-overflow retry decision.
     """
+    resolve_backend(backend)
     device = resolve_device(device)
-    items = [tuple(it) for it in items]
-    for it in items:
-        _check_args(backend, it[5] if len(it) > 5 else None)
-    items = [(it[0], it[1], it[2], list(it[3]), it[4]) for it in items]
+    items = [(it[0], it[1], it[2], list(it[3]), it[4],
+              it[5] if len(it) > 5 else None) for it in items]
     if not items or all(not it[3] for it in items):
         return [[] for _ in items]
 
     plans = [_prepare(tree, wl, scheme, prop_slots, links, backend,
-                      jsq_pad_factor)
-             for (tree, wl, scheme, _, links) in items]
+                      jsq_pad_factor, fault=fz)
+             for (tree, wl, scheme, _, links, fz) in items]
     idents = {_pipeline_identity(p) for p in plans}
     if len(idents) > 1:
         raise ValueError(f"megabatch items span {len(idents)} pipeline "
@@ -914,7 +964,7 @@ def simulate_megabatch(items, *, prop_slots: float = 12.0,
 
     elems: list = []          # merged (static + per-seed) dicts, padded
     spans: list = []          # (item index, seed) per fused-axis element
-    for i, ((tree, wl, scheme, seeds, links), plan) in enumerate(
+    for i, ((tree, wl, scheme, seeds, links, fz), plan) in enumerate(
             zip(items, plans)):
         for s in seeds:
             d = _repad_elem({**plan.static_args,
@@ -968,13 +1018,13 @@ def simulate_megabatch(items, *, prop_slots: float = 12.0,
     # JSQ pad overflow: re-run exactly the (item, seed) cells a standalone
     # run would re-pad, through the seed-batched path.
     for i, retry_seeds in retries.items():
-        tree, wl, scheme, _, links = items[i]
+        tree, wl, scheme, _, links, fz = items[i]
         redone = simulate_batch(tree, wl, scheme, retry_seeds,
                                 prop_slots=prop_slots, links=links,
                                 backend=backend,
                                 jsq_pad_factor=jsq_pad_factor * 2,
-                                probes=probes, device=device)
+                                probes=probes, fault=fz, device=device)
         results[i].update(dict(zip(retry_seeds, redone)))
 
     return [[results[i][s] for s in seeds]
-            for i, (_, _, _, seeds, _) in enumerate(items)]
+            for i, (_, _, _, seeds, _, _) in enumerate(items)]

@@ -1,10 +1,10 @@
 """Slotted feedback engine (the "loop" simulator), in PyTorch.
 
 A port of the JAX reference ``repro.net.loopsim``, bitwise equal to it per
-point on its erasure path.  It complements ``fastsim``: a time-stepped
-simulation carrying the *feedback* the layered max-plus engine cannot:
-ECN-marked ACKs (REPS, PLB), windowed congestion control (MSwift), link
-failures with routing-convergence time ``G``, and finite buffers with drops.
+point.  It complements ``fastsim``: a time-stepped simulation carrying the
+*feedback* the layered max-plus engine cannot: ECN-marked ACKs (REPS, PLB),
+windowed congestion control (MSwift), SACK loss recovery, link failures
+with routing-convergence time ``G``, and finite buffers with drops.
 
 Model (one step = one data-packet slot):
 
@@ -16,17 +16,25 @@ Model (one step = one data-packet slot):
   * deliveries generate ACKs returning after a constant ``ack_delay``; ACKs
     never queue but consume the host NIC byte budget (ack debt);
   * hosts pace with the ideal fixed-rate CCA at ``rho`` or with MSwift;
-  * loss recovery: ideal rateless erasure coding (§4).  SACK
-    (``loss="sack"``) and dynamic fault schedules (``fault=``) are not ported
-    yet and raise ``NotImplementedError``.
+  * loss recovery: ideal rateless erasure coding (§4) or SACK with
+    reordering threshold ``x`` (§8.2, ``loss="sack"``).
+
+Failures: a static ``links``/``g_converge`` pair, or a dynamic fault
+schedule (``fault=``, a :class:`repro_torch.faults.FaultSchedule`) that
+compiles to E link-state epochs: every link-derived operand carries a
+leading epoch axis the loop gathers by slot, the physical state switching
+at each epoch start and the routing state a per-scheme reaction delay
+later.  The static pair is the one-epoch case.
 
 The step body runs on a leading batch axis ``(B, ...)``: one row per fused
-point.  Three of its blocks are kernels (``repro_torch.kernels.slot_step``):
-the edge JSQ pick, the agg JSQ pick fused with the arrival enqueue, and the
-plain arrival enqueue; the RR/OFAN pointer ranks go through ``rank_by`` and
-so through the Lindley kernel.  On CUDA tensors they launch the CUDA
-kernels, on CPU tensors their plain versions; ``LoopConfig.impl="torch"``
-takes the plain versions on any device.
+point.  Five of its blocks are kernels (``repro_torch.kernels.slot_step``):
+the edge JSQ pick, the agg JSQ pick fused with the arrival enqueue, the
+plain arrival enqueue, and under SACK the receiver-bitmap update with the
+per-flow first-missing scan and the cumulative-ack advance; the RR/OFAN
+pointer ranks go through ``rank_by`` and so through the Lindley kernel.
+On CUDA tensors they launch the CUDA kernels, on CPU tensors their plain
+versions; ``LoopConfig.impl="torch"`` takes the plain versions on any
+device.
 
 The reference's ``lax.while_loop`` becomes a host loop over chunks of
 :data:`CHUNK_SLOTS` slots that reads the rows' done flags once per chunk.
@@ -195,13 +203,14 @@ def _prepare(tree: FatTree, wl: Workload, scheme: LBScheme,
              fault=None) -> LoopPlan:
     """Host-side precomputation shared by every seed of a simulation point.
 
-    The static ``links``/``g_converge`` pair lowers to a timeline of one
-    link-state epoch starting at slot 0 whose routing reacts at
-    ``g_converge``; every link-derived table carries that leading epoch
-    axis, as in the reference (``fault=`` schedules, which give several
-    epochs, are not ported yet).
+    ``fault`` (a :class:`repro_torch.faults.FaultSchedule`) is the dynamic
+    alternative to the static ``links``/``g_converge`` pair: it compiles to
+    an epoch timeline whose link states become stacked, slot-gathered
+    operands, with per-scheme reaction delays in place of the single
+    convergence slot.  The static pair lowers to the same machinery with
+    one epoch starting at slot 0 and reacting at ``g_converge``.
     """
-    _check_config(cfg, fault)
+    _check_config(cfg)
     h = tree.half
     n = tree.n_hosts
     P = wl.n_packets
@@ -240,10 +249,19 @@ def _prepare(tree: FatTree, wl: Workload, scheme: LBScheme,
     # whose routing reacts at g_converge; a FaultSchedule compiles to E
     # epochs with per-scheme reaction delays.  Every link-derived table
     # below carries a leading epoch axis the engine gathers by slot.
-    ep_links = [links if links is not None else LinkState.all_up(tree)]
-    ep_start = np.zeros(1, np.int32)
-    r_start = np.asarray(
-        [g_converge if g_converge is not None else 2**30], np.int32)
+    if fault is not None:
+        if links is not None or g_converge is not None:
+            raise ValueError("pass either fault= or links=/g_converge=, "
+                             "not both")
+        comp = fault.compile(tree)
+        ep_links = list(comp.links)
+        ep_start = np.asarray(comp.ep_start, np.int32)
+        r_start = comp.react_starts(scheme.reaction_class())
+    else:
+        ep_links = [links if links is not None else LinkState.all_up(tree)]
+        ep_start = np.zeros(1, np.int32)
+        r_start = np.asarray(
+            [g_converge if g_converge is not None else 2**30], np.int32)
     E = len(ep_links)
     links = ep_links[0]
     any_fail = any(l.any_failure() for l in ep_links)
@@ -462,20 +480,14 @@ def _postprocess(out: dict, cfg: LoopConfig, n_packets: int,
                if "q_probe" in out else None),
     )
 
-def _check_config(cfg: LoopConfig, fault) -> None:
+def _check_config(cfg: LoopConfig) -> None:
     if cfg.impl not in LOOP_IMPLS:
         raise ValueError(f"LoopConfig.impl {cfg.impl!r}: expected one of "
                          f"{LOOP_IMPLS}")
-    if cfg.loss != "erasure":
-        raise NotImplementedError(
-            f"loss={cfg.loss!r} is not ported yet (ROADMAP B5/B6: the SACK "
-            f"kernels); the port runs loss='erasure'")
+    if cfg.loss not in ("erasure", "sack"):
+        raise ValueError(f"unknown loss {cfg.loss!r}")
     if cfg.cca not in ("ideal", "mswift"):
         raise ValueError(f"unknown cca {cfg.cca!r}")
-    if fault is not None:
-        raise NotImplementedError(
-            "dynamic fault schedules are not ported yet (ROADMAP A5); pass "
-            "static links= and g_converge=")
 
 
 def simulate(tree: FatTree, wl: Workload, scheme: LBScheme,
@@ -487,10 +499,12 @@ def simulate(tree: FatTree, wl: Workload, scheme: LBScheme,
 
     ``links``: failed-link state (None = all up).  ``g_converge``: slot at
     which routing state converges; None => G = infinity (never converges).
-    ``device=None`` runs on CUDA and raises when no card is visible;
+    ``fault``: a :class:`repro_torch.faults.FaultSchedule`, the dynamic
+    alternative to the (links, g_converge) pair (mutually exclusive with
+    it).  ``device=None`` runs on CUDA and raises when no card is visible;
     ``device="cpu"`` runs the plain PyTorch versions of the kernels.
     """
-    _check_config(cfg, fault)
+    _check_config(cfg)
     device = resolve_device(device)
     if wl.n_packets == 0:
         # The engine gathers per-packet state each step, which needs a
@@ -498,9 +512,10 @@ def simulate(tree: FatTree, wl: Workload, scheme: LBScheme,
         # one-point megabatch padded to one inert packet row, as in the
         # reference.
         return simulate_megabatch(
-            [(tree, wl, scheme, cfg, [seed], links, g_converge)],
+            [(tree, wl, scheme, cfg, [seed], links, g_converge, fault)],
             npk_pad=1, probes=probes, device=device)[0][0]
-    plan = _prepare(tree, wl, scheme, cfg, links, g_converge, probes=probes)
+    plan = _prepare(tree, wl, scheme, cfg, links, g_converge, probes=probes,
+                    fault=fault)
     tables = {**plan.tables, **_draw_seed_inputs(plan, seed)}
     out = _run(plan.static, _stack([tables]), device)
     return _postprocess(_row(out, 0), cfg, wl.n_packets, wl.n_flows, probes)
@@ -519,16 +534,17 @@ def simulate_batch(tree: FatTree, wl: Workload, scheme: LBScheme,
     (or hit ``max_slots``); finished rows freeze.  Results are
     bitwise-identical, per seed, to serial :func:`simulate` calls.
     """
-    _check_config(cfg, fault)
+    _check_config(cfg)
     device = resolve_device(device)
     seeds = list(seeds)
     if not seeds:
         return []
     if wl.n_packets == 0:
         return simulate_megabatch(
-            [(tree, wl, scheme, cfg, seeds, links, g_converge)],
+            [(tree, wl, scheme, cfg, seeds, links, g_converge, fault)],
             npk_pad=1, probes=probes, device=device)[0]
-    plan = _prepare(tree, wl, scheme, cfg, links, g_converge, probes=probes)
+    plan = _prepare(tree, wl, scheme, cfg, links, g_converge, probes=probes,
+                    fault=fault)
     out = _run(plan.static, _stack([{**plan.tables, **_draw_seed_inputs(
         plan, s)} for s in seeds]), device)
     return [_postprocess(_row(out, i), cfg, wl.n_packets, wl.n_flows, probes)
@@ -627,9 +643,13 @@ def simulate_megabatch(items, *, npk_pad: Optional[int] = None,
     """Run many loop-engine simulation points as ONE fused dispatch.
 
     ``items`` is a sequence of ``(tree, wl, scheme, cfg, seeds, links,
-    g_converge)`` tuples (an 8th ``fault`` entry must be None) whose points
-    share one pipeline identity (scheme modes and static LoopConfig fields;
-    ``rho``, ``max_slots`` and ``g_converge`` ride as per-row operands).
+    g_converge)`` tuples, or 8-tuples with a trailing ``fault`` schedule
+    (``links`` and ``g_converge`` then None), whose points share one
+    pipeline identity (scheme modes and static LoopConfig fields; ``rho``,
+    ``max_slots``, ``g_converge`` and the fault epochs ride as per-row
+    operands).  Fault-epoch axes pad to the group maximum: pad epochs
+    repeat the last real epoch and start at the unreachable sentinel slot
+    ``2**30``, so static and flapping points fuse.
     Per-seed inputs are drawn host-side exactly as :func:`simulate` draws
     them, padded to shared shapes (packet arrays up to ``npk_pad``, flow
     arrays and ``host_flows`` columns to group-wide maxima, OFAN order widths
@@ -649,12 +669,12 @@ def simulate_megabatch(items, *, npk_pad: Optional[int] = None,
     items = [(it[0], it[1], it[2], it[3], list(it[4]), it[5], it[6],
               it[7] if len(it) > 7 else None) for it in items]
     for it in items:
-        _check_config(it[3], it[7])
+        _check_config(it[3])
     if not items or all(not it[4] for it in items):
         return [[] for _ in items]
 
-    plans = [_prepare(t, w, s, c, l, g, probes=probes)
-             for (t, w, s, c, _, l, g, _) in items]
+    plans = [_prepare(t, w, s, c, l, g, probes=probes, fault=fz)
+             for (t, w, s, c, _, l, g, fz) in items]
     idents = {_pipeline_identity(p) for p in plans}
     if len(idents) > 1:
         raise ValueError(f"megabatch items span {len(idents)} pipeline "
@@ -851,6 +871,7 @@ def _engine(s: _Static, x: dict) -> dict:
     ecn_t = max(1, int(cfg.ecn_frac * CAP))
     OFF = (0, mid, 2 * mid, 3 * mid, 4 * mid)
     backend = "torch" if cfg.impl == "torch" else "auto"
+    sack = cfg.loss == "sack"
     pool_n = x["rand_pool"].shape[1]
 
     bidx = torch.arange(B, device=dev)
@@ -925,7 +946,7 @@ def _engine(s: _Static, x: dict) -> dict:
     seed_lo, seed_hi = x["seed_lo"], x["seed_hi"]
     DELAY = torch.clamp_min(prop_slots, 1) + 1
     ADELAY = ack_delay + 1
-    PBASE = pkt_base[:, :F]
+    PBASE = pkt_base[:, :F].contiguous()
     hl = col(h_log)
     # JSQ guard for tree-size padding: +1e9 on port columns >= h_log.
     pad_pen = port_pad_penalty(h, h_log)
@@ -952,6 +973,7 @@ def _engine(s: _Static, x: dict) -> dict:
         f_acked=torch.zeros((B, F), dtype=i32, device=dev),
         f_delivered=torch.zeros((B, F), dtype=i32, device=dev),
         f_hi=torch.full((B, F), -1, dtype=i32, device=dev),
+        f_cum=torch.zeros((B, F), dtype=i32, device=dev),
         f_complete=torch.full((B, F), -1, dtype=i32, device=dev),
         # Zero-size flows are data-done at slot 0.
         f_data_done=torch.where(fsize > 0, -1, 0).to(i32),
@@ -1030,11 +1052,24 @@ def _engine(s: _Static, x: dict) -> dict:
         # ---- 3. deliveries (stage-4 pops) ----------------------------------
         deliv = valid & (nxt == -2)
         dt = col(t + prop_slots)
+        # Two copies of one packet delivered in one slot both read the
+        # bitmap before the update, so both count as first deliveries.
         first_del = deliv & ~g(st["p_recv"], pkc)
         st["p_deliv"] = scatter(st["p_deliv"], first_del, pk, dt)
-        st["p_recv"] = scatter(st["p_recv"], deliv, pk, True)
-        # Erasure coding is rateless: every delivered symbol counts.
-        st["f_delivered"] = scatter(st["f_delivered"], deliv, pf, 1, "add")
+        if sack:
+            # The bitmap update and each flow's first missing sequence
+            # (step 5's retransmit candidate) in one kernel: nothing
+            # between here and step 5 writes p_recv or f_cum.
+            st["p_recv"], fm_flow = _slot.sack_update_scan(
+                st["p_recv"], pk, deliv, st["f_cum"], fsize, PBASE,
+                backend=backend)
+        else:
+            st["p_recv"] = scatter(st["p_recv"], deliv, pk, True)
+        # Erasure coding is rateless: every delivered symbol counts; SACK
+        # needs unique packets.
+        st["f_delivered"] = scatter(st["f_delivered"],
+                                    first_del if sack else deliv, pf, 1,
+                                    "add")
         data_done_now = ((st["f_data_done"] < 0)
                          & (st["f_delivered"] >= fsize))
         st["f_data_done"] = torch.where(data_done_now, dt, st["f_data_done"])
@@ -1050,8 +1085,15 @@ def _engine(s: _Static, x: dict) -> dict:
 
         # ---- 5. host injection ----------------------------------------------
         inflight = st["f_sent"] - st["f_acked"] - st["f_lost"]
-        remaining = ((st["f_acked"] < fsize)
-                     & (inflight < (fsize - st["f_acked"]) + cfg.bdp_pkts))
+        if sack:
+            gap = st["f_hi"] + 1 - st["f_cum"]
+            need_rtx = ((st["f_hi"] >= 0) & (gap > cfg.sack_thresh)
+                        & (st["f_cum"] < fsize))
+            remaining = (st["f_next"] < fsize) | need_rtx
+        else:
+            remaining = ((st["f_acked"] < fsize)
+                         & (inflight < (fsize - st["f_acked"])
+                            + cfg.bdp_pkts))
         sendable = remaining & (st["f_complete"] < 0) & (t >= f_start)
         if cfg.cca != "ideal":
             sendable = sendable & (inflight.to(torch.float32) < st["f_cwnd"])
@@ -1076,11 +1118,24 @@ def _engine(s: _Static, x: dict) -> dict:
         sfv = torch.clamp_min(sf, 0)
         seq_fresh = g(st["f_next"], sfv)
         fs = g(fsize, sfv)
-        seq = torch.where(seq_fresh < fs, seq_fresh, torch.remainder(
-            g(st["f_sent"], sfv), torch.clamp_min(fs, 1)))
+        if sack:
+            first_missing = g(fm_flow, sfv)
+            is_rtx = g(need_rtx, sfv) & do_send
+            seq = torch.where(is_rtx, first_missing,
+                              torch.minimum(seq_fresh, fs - 1))
+            # No fresh sequence left and no retransmit due: resend the
+            # first missing one too.
+            exhausted = (seq_fresh >= fs) & ~is_rtx & do_send
+            seq = torch.where(exhausted, first_missing, seq)
+            is_rtx = is_rtx | exhausted
+            st["rtx"] = st["rtx"] + is_rtx.sum(1).to(i32)
+            fresh_ok = do_send & ~is_rtx & (seq_fresh < fs)
+        else:
+            seq = torch.where(seq_fresh < fs, seq_fresh, torch.remainder(
+                g(st["f_sent"], sfv), torch.clamp_min(fs, 1)))
+            fresh_ok = do_send & (seq_fresh < fs)
         pid = g(PBASE, sfv) + torch.minimum(torch.clamp_min(seq, 0), fs - 1)
 
-        fresh_ok = do_send & (seq_fresh < fs)
         st["f_next"] = scatter(st["f_next"], fresh_ok, sf, 1, "add")
         first_send = do_send & (g(st["f_sent"], sfv) == 0)
         st["f_last_ack_t"] = scatter(st["f_last_ack_t"], first_send, sf, t)
@@ -1299,6 +1354,9 @@ def _engine(s: _Static, x: dict) -> dict:
         aseq = ak - g(PBASE, akf)
         st["f_hi"] = scatter(st["f_hi"], aok, akf,
                              torch.where(aok, aseq, -1), "amax")
+        if sack:
+            st["f_cum"] = _slot.sack_advance(st["p_recv"], st["f_cum"], fsize,
+                                             PBASE, backend=backend)
         mk = g(st["p_ecn"], akc)
         if s.adaptive_host and not s.plb:      # REPS recycle
             # ACKs of one flow come from its one destination host, at most
@@ -1354,11 +1412,16 @@ def _engine(s: _Static, x: dict) -> dict:
                     & (t - st["f_last_ack_t"] > cfg.rto_slots))
         st["f_lost"] = st["f_lost"] + torch.where(rto_fire, inflight2, 0)
         st["f_last_ack_t"] = torch.where(rto_fire, t, st["f_last_ack_t"])
+        if sack:
+            st["f_next"] = torch.where(
+                rto_fire, torch.minimum(st["f_next"], st["f_cum"]),
+                st["f_next"])
         if cfg.cca == "mswift":
             st["f_cwnd"] = torch.where(rto_fire, f32(1.0), st["f_cwnd"])
 
         # ---- 11. flow completion --------------------------------------------
-        done_now = (st["f_complete"] < 0) & (st["f_acked"] >= fsize)
+        done_now = ((st["f_complete"] < 0)
+                    & ((st["f_cum"] if sack else st["f_acked"]) >= fsize))
         st["f_complete"] = torch.where(done_now, t, st["f_complete"])
         return {k: (v.to(st_in[k].dtype) if v.dtype != st_in[k].dtype
                     else v) for k, v in st.items()}

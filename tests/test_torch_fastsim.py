@@ -177,9 +177,6 @@ def test_entry_points_validate_arguments():
     with pytest.raises(ValueError):
         fastsim.simulate(t, w, from_reference(lbs.host_pkt()),
                          backend="xla", device="cpu")
-    with pytest.raises(NotImplementedError):
-        fastsim.simulate(t, w, from_reference(lbs.host_pkt()),
-                         fault=object(), device="cpu")
     with pytest.raises(ValueError):
         fastsim.simulate(t, w, from_reference(lbs.by_name("host_pkt_ar")),
                          device="cpu")

@@ -15,6 +15,7 @@ import torch
 from repro_torch.kernels.lindley import ops as lindley_ops, ref as lindley_ref
 from repro_torch.kernels.jsq_scan import ops as jsq_ops
 from repro_torch.kernels.slot_step import ops as slot_ops
+from repro_torch.faults import FaultSchedule
 from repro_torch.net import fastsim, loopsim, workloads
 from repro_torch.net._batching import port_pad_penalty
 from repro_torch.net.topology import FatTree
@@ -160,7 +161,8 @@ def test_slot_step_kernels_match_plain(size, quanta):
                     slot_ops.agg_jsq_enqueue(*[o[k] for k in _AGG], 9, **akw)):
         assert torch.equal(g.cpu(), w)
     torch.cuda.synchronize()
-    assert all(slot_ops.LAUNCHES[k] == before[k] + 1 for k in before)
+    assert all(slot_ops.LAUNCHES[k] == before[k] + 1
+               for k in ("jsq_pick", "enqueue", "agg_jsq_enqueue"))
     # the inputs are not written
     assert torch.equal(c["qbuf"].cpu(), o["qbuf"])
     assert torch.equal(c["qcnt"].cpu(), o["qcnt"])
@@ -178,3 +180,78 @@ def test_loop_engine_card_matches_cpu(scheme):
     card = loopsim.simulate_batch(tree, wl, s, [0, 1], cfg, device=dev)
     for a, b in zip(cpu, card):
         assert_same_loop_result(a, b, scheme)
+
+
+def _sack_operands(seed, B, F, M):
+    """SACK scoreboard operands: flows of 0-300 packets back to back (every
+    5th empty), some received whole, cumulative acks anywhere in
+    ``[0, fsize]``, and deliveries with repeated targets."""
+    rng = np.random.default_rng(seed)
+    fsize = rng.integers(1, 301, (B, F)).astype(np.int32)
+    fsize[:, ::5] = 0
+    pbase = (np.cumsum(fsize, axis=1) - fsize).astype(np.int32)
+    P = int(fsize.sum(axis=1).max()) + 3
+    f_cum = (rng.random((B, F)) * (fsize + 1)).astype(np.int32)
+    f_cum[:, 1::6] = np.maximum(fsize[:, 1::6] - 1, 0)
+    p_recv = rng.random((B, P)) < 0.8
+    for b in range(B):
+        for f in range(3, F, 4):
+            p_recv[b, pbase[b, f]:pbase[b, f] + fsize[b, f]] = True
+    pk = rng.integers(0, P, (B, M)).astype(np.int32)
+    pk[:, 1::2] = pk[:, ::2][:, :pk[:, 1::2].shape[1]]
+    deliv = rng.random((B, M)) < 0.5
+    pk = np.where(deliv | (rng.random((B, M)) < 0.5), pk, -1)
+    t = torch.from_numpy
+    return dict(p_recv=t(p_recv), pk=t(pk), deliv=t(deliv), f_cum=t(f_cum),
+                fsize=t(fsize), pbase=t(pbase))
+
+
+@pytest.mark.parametrize("size", [(4, 128, 640), (2, 1024, 5120), (1, 1, 3),
+                                  (3, 7, 1)])
+def test_sack_kernels_match_plain(size):
+    dev = cuda_or_skip()
+    B, F, M = size
+    o = _sack_operands(F + M, B, F, M)
+    c = {k: v.to(dev) for k, v in o.items()}
+    before = dict(slot_ops.LAUNCHES)
+    upd = ("p_recv", "pk", "deliv", "f_cum", "fsize", "pbase")
+    adv = ("p_recv", "f_cum", "fsize", "pbase")
+    for g, w in zip(slot_ops.sack_update_scan(*[c[k] for k in upd]),
+                    slot_ops.sack_update_scan(*[o[k] for k in upd])):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    got = slot_ops.sack_advance(*[c[k] for k in adv])
+    assert torch.equal(got.cpu(), slot_ops.sack_advance(*[o[k] for k in adv]))
+    torch.cuda.synchronize()
+    assert all(slot_ops.LAUNCHES[k] == before[k] + 1
+               for k in ("sack_update_scan", "sack_advance"))
+    assert torch.equal(c["p_recv"].cpu(), o["p_recv"])   # inputs unwritten
+    assert torch.equal(c["f_cum"].cpu(), o["f_cum"])
+
+
+@pytest.mark.parametrize("scheme", ["host_pkt_ar", "switch_pkt_ar", "ofan"])
+def test_sack_and_flap_card_matches_cpu(scheme):
+    dev = cuda_or_skip()
+    tree = FatTree(4)
+    wl = workloads.permutation(tree, 96, np.random.default_rng(3))
+    s = lbs.by_name(scheme)
+    cfg = loopsim.LoopConfig(loss="sack", sack_thresh=8, buffer_pkts=20,
+                             max_slots=8000)
+    flap = FaultSchedule.flap(layer="ea", pod=0, i=0, j=1, t0=20, period=60,
+                              cycles=1, host_react=8, switch_react=16)
+    for fault in (None, flap):
+        cpu = loopsim.simulate_batch(tree, wl, s, [0, 1], cfg, fault=fault,
+                                     device="cpu")
+        card = loopsim.simulate_batch(tree, wl, s, [0, 1], cfg, fault=fault,
+                                      device=dev)
+        for a, b in zip(cpu, card):
+            assert_same_loop_result(a, b, scheme)
+    fast = {"host_pkt_ar": "host_pkt", "switch_pkt_ar": "switch_pkt_ar",
+            "ofan": "ofan"}[scheme]
+    quick = FaultSchedule.flap(layer="ea", pod=0, i=0, j=1, t0=8, period=24,
+                               cycles=1, host_react=2, switch_react=4)
+    cpu = fastsim.simulate_batch(tree, wl, lbs.by_name(fast), [0, 1],
+                                 fault=quick, device="cpu")
+    card = fastsim.simulate_batch(tree, wl, lbs.by_name(fast), [0, 1],
+                                  fault=quick, device=dev)
+    for a, b in zip(cpu, card):
+        assert_same_result(a, b, fast)

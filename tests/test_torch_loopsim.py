@@ -9,6 +9,7 @@ from repro.net import workloads, loopsim as ref_loopsim
 from repro.core import lb_schemes as lbs
 from repro.obs.probes import ProbeSpec
 
+from repro_torch.faults import FaultSchedule
 from repro_torch.interop import from_reference
 from repro_torch.net import loopsim
 
@@ -121,18 +122,17 @@ def test_mixed_zero_flows_match_reference():
 
 
 def test_unported_paths_raise():
+    """What the port rejects: the reference's body names, an unknown loss
+    model, and a fault schedule beside static links or ``g_converge``."""
     tree, wl = _perm_k4()
     t, w = from_reference(tree), from_reference(wl)
     s = from_reference(lbs.host_pkt())
-    with pytest.raises(NotImplementedError, match="B5"):
-        loopsim.simulate(t, w, s, loopsim.LoopConfig(loss="sack"),
+    with pytest.raises(ValueError, match="loss"):
+        loopsim.simulate(t, w, s, loopsim.LoopConfig(loss="arq"),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        loopsim.simulate(t, w, s, fault=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        loopsim.simulate_megabatch(
-            [(t, w, s, loopsim.LoopConfig(), [0], None, None, object())],
-            device="cpu")
+    with pytest.raises(ValueError, match="fault"):
+        loopsim.simulate(t, w, s, fault=FaultSchedule.flap(), g_converge=8,
+                         device="cpu")
     with pytest.raises(ValueError):
         loopsim.simulate(t, w, s, loopsim.LoopConfig(impl="lax"),
                          device="cpu")

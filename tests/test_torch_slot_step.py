@@ -116,10 +116,75 @@ def test_wrappers_validate_backend():
     with pytest.raises(ValueError):
         t_ops.jsq_pick(*[_t(o, k) for k in PICK], 0, site=3, quanta=None,
                        cap=12, backend="pallas")
+    with pytest.raises(ValueError):
+        t_ops.sack_advance(*[_t(_sack_operands(6), k) for k in SACK_ADV],
+                           backend="cuda")
     plain = t_ops.jsq_pick(*[_t(o, k) for k in PICK], 0, site=3, quanta=None,
                            cap=12, backend="torch")
     assert torch.equal(plain, t_ops.jsq_pick(*[_t(o, k) for k in PICK], 0,
                                              site=3, quanta=None, cap=12))
+
+
+def _sack_operands(seed, f=24, m=50):
+    """Random SACK scoreboard operands, ``ROWS`` rows: flows of 0-90
+    packets laid out back to back (every 5th flow empty), received bitmaps
+    with some flows complete (full 64-windows), cumulative acks anywhere in
+    ``[0, fsize]`` (some at ``fsize - 1`` and ``fsize``), and deliveries
+    whose targets repeat (two copies of one packet in one slot)."""
+    r = np.random.default_rng(seed)
+    fsize = r.integers(1, 91, (ROWS, f)).astype(np.int32)
+    fsize[:, ::5] = 0
+    pbase = (np.cumsum(fsize, axis=1) - fsize).astype(np.int32)
+    p = int(fsize.sum(axis=1).max()) + 7
+    f_cum = (r.random((ROWS, f)) * (fsize + 1)).astype(np.int32)
+    f_cum[:, 1::6] = np.maximum(fsize[:, 1::6] - 1, 0)
+    f_cum[:, 2::6] = fsize[:, 2::6]
+    p_recv = r.random((ROWS, p)) < 0.7
+    for b in range(ROWS):
+        for fl in range(3, f, 4):          # whole flows received
+            p_recv[b, pbase[b, fl]:pbase[b, fl] + fsize[b, fl]] = True
+    pk = r.integers(0, p, (ROWS, m)).astype(np.int32)
+    pk[:, 1] = pk[:, 0]
+    pk[:, 7] = pk[:, 3]
+    deliv = r.random((ROWS, m)) < 0.6
+    deliv[:, [0, 1, 3, 7]] = True
+    pk = np.where(deliv | (r.random((ROWS, m)) < 0.5), pk, -1)
+    return dict(p_recv=p_recv, pk=pk, deliv=deliv, f_cum=f_cum,
+                fsize=fsize, pbase=pbase)
+
+
+SACK_UPD = ("p_recv", "pk", "deliv", "f_cum", "fsize", "pbase")
+SACK_ADV = ("p_recv", "f_cum", "fsize", "pbase")
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_sack_update_scan_matches_oracle_and_interpret_kernel(seed):
+    o = _sack_operands(seed)
+    got = t_ops.sack_update_scan(*[_t(o, k) for k in SACK_UPD])
+    fm = got[1].numpy()
+    assert (fm[:, ::5] == -1).all()                 # zero-size flows
+    assert (fm[:, 2::6] == o["fsize"][:, 2::6] - 1).all()
+    full = np.zeros(fm.shape, bool)
+    full[:, 3::4] = o["fsize"][:, 3::4] - o["f_cum"][:, 3::4] >= 64
+    assert full.any()                               # whole 64-windows set
+    np.testing.assert_array_equal(fm[full], o["f_cum"][full])
+    for b in range(ROWS):
+        args = [_row(o, k, b) for k in SACK_UPD]
+        _same(got, qr.sack_update_scan(*args), b)
+        _same(got, qk.sack_update_scan(*args, interpret=True), b)
+
+
+@pytest.mark.parametrize("seed", [9, 10])
+def test_sack_advance_matches_oracle_and_interpret_kernel(seed):
+    o = _sack_operands(seed)
+    got = t_ops.sack_advance(*[_t(o, k) for k in SACK_ADV])
+    adv = got.numpy() - o["f_cum"]
+    assert adv.min() >= 0 and adv.max() == 8        # two rounds of four
+    assert (got.numpy() <= o["fsize"]).all()
+    for b in range(ROWS):
+        args = [_row(o, k, b) for k in SACK_ADV]
+        _same([got], [qr.sack_advance(*args)], b)
+        _same([got], [qk.sack_advance(*args, interpret=True)], b)
 
 
 def test_jsq_score_is_one_rounding_like_xla():
