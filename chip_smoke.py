@@ -8,12 +8,12 @@ Phases, each timed on its own line; any failure exits non-zero:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all at once);
-2. hold each kernel bitwise against its plain PyTorch version on the card:
-   ``segmented_cummax`` on random inputs at the engine's sizes and flag
-   densities, ``jsq_scan`` on the grids the k=8 points give it (the
+2. hold each fabric kernel bitwise against its plain PyTorch version on the
+   card: ``segmented_cummax`` on random inputs at the engine's sizes and
+   flag densities, ``jsq_scan`` on the grids the k=8 points give it (the
    permutation's edge and agg layers and the all-to-all's edge layer,
-   ``jsq`` and ``jsq_quant``; the largest all-to-all agg grid is held to the
-   plain version in the timing phase);
+   ``jsq`` and ``jsq_quant``; the largest all-to-all agg grid is held to
+   the plain version in the timing phase);
 3. drive the fast engine's main path: on the paper's k=8 fat tree, the
    1 MB inter-pod permutation (32,768 packets) and the all-to-all at 32
    packets per destination (520,192 packets) through ``simulate_megabatch``
@@ -48,18 +48,44 @@ Phases, each timed on its own line; any failure exits non-zero:
    (``sack_thresh=32``) and fig 9's 20-packet buffers (``sack_thresh=8``,
    whose drops make the retransmit path run), with the same equalities as
    phase 5 against ``tests/torch_golden/sack_faults_phases_k8.json``;
-8. drive both engines under a fault schedule: a link flap (down at slot 64,
-   up at 192; hosts react 16 slots later, switches 48) on the inter-pod 1 MB
-   permutation, on the slotted engine (erasure, ``rto_slots=250``) for the
-   ``flap`` preset's schemes and on the fast engine for host_pkt,
-   switch_pkt and ofan, whose packets bind to all three epochs;
+8. drive both engines under a fault schedule: a link flap (down at slot
+   64, up at 192; hosts react 16 slots later, switches 48) on the
+   inter-pod 1 MB permutation, on the slotted engine (erasure,
+   ``rto_slots=250``) for the ``flap`` preset's schemes and on the fast
+   engine for host_pkt, switch_pkt and ofan, whose packets bind to all
+   three epochs;
 9. drive the fast engine on the ``train_iter`` preset's collective phases:
    DeepSeek-V3 671B at ep = dp = 8, two iterations, 8 and 16 packets per
    flow, for its four schemes;
-10. time each kernel and its plain version on the largest inputs the main
-    paths gave it, beside the bound of the card.
+10. ``attention_vs_plain``: hold the flash-attention kernel to its plain
+    version (atol = rtol = 2e-5 in float32, 2e-2 in bf16, the reference's
+    own tolerances) at Yi-6B's heads (32 query heads, 4 KV heads, D = 128)
+    for S = 1-2,048, two query tails and D = 32, 64, 96;
+11. ``serve_golden``: Yi-6B at full width, 2 layers, float32, with the
+    numpy-drawn weights of ``tests/torch_golden/serve_yi6b_l2.json``; two
+    prompts (37 and 256 tokens) decoded 4 greedy steps on the card must give
+    the golden's tokens and its logits within 1e-3 (CPU JAX made it);
+12. ``serve_main_path``: Yi-6B at full width and depth in bf16, random
+    weights from a ``torch.Generator`` on the card.  A ``ContinuousBatcher``
+    (4 slots of 2,304 positions) answers 8 requests of 13-2,048 prompt
+    tokens and 16 new tokens each, and ``greedy_decode`` a batch of two
+    100-token prompts, with the flash-attention launch count set to 0 just
+    before and read just after (one launch a layer a prefill).  Each
+    request's batcher run must match its solo decode, and the kernel
+    path's the plain path's: prefill logits and every compared step's
+    logits within 0.1, tokens equal; a differing token passes only where
+    the reference run's top-2 margin is under twice that step's logit gap
+    (printed);
+13. time each kernel and its plain version on the largest inputs the main
+    paths gave it, beside the bound of the card (and, for flash attention,
+    one ``scaled_dot_product_attention`` call as the library's time);
+14. ``serve_profile``: a decode step and a 2,048-token prefill of
+    Yi-6B under ``torch.profiler``: wall time, device busy time, idle
+    share, kernel launches and host synchronisations (last, as a profiler
+    session followed by long unprofiled work left later traces short of
+    kernel events).
 
-Every main-path dispatch of phases 3, 5 and 7-9 sets the kernels' launch
+Every main-path run of phases 3, 5, 7-9 and 12 sets the kernels' launch
 counts to 0 just before it and reads them just after.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
@@ -79,6 +105,7 @@ SRC = ROOT / "src"
 GOLDEN = ROOT / "tests" / "torch_golden" / "fastsim_k8.json"
 LOOP_GOLDEN = ROOT / "tests" / "torch_golden" / "loopsim_k8.json"
 SFP_GOLDEN = ROOT / "tests" / "torch_golden" / "sack_faults_phases_k8.json"
+SERVE_GOLDEN = ROOT / "tests" / "torch_golden" / "serve_yi6b_l2.json"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor fp32.
 HBM_BYTES_PER_S = 3.35e12
@@ -869,13 +896,480 @@ def dynamic_phases(tree, dev, errs, launches, slot_launches, golden,
     return sack_recs
 
 
+# ---------------------------------------------------------------------------
+# The dense serving path (Yi-6B) and the flash-attention kernel
+# ---------------------------------------------------------------------------
+
+# attention_vs_plain shapes (B, Hq, Hkv, Sq, Sk, D): Yi-6B's heads at the
+# prefill lengths of the main path, two query tails, smaller head dims.
+ATTN_SHAPES = ([(1, 32, 4, S, S, 128)
+                for S in (1, 13, 64, 100, 128, 511, 1000, 1025, 2048)]
+               + [(1, 32, 4, 1, 2048, 128), (2, 32, 4, 64, 1000, 128),
+                  (2, 8, 2, 37, 37, 32), (1, 8, 2, 100, 130, 64),
+                  (2, 6, 3, 65, 200, 96)])
+# The reference's own tolerances (tests/test_kernels.py:88), atol = rtol.
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# serve_golden: the port in float32 on the card against CPU JAX.  Logits
+# differ only by float32 sums taken in another order (widths up to
+# 11,008); the golden's smallest top-2 margin is 0.0025, more than twice
+# this tolerance, so equal tokens follow from it.
+GOLDEN_ATOL = 1e-3
+# serve_main_path: Yi-6B in bf16, each request's batcher run against its
+# solo run, and the kernel path against the plain path (attn_backend=
+# "torch"), all on the card.  Two runs sum in another order (the attention,
+# or matrix products over another batch), so an activation can round to the
+# neighbouring bf16 value, and 32 layers carry such steps into the logits.
+# Every compared step's largest logit gap is held to BF16_LOGIT_ATOL, set
+# from the card: the largest gap measured was 0.052 (prefill logits, kernel
+# vs plain; chip runs of the serving phase).  A differing greedy token is a
+# defect unless the reference run's top-2 margin at that step is under
+# twice that step's measured gap: only then can two logits, each moved by
+# at most the gap, swap.
+BF16_LOGIT_ATOL = 0.1
+SERVE_LENS = (13, 100, 128, 511, 1000, 1025, 2048, 37)
+SERVE_NEW = 16
+SERVE_SLOTS, SERVE_MAX_LEN = 4, 2304
+GREEDY_BATCH = (2, 100)          # greedy_decode: 2 prompts of 100 tokens
+BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
+
+
+class TimedModel:
+    """A ``Model`` whose prefill and decode calls are timed on the host
+    clock between two device synchronisations (the batcher and
+    ``greedy_decode`` call only these and ``cache_shapes``).  Each call's
+    last-position logits are kept: with ``batcher`` set, per request id
+    in ``steps`` (prefills are admitted in submission order, so the k-th
+    prefill is request k; a decode call advances the batcher's active
+    slots at its position), else per call in ``free``."""
+
+    def __init__(self, model):
+        self.model, self.cfg = model, model.cfg
+        self.prefills, self.decodes = [], []
+        self.batcher = None
+        self.steps, self.free = {}, []
+
+    def cache_shapes(self, batch, max_len):
+        return self.model.cache_shapes(batch, max_len)
+
+    def _timed(self, fn, log, size, *args):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        log.append((size, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def _keep(self, logits, rids):
+        import torch
+        # A copy, not a view: a view would hold the whole prefill logits.
+        last = logits[:, -1].to(torch.float32, copy=True)
+        if rids is None:
+            self.free.append(last)
+            return
+        check(len(rids) == last.shape[0],
+              "TimedModel: a decode group does not match the batcher's slots")
+        for row, rid in enumerate(rids):
+            self.steps.setdefault(rid, []).append(last[row])
+
+    def prefill(self, params, batch, cache):
+        logits, cache = self._timed(self.model.prefill, self.prefills,
+                                    tuple(batch["tokens"].shape), params,
+                                    batch, cache)
+        self._keep(logits, None if self.batcher is None
+                   else [len(self.steps)])
+        return logits, cache
+
+    def decode_step(self, params, tokens, cache, index):
+        cb = self.batcher
+        rids = None if cb is None else [
+            cb.slot_req[s].rid for s in range(cb.n_slots)
+            if cb.slot_req[s] is not None and cb.slot_pos[s] == index]
+        logits, cache = self._timed(self.model.decode_step, self.decodes,
+                                    tokens.shape[0], params, tokens, cache,
+                                    index)
+        self._keep(logits, rids)
+        return logits, cache
+
+
+def profile_window(fn, reps: int):
+    """(wall ms, device-busy ms, kernel launches, host synchronisations)
+    per call of ``fn``.  The wall time is the host clock around ``reps``
+    calls and a synchronise, without the profiler (which slows the host);
+    the rest come from a ``torch.profiler`` trace (CPU and CUDA) of
+    another ``reps`` calls: busy time sums the device events (kernels,
+    copies, fills) of the trace, on one stream, so they do not overlap."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    busy = sum(e.time_range.elapsed_us() for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    launches = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                              "cuLaunchKernelEx") for e in events)
+    syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+                for e in events)
+    return wall / reps, busy / reps, launches / reps, syncs / reps
+
+
+def decode_trace(model, params, prompt, n_new, dev):
+    """Greedy decoding as ``serve_step.greedy_decode`` does it, keeping the
+    prefill's logits at every position and each step's last-position
+    logits: (tokens (B, n_new), prefill logits (B, S, V), [step logits
+    (B, V)])."""
+    import torch
+    from repro_torch.serve import serve_step
+    prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
+    B, S = prompt.shape
+    cache = serve_step.zero_cache(model, B, S + n_new, dev)
+    full, cache = model.prefill(params, {"tokens": prompt}, cache)
+    steps = [full[:, -1].to(torch.float32, copy=True)]
+    toks = [steps[-1].argmax(-1, keepdim=True).to(torch.int32)]
+    for i in range(n_new - 1):
+        logits, cache = model.decode_step(params, toks[-1], cache, S + i)
+        steps.append(logits[:, -1].to(torch.float32, copy=True))
+        toks.append(steps[-1].argmax(-1, keepdim=True).to(torch.int32))
+    return torch.cat(toks, dim=1), full, steps
+
+
+def top2_margin(logits) -> float:
+    top = logits.float().topk(2, dim=-1).values
+    return float((top[..., 0] - top[..., 1]).min())
+
+
+def same_tokens(tag, got, want, got_steps, want_steps):
+    """Compare two greedy runs step by step.  Each step's largest logit gap
+    between the runs must be within BF16_LOGIT_ATOL; a differing token
+    passes only where ``want``'s top-2 margin is under twice that step's
+    gap (printed; the rest of the row is then not compared, as the runs'
+    inputs differ from there).  Returns (steps compared, largest gap)."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        gap = max_abs_err(got_steps[i], want_steps[i])
+        worst = max(worst, gap)
+        check(gap <= BF16_LOGIT_ATOL,
+              f"{tag}: step {i} logits differ by {gap:.4f} > "
+              f"{BF16_LOGIT_ATOL}")
+        if a != b:
+            margin = top2_margin(want_steps[i])
+            check(margin < 2 * gap,
+                  f"{tag}: token {i} differs ({a} != {b}) at top-2 margin "
+                  f"{margin:.4f} >= 2 x the step's logit gap {gap:.4f}")
+            print(f"{tag}: token {i} differs ({a} != {b}) at a near tie, "
+                  f"top-2 margin {margin:.4f} < 2 x the step's logit gap "
+                  f"{gap:.4f}; not compared further", flush=True)
+            return i, worst
+    return len(want), worst
+
+
+def attention_phase(dev, errs):
+    """attention_vs_plain: the kernel against its plain version on the
+    card at ATTN_SHAPES, in float32 and bf16, causal (the path) and, at one
+    shape, not causal."""
+    import torch
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    with Phase("attention_vs_plain"):
+        gen = torch.Generator().manual_seed(0)
+        cases = [(s, dt, True) for s in ATTN_SHAPES
+                 for dt in ("float32", "bfloat16")]
+        cases.append(((2, 8, 2, 37, 37, 32), "bfloat16", False))
+        for shape, dt, causal in cases:
+            B, Hq, Hkv, Sq, Sk, D = shape
+            q, k, v = (torch.randn(s, generator=gen).to(dev, getattr(torch,
+                                                                     dt))
+                       for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D),
+                                 (B, Hkv, Sk, D)))
+            got = attn_ops.attention(q, k, v, causal=causal)
+            want = attn_ops.attention(q, k, v, causal=causal,
+                                      backend="torch")
+            torch.cuda.synchronize()
+            err = max_abs_err(got.float(), want.float())
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            tol = ATTN_TOL[dt]
+            check(got.dtype == q.dtype and got.shape == q.shape
+                  and torch.allclose(got.float(), want.float(), atol=tol,
+                                     rtol=tol),
+                  f"flash_attention {shape} {dt} causal={causal}: kernel != "
+                  f"plain (max_abs_err {err})")
+            print(f"flash_attention {shape} {dt} causal={causal}: "
+                  f"max_abs_err {err:.3g} (tolerance atol=rtol={tol})",
+                  flush=True)
+
+
+def serve_golden_phase(dev):
+    """serve_golden: Yi-6B at full width, 2 layers, float32, the weights
+    of ``numpy_reference_params(cfg, 0)`` carried to the card, held to the
+    CPU JAX golden (tokens equal, logits within GOLDEN_ATOL)."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.interop import (numpy_reference_params,
+                                     params_from_reference)
+    from repro_torch.models.registry import Model
+    from repro_torch.serve import serve_step
+    golden = json.loads(SERVE_GOLDEN.read_text())
+    with Phase("serve_golden"):
+        cfg = dc.replace(get_config(golden["arch"]),
+                         n_layers=golden["n_layers"], dtype=golden["dtype"])
+        model = Model(cfg)
+        t0 = time.perf_counter()
+        params = params_from_reference(
+            cfg, numpy_reference_params(cfg, golden["param_seed"]), dev)
+        print(f"serve_golden: {cfg.name} d_model={cfg.d_model} "
+              f"n_layers={cfg.n_layers} {cfg.dtype}, "
+              f"{sum(p.numel() for p in params.parameters()):,} parameters "
+              f"drawn and carried in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        ids = torch.tensor(golden["fixed_ids"], device=dev)
+        worst = 0.0
+        for run in golden["runs"]:
+            prompt = np.asarray(run["prompt"], np.int32)[None]
+            toks, _, steps = decode_trace(model, params, prompt,
+                                          golden["n_new"], dev)
+            toks = toks[0].tolist()
+            for i, (st, rec) in enumerate(zip(steps, run["steps"])):
+                st = st[0]
+                err = max(max_abs_err(st[ids].cpu(), torch.tensor(
+                              rec["fixed_logits"])),
+                          max_abs_err(st[torch.tensor(rec["top_ids"],
+                                                      device=dev)].cpu(),
+                                      torch.tensor(rec["top_logits"])))
+                worst = max(worst, err)
+                check(err <= GOLDEN_ATOL,
+                      f"serve_golden prompt {prompt.shape[1]} step {i}: "
+                      f"logits differ by {err} > {GOLDEN_ATOL}")
+            check(toks == run["tokens"],
+                  f"serve_golden prompt {prompt.shape[1]}: tokens {toks} != "
+                  f"golden {run['tokens']}")
+            solo = serve_step.greedy_decode(model, params, prompt,
+                                            golden["n_new"], device=dev)
+            check(solo[0].tolist() == toks,
+                  "serve_golden: greedy_decode != the traced decode")
+            print(f"serve_golden prompt {prompt.shape[1]}: tokens {toks} == "
+                  f"golden; top-16 and 512 fixed logits within "
+                  f"{GOLDEN_ATOL} (max_abs_err {worst:.3g}); golden margins "
+                  f"{[round(s['margin'], 4) for s in run['steps']]}",
+                  flush=True)
+        del params
+        torch.cuda.empty_cache()
+
+
+def serve_main_phase(dev):
+    """serve_main_path: Yi-6B at full width and depth, bf16, random
+    weights from a torch.Generator on the card.  A ContinuousBatcher (4
+    slots of 2,304 positions) answers 8 requests (SERVE_LENS, 16 new tokens
+    each) and greedy_decode a batch of 2 prompts, with the flash-attention
+    launch count set to 0 just before and read just after.  Then each
+    request is decoded alone through the kernel path and through the plain
+    path.  Returns (launches, recorder of the attention calls, a function
+    that profiles a decode step and a prefill; it holds the weights)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.models.registry import Model
+    from repro_torch.serve import batching, serve_step
+    cfg = get_config("yi-6b")
+    with Phase("serve_main_path"):
+        model = Model(cfg)
+        t0 = time.perf_counter()
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                                   device=dev)
+        torch.cuda.synchronize()
+        print(f"serve_main_path: {cfg.name} {cfg.dtype}, "
+              f"{sum(p.numel() for p in params.parameters()):,} parameters "
+              f"drawn on the card in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
+                   for n in SERVE_LENS]
+        pair = rng.integers(0, cfg.vocab, GREEDY_BATCH).astype(np.int32)
+        timed = TimedModel(model)
+        decode_trace(model, params, prompts[0][None], 2, dev)  # warm-up
+        torch.cuda.reset_peak_memory_stats(dev)
+        with Recorder(attn_ops, "attention",
+                      lambda a: a[0].numel() * a[1].shape[2]) as rec:
+            attn_ops.LAUNCHES = 0
+            t0 = time.perf_counter()
+            cb = batching.ContinuousBatcher(timed, params, SERVE_SLOTS,
+                                            SERVE_MAX_LEN, device=dev)
+            timed.batcher = cb
+            for rid, p in enumerate(prompts):
+                cb.submit(batching.Request(rid=rid, prompt=p,
+                                           max_new_tokens=SERVE_NEW))
+            done = cb.run_to_completion()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            n_batcher = len(timed.prefills)
+            timed.batcher = None
+            t1 = time.perf_counter()
+            greedy = serve_step.greedy_decode(timed, params, pair, SERVE_NEW,
+                                              device=dev)
+            torch.cuda.synchronize()
+            greedy_ms = (time.perf_counter() - t1) * 1e3
+            launches = attn_ops.LAUNCHES
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_prefill = len(prompts) + 1
+        check(launches == cfg.n_layers * n_prefill,
+              f"flash_attention launched {launches} times, expected one a "
+              f"layer a prefill ({cfg.n_layers} x {n_prefill})")
+        check(sorted(done) == list(range(len(prompts)))
+              and all(len(r.out) == SERVE_NEW for r in done.values()),
+              "the batcher did not answer every request in full")
+        tokens = sum(len(r.out) for r in done.values())
+        dec = timed.decodes[:-(SERVE_NEW - 1)]
+        dec_tokens = sum(g for g, _ in dec)
+        dec_ms = sum(ms for _, ms in dec)
+        for (shape, ms), n in zip(timed.prefills[:n_batcher], SERVE_LENS):
+            print(f"serve prefill: {n} tokens {ms:.2f} ms", flush=True)
+        print(f"serve batcher: {len(done)} requests, {tokens} tokens in "
+              f"{wall_ms:.1f} ms ({tokens / wall_ms * 1e3:.1f} tok/s); "
+              f"{len(dec)} decode steps, {dec_tokens} tokens, "
+              f"{dec_ms / dec_tokens:.3f} ms per token, "
+              f"{dec_ms / len(dec):.3f} ms per step (median "
+              f"{sorted(ms for _, ms in dec)[len(dec) // 2]:.3f}); "
+              f"greedy_decode batch {GREEDY_BATCH}: {greedy_ms:.1f} ms "
+              f"(prefill {timed.prefills[-1][1]:.2f} ms, decode "
+              f"{sum(ms for _, ms in timed.decodes[-(SERVE_NEW - 1):]) / (SERVE_NEW - 1):.3f} "
+              f"ms per step); flash_attention launches {launches}; "
+              f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+
+        # Held outside the counted run: each request alone on the kernel
+        # path (== its batcher run) and on the plain path.
+        plain_model = Model(cfg, attn_backend="torch")
+        worst = {"prefill": 0.0, "batcher": 0.0, "plain": 0.0}
+        for rid, p in enumerate(prompts):
+            toks, full, steps = decode_trace(model, params, p[None],
+                                             SERVE_NEW, dev)
+            ptoks, pfull, psteps = decode_trace(plain_model, params, p[None],
+                                                SERVE_NEW, dev)
+            err = max_abs_err(full, pfull)
+            worst["prefill"] = max(worst["prefill"], err)
+            check(bool(torch.isfinite(full).all()) and err <= BF16_LOGIT_ATOL,
+                  f"request {rid} ({len(p)} tokens): prefill logits of the "
+                  f"kernel path differ from the plain path by {err} > "
+                  f"{BF16_LOGIT_ATOL}")
+            del full, pfull
+            toks, ptoks = toks[0].tolist(), ptoks[0].tolist()
+            steps, psteps = [s[0] for s in steps], [s[0] for s in psteps]
+            n_b, gap_b = same_tokens(f"request {rid} batcher vs solo",
+                                     done[rid].out, toks, timed.steps[rid],
+                                     steps)
+            n_p, gap_p = same_tokens(f"request {rid} kernel vs plain", toks,
+                                     ptoks, steps, psteps)
+            worst["batcher"] = max(worst["batcher"], gap_b)
+            worst["plain"] = max(worst["plain"], gap_p)
+            print(f"request {rid} ({len(p)} tokens): prefill logits kernel "
+                  f"vs plain max_abs_err {err:.4f}; batcher == solo on {n_b} "
+                  f"tokens (step logits max gap {gap_b:.4f}), kernel == "
+                  f"plain on {n_p} (max gap {gap_p:.4f}); tolerance "
+                  f"{BF16_LOGIT_ATOL}", flush=True)
+        gt, _, gsteps = decode_trace(model, params, pair, SERVE_NEW, dev)
+        for b in range(GREEDY_BATCH[0]):
+            same_tokens(f"greedy_decode row {b}", greedy[b].tolist(),
+                        gt[b].tolist(), [s[b] for s in timed.free],
+                        [s[b] for s in gsteps])
+        print(f"serve_main_path: largest logit gaps (tolerance "
+              f"{BF16_LOGIT_ATOL}): prefill kernel vs plain "
+              f"{worst['prefill']:.4f}, batcher vs solo steps "
+              f"{worst['batcher']:.4f}, kernel vs plain steps "
+              f"{worst['plain']:.4f}", flush=True)
+
+    def profile():
+        """Where a step's time goes: one decode step against a batcher
+        slot's 2,304-position cache and one 2,048-token prefill, under the
+        profiler.  Run after the timing phase: a profiler session followed
+        by long unprofiled work left later traces short of kernel events."""
+        longest = int(np.argmax(SERVE_LENS))
+        tok = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+        cache = serve_step.zero_cache(model, 1, SERVE_MAX_LEN, dev)
+        ptoks = torch.as_tensor(prompts[longest][None], device=dev)
+        for what, fn in (
+                ("decode step", lambda: model.decode_step(
+                    params, tok, cache, SERVE_LENS[longest])),
+                (f"prefill of {SERVE_LENS[longest]} tokens",
+                 lambda: model.prefill(params, {"tokens": ptoks}, cache))):
+            wall, busy, n_launch, n_sync = profile_window(fn, 3)
+            print(f"serve profile, {what}: {wall:.2f} ms wall, device "
+                  f"busy {busy:.2f} ms (idle share "
+                  f"{1 - busy / wall:.3f}), {n_launch:.0f} kernel launches, "
+                  f"{n_sync:.0f} host synchronisations", flush=True)
+    return launches, rec, profile
+
+
+def attention_timing(rec, err, launches):
+    """The flash-attention row of the ``kernels`` line, at the largest
+    input the serving main path gave the kernel."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    (q, k, v), kw = rec.largest
+    kw = {key: val for key, val in kw.items() if key != "backend"}
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    got = attn_ops.attention(q, k, v, **kw)
+    want = attn_ops.attention(q, k, v, backend="torch", **kw)
+    tol = ATTN_TOL[str(q.dtype).split(".")[-1]]
+    err = max(err, max_abs_err(got.float(), want.float()))
+    check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+          "flash_attention: kernel != plain on the main path's largest input")
+    ms = cuda_ms(lambda: attn_ops.attention(q, k, v, **kw), 20)
+    dev_ms = device_ms(lambda: attn_ops.attention(q, k, v, **kw), 20,
+                       r"flash_attention_kernel")
+    plain_ms = cuda_ms(lambda: attn_ops.attention(q, k, v, backend="torch",
+                                                  **kw), 5)
+    # One PyTorch call of the same function: SDPA aligns its causal mask
+    # top-left, the same as bottom-right only when Sq == Sk.
+    library_ms = None
+    if Sq == Sk:
+        qc = q.contiguous()
+        kc = k.repeat_interleave(Hq // Hkv, dim=1).contiguous()
+        vc = v.repeat_interleave(Hq // Hkv, dim=1).contiguous()
+        lib = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True)
+        check(torch.allclose(lib.float(), want.float(), atol=tol, rtol=tol),
+              "scaled_dot_product_attention disagrees with the plain version")
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=True), 20)
+    esize = q.element_size()
+    nbytes = esize * (2 * B * Hq * Sq * D + 2 * B * Hkv * Sk * D)
+    # Visible (query, key) pairs of the causal mask, two products of D
+    # multiply-adds each.
+    pairs = sum(min(Sk, Sk - Sq + i + 1) for i in range(Sq))
+    flops = 4 * B * Hq * D * pairs
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/flash_attn/kernel.py:72",
+        launches=launches, max_abs_err=err, ms=ms, device_ms=dev_ms,
+        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=library_ms, n=int(B * Hq * Sq),
+        shape=[B, Hq, Hkv, Sq, Sk, D])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     if not ((SRC / "repro_torch").is_dir() and GOLDEN.is_file()
-            and LOOP_GOLDEN.is_file() and SFP_GOLDEN.is_file()):
+            and LOOP_GOLDEN.is_file() and SFP_GOLDEN.is_file()
+            and SERVE_GOLDEN.is_file()):
         print("chip_smoke: run from the root of a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -889,13 +1383,16 @@ def main() -> int:
     from repro_torch.core import lb_schemes
 
     dev = torch.device("cuda", 0)
+    # Float32 results are compared on the card: no TF32 anywhere.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     golden = json.loads(GOLDEN.read_text())
     # theory.DEFAULT_NET.prop_slots: 0.5 us links, 4178-byte slots at 800 Gb/s
     prop_slots = 0.5e-6 / (4178 * 8 / 800e9)
     check(prop_slots == golden["prop_slots"], "prop_slots differs from golden")
-    errs = {"segmented_cummax": 0.0, "jsq_scan": 0.0}
+    errs = {"segmented_cummax": 0.0, "jsq_scan": 0.0, "flash_attention": 0.0}
 
     with Phase("build"):
         for name, log in _build.build_all().items():
@@ -977,6 +1474,9 @@ def main() -> int:
         tree, dev, errs, launches, json.loads(LOOP_GOLDEN.read_text()))
     sack_recs = dynamic_phases(tree, dev, errs, launches, loop_launches,
                                json.loads(SFP_GOLDEN.read_text()), prop_slots)
+    attention_phase(dev, errs)
+    serve_golden_phase(dev)
+    attn_launches, attn_rec, serve_profile = serve_main_phase(dev)
 
     kernels = []
     with Phase("timing"):
@@ -1041,13 +1541,19 @@ def main() -> int:
         for name in SACK_KERNELS:
             kernels.append(sack_timing(name, sack_recs[name].largest,
                                        errs[name], loop_launches[name]))
+        kernels.append(attention_timing(attn_rec, errs["flash_attention"],
+                                        attn_launches))
         for k in kernels:
             print(f"kernel {k['name']}: launches={k['launches']} "
                   f"shape={k['shape']} ms={k['ms']:.4f} "
                   f"device_ms={k['device_ms']} "
-                  f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.4f}",
+                  f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.4f} "
+                  f"library_ms={k['library_ms']}",
                   flush=True)
 
+    with Phase("serve_profile"):
+        serve_profile()
+    del serve_profile
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

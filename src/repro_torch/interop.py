@@ -7,18 +7,28 @@ counterpart, reading public attributes only (numpy arrays are copied).  It
 never imports ``repro``: objects are recognised by their class name, so
 both packages can simulate the identical tree, workload, failure pattern,
 scheme, engine configuration, fault schedule and phase schedule.
+
+For the model zoo, :func:`params_from_reference` carries a ``repro`` params
+pytree (numpy arrays) into the port's :class:`~.models.transformer.Transformer`
+module, :func:`cache_from_reference` a ``repro`` KV cache, and
+:func:`numpy_reference_params` draws a reference-shaped tree from a numpy
+seed (the inputs both packages share when no JAX is at hand).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Union
 
 import numpy as np
+import torch
 
 from .core.lb_schemes import LBScheme
 from .faults import FaultSchedule, LinkEvent
 from .net.topology import FatTree, LinkState
 from .net.workloads import Workload
 from .net.loopsim import LoopConfig
+from .kernels._common import resolve_device
+from .models import transformer
 from .obs.probes import ProbeSpec
 from .phases import Phase, PhaseSchedule
 
@@ -72,3 +82,76 @@ def from_reference(obj):
         kw["phases"] = tuple(from_reference(p) for p in kw["phases"])
         return PhaseSchedule(**kw)
     raise TypeError(f"from_reference: unsupported object {name}")
+
+
+def _tensor(a, dtype: Optional[torch.dtype], device) -> torch.Tensor:
+    """A numpy (or array-like) leaf as a tensor on ``device``, cast to
+    ``dtype`` when given; ``ml_dtypes`` bfloat16 arrays are taken bit for
+    bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+            torch.bfloat16)
+    else:
+        if not a.flags.writeable:     # e.g. np.asarray of a jax.Array
+            a = a.copy()
+        t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_reference(cfg, params,
+                          device: Optional[Union[str, torch.device]] = None
+                          ) -> transformer.Transformer:
+    """The port's parameters of a ``repro`` params tree (nested dicts of
+    numpy arrays, as ``jax.tree_util.tree_map(np.asarray, params)`` gives),
+    cast to the config's dtype, on ``device`` (``None``: CUDA).  The
+    layer-stacked ``(nl, ...)`` leaves of ``"dense"`` are split per
+    layer."""
+    dev = resolve_device(device)
+    out = transformer.Transformer(cfg, dev)
+    with torch.no_grad():
+        for key, (shape, dtype) in transformer.leaves(cfg):
+            src = params
+            for k in key:
+                src = src[k]
+            if tuple(np.shape(src)) != shape:
+                raise ValueError(f"{'/'.join(key)}: shape {np.shape(src)}, "
+                                 f"expected {shape}")
+            t = _tensor(src, dtype, dev)
+            if key[0] == "dense":
+                for l, layer in enumerate(out.dense):
+                    getattr(layer, key[1]).copy_(t[l])
+            else:
+                getattr(out, key[0]).copy_(t)
+    return out
+
+
+def cache_from_reference(cache, device: Optional[Union[str, torch.device]]
+                         = None) -> dict:
+    """The port's KV cache of a ``repro`` cache (``{"dense": {"k": (nl, B,
+    S_max, Hkv, hd), "v": ...}}`` of numpy arrays): the same layout, as
+    tensors on ``device`` (``None``: CUDA)."""
+    dev = resolve_device(device)
+    return {sec: {name: _tensor(a, None, dev) for name, a in leaves.items()}
+            for sec, leaves in cache.items()}
+
+
+def numpy_reference_params(cfg, seed: int) -> dict:
+    """A ``repro``-shaped params tree of float32 numpy arrays drawn as
+    ``transformer.init_params`` draws its leaves, in flatten order, from
+    ``np.random.default_rng(seed)``: standard normals times
+    ``shape[-2] ** -0.5`` for leaves of two or more axes, ones for 1-D
+    leaves."""
+    rng = np.random.default_rng(seed)
+    tree: dict = {}
+    for key, (shape, _) in transformer.leaves(cfg):
+        if len(shape) >= 2:
+            w = rng.standard_normal(shape, dtype=np.float32)
+            w *= np.float32(shape[-2] ** -0.5)
+        else:
+            w = np.ones(shape, np.float32)
+        node = tree
+        for k in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1]] = w
+    return tree

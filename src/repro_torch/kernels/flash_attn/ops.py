@@ -1,0 +1,47 @@
+"""Public attention entry point of the model zoo.
+
+Dispatches on the device of ``q``: a CPU tensor takes the plain version on
+the reference's CPU route (``ref.mha`` up to 1,024 keys, else
+``ref.mha_chunked`` with ``block_k = min(512, Sk)``), a CUDA tensor
+launches the CUDA kernel (``kernel.py``).  ``backend="torch"`` takes the
+plain version's route on any device.  ``Dv != Dk`` (MLA, off the dense
+path) is the reference's own route to ``mha_chunked`` on every backend
+(``repro/kernels/flash_attn/ops.py:30-31``).  ``LAUNCHES`` counts the
+kernel launches made through this wrapper.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import kernel as _kernel
+from . import ref as _ref
+from .._common import resolve_backend
+
+LAUNCHES = 0
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, scale: Optional[float] = None,
+              backend: str = "auto") -> torch.Tensor:
+    """q (B, Hq, Sq, Dk); k (B, Hkv, Sk, Dk); v (B, Hkv, Sk, Dv) ->
+    (B, Hq, Sq, Dv) in q's dtype."""
+    global LAUNCHES
+    mixed_dims = v.shape[-1] != k.shape[-1]
+    if resolve_backend(backend) == "torch" or q.device.type == "cpu":
+        if mixed_dims or k.shape[2] > 1024:
+            return _ref.mha_chunked(q, k, v, causal=causal, scale=scale,
+                                    block_k=min(512, k.shape[2]))
+        return _ref.mha(q, k, v, causal=causal, scale=scale)
+    if not q.is_cuda:
+        raise ValueError(f"attention: unsupported device {q.device}")
+    if mixed_dims:
+        return _ref.mha_chunked(q, k, v, causal=causal, scale=scale)
+    q, k, v = (t if _kernel.kernel_ready(t)
+               else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    out = _kernel.flash_attention(q, k, v, causal=causal, scale=scale)
+    if out.numel():
+        LAUNCHES += 1
+    return out

@@ -1,0 +1,91 @@
+"""Plain PyTorch versions of causal GQA attention (the oracle of the CUDA
+flash-attention kernel), copied from ``repro.kernels.flash_attn.ref``.
+
+``mha`` builds the full (Sq, Sk) logits; ``mha_chunked`` scans key blocks
+with the online softmax, O(Sq * block) memory, and takes ``Dv != Dk``.
+Both do their math in float32 and return q's dtype.  Masked logits are
+``-1e30`` (not ``-inf``) and the softmax denominator is floored at
+``1e-30``, as in the reference, so a row that sees no key gives the same
+(finite) answer in both packages.  Queries are the last ``Sq`` positions of
+the ``Sk``-long context: query ``i`` sees key ``t`` iff
+``t <= i + (Sk - Sq)``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1.0e30
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, scale: Optional[float] = None,
+        logit_soft_cap: Optional[float] = None) -> torch.Tensor:
+    """q (B, Hq, Sq, D); k, v (B, Hkv, Sk, D), Hq % Hkv == 0 -> (B, Hq, Sq, D)
+    in q's dtype."""
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
+    assert Hq % Hkv == 0, (Hq, Hkv)
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    if logit_soft_cap is not None:
+        logits = logit_soft_cap * torch.tanh(logits / logit_soft_cap)
+    if causal:
+        Sk = k.shape[2]
+        qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        logits = logits.masked_fill(~(kpos <= qpos)[None, None], NEG_INF)
+    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vf)
+    return out.to(q.dtype)
+
+
+def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool = True, scale: Optional[float] = None,
+                block_k: int = 512) -> torch.Tensor:
+    """Online-softmax attention over key blocks of ``block_k``: the same
+    function as :func:`mha`, with ``Dv != Dk`` allowed.  A ragged last block
+    is padded with zeros and its padding masked by position."""
+    B, Hq, Sq, Dk = q.shape
+    _, Hkv, Sk, _ = k.shape
+    Dv = v.shape[-1]
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (Dk ** 0.5)
+    pad = (-Sk) % block_k
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    nb = k.shape[2] // block_k
+    dev = q.device
+    qg = (q.float() * scale).reshape(B, Hkv, group, Sq, Dk)
+    kb = k.float().reshape(B, Hkv, nb, block_k, Dk)
+    vb = v.float().reshape(B, Hkv, nb, block_k, Dv)
+    qpos = torch.arange(Sq, device=dev) + (Sk - Sq)
+    m = torch.full((B, Hkv, group, Sq), NEG_INF, device=dev)
+    l = torch.zeros((B, Hkv, group, Sq), device=dev)
+    acc = torch.zeros((B, Hkv, group, Sq, Dv), device=dev)
+    for j in range(nb):
+        s = torch.einsum("bkgqd,bktd->bkgqt", qg, kb[:, :, j])
+        kpos = j * block_k + torch.arange(block_k, device=dev)
+        ok = (kpos < Sk)[None, :]
+        if causal:
+            ok = ok & (kpos[None, :] <= qpos[:, None])
+        s = s.masked_fill(~ok[None, None, None], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgqt,bktd->bkgqd", p,
+                                                    vb[:, :, j])
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, Hq, Sq, Dv).to(q.dtype)

@@ -1,0 +1,69 @@
+"""Serving steps: prefill and decode over the model zoo, in PyTorch.
+
+Copied from ``repro.serve.serve_step`` for one card: ``build_serve_fns``
+returns plain callables (PyTorch runs eagerly; no ``jit``, no mesh), and
+caches are written in place.  ``cache_shardings`` waits for a multi-card
+slice.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from ..kernels._common import resolve_device
+from ..models.registry import Model
+
+Device = Optional[Union[str, torch.device]]
+
+
+def zero_cache(model: Model, batch: int, max_len: int, device: Device = None):
+    dev = resolve_device(device)
+    return {sec: {name: torch.zeros(shape, dtype=dt, device=dev)
+                  for name, (shape, dt) in leaves.items()}
+            for sec, leaves in model.cache_shapes(batch, max_len).items()}
+
+
+def check_params_device(params, device: torch.device) -> None:
+    """Raise unless the parameters lie on ``device``."""
+    pdev = next(params.parameters()).device
+    if pdev.type != device.type or (device.index is not None
+                                    and pdev.index != device.index):
+        raise ValueError(f"parameters lie on {pdev}, the run asks for "
+                         f"{device}")
+
+
+def build_serve_fns(model: Model):
+    """(prefill_fn, decode_fn).
+
+    prefill_fn(params, batch, cache) -> (last_logits, cache)
+    decode_fn(params, tokens, cache, index) -> (logits, cache)
+    """
+
+    def prefill(params, batch, cache):
+        logits, cache = model.prefill(params, batch, cache)
+        return logits[:, -1:], cache
+
+    def decode(params, tokens, cache, index):
+        return model.decode_step(params, tokens, cache, index)
+
+    return prefill, decode
+
+
+def greedy_decode(model: Model, params, prompt_tokens, n_new: int,
+                  device: Device = None) -> torch.Tensor:
+    """Greedy decoding of ``n_new`` tokens after each prompt row: (B, S)
+    int tokens -> (B, n_new) int32 on ``device`` (``None``: CUDA, raising
+    without a card), where ``params`` must lie."""
+    dev = resolve_device(device)
+    check_params_device(params, dev)
+    prompt = torch.as_tensor(prompt_tokens, device=dev).to(torch.int32)
+    B, S = prompt.shape
+    cache = zero_cache(model, B, S + n_new, dev)
+    prefill_fn, decode_fn = build_serve_fns(model)
+    logits, cache = prefill_fn(params, {"tokens": prompt}, cache)
+    out = [logits.argmax(-1).to(torch.int32)]
+    for i in range(n_new - 1):
+        logits, cache = decode_fn(params, out[-1], cache, S + i)
+        out.append(logits.argmax(-1).to(torch.int32))
+    return torch.cat(out, dim=1)

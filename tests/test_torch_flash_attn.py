@@ -1,0 +1,163 @@
+"""The port's attention (``repro_torch.kernels.flash_attn``) against the JAX
+reference on the CPU: the plain versions against ``ref.mha`` /
+``ref.mha_chunked`` and against the Pallas kernel in interpret mode, the
+ragged key lengths that the Pallas kernel refuses, and the wrapper's
+routing.
+
+Tolerances are the reference's own (``tests/test_kernels.py``): 2e-5 in
+float32 (the same float32 math, summed in another order) and 2e-2 in bf16
+(inputs and outputs rounded to bf16, 8 bits of mantissa).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attn import kernel as fk, ops as fo, ref as fr
+
+from repro_torch.kernels.flash_attn import kernel as pk, ops as po, ref as pr
+
+# test_kernels.py's flash-attention shapes: (B, Hq, Hkv, Sq, Sk, D)
+SHAPES = [
+    (1, 4, 2, 128, 128, 64),
+    (2, 8, 8, 256, 256, 64),
+    (1, 8, 1, 128, 128, 128),
+    (1, 4, 4, 1, 256, 64),      # decode
+    (2, 6, 2, 64, 256, 32),     # Sq < Sk (query tail)
+]
+DTYPES = {"float32": (np.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+# The reference's plain versions under jax.jit: the same functions, compiled
+# whole rather than op by op as eager calls are (about 5x quicker here).
+ref_mha = jax.jit(fr.mha, static_argnames=("causal", "scale"))
+ref_mha_chunked = jax.jit(fr.mha_chunked,
+                          static_argnames=("causal", "scale", "block_k"))
+
+
+def _inputs(shape, seed, dv=None):
+    B, Hq, Hkv, Sq, Sk, D = shape
+    r = np.random.default_rng(seed)
+    q = r.standard_normal((B, Hq, Sq, D)).astype(np.float32)
+    k = r.standard_normal((B, Hkv, Sk, D)).astype(np.float32)
+    v = r.standard_normal((B, Hkv, Sk, dv or D)).astype(np.float32)
+    return q, k, v
+
+
+def _both(arrays, dtype):
+    jdt, tdt, _ = DTYPES[dtype]
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+def _close(port, ref, tol):
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_mha_matches_reference(shape, dtype, causal):
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(shape, sum(shape)), dtype)
+    want = ref_mha(jq, jk, jv, causal=causal)
+    got = pr.mha(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_attention_matches_pallas_kernel_interpret(shape, dtype):
+    """The wrapper's CPU route against the Pallas kernel run in interpret
+    mode with 64-wide tiles (every SHAPES key length is a multiple of
+    64)."""
+    assert shape[4] % 64 == 0
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(shape, 7 + sum(shape)), dtype)
+    want = fk.flash_attention(jq, jk, jv, causal=True, block_q=64,
+                              block_k=64)
+    got = po.attention(tq, tk, tv, causal=True)
+    _close(got, want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("block_k", [32, 100, 128])
+@pytest.mark.parametrize("shape", [(1, 4, 2, 64, 300, 32),
+                                   (2, 6, 3, 37, 37, 16),
+                                   (1, 2, 1, 1, 129, 64)], ids=str)
+def test_plain_chunked_matches_reference(shape, block_k):
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(shape, 3), "float32")
+    want = ref_mha_chunked(jq, jk, jv, causal=True, block_k=block_k)
+    got = pr.mha_chunked(tq, tk, tv, causal=True, block_k=block_k)
+    _close(got, want, 2e-5)
+
+
+def test_plain_chunked_mixed_dims_matches_reference():
+    """MLA's shape (Dk != Dv) goes through ``mha_chunked`` in both."""
+    (jq, jk, jv), (tq, tk, tv) = _both(
+        _inputs((1, 4, 4, 64, 64, 48), 5, dv=32), "float32")
+    want = fo.attention(jq, jk, jv, causal=True, backend="xla")
+    got = po.attention(tq, tk, tv, causal=True)
+    assert got.shape == (1, 4, 64, 32)
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("Sq", ["all", 1, 5])
+@pytest.mark.parametrize("Sk", [1, 8, 37, 100])
+def test_ragged_key_lengths_match_mha(Sk, Sq, dtype):
+    """Prompt lengths that are not a multiple of 128: the reference's
+    Pallas kernel refuses them, the port's route takes them and agrees
+    with ``ref.mha``."""
+    Sq = Sk if Sq == "all" else min(Sq, Sk)
+    shape = (2, 8, 2, Sq, Sk, 32)
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(shape, Sk * 10 + Sq), dtype)
+    want = ref_mha(jq, jk, jv, causal=True)
+    got = po.attention(tq, tk, tv, causal=True)
+    _close(got, want, DTYPES[dtype][2])
+    with pytest.raises(ValueError, match="multiple of block_k"):
+        fo.attention(jq, jk, jv, causal=True, backend="pallas")
+
+
+@pytest.mark.parametrize("backend", ["auto", "torch"])
+def test_attention_routes_like_the_reference_cpu_path(backend, monkeypatch):
+    """``mha`` up to 1,024 keys, ``mha_chunked`` with ``block_k=min(512,
+    Sk)`` beyond, and for Dv != Dk; no kernel launch on CPU tensors."""
+    calls = []
+    for name in ("mha", "mha_chunked"):
+        orig = getattr(pr, name)
+
+        def rec(*a, _name=name, _orig=orig, **kw):
+            calls.append((_name, kw.get("block_k")))
+            return _orig(*a, **kw)
+        monkeypatch.setattr(pr, name, rec)
+    before = po.LAUNCHES
+    for Sk, dv, want in ((1024, 16, ("mha", None)),
+                         (1025, 16, ("mha_chunked", 512)),
+                         (300, 8, ("mha_chunked", 300))):
+        q, k, v = _inputs((1, 2, 1, 3, Sk, 16), Sk, dv=dv)
+        calls.clear()
+        got = po.attention(*map(torch.from_numpy, (q, k, v)),
+                           backend=backend)
+        assert calls == [want], (Sk, calls)
+        ref = fo.attention(*map(jnp.asarray, (q, k, v)), backend="xla")
+        _close(got, ref, 2e-5)
+    assert po.LAUNCHES == before
+
+
+def test_kernel_wrapper_refuses_what_it_cannot_take():
+    q = torch.zeros(1, 4, 8, 32)
+    k = torch.zeros(1, 2, 8, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        pk.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="head dim"):
+        pk.flash_attention(torch.zeros(1, 4, 8, 36), torch.zeros(1, 2, 8, 36),
+                           torch.zeros(1, 2, 8, 36))
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        pk.flash_attention(torch.zeros(1, 4, 9, 32), k, k)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        pk.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="fit"):
+        pk.flash_attention(torch.zeros(1, 3, 8, 32), k, k)
+    assert pk.kernel_ready(q) and pk.kernel_ready(q.transpose(1, 2))
+    assert not pk.kernel_ready(q.transpose(2, 3))

@@ -1,5 +1,6 @@
 """Tests of the PyTorch port that need a CUDA card: each kernel against its
-plain version, and both engines on the card against the engines on the CPU.
+plain version, both engines on the card against the engines on the CPU, and
+the dense serving path on the card against the CPU.
 
 They skip without a card.  The machine with the card has no JAX, and
 ``tests/conftest.py`` imports it, so run them there with
@@ -15,6 +16,10 @@ import torch
 from repro_torch.kernels.lindley import ops as lindley_ops, ref as lindley_ref
 from repro_torch.kernels.jsq_scan import ops as jsq_ops
 from repro_torch.kernels.slot_step import ops as slot_ops
+from repro_torch.kernels.flash_attn import ops as attn_ops
+from repro_torch.configs import get_config
+from repro_torch.models.registry import Model
+from repro_torch.serve import batching, serve_step
 from repro_torch.faults import FaultSchedule
 from repro_torch.net import fastsim, loopsim, workloads
 from repro_torch.net._batching import port_pad_penalty
@@ -255,3 +260,113 @@ def test_sack_and_flap_card_matches_cpu(scheme):
                                   fault=quick, device=dev)
     for a, b in zip(cpu, card):
         assert_same_result(a, b, fast)
+
+
+# chip_smoke.py's attention_vs_plain shapes (B, Hq, Hkv, Sq, Sk, D): Yi-6B's
+# heads at its prefill lengths, two query tails, smaller head dims.
+ATTN_SHAPES = ([(1, 32, 4, S, S, 128)
+                for S in (1, 13, 64, 100, 128, 511, 1000, 1025, 2048)]
+               + [(1, 32, 4, 1, 2048, 128), (2, 32, 4, 64, 1000, 128),
+                  (2, 4, 2, 37, 37, 32), (1, 8, 2, 100, 130, 64),
+                  (2, 6, 3, 65, 200, 96), (1, 4, 1, 50, 50, 80)])
+# The reference's own tolerances (tests/test_kernels.py).
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _attn_inputs(shape, dtype, dev, seed):
+    B, Hq, Hkv, Sq, Sk, D = shape
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=g).to(dev, dtype)
+            for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=str)
+def test_flash_attention_kernel_matches_plain(shape, dtype):
+    dev = cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    q, k, v = _attn_inputs(shape, dtype, dev, sum(shape))
+    before = attn_ops.LAUNCHES
+    got = attn_ops.attention(q, k, v)
+    want = attn_ops.attention(q, k, v, backend="torch")
+    torch.cuda.synchronize()
+    assert attn_ops.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_strided_and_non_causal():
+    """(B, S, H, D) tensors read as (B, H, S, D) views, as the model passes
+    them; the output keeps q's layout."""
+    dev = cuda_or_skip()
+    q, k, v = _attn_inputs((2, 8, 2, 70, 70, 64), torch.bfloat16, dev, 5)
+    qs, ks, vs = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    for causal in (True, False):
+        got = attn_ops.attention(qs, ks, vs, causal=causal)
+        assert got.stride() == qs.stride()
+        want = attn_ops.attention(q, k, v, causal=causal, backend="torch")
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+def _greedy_trace(model, params, prompt, n_new, dev):
+    """Greedy tokens (B, n_new) through the serve fns, and each step's
+    smallest top-2 logit margin."""
+    prompt = torch.as_tensor(prompt, device=dev)
+    B, S = prompt.shape
+    cache = serve_step.zero_cache(model, B, S + n_new, dev)
+    prefill, decode = serve_step.build_serve_fns(model)
+    logits, cache = prefill(params, {"tokens": prompt}, cache)
+    toks, margins = [], []
+    for i in range(n_new):
+        if i:
+            logits, cache = decode(params, toks[-1], cache, S + i - 1)
+        top = logits.topk(2, dim=-1).values
+        margins.append(float((top[..., 0] - top[..., 1]).min()))
+        toks.append(logits.argmax(-1).to(torch.int32))
+    return torch.cat(toks, dim=1), margins
+
+
+def test_serving_on_card_matches_cpu():
+    """Yi-6B's smoke config in float32: prefill logits within 1e-4 of the
+    CPU's, and the greedy and batcher tokens equal the CPU's (every step's
+    top-2 margin on the CPU exceeds 10 x 1e-4); one kernel launch a layer
+    per prefill."""
+    dev = cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Model(get_config("yi-6b", smoke=True))
+    cpu_params = model.init_params(0, device="cpu")
+    card_params = model.init_params(0, device="cpu").to(dev)
+    prompt = np.random.default_rng(0).integers(0, model.cfg.vocab, (2, 37))
+    cache_c = serve_step.zero_cache(model, 2, 41, "cpu")
+    cache_g = serve_step.zero_cache(model, 2, 41, dev)
+    want, _ = model.prefill(cpu_params, {"tokens": torch.from_numpy(prompt)},
+                            cache_c)
+    before = attn_ops.LAUNCHES
+    got, _ = model.prefill(card_params, {"tokens": torch.from_numpy(
+        prompt).to(dev)}, cache_g)
+    assert attn_ops.LAUNCHES == before + model.cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    cpu_tokens = serve_step.greedy_decode(model, cpu_params, prompt, 4,
+                                          device="cpu")
+    trace, margins = _greedy_trace(model, cpu_params, prompt, 4, "cpu")
+    assert torch.equal(trace, cpu_tokens) and min(margins) > 1e-3, margins
+    card_tokens = serve_step.greedy_decode(model, card_params, prompt, 4,
+                                           device=dev)
+    assert torch.equal(card_tokens.cpu(), cpu_tokens)
+    done = {}
+    for d, params in (("cpu", cpu_params), (dev, card_params)):
+        cb = batching.ContinuousBatcher(model, params, n_slots=2, max_len=64,
+                                        device=d)
+        r = np.random.default_rng(2)
+        for rid in range(4):
+            cb.submit(batching.Request(
+                rid=rid, prompt=r.integers(0, model.cfg.vocab,
+                                           (13 + 7 * rid,)).astype(np.int32),
+                max_new_tokens=5))
+        done[str(d)] = {rid: q.out for rid, q in
+                        cb.run_to_completion(max_ticks=200).items()}
+    assert done["cpu"] == done[str(dev)]

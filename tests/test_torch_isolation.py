@@ -14,6 +14,10 @@ from repro_torch.net import fastsim, loopsim
 from repro_torch.net.topology import FatTree
 from repro_torch.net import workloads
 from repro_torch.core import lb_schemes as lbs
+from repro_torch.configs import get_config
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models.registry import Model
+from repro_torch.serve import batching, serve_step
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -43,7 +47,16 @@ def test_port_imports_without_jax_or_reference():
                      "repro_torch.collectives.planner",
                      "repro_torch.core.theory",
                      "repro_torch.configs.base",
-                     "repro_torch.configs.deepseek_v3_671b"):
+                     "repro_torch.configs.deepseek_v3_671b",
+                     "repro_torch.kernels.flash_attn.ops",
+                     "repro_torch.kernels.flash_attn.kernel",
+                     "repro_torch.kernels.flash_attn.ref",
+                     "repro_torch.models.layers",
+                     "repro_torch.models.transformer",
+                     "repro_torch.models.registry",
+                     "repro_torch.serve.serve_step",
+                     "repro_torch.serve.batching",
+                     "repro_torch.launch.serve"):
             assert name in names, name
         print(len(names))
     """)
@@ -51,7 +64,7 @@ def test_port_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 35
+    assert int(out.stdout.strip()) >= 62
 
 
 def test_entry_points_raise_without_a_card():
@@ -75,3 +88,21 @@ def test_entry_points_raise_without_a_card():
         loopsim.simulate_batch(tree, wl, s, [0, 1], cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         loopsim.simulate_megabatch([(tree, wl, s, cfg, [0], None, None)])
+
+
+def test_serving_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device works")
+    model = Model(get_config("yi-6b", smoke=True))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_params(0)
+    params = model.init_params(0, device="cpu")
+    prompt = np.zeros((1, 4), np.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_step.greedy_decode(model, params, prompt, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_step.zero_cache(model, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batching.ContinuousBatcher(model, params, n_slots=2, max_len=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_serve.main(["--arch", "yi-6b", "--smoke"])
