@@ -60,7 +60,8 @@ Phases, each timed on its own line; any failure exits non-zero:
 10. ``attention_vs_plain``: hold the flash-attention kernel to its plain
     version (atol = rtol = 2e-5 in float32, 2e-2 in bf16, the reference's
     own tolerances) at Yi-6B's heads (32 query heads, 4 KV heads, D = 128)
-    for S = 1-2,048, two query tails and D = 32, 64, 96;
+    for S = 1-2,048, two query tails, D = 32, 64, 96, and Zamba2-2.7B's
+    shared block (32 query and 32 KV heads of D = 80);
 11. ``serve_golden``: Yi-6B at full width, 2 layers, float32, with the
     numpy-drawn weights of ``tests/torch_golden/serve_yi6b_l2.json``; two
     prompts (37 and 256 tokens) decoded 4 greedy steps on the card must give
@@ -76,17 +77,36 @@ Phases, each timed on its own line; any failure exits non-zero:
     logits within 0.1, tokens equal; a differing token passes only where
     the reference run's top-2 margin is under twice that step's logit gap
     (printed);
-13. time each kernel and its plain version on the largest inputs the main
+13. ``ssd_vs_plain``: hold the SSD chunked-scan kernel to the plain
+    ``ssd_chunked`` at Zamba2-2.7B's heads (80 of P = 64, N = 64),
+    Mamba2-130M's (24 of P = 64, N = 128) and the reference's grouped shape
+    (8 heads over 4 groups) for L = 1, 37, 64, 100 and 2,048 at batch 1 and
+    2 (float32 at the reference's 5e-5/5e-4, bf16 at 2e-2), a large-decay
+    case per head shape (``A * dt`` summing past 100 within a chunk: finite
+    and within tolerance), and, at L <= 100 in float32, to the sequential
+    ``ssd_scan`` too;
+14. ``ssm_serve_golden``: Mamba2-130M at full size and Zamba2-2.7B at full
+    width cut to 6 layers (one shared-block application), float32, numpy
+    weights, held to ``tests/torch_golden/serve_ssm.json`` (CPU JAX) as
+    phase 11 holds Yi-6B;
+15. ``ssm_serve_main_path``: Zamba2-2.7B at full width and depth in bf16
+    through phase 12's batcher mix, ``greedy_decode`` and checks, with the
+    ``ssd_scan`` and ``flash_attention`` launch counts set to 0 just before
+    and read just after (54 and 9 a prefill); then Mamba2-130M at full size
+    the same way with 4 requests (24 ``ssd_scan`` launches a prefill);
+16. time each kernel and its plain version on the largest inputs the main
     paths gave it, beside the bound of the card (and, for flash attention,
-    one ``scaled_dot_product_attention`` call as the library's time);
-14. ``serve_profile``: a decode step and a 2,048-token prefill of
-    Yi-6B under ``torch.profiler``: wall time, device busy time, idle
-    share, kernel launches and host synchronisations (last, as a profiler
-    session followed by long unprofiled work left later traces short of
-    kernel events).
+    one ``scaled_dot_product_attention`` call as the library's time; no
+    single PyTorch call computes the SSD scan);
+17. ``serve_profile``: a decode step and a 2,048-token prefill of
+    Yi-6B, Zamba2-2.7B and Mamba2-130M under ``torch.profiler``: wall
+    time, device busy time, idle share, kernel launches, host
+    synchronisations and the five device events with the most time (last,
+    as a profiler session followed by long unprofiled work left later
+    traces short of kernel events).
 
-Every main-path run of phases 3, 5, 7-9 and 12 sets the kernels' launch
-counts to 0 just before it and reads them just after.
+Every main-path run of phases 3, 5, 7-9, 12 and 15 sets the kernels'
+launch counts to 0 just before it and reads them just after.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -106,6 +126,7 @@ GOLDEN = ROOT / "tests" / "torch_golden" / "fastsim_k8.json"
 LOOP_GOLDEN = ROOT / "tests" / "torch_golden" / "loopsim_k8.json"
 SFP_GOLDEN = ROOT / "tests" / "torch_golden" / "sack_faults_phases_k8.json"
 SERVE_GOLDEN = ROOT / "tests" / "torch_golden" / "serve_yi6b_l2.json"
+SSM_GOLDEN = ROOT / "tests" / "torch_golden" / "serve_ssm.json"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor fp32.
 HBM_BYTES_PER_S = 3.35e12
@@ -901,12 +922,15 @@ def dynamic_phases(tree, dev, errs, launches, slot_launches, golden,
 # ---------------------------------------------------------------------------
 
 # attention_vs_plain shapes (B, Hq, Hkv, Sq, Sk, D): Yi-6B's heads at the
-# prefill lengths of the main path, two query tails, smaller head dims.
+# prefill lengths of the main path, two query tails, smaller head dims, and
+# Zamba2-2.7B's shared block (32 query and 32 KV heads of D = 80).
 ATTN_SHAPES = ([(1, 32, 4, S, S, 128)
                 for S in (1, 13, 64, 100, 128, 511, 1000, 1025, 2048)]
                + [(1, 32, 4, 1, 2048, 128), (2, 32, 4, 64, 1000, 128),
                   (2, 8, 2, 37, 37, 32), (1, 8, 2, 100, 130, 64),
-                  (2, 6, 3, 65, 200, 96)])
+                  (2, 6, 3, 65, 200, 96)]
+               + [(1, 32, 32, S, S, 80) for S in (13, 100, 1025, 2048)]
+               + [(1, 32, 32, 1, 2048, 80)])
 # The reference's own tolerances (tests/test_kernels.py:88), atol = rtol.
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # serve_golden: the port in float32 on the card against CPU JAX.  Logits
@@ -931,12 +955,41 @@ SERVE_NEW = 16
 SERVE_SLOTS, SERVE_MAX_LEN = 4, 2304
 GREEDY_BATCH = (2, 100)          # greedy_decode: 2 prompts of 100 tokens
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
+# Mamba2-130M's main path: fewer requests than Zamba2-2.7B's SERVE_LENS.
+MAMBA_LENS = (13, 511, 2048, 37)
+
+
+def _flash_wrapper():
+    from repro_torch.kernels.flash_attn import ops
+    return ops, "attention", lambda a: a[0].numel() * a[1].shape[2]
+
+
+def _ssd_wrapper():
+    from repro_torch.kernels.ssd_scan import ops
+    return ops, "ssd", lambda a: a[0].numel()
+
+
+# Each serving kernel's (ops module, wrapper name, size of a call's input),
+# for the launch counts and the Recorder of a serving main path.
+KERNEL_WRAPPERS = {"flash_attention": _flash_wrapper, "ssd_scan": _ssd_wrapper}
+
+# ssd_vs_plain: (B, L, H, P, G, N) at Zamba2-2.7B's heads, Mamba2-130M's and
+# the reference's grouped shape (tests/test_kernels.py), for the prefill
+# lengths below; float32 at the reference's tolerance (tests/
+# test_kernels.py:158), bf16 at atol = rtol = 2e-2: the output is rounded
+# once to bf16 from float32 sums taken in another order, and a bf16 step is
+# at most 2**-7 of the value, so the two can differ by one step.
+SSD_HEADS = ((80, 64, 1, 64), (24, 64, 1, 128), (8, 64, 4, 32))
+SSD_LENS = (1, 37, 64, 100, 2048)
+SSD_TOL = {"float32": (5e-5, 5e-4), "bfloat16": (2e-2, 2e-2)}
+SSD_DECAY = 100.0      # A scaled so that A * dt sums past 100 in a chunk
 
 
 class TimedModel:
     """A ``Model`` whose prefill and decode calls are timed on the host
     clock between two device synchronisations (the batcher and
-    ``greedy_decode`` call only these and ``cache_shapes``).  Each call's
+    ``greedy_decode`` call only these, ``cache_shapes`` and
+    ``cache_batch_axes``).  Each call's
     last-position logits are kept: with ``batcher`` set, per request id
     in ``steps`` (prefills are admitted in submission order, so the k-th
     prefill is request k; a decode call advances the batcher's active
@@ -950,6 +1003,9 @@ class TimedModel:
 
     def cache_shapes(self, batch, max_len):
         return self.model.cache_shapes(batch, max_len)
+
+    def cache_batch_axes(self):
+        return self.model.cache_batch_axes()
 
     def _timed(self, fn, log, size, *args):
         import torch
@@ -993,12 +1049,13 @@ class TimedModel:
 
 
 def profile_window(fn, reps: int):
-    """(wall ms, device-busy ms, kernel launches, host synchronisations)
-    per call of ``fn``.  The wall time is the host clock around ``reps``
-    calls and a synchronise, without the profiler (which slows the host);
-    the rest come from a ``torch.profiler`` trace (CPU and CUDA) of
-    another ``reps`` calls: busy time sums the device events (kernels,
-    copies, fills) of the trace, on one stream, so they do not overlap."""
+    """(wall ms, device-busy ms, kernel launches, host synchronisations,
+    the five device events with the most time as [(name, ms)]) per call of
+    ``fn``.  The wall time is the host clock around ``reps`` calls and a
+    synchronise, without the profiler (which slows the host); the rest come
+    from a ``torch.profiler`` trace (CPU and CUDA) of another ``reps``
+    calls: busy time sums the device events (kernels, copies, fills) of the
+    trace, on one stream, so they do not overlap."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1015,13 +1072,18 @@ def profile_window(fn, reps: int):
             fn()
         torch.cuda.synchronize()
     events = prof.events()
-    busy = sum(e.time_range.elapsed_us() for e in events
-               if e.device_type == DeviceType.CUDA) / 1e3
+    by_name = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / reps)
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     launches = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
                               "cuLaunchKernelEx") for e in events)
     syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
                 for e in events)
-    return wall / reps, busy / reps, launches / reps, syncs / reps
+    return wall / reps, busy, launches / reps, syncs / reps, top
 
 
 def decode_trace(model, params, prompt, n_new, dev):
@@ -1108,101 +1170,136 @@ def attention_phase(dev, errs):
                   flush=True)
 
 
-def serve_golden_phase(dev):
-    """serve_golden: Yi-6B at full width, 2 layers, float32, the weights
-    of ``numpy_reference_params(cfg, 0)`` carried to the card, held to the
-    CPU JAX golden (tokens equal, logits within GOLDEN_ATOL)."""
-    import dataclasses as dc
+def golden_runs(tag, rec, model, params, dev):
+    """Decode each of the golden record's prompts on the card: tokens equal
+    to the golden's, its top-16 and 512 fixed logits within GOLDEN_ATOL at
+    every step, and ``greedy_decode`` equal to the traced decode."""
     import numpy as np
     import torch
+    from repro_torch.serve import serve_step
+    ids = torch.tensor(rec["fixed_ids"], device=dev)
+    worst = 0.0
+    for run in rec["runs"]:
+        prompt = np.asarray(run["prompt"], np.int32)[None]
+        toks, _, steps = decode_trace(model, params, prompt, rec["n_new"],
+                                      dev)
+        toks = toks[0].tolist()
+        for i, (st, step) in enumerate(zip(steps, run["steps"])):
+            st = st[0]
+            err = max(max_abs_err(st[ids].cpu(), torch.tensor(
+                          step["fixed_logits"])),
+                      max_abs_err(st[torch.tensor(step["top_ids"],
+                                                  device=dev)].cpu(),
+                                  torch.tensor(step["top_logits"])))
+            worst = max(worst, err)
+            check(err <= GOLDEN_ATOL,
+                  f"{tag} prompt {prompt.shape[1]} step {i}: logits differ "
+                  f"by {err} > {GOLDEN_ATOL}")
+        check(toks == run["tokens"],
+              f"{tag} prompt {prompt.shape[1]}: tokens {toks} != golden "
+              f"{run['tokens']}")
+        solo = serve_step.greedy_decode(model, params, prompt, rec["n_new"],
+                                        device=dev)
+        check(solo[0].tolist() == toks,
+              f"{tag}: greedy_decode != the traced decode")
+        print(f"{tag} prompt {prompt.shape[1]}: tokens {toks} == golden; "
+              f"top-16 and 512 fixed logits within {GOLDEN_ATOL} (max_abs_err "
+              f"{worst:.3g}); golden margins "
+              f"{[round(s['margin'], 5) for s in run['steps']]}", flush=True)
+
+
+def golden_model(rec, dev):
+    """(model, parameters) of a golden record: its architecture cut to its
+    layers and dtype, with ``numpy_reference_params(cfg, param_seed)``
+    carried to the card."""
+    import dataclasses as dc
     from repro_torch.configs import get_config
     from repro_torch.interop import (numpy_reference_params,
                                      params_from_reference)
     from repro_torch.models.registry import Model
-    from repro_torch.serve import serve_step
+    cfg = dc.replace(get_config(rec["arch"]), n_layers=rec["n_layers"],
+                     dtype=rec["dtype"])
+    t0 = time.perf_counter()
+    params = params_from_reference(
+        cfg, numpy_reference_params(cfg, rec["param_seed"]), dev)
+    print(f"golden model: {cfg.name} d_model={cfg.d_model} "
+          f"n_layers={cfg.n_layers} {cfg.dtype}, "
+          f"{sum(p.numel() for p in params.parameters()):,} parameters drawn "
+          f"and carried in {time.perf_counter() - t0:.1f} s", flush=True)
+    return Model(cfg), params
+
+
+def serve_golden_phase(dev):
+    """serve_golden: Yi-6B at full width, 2 layers, float32, the weights
+    of ``numpy_reference_params(cfg, 0)`` carried to the card, held to the
+    CPU JAX golden (tokens equal, logits within GOLDEN_ATOL)."""
+    import torch
     golden = json.loads(SERVE_GOLDEN.read_text())
     with Phase("serve_golden"):
-        cfg = dc.replace(get_config(golden["arch"]),
-                         n_layers=golden["n_layers"], dtype=golden["dtype"])
-        model = Model(cfg)
-        t0 = time.perf_counter()
-        params = params_from_reference(
-            cfg, numpy_reference_params(cfg, golden["param_seed"]), dev)
-        print(f"serve_golden: {cfg.name} d_model={cfg.d_model} "
-              f"n_layers={cfg.n_layers} {cfg.dtype}, "
-              f"{sum(p.numel() for p in params.parameters()):,} parameters "
-              f"drawn and carried in {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        ids = torch.tensor(golden["fixed_ids"], device=dev)
-        worst = 0.0
-        for run in golden["runs"]:
-            prompt = np.asarray(run["prompt"], np.int32)[None]
-            toks, _, steps = decode_trace(model, params, prompt,
-                                          golden["n_new"], dev)
-            toks = toks[0].tolist()
-            for i, (st, rec) in enumerate(zip(steps, run["steps"])):
-                st = st[0]
-                err = max(max_abs_err(st[ids].cpu(), torch.tensor(
-                              rec["fixed_logits"])),
-                          max_abs_err(st[torch.tensor(rec["top_ids"],
-                                                      device=dev)].cpu(),
-                                      torch.tensor(rec["top_logits"])))
-                worst = max(worst, err)
-                check(err <= GOLDEN_ATOL,
-                      f"serve_golden prompt {prompt.shape[1]} step {i}: "
-                      f"logits differ by {err} > {GOLDEN_ATOL}")
-            check(toks == run["tokens"],
-                  f"serve_golden prompt {prompt.shape[1]}: tokens {toks} != "
-                  f"golden {run['tokens']}")
-            solo = serve_step.greedy_decode(model, params, prompt,
-                                            golden["n_new"], device=dev)
-            check(solo[0].tolist() == toks,
-                  "serve_golden: greedy_decode != the traced decode")
-            print(f"serve_golden prompt {prompt.shape[1]}: tokens {toks} == "
-                  f"golden; top-16 and 512 fixed logits within "
-                  f"{GOLDEN_ATOL} (max_abs_err {worst:.3g}); golden margins "
-                  f"{[round(s['margin'], 4) for s in run['steps']]}",
-                  flush=True)
+        model, params = golden_model(golden, dev)
+        golden_runs("serve_golden", golden, model, params, dev)
         del params
         torch.cuda.empty_cache()
 
 
-def serve_main_phase(dev):
-    """serve_main_path: Yi-6B at full width and depth, bf16, random
-    weights from a torch.Generator on the card.  A ContinuousBatcher (4
-    slots of 2,304 positions) answers 8 requests (SERVE_LENS, 16 new tokens
-    each) and greedy_decode a batch of 2 prompts, with the flash-attention
-    launch count set to 0 just before and read just after.  Then each
-    request is decoded alone through the kernel path and through the plain
-    path.  Returns (launches, recorder of the attention calls, a function
-    that profiles a decode step and a prefill; it holds the weights)."""
+def ssm_golden_phase(dev):
+    """ssm_serve_golden: Mamba2-130M at full size and Zamba2-2.7B at full
+    width cut to 6 layers, float32, numpy weights, held to the CPU JAX
+    golden ``serve_ssm.json`` as serve_golden holds Yi-6B."""
+    import torch
+    golden = json.loads(SSM_GOLDEN.read_text())
+    with Phase("ssm_serve_golden"):
+        for rec in golden["models"]:
+            model, params = golden_model(rec, dev)
+            golden_runs(f"ssm_serve_golden {rec['arch']}", rec, model,
+                        params, dev)
+            del params
+            torch.cuda.empty_cache()
+
+
+def serve_main_phase(dev, phase, arch, lens, greedy_batch, kernels):
+    """A serving main path: ``arch`` at full width and depth in its dtype,
+    random weights from a torch.Generator on the card.  A ContinuousBatcher
+    (SERVE_SLOTS slots of SERVE_MAX_LEN positions) answers one request a
+    prompt length of ``lens`` (SERVE_NEW new tokens each) and
+    greedy_decode a batch of ``greedy_batch`` prompts, with the launch
+    counts of ``kernels`` ({name: launches per prefill}) set to 0 just
+    before and read just after.  Then each request is decoded alone through
+    the kernel path and through the plain path (``backend="torch"``).
+    Returns (launches, {name: recorder of the wrapper's calls}, a function
+    that profiles a decode step and the longest prefill; it holds the
+    weights)."""
+    import contextlib
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.models.registry import Model
     from repro_torch.serve import batching, serve_step
-    cfg = get_config("yi-6b")
-    with Phase("serve_main_path"):
+    cfg = get_config(arch)
+    wrappers = {name: KERNEL_WRAPPERS[name]() for name in kernels}
+    with Phase(phase):
         model = Model(cfg)
         t0 = time.perf_counter()
+        base = torch.cuda.memory_allocated(dev)
         params = model.init_params(torch.Generator(device=dev).manual_seed(0),
                                    device=dev)
         torch.cuda.synchronize()
-        print(f"serve_main_path: {cfg.name} {cfg.dtype}, "
+        print(f"{phase}: {cfg.name} {cfg.dtype}, "
               f"{sum(p.numel() for p in params.parameters()):,} parameters "
               f"drawn on the card in {time.perf_counter() - t0:.1f} s",
               flush=True)
         rng = np.random.default_rng(3)
         prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
-                   for n in SERVE_LENS]
-        pair = rng.integers(0, cfg.vocab, GREEDY_BATCH).astype(np.int32)
+                   for n in lens]
+        pair = rng.integers(0, cfg.vocab, greedy_batch).astype(np.int32)
         timed = TimedModel(model)
         decode_trace(model, params, prompts[0][None], 2, dev)  # warm-up
         torch.cuda.reset_peak_memory_stats(dev)
-        with Recorder(attn_ops, "attention",
-                      lambda a: a[0].numel() * a[1].shape[2]) as rec:
-            attn_ops.LAUNCHES = 0
+        with contextlib.ExitStack() as stack:
+            recs = {name: stack.enter_context(Recorder(mod, fn, size_of))
+                    for name, (mod, fn, size_of) in wrappers.items()}
+            for mod, _, _ in wrappers.values():
+                mod.LAUNCHES = 0
             t0 = time.perf_counter()
             cb = batching.ContinuousBatcher(timed, params, SERVE_SLOTS,
                                             SERVE_MAX_LEN, device=dev)
@@ -1220,36 +1317,39 @@ def serve_main_phase(dev):
                                               device=dev)
             torch.cuda.synchronize()
             greedy_ms = (time.perf_counter() - t1) * 1e3
-            launches = attn_ops.LAUNCHES
+            launches = {name: wrappers[name][0].LAUNCHES for name in kernels}
         peak = torch.cuda.max_memory_allocated(dev)
         n_prefill = len(prompts) + 1
-        check(launches == cfg.n_layers * n_prefill,
-              f"flash_attention launched {launches} times, expected one a "
-              f"layer a prefill ({cfg.n_layers} x {n_prefill})")
+        for name, per_prefill in kernels.items():
+            check(launches[name] == per_prefill * n_prefill,
+                  f"{phase}: {name} launched {launches[name]} times, "
+                  f"expected {per_prefill} a prefill x {n_prefill}")
         check(sorted(done) == list(range(len(prompts)))
               and all(len(r.out) == SERVE_NEW for r in done.values()),
-              "the batcher did not answer every request in full")
+              f"{phase}: the batcher did not answer every request in full")
         tokens = sum(len(r.out) for r in done.values())
         dec = timed.decodes[:-(SERVE_NEW - 1)]
         dec_tokens = sum(g for g, _ in dec)
         dec_ms = sum(ms for _, ms in dec)
-        for (shape, ms), n in zip(timed.prefills[:n_batcher], SERVE_LENS):
-            print(f"serve prefill: {n} tokens {ms:.2f} ms", flush=True)
-        print(f"serve batcher: {len(done)} requests, {tokens} tokens in "
+        for (shape, ms), n in zip(timed.prefills[:n_batcher], lens):
+            print(f"{phase} prefill: {n} tokens {ms:.2f} ms", flush=True)
+        print(f"{phase} batcher: {len(done)} requests, {tokens} tokens in "
               f"{wall_ms:.1f} ms ({tokens / wall_ms * 1e3:.1f} tok/s); "
               f"{len(dec)} decode steps, {dec_tokens} tokens, "
               f"{dec_ms / dec_tokens:.3f} ms per token, "
               f"{dec_ms / len(dec):.3f} ms per step (median "
               f"{sorted(ms for _, ms in dec)[len(dec) // 2]:.3f}); "
-              f"greedy_decode batch {GREEDY_BATCH}: {greedy_ms:.1f} ms "
+              f"greedy_decode batch {greedy_batch}: {greedy_ms:.1f} ms "
               f"(prefill {timed.prefills[-1][1]:.2f} ms, decode "
               f"{sum(ms for _, ms in timed.decodes[-(SERVE_NEW - 1):]) / (SERVE_NEW - 1):.3f} "
-              f"ms per step); flash_attention launches {launches}; "
-              f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+              f"ms per step); launches {launches}; max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB over "
+              f"the {base / 2**30:.2f} GiB allocated before the phase)",
+              flush=True)
 
         # Held outside the counted run: each request alone on the kernel
         # path (== its batcher run) and on the plain path.
-        plain_model = Model(cfg, attn_backend="torch")
+        plain_model = Model(cfg, backend="torch")
         worst = {"prefill": 0.0, "batcher": 0.0, "plain": 0.0}
         for rid, p in enumerate(prompts):
             toks, full, steps = decode_trace(model, params, p[None],
@@ -1259,55 +1359,59 @@ def serve_main_phase(dev):
             err = max_abs_err(full, pfull)
             worst["prefill"] = max(worst["prefill"], err)
             check(bool(torch.isfinite(full).all()) and err <= BF16_LOGIT_ATOL,
-                  f"request {rid} ({len(p)} tokens): prefill logits of the "
-                  f"kernel path differ from the plain path by {err} > "
+                  f"{phase} request {rid} ({len(p)} tokens): prefill logits "
+                  f"of the kernel path differ from the plain path by {err} > "
                   f"{BF16_LOGIT_ATOL}")
             del full, pfull
             toks, ptoks = toks[0].tolist(), ptoks[0].tolist()
             steps, psteps = [s[0] for s in steps], [s[0] for s in psteps]
-            n_b, gap_b = same_tokens(f"request {rid} batcher vs solo",
+            n_b, gap_b = same_tokens(f"{phase} request {rid} batcher vs solo",
                                      done[rid].out, toks, timed.steps[rid],
                                      steps)
-            n_p, gap_p = same_tokens(f"request {rid} kernel vs plain", toks,
-                                     ptoks, steps, psteps)
+            n_p, gap_p = same_tokens(f"{phase} request {rid} kernel vs plain",
+                                     toks, ptoks, steps, psteps)
             worst["batcher"] = max(worst["batcher"], gap_b)
             worst["plain"] = max(worst["plain"], gap_p)
-            print(f"request {rid} ({len(p)} tokens): prefill logits kernel "
-                  f"vs plain max_abs_err {err:.4f}; batcher == solo on {n_b} "
-                  f"tokens (step logits max gap {gap_b:.4f}), kernel == "
+            print(f"{phase} request {rid} ({len(p)} tokens): prefill logits "
+                  f"kernel vs plain max_abs_err {err:.4f}; batcher == solo on "
+                  f"{n_b} tokens (step logits max gap {gap_b:.4f}), kernel == "
                   f"plain on {n_p} (max gap {gap_p:.4f}); tolerance "
-                  f"{BF16_LOGIT_ATOL}", flush=True)
+                  f"{BF16_LOGIT_ATOL}; reference top-2 margins "
+                  f"{min(top2_margin(s) for s in steps):.4f} at least",
+                  flush=True)
         gt, _, gsteps = decode_trace(model, params, pair, SERVE_NEW, dev)
-        for b in range(GREEDY_BATCH[0]):
-            same_tokens(f"greedy_decode row {b}", greedy[b].tolist(),
+        for b in range(greedy_batch[0]):
+            same_tokens(f"{phase} greedy_decode row {b}", greedy[b].tolist(),
                         gt[b].tolist(), [s[b] for s in timed.free],
                         [s[b] for s in gsteps])
-        print(f"serve_main_path: largest logit gaps (tolerance "
-              f"{BF16_LOGIT_ATOL}): prefill kernel vs plain "
-              f"{worst['prefill']:.4f}, batcher vs solo steps "
-              f"{worst['batcher']:.4f}, kernel vs plain steps "
+        print(f"{phase}: largest logit gaps (tolerance {BF16_LOGIT_ATOL}): "
+              f"prefill kernel vs plain {worst['prefill']:.4f}, batcher vs "
+              f"solo steps {worst['batcher']:.4f}, kernel vs plain steps "
               f"{worst['plain']:.4f}", flush=True)
 
     def profile():
         """Where a step's time goes: one decode step against a batcher
-        slot's 2,304-position cache and one 2,048-token prefill, under the
-        profiler.  Run after the timing phase: a profiler session followed
-        by long unprofiled work left later traces short of kernel events."""
-        longest = int(np.argmax(SERVE_LENS))
+        slot's SERVE_MAX_LEN-position cache and the longest prefill, under
+        the profiler.  Run after the timing phase: a profiler session
+        followed by long unprofiled work left later traces short of kernel
+        events."""
+        longest = int(np.argmax(lens))
         tok = torch.zeros((1, 1), dtype=torch.int32, device=dev)
         cache = serve_step.zero_cache(model, 1, SERVE_MAX_LEN, dev)
         ptoks = torch.as_tensor(prompts[longest][None], device=dev)
         for what, fn in (
                 ("decode step", lambda: model.decode_step(
-                    params, tok, cache, SERVE_LENS[longest])),
-                (f"prefill of {SERVE_LENS[longest]} tokens",
+                    params, tok, cache, lens[longest])),
+                (f"prefill of {lens[longest]} tokens",
                  lambda: model.prefill(params, {"tokens": ptoks}, cache))):
-            wall, busy, n_launch, n_sync = profile_window(fn, 3)
-            print(f"serve profile, {what}: {wall:.2f} ms wall, device "
-                  f"busy {busy:.2f} ms (idle share "
+            wall, busy, n_launch, n_sync, top = profile_window(fn, 3)
+            print(f"serve profile, {cfg.name} {what}: {wall:.2f} ms wall, "
+                  f"device busy {busy:.2f} ms (idle share "
                   f"{1 - busy / wall:.3f}), {n_launch:.0f} kernel launches, "
-                  f"{n_sync:.0f} host synchronisations", flush=True)
-    return launches, rec, profile
+                  f"{n_sync:.0f} host synchronisations; most device time: "
+                  + "; ".join(f"{name[:60]} {ms:.2f} ms" for name, ms in top),
+                  flush=True)
+    return launches, recs, profile
 
 
 def attention_timing(rec, err, launches):
@@ -1362,6 +1466,116 @@ def attention_timing(rec, err, launches):
         shape=[B, Hq, Hkv, Sq, Sk, D])
 
 
+def ssd_inputs(B, L, H, P, G, N, dtype, gen, dev, decay=1.0):
+    """tests/test_kernels.py's SSD draws: x, B, C normal, dt in [0.01,
+    0.21], A in -[0.5, 1.5] times ``decay``; x, B, C in ``dtype``."""
+    import torch
+    x = torch.randn(B, L, H, P, generator=gen)
+    dt = 0.01 + torch.rand(B, L, H, generator=gen) * 0.2
+    A = -(0.5 + torch.rand(H, generator=gen)) * decay
+    Bm = torch.randn(B, L, G, N, generator=gen)
+    C = torch.randn(B, L, G, N, generator=gen)
+    return (x.to(dev, dtype), dt.to(dev), A.to(dev), Bm.to(dev, dtype),
+            C.to(dev, dtype))
+
+
+def ssd_phase(dev, errs):
+    """ssd_vs_plain: the SSD kernel against the plain ``ssd_chunked`` on the
+    card at SSD_HEADS x SSD_LENS x batch 1-2, float32 and bf16, with a
+    large-decay case at each head shape, and against the sequential oracle
+    ``ssd_scan`` at L <= 100 in float32."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    with Phase("ssd_vs_plain"):
+        gen = torch.Generator().manual_seed(0)
+        cases = [(B, L, H, P, G, N, dt, 1.0) for H, P, G, N in SSD_HEADS
+                 for L in SSD_LENS for B in (1, 2)
+                 for dt in ("float32", "bfloat16")]
+        cases += [(1, 256, H, P, G, N, dt, SSD_DECAY)
+                  for H, P, G, N in SSD_HEADS
+                  for dt in ("float32", "bfloat16")]
+        n_seq = 0
+        for B, L, H, P, G, N, dt, decay in cases:
+            args = ssd_inputs(B, L, H, P, G, N, getattr(torch, dt), gen, dev,
+                              decay)
+            got = ssd_ops.ssd(*args)
+            want = ssd_ops.ssd(*args, backend="torch")
+            torch.cuda.synchronize()
+            err = max_abs_err(got.float(), want.float())
+            errs["ssd_scan"] = max(errs["ssd_scan"], err)
+            atol, rtol = SSD_TOL[dt]
+            tag = f"ssd_scan {(B, L, H, P, G, N)} {dt} decay {decay}"
+            check(got.dtype == args[0].dtype and got.shape == args[0].shape
+                  and bool(torch.isfinite(got).all())
+                  and float(got.float().abs().max()) > 0
+                  and torch.allclose(got.float(), want.float(), atol=atol,
+                                     rtol=rtol),
+                  f"{tag}: kernel != plain (max_abs_err {err})")
+            line = (f"{tag}: max_abs_err {err:.3g} (tolerance atol={atol}, "
+                    f"rtol={rtol})")
+            if decay != 1.0:
+                lam = (-args[2][None, None] * args[1])[:, :64].sum(1).min()
+                line += f"; smallest chunk decay sum {float(lam):.1f}"
+            if L <= 100 and dt == "float32":
+                seq = ssd_ref.ssd_scan(*args)
+                serr = max_abs_err(got, seq)
+                check(torch.allclose(got, seq, atol=atol, rtol=rtol),
+                      f"{tag}: kernel != sequential scan (max_abs_err "
+                      f"{serr})")
+                line += f"; vs sequential scan {serr:.3g}"
+                n_seq += 1
+            print(line, flush=True)
+        print(f"ssd_vs_plain: {len(cases)} cases, {n_seq} also against the "
+              f"sequential scan; largest max_abs_err {errs['ssd_scan']:.3g}",
+              flush=True)
+
+
+def ssd_timing(rec, err, launches):
+    """The ssd_scan row of the ``kernels`` line, at the largest input the
+    serving main paths gave the kernel."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    (x, dt, A, Bm, C), kw = rec.largest
+    kw = {key: val for key, val in kw.items() if key != "backend"}
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    chunk = kw.get("chunk", 64)
+    got = ssd_ops.ssd(x, dt, A, Bm, C, **kw)
+    want = ssd_ops.ssd(x, dt, A, Bm, C, backend="torch", **kw)
+    atol, rtol = SSD_TOL[str(x.dtype).split(".")[-1]]
+    err = max(err, max_abs_err(got.float(), want.float()))
+    check(torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol),
+          "ssd_scan: kernel != plain on the main path's largest input")
+    ms = cuda_ms(lambda: ssd_ops.ssd(x, dt, A, Bm, C, **kw), 20)
+    dev_ms = device_ms(lambda: ssd_ops.ssd(x, dt, A, Bm, C, **kw), 20,
+                       r"\bssd_(chunk_state|state_carry|chunk_out)")
+    plain_ms = cuda_ms(lambda: ssd_ops.ssd(x, dt, A, Bm, C,
+                                           backend="torch", **kw), 5)
+    esize = x.element_size()
+    nbytes = (2 * Bsz * L * H * P * esize + 2 * Bsz * L * G * N * esize
+              + Bsz * L * H * dt.element_size() + H * 4)
+    # Per (batch, head) and chunk of r rows: C.B^T and S.x over the r(r+1)/2
+    # causal pairs, the chunk state over r rows, and the inter-chunk term
+    # (after the first chunk), N- or P-deep multiply-adds.
+    flops = 0
+    for c0 in range(0, L, chunk):
+        r = min(chunk, L - c0)
+        pairs = r * (r + 1) // 2
+        flops += 2 * (pairs * (N + P) + r * N * P * (2 if c0 else 1))
+    flops *= Bsz * H
+    peak = BF16_FLOP_PER_S if x.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:66",
+        launches=launches, max_abs_err=err, ms=ms, device_ms=dev_ms,
+        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, n=int(Bsz * L * H), shape=[Bsz, L, H, P, G, N])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1369,7 +1583,7 @@ def main() -> int:
         return 2
     if not ((SRC / "repro_torch").is_dir() and GOLDEN.is_file()
             and LOOP_GOLDEN.is_file() and SFP_GOLDEN.is_file()
-            and SERVE_GOLDEN.is_file()):
+            and SERVE_GOLDEN.is_file() and SSM_GOLDEN.is_file()):
         print("chip_smoke: run from the root of a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -1392,7 +1606,8 @@ def main() -> int:
     # theory.DEFAULT_NET.prop_slots: 0.5 us links, 4178-byte slots at 800 Gb/s
     prop_slots = 0.5e-6 / (4178 * 8 / 800e9)
     check(prop_slots == golden["prop_slots"], "prop_slots differs from golden")
-    errs = {"segmented_cummax": 0.0, "jsq_scan": 0.0, "flash_attention": 0.0}
+    errs = {"segmented_cummax": 0.0, "jsq_scan": 0.0, "flash_attention": 0.0,
+            "ssd_scan": 0.0}
 
     with Phase("build"):
         for name, log in _build.build_all().items():
@@ -1476,7 +1691,22 @@ def main() -> int:
                                json.loads(SFP_GOLDEN.read_text()), prop_slots)
     attention_phase(dev, errs)
     serve_golden_phase(dev)
-    attn_launches, attn_rec, serve_profile = serve_main_phase(dev)
+    from repro_torch.configs import get_config
+    yi_launches, yi_recs, yi_profile = serve_main_phase(
+        dev, "serve_main_path", "yi-6b", SERVE_LENS, GREEDY_BATCH,
+        {"flash_attention": get_config("yi-6b").n_layers})
+    ssd_phase(dev, errs)
+    ssm_golden_phase(dev)
+    zcfg, mcfg = get_config("zamba2-2.7b"), get_config("mamba2-130m")
+    z_launches, z_recs, z_profile = serve_main_phase(
+        dev, "ssm_serve_main_path zamba2-2.7b", zcfg.name, SERVE_LENS,
+        GREEDY_BATCH, {"ssd_scan": zcfg.n_layers,
+                       "flash_attention": zcfg.n_layers
+                       // zcfg.shared_attn_every})
+    m_launches, m_recs, m_profile = serve_main_phase(
+        dev, "ssm_serve_main_path mamba2-130m", mcfg.name, MAMBA_LENS,
+        GREEDY_BATCH, {"ssd_scan": mcfg.n_layers})
+    torch.cuda.empty_cache()
 
     kernels = []
     with Phase("timing"):
@@ -1541,8 +1771,14 @@ def main() -> int:
         for name in SACK_KERNELS:
             kernels.append(sack_timing(name, sack_recs[name].largest,
                                        errs[name], loop_launches[name]))
-        kernels.append(attention_timing(attn_rec, errs["flash_attention"],
-                                        attn_launches))
+        kernels.append(attention_timing(
+            yi_recs["flash_attention"], errs["flash_attention"],
+            yi_launches["flash_attention"] + z_launches["flash_attention"]))
+        ssd_rec = max((z_recs["ssd_scan"], m_recs["ssd_scan"]),
+                      key=lambda r: r.size_of(r.largest[0]))
+        kernels.append(ssd_timing(
+            ssd_rec, errs["ssd_scan"],
+            z_launches["ssd_scan"] + m_launches["ssd_scan"]))
         for k in kernels:
             print(f"kernel {k['name']}: launches={k['launches']} "
                   f"shape={k['shape']} ms={k['ms']:.4f} "
@@ -1552,8 +1788,10 @@ def main() -> int:
                   flush=True)
 
     with Phase("serve_profile"):
-        serve_profile()
-    del serve_profile
+        yi_profile()
+        z_profile()
+        m_profile()
+    del yi_profile, z_profile, m_profile
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

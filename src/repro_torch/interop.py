@@ -8,11 +8,13 @@ never imports ``repro``: objects are recognised by their class name, so
 both packages can simulate the identical tree, workload, failure pattern,
 scheme, engine configuration, fault schedule and phase schedule.
 
-For the model zoo, :func:`params_from_reference` carries a ``repro`` params
-pytree (numpy arrays) into the port's :class:`~.models.transformer.Transformer`
-module, :func:`cache_from_reference` a ``repro`` KV cache, and
+For the model zoo (the dense, SSM and hybrid families),
+:func:`params_from_reference` carries a ``repro`` params pytree (numpy
+arrays) into the port's parameter module of the config's family,
+:func:`cache_from_reference` a ``repro`` cache, and
 :func:`numpy_reference_params` draws a reference-shaped tree from a numpy
-seed (the inputs both packages share when no JAX is at hand).
+seed by the family's init rule (the inputs both packages share when no JAX
+is at hand).
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from .net.topology import FatTree, LinkState
 from .net.workloads import Workload
 from .net.loopsim import LoopConfig
 from .kernels._common import resolve_device
-from .models import transformer
+from .models import _params
+from .models.registry import family_module
 from .obs.probes import ProbeSpec
 from .phases import Phase, PhaseSchedule
 
@@ -100,17 +103,17 @@ def _tensor(a, dtype: Optional[torch.dtype], device) -> torch.Tensor:
 
 
 def params_from_reference(cfg, params,
-                          device: Optional[Union[str, torch.device]] = None
-                          ) -> transformer.Transformer:
+                          device: Optional[Union[str, torch.device]] = None):
     """The port's parameters of a ``repro`` params tree (nested dicts of
     numpy arrays, as ``jax.tree_util.tree_map(np.asarray, params)`` gives),
-    cast to the config's dtype, on ``device`` (``None``: CUDA).  The
-    layer-stacked ``(nl, ...)`` leaves of ``"dense"`` are split per
-    layer."""
+    cast to each leaf's dtype, on ``device`` (``None``: CUDA).  The
+    layer-stacked ``(nl, ...)`` leaves (``"dense"``, or ``"layers"`` of the
+    SSM and hybrid families) are split per layer."""
     dev = resolve_device(device)
-    out = transformer.Transformer(cfg, dev)
+    mod = family_module(cfg)
+    out = mod.new_params(cfg, dev)
     with torch.no_grad():
-        for key, (shape, dtype) in transformer.leaves(cfg):
+        for key, (shape, dtype) in _params.leaves(mod.param_shapes(cfg)):
             src = params
             for k in key:
                 src = src[k]
@@ -118,40 +121,29 @@ def params_from_reference(cfg, params,
                 raise ValueError(f"{'/'.join(key)}: shape {np.shape(src)}, "
                                  f"expected {shape}")
             t = _tensor(src, dtype, dev)
-            if key[0] == "dense":
-                for l, layer in enumerate(out.dense):
-                    getattr(layer, key[1]).copy_(t[l])
-            else:
-                getattr(out, key[0]).copy_(t)
+            dst = _params.tensors(out, key, mod.STACKED)
+            for l, d in enumerate(dst):
+                d.copy_(t[l] if key[0] in mod.STACKED else t)
     return out
 
 
 def cache_from_reference(cache, device: Optional[Union[str, torch.device]]
                          = None) -> dict:
-    """The port's KV cache of a ``repro`` cache (``{"dense": {"k": (nl, B,
-    S_max, Hkv, hd), "v": ...}}`` of numpy arrays): the same layout, as
-    tensors on ``device`` (``None``: CUDA)."""
+    """The port's cache of a ``repro`` cache (a nested dict of numpy
+    arrays, flat or sectioned): the same layout, as tensors on ``device``
+    (``None``: CUDA)."""
     dev = resolve_device(device)
-    return {sec: {name: _tensor(a, None, dev) for name, a in leaves.items()}
-            for sec, leaves in cache.items()}
+    if isinstance(cache, dict):
+        return {k: cache_from_reference(v, dev) for k, v in cache.items()}
+    return _tensor(cache, None, dev)
 
 
 def numpy_reference_params(cfg, seed: int) -> dict:
-    """A ``repro``-shaped params tree of float32 numpy arrays drawn as
-    ``transformer.init_params`` draws its leaves, in flatten order, from
-    ``np.random.default_rng(seed)``: standard normals times
-    ``shape[-2] ** -0.5`` for leaves of two or more axes, ones for 1-D
-    leaves."""
-    rng = np.random.default_rng(seed)
-    tree: dict = {}
-    for key, (shape, _) in transformer.leaves(cfg):
-        if len(shape) >= 2:
-            w = rng.standard_normal(shape, dtype=np.float32)
-            w *= np.float32(shape[-2] ** -0.5)
-        else:
-            w = np.ones(shape, np.float32)
-        node = tree
-        for k in key[:-1]:
-            node = node.setdefault(k, {})
-        node[key[-1]] = w
-    return tree
+    """A ``repro``-shaped params tree of float32 numpy arrays drawn by the
+    family's init rule in flatten order from ``np.random.default_rng(seed)``
+    (a stacked leaf in one draw): for the dense family standard normals
+    times ``shape[-2] ** -0.5`` for leaves of two or more axes and ones for
+    1-D leaves; for the SSM and hybrid families normals where the last axis
+    exceeds 8, else 0.1, with ``A_log = 0`` and ``dt_bias = -2``."""
+    mod = family_module(cfg)
+    return _params.numpy_tree(mod.param_shapes(cfg), mod.init_rule, seed)

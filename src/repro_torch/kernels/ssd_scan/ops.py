@@ -1,0 +1,41 @@
+"""Public wrapper of the Mamba2 SSD scan.
+
+Copied from ``repro.kernels.ssd_scan.ops`` with the port's ``{auto,
+torch}`` switch: ``auto`` launches the CUDA kernel (``kernel.py``) on CUDA
+tensors and runs the chunked plain version (``ref.ssd_chunked``, on zero-
+padded inputs) on CPU tensors; ``torch`` runs the chunked plain version on
+any device.  There is no fallback from the kernel to the plain version.
+The kernel masks a ragged last chunk itself, so its inputs are not padded.
+``LAUNCHES`` counts the kernel calls made through this wrapper (each is the
+kernel's three launches).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import kernel as _kernel
+from . import ref as _ref
+from .._common import resolve_backend
+
+LAUNCHES = 0
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+        B_mat: torch.Tensor, C: torch.Tensor, *, chunk: int = 64,
+        backend: str = "auto") -> torch.Tensor:
+    """x (B, L, H, P); dt (B, L, H); A (H,); B_mat, C (B, L, G, N) ->
+    y (B, L, H, P) in x's dtype."""
+    global LAUNCHES
+    L = x.shape[1]
+    if resolve_backend(backend) == "torch" or x.device.type == "cpu":
+        x, dt, B_mat, C = _ref.pad_to_chunk(chunk, x, dt, B_mat, C)
+        return _ref.ssd_chunked(x, dt, A, B_mat, C, chunk=chunk)[:, :L]
+    if not x.is_cuda:
+        raise ValueError(f"ssd: unsupported device {x.device}")
+    x, B_mat, C = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (x, B_mat, C))
+    y = _kernel.ssd_scan(x, dt.float(), A.float().contiguous(), B_mat, C,
+                         chunk=chunk)
+    if y.numel():
+        LAUNCHES += 1
+    return y

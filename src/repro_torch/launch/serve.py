@@ -1,10 +1,12 @@
 """Serving launcher: continuous-batching server over a ported architecture.
 
     python -m repro_torch.launch.serve --arch yi-6b --requests 8
-    python -m repro_torch.launch.serve --arch yi-6b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --requests 8
+    python -m repro_torch.launch.serve --arch mamba2-130m --smoke --device cpu
 
-Copied from ``repro.launch.serve`` for one card: random parameters from
-seed 0 (the reference's fixed key), ``--requests`` prompts of 4-15 random
+Copied from ``repro.launch.serve`` for one card, for the dense, Mamba2 and
+Zamba2-hybrid architectures: random parameters from seed 0 (the reference's
+fixed key, by the family's init rule), ``--requests`` prompts of 4-15 random
 tokens, decoded by a ``ContinuousBatcher``.  Runs on CUDA unless
 ``--device cpu`` is given (raising without a card).  Prints the device,
 then the reference's ``served ... tok/s`` line (wall clock, after a device

@@ -1,0 +1,86 @@
+"""The reference's parameter trees and the port's parameter modules.
+
+A family module describes its parameters as the reference's tree of
+``(shape, dtype)`` leaves (``param_shapes``), in which the leaves of a
+*stacked* section carry a leading ``n_layers`` axis.  The port holds a
+stacked leaf as one tensor per layer module (``params.<section>[l].<leaf>``)
+and any other leaf as an attribute (``params.<leaf>`` or
+``params.<section>.<leaf>``).  These helpers walk the tree in the order
+``jax.tree_util`` flattens it (sorted keys) and draw each leaf by a
+family's init rule: ``rule(key, shape)`` gives ``("normal", scale)``
+(standard normals times ``scale``, drawn in float32) or ``("fill", value)``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+Shape = Tuple[Tuple[int, ...], torch.dtype]
+Rule = Callable[[Tuple[str, ...], Tuple[int, ...]], Tuple[str, float]]
+
+
+def leaves(shapes: Dict) -> Tuple[Tuple[Tuple[str, ...], Shape], ...]:
+    """``(path, (shape, dtype))`` of every leaf, in flatten order."""
+    out = []
+    for k, v in sorted(shapes.items()):
+        if isinstance(v, dict):
+            out.extend(((k, kk), vv) for kk, vv in sorted(v.items()))
+        else:
+            out.append(((k,), v))
+    return tuple(out)
+
+
+def tensors(params: torch.nn.Module, key: Tuple[str, ...],
+            stacked: Tuple[str, ...]) -> List[torch.Tensor]:
+    """The port's tensors of a reference leaf: one a layer for a stacked
+    section's leaf, else the one tensor."""
+    node = getattr(params, key[0])
+    if key[0] in stacked:
+        return [getattr(layer, key[1]) for layer in node]
+    return [getattr(node, key[1]) if len(key) > 1 else node]
+
+
+@torch.no_grad()
+def draw_(params: torch.nn.Module, shapes: Dict, stacked: Tuple[str, ...],
+          rule: Rule, generator: torch.Generator) -> torch.nn.Module:
+    """Fill ``params`` in flatten order by ``rule``, a stacked leaf one
+    layer at a time (its scale from the stacked shape), from
+    ``generator``; returns ``params``."""
+    for key, (shape, _) in leaves(shapes):
+        kind, value = rule(key, shape)
+        for t in tensors(params, key, stacked):
+            if kind == "fill":
+                t.fill_(value)
+            else:
+                t.copy_(torch.randn(t.shape, generator=generator,
+                                    device=t.device, dtype=torch.float32)
+                        * value)
+    return params
+
+
+def numpy_tree(shapes: Dict, rule: Rule, seed: int) -> dict:
+    """A reference-shaped tree of float32 numpy arrays drawn by ``rule`` in
+    flatten order from ``np.random.default_rng(seed)`` (a stacked leaf in
+    one draw)."""
+    rng = np.random.default_rng(seed)
+    tree: dict = {}
+    for key, (shape, _) in leaves(shapes):
+        kind, value = rule(key, shape)
+        if kind == "fill":
+            w = np.full(shape, value, np.float32)
+        else:
+            w = rng.standard_normal(shape, dtype=np.float32)
+            w *= np.float32(value)
+        node = tree
+        for k in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1]] = w
+    return tree
+
+
+def param(shape, dtype, device) -> torch.nn.Parameter:
+    """An uninitialised parameter that takes no gradient (serving only)."""
+    return torch.nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                              requires_grad=False)

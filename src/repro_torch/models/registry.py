@@ -1,63 +1,89 @@
-"""Uniform model API over the zoo families; the dense family is ported.
+"""Uniform model API over the zoo families; the dense, SSM (Mamba2) and
+hybrid (Zamba2) families are ported.
 
 ``Model`` wraps a config with family-dispatched functions:
 
   param_shapes / init_params(seed, device)
   prefill(params, batch, cache)              -> (logits, cache)
   decode_step(params, tokens, cache, index)  -> (logits, cache)
-  cache_shapes(batch, max_len)
+  cache_shapes(batch, max_len) / cache_batch_axes()
 
 Copied from ``repro.models.registry``.  Caches are written in place.
-``attn_backend`` picks the attention of prefill: ``auto`` launches the CUDA
-flash-attention kernel on CUDA tensors (the plain version on CPU tensors),
-``torch`` runs the plain version on any device.  Training (``loss``) is not
-ported yet; the other families (MoE, MLA, VLM, SSM, hybrid, enc-dec) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+``backend`` is the kernels' switch: ``auto`` launches the CUDA kernels
+(flash attention in prefill, the SSD scan in a Mamba2 layer's prefill) on
+CUDA tensors and runs their plain versions on CPU tensors; ``torch`` runs
+the plain versions on any device.  Training (``loss``) is not ported yet;
+the other families (MoE, MLA, VLM, enc-dec) raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
 import dataclasses
+from types import ModuleType
 from typing import Optional, Union
 
 import torch
 
-from . import transformer
+from . import hybrid, mamba2, transformer
 from ..configs.base import ModelConfig
 from ..configs import base as _cfg_base
 from ..kernels._common import resolve_backend, resolve_device
+
+_FAMILIES = {"dense": transformer, "ssm": mamba2, "hybrid": hybrid}
+
+
+def family_module(cfg: ModelConfig) -> ModuleType:
+    """The port's module of the config's family (``param_shapes``,
+    ``new_params``, ``init_rule``, ``STACKED``, ``init_params``,
+    ``forward``, ``cache_shapes``, ``cache_batch_axes``);
+    raises ``NotImplementedError`` naming the ``ROADMAP.md`` item of a
+    family that is not ported."""
+    mod = _FAMILIES.get(cfg.family)
+    if mod is None or mod is transformer:
+        transformer.check_supported(cfg)
+    return mod
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    attn_backend: str = "auto"
+    backend: str = "auto"
 
     def __post_init__(self):
-        transformer.check_supported(self.cfg)
-        resolve_backend(self.attn_backend)
+        family_module(self.cfg)
+        resolve_backend(self.backend)
+
+    @property
+    def _mod(self) -> ModuleType:
+        return family_module(self.cfg)
 
     def param_shapes(self):
-        return transformer.param_shapes(self.cfg)
+        return self._mod.param_shapes(self.cfg)
 
     def init_params(self, seed: Union[int, torch.Generator] = 0,
-                    device: Optional[Union[str, torch.device]] = None
-                    ) -> transformer.Transformer:
+                    device: Optional[Union[str, torch.device]] = None):
         """Random parameters on ``device`` (``None``: CUDA, raising without
         a card), drawn from ``seed`` or a ``torch.Generator`` on that
-        device."""
+        device by the family's init rule."""
         dev = resolve_device(device)
         gen = seed
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(seed))
-        return transformer.init_params(self.cfg, gen, dev)
+        return self._mod.init_params(self.cfg, gen, dev)
 
     def cache_shapes(self, batch: int, max_len: int):
-        return transformer.cache_shapes(self.cfg, batch, max_len)
+        """The cache's tree of ``(shape, dtype)`` leaves."""
+        return self._mod.cache_shapes(self.cfg, batch, max_len)
+
+    def cache_batch_axes(self):
+        """The batch axis of each cache leaf, in the tree of
+        ``cache_shapes``."""
+        return self._mod.cache_batch_axes(self.cfg)
 
     # ---- forward paths -----------------------------------------------------
     def _fwd(self, params, batch, **kw):
-        return transformer.forward(self.cfg, params, batch["tokens"],
-                                   attn_backend=self.attn_backend, **kw)
+        return self._mod.forward(self.cfg, params, batch["tokens"],
+                                 backend=self.backend, **kw)
 
     def prefill(self, params, batch, cache):
         return self._fwd(params, batch, mode="prefill", cache=cache,
@@ -72,6 +98,5 @@ get_config = _cfg_base.get_config
 list_architectures = _cfg_base.list_architectures
 
 
-def get_model(name: str, smoke: bool = False,
-              attn_backend: str = "auto") -> Model:
-    return Model(get_config(name, smoke), attn_backend)
+def get_model(name: str, smoke: bool = False, backend: str = "auto") -> Model:
+    return Model(get_config(name, smoke), backend)

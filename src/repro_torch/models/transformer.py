@@ -20,9 +20,10 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from . import _params as P
 from . import layers as L
 
-Shape = Tuple[Tuple[int, ...], torch.dtype]
+Shape = P.Shape
 
 
 def check_supported(cfg) -> None:
@@ -37,7 +38,7 @@ def check_supported(cfg) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP.md {'B8' if cfg.family in ('ssm', 'hybrid') else 'A8'})")
+            f"(ROADMAP.md A8)")
 
 
 # ---------------------------------------------------------------------------
@@ -70,11 +71,6 @@ def param_shapes(cfg) -> Dict[str, Union[Shape, Dict[str, Shape]]]:
     return p
 
 
-def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
-
-
 class DenseLayer(nn.Module):
     """One layer's parameters: ``ln1``, ``ln2``, ``wq``, ``wk``, ``wv``,
     ``wo`` (+ ``bq``, ``bk``, ``bv``), ``w_gate``, ``w_up``, ``w_down``."""
@@ -83,7 +79,7 @@ class DenseLayer(nn.Module):
         super().__init__()
         d = L.dtype_of(cfg)
         for name, shape in _layer_shapes(cfg).items():
-            setattr(self, name, _param(shape, d, device))
+            setattr(self, name, P.param(shape, d, device))
 
 
 class Transformer(nn.Module):
@@ -96,54 +92,43 @@ class Transformer(nn.Module):
         super().__init__()
         check_supported(cfg)
         d = L.dtype_of(cfg)
-        self.embed = _param((cfg.vocab, cfg.d_model), d, device)
-        self.final_norm = _param((cfg.d_model,), d, device)
+        self.embed = P.param((cfg.vocab, cfg.d_model), d, device)
+        self.final_norm = P.param((cfg.d_model,), d, device)
         if not cfg.tie_embeddings:
-            self.lm_head = _param((cfg.d_model, cfg.vocab), d, device)
+            self.lm_head = P.param((cfg.d_model, cfg.vocab), d, device)
         self.dense = nn.ModuleList(DenseLayer(cfg, device)
                                    for _ in range(cfg.n_layers))
 
 
-def _leaf(params: Transformer, key: Tuple[str, ...]):
-    """The parameters of a reference leaf path: one tensor, or the list of
-    per-layer tensors of a ``"dense"`` leaf."""
-    if key[0] == "dense":
-        return [getattr(layer, key[1]) for layer in params.dense]
-    return getattr(params, key[0])
+STACKED = ("dense",)
+
+
+def new_params(cfg, device=None) -> Transformer:
+    return Transformer(cfg, device)
 
 
 def leaves(cfg) -> Tuple[Tuple[Tuple[str, ...], Shape], ...]:
     """``(path, (shape, dtype))`` of every reference leaf, in the order
     ``jax.tree_util`` flattens the reference tree (sorted keys)."""
-    out = []
-    for k, v in sorted(param_shapes(cfg).items()):
-        if isinstance(v, dict):
-            out.extend(((k, kk), vv) for kk, vv in sorted(v.items()))
-        else:
-            out.append(((k,), v))
-    return tuple(out)
+    return P.leaves(param_shapes(cfg))
 
 
-@torch.no_grad()
+def init_rule(key, shape):
+    """``repro.models.transformer.init_params``'s rule: a leaf of two or
+    more (stacked) axes is standard normal times ``shape[-2] ** -0.5`` (so
+    the stacked norm gains and biases ``(nl, D)`` get ``nl ** -0.5``), a
+    1-D leaf is ones."""
+    if len(shape) < 2:
+        return "fill", 1.0
+    return "normal", shape[-2] ** -0.5
+
+
 def init_params(cfg, generator: torch.Generator, device) -> Transformer:
-    """Random parameters drawn as ``repro``'s ``init_params`` draws them:
-    for each leaf in flatten order, a leaf of two or more (stacked) axes is
-    standard normal times ``shape[-2] ** -0.5`` (so the stacked norm gains
-    and biases ``(nl, D)`` get ``nl ** -0.5``), a 1-D leaf is ones; drawn
-    in float32 (a stacked leaf one layer at a time) and cast to the
-    config's dtype.  The numbers differ from ``jax.random``'s."""
-    params = Transformer(cfg, device)
-    for key, (shape, _) in leaves(cfg):
-        dst = _leaf(params, key)
-        if len(shape) < 2:
-            dst.fill_(1.0)
-            continue
-        scale = shape[-2] ** -0.5
-        for t in (dst if isinstance(dst, list) else [dst]):
-            w = torch.randn(t.shape, generator=generator, device=device,
-                            dtype=torch.float32) * scale
-            t.copy_(w)
-    return params
+    """Random parameters drawn by :func:`init_rule` for each leaf in
+    flatten order (a stacked leaf one layer at a time) in float32, cast to
+    the config's dtype.  The numbers differ from ``jax.random``'s."""
+    return P.draw_(Transformer(cfg, device), param_shapes(cfg), STACKED,
+                   init_rule, generator)
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +148,7 @@ def _layer(cfg, p: DenseLayer, x, positions, lc, cache_index, mode,
 @torch.no_grad()
 def forward(cfg, params: Transformer, tokens: torch.Tensor, *,
             mode: str = "train", cache: Optional[dict] = None,
-            cache_index: int = 0, attn_backend: str = "auto"):
+            cache_index: int = 0, backend: str = "auto"):
     """tokens (B, S) -> float32 logits (B, S, vocab), or (logits, cache)
     when a cache is given (written in place and returned)."""
     check_supported(cfg)
@@ -174,8 +159,7 @@ def forward(cfg, params: Transformer, tokens: torch.Tensor, *,
         lc = None
         if cache is not None:
             lc = {"k": cache["dense"]["k"][l], "v": cache["dense"]["v"][l]}
-        x = _layer(cfg, lp, x, positions, lc, cache_index, mode,
-                   attn_backend)
+        x = _layer(cfg, lp, x, positions, lc, cache_index, mode, backend)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     head = params.lm_head if not cfg.tie_embeddings else params.embed.T
     logits = L.unembed(x, head)
@@ -187,3 +171,9 @@ def cache_shapes(cfg, batch: int, max_len: int) -> Dict[str, Dict[str, Shape]]:
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     d = L.dtype_of(cfg)
     return {"dense": {"k": (shape, d), "v": (shape, d)}}
+
+
+def cache_batch_axes(cfg) -> Dict[str, Dict[str, int]]:
+    """The batch axis of each cache leaf (the reference's
+    ``cache_logical_axes`` "batch")."""
+    return {"dense": {"k": 1, "v": 1}}

@@ -7,7 +7,11 @@ its slot), decode advances the active slots one group of equal positions
 at a time, and a slot retires at EOS, at ``max_new_tokens`` or one
 position before the end of its cache.  The group's slot caches are
 gathered with ``index_select`` and written back with ``index_copy_`` (in
-place), so other slots' caches stay untouched.
+place), so other slots' caches stay untouched.  Each cache leaf is cut
+along its own batch axis (``Model.cache_batch_axes``): axis 1 of the dense
+KV cache and of Mamba2's state, axis 2 of the hybrid's stacked ``(napp, k,
+B, ...)`` Mamba state.  (The reference cuts axis 1 of every leaf, which
+breaks the hybrid's cache.)
 """
 from __future__ import annotations
 
@@ -45,16 +49,12 @@ class ContinuousBatcher:
         self.max_len = max_len
         self.cache = serve_step.zero_cache(model, n_slots, max_len,
                                            self.device)
+        self.axes = model.cache_batch_axes()
         self.slot_req: List[Optional[Request]] = [None] * n_slots
         self.slot_pos = np.zeros(n_slots, np.int32)
         self.slot_tok = np.zeros((n_slots, 1), np.int32)
         self.queue: List[Request] = []
         self.finished: Dict[int, Request] = {}
-
-    def _cache_map(self, fn):
-        for sec, leaves in self.cache.items():
-            for name, full in leaves.items():
-                fn(sec, name, full)
 
     # -- admission -----------------------------------------------------------
     def submit(self, req: Request):
@@ -73,8 +73,9 @@ class ContinuousBatcher:
                                                 {"tokens": tokens}, c1)
                 tok = int(logits[:, -1].argmax())
                 req.out.append(tok)
-                self._cache_map(lambda sec, name, full: full[:, s].copy_(
-                    c1[sec][name][:, 0]))
+                serve_step.tree_map(
+                    lambda full, one, ax: full.select(ax, s).copy_(
+                        one.select(ax, 0)), self.cache, c1, self.axes)
                 self.slot_req[s] = req
                 self.slot_pos[s] = S
                 self.slot_tok[s, 0] = tok
@@ -98,14 +99,15 @@ class ContinuousBatcher:
             if not group:
                 continue
             gidx = torch.tensor(group, dtype=torch.long, device=self.device)
-            sub_cache = {sec: {name: full.index_select(1, gidx)
-                               for name, full in leaves.items()}
-                         for sec, leaves in self.cache.items()}
+            sub_cache = serve_step.tree_map(
+                lambda full, ax: full.index_select(ax, gidx), self.cache,
+                self.axes)
             toks = torch.as_tensor(self.slot_tok[group], device=self.device)
             logits, sub_cache = self.model.decode_step(
                 self.params, toks, sub_cache, pos)
-            self._cache_map(lambda sec, name, full: full.index_copy_(
-                1, gidx, sub_cache[sec][name]))
+            serve_step.tree_map(
+                lambda full, sub, ax: full.index_copy_(ax, gidx, sub),
+                self.cache, sub_cache, self.axes)
             nxt = logits[:, -1].argmax(-1).to(torch.int32).cpu().numpy()
             for gi, s in enumerate(group):
                 req = self.slot_req[s]

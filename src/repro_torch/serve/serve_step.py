@@ -2,8 +2,10 @@
 
 Copied from ``repro.serve.serve_step`` for one card: ``build_serve_fns``
 returns plain callables (PyTorch runs eagerly; no ``jit``, no mesh), and
-caches are written in place.  ``cache_shardings`` waits for a multi-card
-slice.
+caches are written in place.  A cache is the tree of its family's
+``cache_shapes`` (sectioned for the dense and hybrid families, flat for
+Mamba2); :func:`tree_map` walks it.  ``cache_shardings`` waits for a
+multi-card slice.
 """
 from __future__ import annotations
 
@@ -17,11 +19,22 @@ from ..models.registry import Model
 Device = Optional[Union[str, torch.device]]
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a nested dict (and the same-shaped
+    ``rest``), keeping the dict structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
 def zero_cache(model: Model, batch: int, max_len: int, device: Device = None):
+    """A zero cache of the tree ``model.cache_shapes`` gives, flat or
+    sectioned, on ``device`` (``None``: CUDA, raising without a card)."""
     dev = resolve_device(device)
-    return {sec: {name: torch.zeros(shape, dtype=dt, device=dev)
-                  for name, (shape, dt) in leaves.items()}
-            for sec, leaves in model.cache_shapes(batch, max_len).items()}
+    return tree_map(lambda leaf: torch.zeros(leaf[0], dtype=leaf[1],
+                                             device=dev),
+                    model.cache_shapes(batch, max_len))
 
 
 def check_params_device(params, device: torch.device) -> None:

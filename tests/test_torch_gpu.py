@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need a CUDA card: each kernel against its
 plain version, both engines on the card against the engines on the CPU, and
-the dense serving path on the card against the CPU.
+the dense, Mamba2 and Zamba2-hybrid serving paths on the card against the
+CPU.
 
 They skip without a card.  The machine with the card has no JAX, and
 ``tests/conftest.py`` imports it, so run them there with
@@ -17,6 +18,7 @@ from repro_torch.kernels.lindley import ops as lindley_ops, ref as lindley_ref
 from repro_torch.kernels.jsq_scan import ops as jsq_ops
 from repro_torch.kernels.slot_step import ops as slot_ops
 from repro_torch.kernels.flash_attn import ops as attn_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
 from repro_torch.configs import get_config
 from repro_torch.models.registry import Model
 from repro_torch.serve import batching, serve_step
@@ -367,6 +369,113 @@ def test_serving_on_card_matches_cpu():
                 rid=rid, prompt=r.integers(0, model.cfg.vocab,
                                            (13 + 7 * rid,)).astype(np.int32),
                 max_new_tokens=5))
+        done[str(d)] = {rid: q.out for rid, q in
+                        cb.run_to_completion(max_ticks=200).items()}
+    assert done["cpu"] == done[str(dev)]
+
+
+# SSD kernel shapes (B, L, H, P, G, N): tests/test_kernels.py's, Zamba2-2.7B's
+# heads and Mamba2-130M's at ragged and full prefill lengths.
+SSD_SHAPES = [(1, 64, 2, 16, 1, 16), (2, 128, 4, 32, 2, 64),
+              (1, 96, 8, 64, 4, 32), (1, 1, 80, 64, 1, 64),
+              (2, 100, 80, 64, 1, 64), (1, 2048, 80, 64, 1, 64),
+              (2, 37, 24, 64, 1, 128), (1, 2048, 24, 64, 1, 128)]
+# float32: the reference's tolerance (tests/test_kernels.py); bf16: the
+# output is rounded once to bf16 (2**-8 relative) from float32 sums taken
+# in another order, so the two can differ by one bf16 step.
+SSD_TOL = {torch.float32: (5e-5, 5e-4), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _ssd_inputs(shape, dtype, dev, seed, decay=1.0):
+    B, L, H, P, G, N = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, L, H, P, generator=g)
+    dt = 0.01 + torch.rand(B, L, H, generator=g) * 0.2
+    A = -(0.5 + torch.rand(H, generator=g)) * decay
+    Bm = torch.randn(B, L, G, N, generator=g)
+    C = torch.randn(B, L, G, N, generator=g)
+    return [x.to(dev, dtype), dt.to(dev), A.to(dev), Bm.to(dev, dtype),
+            C.to(dev, dtype)]
+
+
+@pytest.mark.parametrize("decay", [1.0, 100.0], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
+def test_ssd_kernel_matches_plain(shape, dtype, decay):
+    """``decay=100``: A * dt sums past 100 within a chunk; the kernel must
+    stay finite (it takes exp only where lam_i - lam_j <= 0)."""
+    dev = cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _ssd_inputs(shape, dtype, dev, sum(shape), decay)
+    before = ssd_ops.LAUNCHES
+    got = ssd_ops.ssd(*args)
+    want = ssd_ops.ssd(*args, backend="torch")
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == shape[:4]
+    assert bool(torch.isfinite(got).all())
+    atol, rtol = SSD_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    if shape[1] <= 128 and dtype == torch.float32:
+        seq = ssd_ref.ssd_scan(*args)
+        torch.testing.assert_close(got, seq, atol=atol, rtol=rtol)
+
+
+def test_ssd_kernel_reads_strided_slices():
+    """x, B and C as slices of one (B, L, width) projection, as the model
+    passes them: the kernel reads them through their strides."""
+    dev = cuda_or_skip()
+    B, L, H, P, G, N = 2, 77, 8, 32, 2, 16
+    g = torch.Generator().manual_seed(1)
+    proj = torch.randn(B, L, H * P + 2 * G * N + 5, generator=g).to(dev)
+    x = proj[..., :H * P].reshape(B, L, H, P)
+    Bm = proj[..., H * P:H * P + G * N].reshape(B, L, G, N)
+    C = proj[..., H * P + G * N:H * P + 2 * G * N].reshape(B, L, G, N)
+    dt = (0.01 + torch.rand(B, L, H, generator=g) * 0.2).to(dev)
+    A = -(0.5 + torch.rand(H, generator=g)).to(dev)
+    assert not x.is_contiguous()
+    got = ssd_ops.ssd(x, dt, A, Bm, C)
+    want = ssd_ops.ssd(x.contiguous(), dt, A, Bm.contiguous(),
+                       C.contiguous(), backend="torch")
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=5e-4)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+def test_ssm_serving_on_card_matches_cpu(arch):
+    """The smoke configs in float32: prefill logits within 1e-4 of the
+    CPU's, one ``ssd_scan`` launch a Mamba layer per prefill (and one
+    ``flash_attention`` launch a shared-block application), and the batcher
+    tokens equal the CPU's."""
+    dev = cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Model(get_config(arch, smoke=True))
+    cpu_params = model.init_params(0, device="cpu")
+    card_params = model.init_params(0, device="cpu").to(dev)
+    prompt = np.random.default_rng(0).integers(0, model.cfg.vocab, (2, 70))
+    cache_c = serve_step.zero_cache(model, 2, 74, "cpu")
+    cache_g = serve_step.zero_cache(model, 2, 74, dev)
+    want, _ = model.prefill(cpu_params, {"tokens": torch.from_numpy(prompt)},
+                            cache_c)
+    before = (ssd_ops.LAUNCHES, attn_ops.LAUNCHES)
+    got, _ = model.prefill(card_params, {"tokens": torch.from_numpy(
+        prompt).to(dev)}, cache_g)
+    cfg = model.cfg
+    n_apps = (cfg.n_layers // cfg.shared_attn_every
+              if cfg.shared_attn_every else 0)
+    assert (ssd_ops.LAUNCHES, attn_ops.LAUNCHES) == (
+        before[0] + cfg.n_layers, before[1] + n_apps)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    done = {}
+    for d, params in (("cpu", cpu_params), (dev, card_params)):
+        cb = batching.ContinuousBatcher(model, params, n_slots=2, max_len=64,
+                                        device=d)
+        r = np.random.default_rng(3)
+        for rid in range(3):
+            cb.submit(batching.Request(
+                rid=rid, prompt=r.integers(0, model.cfg.vocab,
+                                           (13 + 7 * rid,)).astype(np.int32),
+                max_new_tokens=4))
         done[str(d)] = {rid: q.out for rid, q in
                         cb.run_to_completion(max_ticks=200).items()}
     assert done["cpu"] == done[str(dev)]

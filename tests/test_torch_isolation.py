@@ -56,7 +56,14 @@ def test_port_imports_without_jax_or_reference():
                      "repro_torch.models.registry",
                      "repro_torch.serve.serve_step",
                      "repro_torch.serve.batching",
-                     "repro_torch.launch.serve"):
+                     "repro_torch.launch.serve",
+                     "repro_torch.kernels.ssd_scan.ops",
+                     "repro_torch.kernels.ssd_scan.kernel",
+                     "repro_torch.kernels.ssd_scan.ref",
+                     "repro_torch.models._params",
+                     "repro_torch.models.mamba2",
+                     "repro_torch.models.hybrid",
+                     "repro_torch.interop"):
             assert name in names, name
         print(len(names))
     """)
@@ -64,7 +71,7 @@ def test_port_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 62
+    assert int(out.stdout.strip()) >= 69
 
 
 def test_entry_points_raise_without_a_card():
@@ -106,3 +113,21 @@ def test_serving_entry_points_raise_without_a_card():
         batching.ContinuousBatcher(model, params, n_slots=2, max_len=16)
     with pytest.raises(RuntimeError, match="CUDA"):
         launch_serve.main(["--arch", "yi-6b", "--smoke"])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+def test_ssm_serving_entry_points_raise_without_a_card(arch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device works")
+    model = Model(get_config(arch, smoke=True))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_params(0)
+    params = model.init_params(0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_step.greedy_decode(model, params, np.zeros((1, 4), np.int32), 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_step.zero_cache(model, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batching.ContinuousBatcher(model, params, n_slots=2, max_len=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_serve.main(["--arch", arch, "--smoke"])

@@ -266,6 +266,14 @@ def test_bf16_prefill_and_decode_match_reference():
                                        ("mamba2-130m", "B8"),
                                        ("zamba2-2.7b", "B8")])
 def test_unported_families_raise(arch, item):
+    """The families still to port (A8) raise naming their ROADMAP item;
+    those of B8 (Mamba2 and the Zamba2 hybrid, ported with the SSD kernel)
+    no longer raise and build their cache."""
+    if item == "B8":
+        model = Model(get_config(arch, smoke=True))
+        assert model.cfg.family in ("ssm", "hybrid")
+        assert model.cache_shapes(1, 8)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         Model(get_config(arch, smoke=True))
 

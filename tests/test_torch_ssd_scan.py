@@ -1,0 +1,161 @@
+"""The port's SSD scan (``repro_torch.kernels.ssd_scan``: the plain
+versions ``ssd_scan``, ``ssd_chunked``, ``ssd_final_state`` and the
+wrapper ``ops.ssd``) against the JAX reference's plain versions
+(``repro.kernels.ssd_scan.ref``) on the same numpy inputs, on the CPU.
+
+Tolerance: the reference's own, atol 5e-5 and rtol 5e-4
+(``tests/test_kernels.py``): the same float32 math, its sums taken in
+another order.  The reference's Pallas kernel is not run: it fails on this
+JAX (``pl.store``, ``ROADMAP.md`` B8), and the CUDA kernel is held to these
+plain versions on the card (``test_torch_gpu.py``, ``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd_scan import ref as jref
+
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as tref
+
+ATOL, RTOL = 5e-5, 5e-4
+# (B, L, H, P, G, N): tests/test_kernels.py's SSD_SHAPES, then Zamba2-2.7B's
+# heads (80 of P = 64, N = 64) and Mamba2-130M's (24 of P = 64, N = 128),
+# at ragged lengths.
+SHAPES = [(1, 64, 2, 16, 1, 16), (2, 128, 4, 32, 2, 64),
+          (1, 96, 8, 64, 4, 32), (1, 100, 80, 64, 1, 64),
+          (2, 37, 24, 64, 1, 128)]
+
+
+def _inputs(shape, seed, decay=1.0):
+    """tests/test_kernels.py's draws; ``decay`` scales A."""
+    B, L, H, P, G, N = shape
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, L, H, P)).astype(np.float32)
+    dt = (0.01 + rng.random((B, L, H)) * 0.2).astype(np.float32)
+    A = ((-0.5 - rng.random(H)) * decay).astype(np.float32)
+    Bm = rng.normal(size=(B, L, G, N)).astype(np.float32)
+    C = rng.normal(size=(B, L, G, N)).astype(np.float32)
+    return x, dt, A, Bm, C
+
+
+def _both(shape, seed, decay=1.0):
+    arrs = _inputs(shape, seed, decay)
+    return ([jnp.asarray(a) for a in arrs],
+            [torch.from_numpy(a) for a in arrs])
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+def _pad(arrs, chunk=64):
+    L = arrs[0].shape[1]
+    p = (-L) % chunk
+    return [a if i == 2 else jnp.pad(a, [(0, 0), (0, p)] +
+                                     [(0, 0)] * (a.ndim - 2))
+            for i, a in enumerate(arrs)]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_sequential_scan_matches_reference(shape):
+    j, t = _both(shape, sum(shape))
+    got = tref.ssd_scan(*t)
+    assert got.dtype == torch.float32 and got.shape == shape[:4]
+    _close(got, jref.ssd_scan(*j))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_chunked_matches_reference(shape):
+    """The chunked closed form on zero-padded inputs (the reference's
+    ``ssd_chunked`` needs L % chunk == 0), against both reference forms."""
+    j, t = _both(shape, sum(shape) + 1)
+    jp = _pad(j)
+    tp = tref.pad_to_chunk(64, t[0], t[1], t[3], t[4])
+    got = tref.ssd_chunked(tp[0], tp[1], t[2], tp[2], tp[3])
+    L = shape[1]
+    _close(got, jref.ssd_chunked(*jp))
+    _close(got[:, :L], jref.ssd_scan(*j))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_final_state_matches_reference(shape):
+    j, t = _both(shape, sum(shape) + 2)
+    got = tref.ssd_final_state(*t)
+    B, L, H, P, G, N = shape
+    assert got.shape == (B, H, N, P) and got.dtype == torch.float32
+    _close(got, jref.ssd_final_state(*j))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_ops_pads_like_the_reference(shape):
+    """``ops.ssd`` on CPU tensors (``auto`` and ``torch``) pads L to the
+    chunk and cuts the result back, as ``repro``'s ``ops.ssd`` does; no
+    kernel is launched."""
+    j, t = _both(shape, sum(shape) + 3)
+    want = jref.ssd_scan(*j)
+    before = ssd_ops.LAUNCHES
+    for backend in ("auto", "torch"):
+        got = ssd_ops.ssd(*t, backend=backend)
+        assert got.shape == shape[:4]
+        _close(got, want)
+    assert ssd_ops.LAUNCHES == before
+
+
+def test_large_decay_is_finite():
+    """``A * dt`` summing past 100 within a chunk: ``exp(lam_i - lam_j)``
+    overflows for j > i, which a 0/1 mask would turn into NaN; the plain
+    versions drop those entries with a ``where`` and stay finite and equal
+    to the sequential scan."""
+    shape = (1, 128, 4, 16, 2, 16)
+    j, t = _both(shape, 7, decay=100.0)
+    A, dt = t[2].double(), t[1].double()
+    assert float((-A[None, None] * dt)[:, :64].sum(1).min()) > 100
+    seq = tref.ssd_scan(*t)
+    for got in (tref.ssd_chunked(*t), ssd_ops.ssd(*t)):
+        assert bool(torch.isfinite(got).all())
+        _close(got, seq)
+    _close(seq, jref.ssd_scan(*j))
+
+
+def test_bf16_inputs_return_bf16():
+    """bf16 x, B and C (the model's full-size dtype) compute in float32 and
+    round once to bf16, in both packages."""
+    shape = (1, 70, 8, 16, 2, 16)
+    arrs = _inputs(shape, 11)
+    jb = [jnp.asarray(a, jnp.bfloat16 if i in (0, 3, 4) else jnp.float32)
+          for i, a in enumerate(arrs)]
+    tb = [torch.from_numpy(a).to(torch.bfloat16 if i in (0, 3, 4)
+                                 else torch.float32)
+          for i, a in enumerate(arrs)]
+    got = ssd_ops.ssd(*tb)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(jref.ssd_chunked(*_pad(jb)), np.float32)[:, :70]
+    # one bf16 rounding of the same float32 value: at most one bf16 step
+    np.testing.assert_allclose(got.float().numpy(), want, atol=1e-2,
+                               rtol=2 ** -7)
+
+
+def test_kernel_wrapper_checks_its_inputs():
+    """The CUDA wrapper refuses what the kernel does not take before it
+    builds or launches anything: CPU tensors, mixed dtypes, float32-only
+    dt, too large a chunk, head dim or state."""
+    _, (x, dt, A, Bm, C) = _both((1, 8, 4, 16, 2, 16), 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernel.ssd_scan(x, dt, A, Bm, C)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ssd_kernel.ssd_scan(x, dt, A, Bm.bfloat16(), C)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_kernel.ssd_scan(x, dt.double(), A, Bm, C)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_kernel.ssd_scan(x, dt, A, Bm, C, chunk=128)
+    with pytest.raises(ValueError, match="shapes"):
+        ssd_kernel.ssd_scan(x, dt, A[:3], Bm, C)
+    big = torch.zeros((1, 8, 2, 256))
+    with pytest.raises(ValueError, match="N <= 128"):
+        ssd_kernel.ssd_scan(x, dt, A, big, big)
+    with pytest.raises(ValueError, match="backend"):
+        ssd_ops.ssd(x, dt, A, Bm, C, backend="pallas")
