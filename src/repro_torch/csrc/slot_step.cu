@@ -9,7 +9,7 @@
 // Every operand carries a leading row axis B (the fused megabatch); the
 // plain versions are repro_torch/kernels/slot_step/ref.py.
 //
-// jsq_pick: one thread per (row, chooser), a loop over h <= 32 ports.  Per
+// jsq_pick: one thread per (row, chooser), a loop over its h ports.  Per
 // port: the queue length, Threefry-2x32 (20 rounds, native uint32) keyed
 // k0 = seed_lo, k1 = seed_hi ^ ((site << 16) ^ lane), counter c0 = t,
 // c1 = id, the uniform (x0 >> 8) * 2^-24, and the score
@@ -361,7 +361,7 @@ int slot_jsq_pick(const void* qcnt, const void* qbase, const void* ids,
                   const void* seed_hi, int t, int site, const void* edges,
                   int nq_edges, int rows, int m, int nq, int h, void* out,
                   void* stream) {
-  if (h < 1 || h > 32 || rows < 1 || m < 1 || nq < 1 || t < 0 ||
+  if (h < 1 || rows < 1 || m < 1 || nq < 1 || t < 0 ||
       nq_edges < 0 || nq_edges > MAX_EDGES)
     return (int)cudaErrorInvalidValue;
   const int64_t n = (int64_t)rows * m;
@@ -415,7 +415,7 @@ int slot_agg_jsq_enqueue(const void* qbuf, const void* qhead,
                          int nq, void* qbuf_out, void* qcnt_out, void* c_fin,
                          void* enq_try, void* do_enq, void* occ_after,
                          void* marked, void* stream) {
-  if (h < 1 || h > 32 || rows < 1 || m < 1 || nq < 1 || cap < 1 || t < 0 ||
+  if (h < 1 || rows < 1 || m < 1 || nq < 1 || cap < 1 || t < 0 ||
       nq_edges < 0 || nq_edges > MAX_EDGES)
     return (int)cudaErrorInvalidValue;
   const size_t smem = row_smem(m);

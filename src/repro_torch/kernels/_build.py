@@ -3,7 +3,10 @@
 Each ``repro_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled on its own into ``build/repro_torch_kernels/<name>-<hash>.so`` at
 the root of the checkout, where ``<hash>`` covers the source text and the
-compiler flags.  A library that is already there is loaded as it is, so
+compiler flags.  The fabric and SSD kernels are built with
+``--fmad=false``, so that no multiply-add is contracted and their results
+stay bitwise those of their plain versions; the attention kernels, held to
+a tolerance, let the compiler contract (:func:`flags`).  A library that is already there is loaded as it is, so
 only the first use after a change pays for ``nvcc``.  :func:`build_all`
 starts one ``nvcc`` per source at once; :func:`load` builds one source if
 needed and returns its ``ctypes.CDLL``.
@@ -24,8 +27,8 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CONTRACTED = ("flash_attn",)    # sources built without --fmad=false
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -45,9 +48,14 @@ def _nvcc() -> str:
     return cand
 
 
+def flags(name: str) -> List[str]:
+    """The ``nvcc`` flags of ``csrc/<name>.cu``."""
+    return [*NVCC_FLAGS, *(() if name in CONTRACTED else ("--fmad=false",))]
+
+
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
 
@@ -57,7 +65,7 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

@@ -3,11 +3,15 @@
 Dispatches on the device of ``q``: a CPU tensor takes the plain version on
 the reference's CPU route (``ref.mha`` up to 1,024 keys, else
 ``ref.mha_chunked`` with ``block_k = min(512, Sk)``), a CUDA tensor
-launches the CUDA kernel (``kernel.py``).  ``backend="torch"`` takes the
-plain version's route on any device.  ``Dv != Dk`` (MLA, off the dense
-path) is the reference's own route to ``mha_chunked`` on every backend
-(``repro/kernels/flash_attn/ops.py:30-31``).  ``LAUNCHES`` counts the
-kernel launches made through this wrapper.
+launches a CUDA kernel (``kernel.py``: the tensor-core kernel in bf16, the
+CUDA-core kernel in float32).  ``backend="torch"`` takes the plain
+version's route on any device.  A tensor the kernels cannot read as it
+lies (``kernel.kernel_ready``) is copied first (``kernel.ready_copy``).
+``Dv != Dk`` (MLA, off the dense path) takes the reference's own route to
+``mha_chunked`` on the plain path (``repro/kernels/flash_attn/ops.py:30-31``)
+and the kernels on CUDA tensors, which take any Dv.  ``LAUNCHES`` counts the
+kernel launches made through this wrapper, and ``ROUTE_LAUNCHES`` the same
+launches by kernel (``kernel.route``: ``wgmma`` or ``cuda_cores``).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from . import ref as _ref
 from .._common import resolve_backend
 
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -36,12 +41,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _ref.mha(q, k, v, causal=causal, scale=scale)
     if not q.is_cuda:
         raise ValueError(f"attention: unsupported device {q.device}")
-    if mixed_dims:
-        return _ref.mha_chunked(q, k, v, causal=causal, scale=scale)
-    q, k, v = (t if _kernel.kernel_ready(t)
-               else t.clone(memory_format=torch.contiguous_format)
+    q, k, v = (t if _kernel.kernel_ready(t) else _kernel.ready_copy(t)
                for t in (q, k, v))
     out = _kernel.flash_attention(q, k, v, causal=causal, scale=scale)
     if out.numel():
         LAUNCHES += 1
+        ROUTE_LAUNCHES[_kernel.route(q.dtype, q.shape[-1])] += 1
     return out

@@ -16,7 +16,7 @@ from .. import _build
 from .._common import check_cuda
 
 _VP = ctypes.c_void_p
-MAX_PORTS = 32              # one lane per port
+MAX_PORTS = 14_560          # 4 warps' ports past 32 in 227 KB of shared memory
 
 
 def _lib() -> ctypes.CDLL:
@@ -38,7 +38,7 @@ def jsq_scan(t_grid: torch.Tensor, ok_grid: torch.Tensor, noise: torch.Tensor,
     h = noise.shape[-1]
     if not 1 <= h <= MAX_PORTS:
         raise ValueError(f"jsq_scan kernel: {h} ports, at most {MAX_PORTS} "
-                         f"(one warp lane per port, k <= 64)")
+                         f"(the ports' last departures in shared memory)")
     if (t_grid.dtype != torch.float32 or noise.dtype != torch.float32
             or port_pen.dtype != torch.float32 or ok_grid.dtype != torch.bool):
         raise ValueError("jsq_scan kernel: float32 grids and bool ok_grid")

@@ -10,7 +10,10 @@ The kernel reads x and dt through their (batch, position, head) strides and
 B and C through their (batch, position, group) strides, so the model's
 slices of one projection need no copy; the last axis of x, B and C must be
 contiguous.  The output is a new contiguous (B, L, H, P) tensor in x's
-dtype.  A ragged last chunk is masked in the kernel: any L >= 1 works.
+dtype.  A ragged last chunk is masked in the kernel: any L >= 1 works, and
+any P and N.  A chunk above ``TILE`` (64, the kernel's row tile) runs as
+chunks of ``TILE``: the chunked closed form is the same function for any
+cut, so only the order of the float32 sums changes.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from .. import _build
 
 _VP = ctypes.c_void_p
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 64, 64, 128
+TILE = 64                   # rows of the kernel's chunk tile
 
 
 def _lib() -> ctypes.CDLL:
@@ -41,8 +44,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              chunk: int = 64) -> torch.Tensor:
     """x (B, L, H, P) float32 or bf16; dt (B, L, H) float32; A (H,)
     float32, contiguous; B_mat, C (B, L, G, N) of x's dtype, ``H % G ==
-    0``; all on one CUDA device; chunk, P and N in 1-64, 1-64 and 1-128.
-    Returns y (B, L, H, P) in x's dtype."""
+    0``; all on one CUDA device; chunk, P and N >= 1.  Returns y (B, L, H,
+    P) in x's dtype."""
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B_mat.dim() != 4 \
             or C.shape != B_mat.shape:
         raise ValueError("ssd_scan kernel: x (B, L, H, P), dt (B, L, H), "
@@ -60,11 +63,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          "or all bfloat16")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
         raise ValueError("ssd_scan kernel: dt and A must be float32")
-    if not (1 <= chunk <= MAX_CHUNK and 1 <= P <= MAX_HEAD_DIM
-            and 1 <= N <= MAX_STATE):
-        raise ValueError(f"ssd_scan kernel: needs 1 <= chunk <= {MAX_CHUNK}"
-                         f", 1 <= P <= {MAX_HEAD_DIM} and 1 <= N <= "
-                         f"{MAX_STATE} (chunk={chunk}, P={P}, N={N})")
+    if chunk < 1 or P < 1 or N < 1:
+        raise ValueError(f"ssd_scan kernel: needs chunk, P and N >= 1 "
+                         f"(chunk={chunk}, P={P}, N={N})")
+    chunk = min(chunk, TILE)
     dev = x.device
     for t in (x, dt, A, B_mat, C):
         if not t.is_cuda or t.device != dev:

@@ -115,6 +115,28 @@ def test_jsq_scan_matches_reference_jsq_layer(quanta):
     assert int(port[0].max()) < h_log         # padded port never elected
 
 
+@pytest.mark.parametrize("quanta", [None, (0.05, 0.10, 0.20)])
+def test_jsq_scan_matches_reference_jsq_layer_at_33_ports(quanta):
+    """More ports than a warp has lanes (the CUDA scan walks ports l,
+    l + 32, ...): the plain scan through ``_jsq_layer`` against the
+    reference's ``lax.scan``, bitwise, with padded ports past ``h_log``."""
+    n_sw, npk, h, h_log = 3, 6000, 33, 31
+    switch, a, tie, active, pad, noise = _jsq_inputs(9, n_sw, npk, h)
+    kw = dict(n_switches=n_sw, pad=pad, h=h, quanta=quanta, buffer_pkts=40)
+    ref = ref_fastsim._jsq_layer(
+        jnp.asarray(switch), jnp.asarray(a), jnp.asarray(tie),
+        jnp.asarray(active), h_log=jnp.int32(h_log), noise=jnp.asarray(noise),
+        backend="auto", **kw)
+    t = torch.from_numpy
+    port = fastsim._jsq_layer(
+        t(switch)[None], t(a)[None], t(tie)[None], t(active)[None],
+        h_log=torch.tensor([h_log], dtype=torch.int32),
+        noise=t(noise)[None], backend="auto", **kw)
+    for r, p in zip(ref, port):
+        np.testing.assert_array_equal(np.asarray(r), p[0].numpy())
+    assert int(port[0].max()) < h_log         # padded ports never elected
+
+
 def test_jsq_score_is_one_rounding_like_xla():
     """``qlen + nz * 1e-3`` (fastsim.py:228): XLA on the CPU contracts it
     into a fused multiply-add; ``fma32`` gives the same bits and the

@@ -81,6 +81,24 @@ def test_attention_matches_pallas_kernel_interpret(shape, dtype):
     _close(got, want, DTYPES[dtype][2])
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("fn", ["mha", "mha_chunked"])
+@pytest.mark.parametrize("D", [36, 136, 256])
+def test_plain_versions_match_reference_at_wide_head_dims(D, fn, dtype):
+    """Head dims the CUDA kernels take since they pad to their tile depth
+    (36: not a multiple of 8; 136 and 256: past one 128-column tile)."""
+    shape = (1, 4, 2, 40, 70, D)
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(shape, D), dtype)
+    if fn == "mha":
+        want = ref_mha(jq, jk, jv, causal=True)
+        got = pr.mha(tq, tk, tv, causal=True)
+    else:
+        want = ref_mha_chunked(jq, jk, jv, causal=True, block_k=32)
+        got = pr.mha_chunked(tq, tk, tv, causal=True, block_k=32)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want, DTYPES[dtype][2])
+
+
 @pytest.mark.parametrize("block_k", [32, 100, 128])
 @pytest.mark.parametrize("shape", [(1, 4, 2, 64, 300, 32),
                                    (2, 6, 3, 37, 37, 16),
@@ -146,11 +164,12 @@ def test_attention_routes_like_the_reference_cpu_path(backend, monkeypatch):
 
 
 def test_kernel_wrapper_refuses_what_it_cannot_take():
+    """Malformed input only: every head dim >= 1 is taken."""
     q = torch.zeros(1, 4, 8, 32)
     k = torch.zeros(1, 2, 8, 32)
     with pytest.raises(ValueError, match="CUDA"):
         pk.flash_attention(q, k, k)
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match="CUDA"):
         pk.flash_attention(torch.zeros(1, 4, 8, 36), torch.zeros(1, 2, 8, 36),
                            torch.zeros(1, 2, 8, 36))
     with pytest.raises(ValueError, match="Sq <= Sk"):
@@ -159,5 +178,23 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
         pk.flash_attention(q.half(), k.half(), k.half())
     with pytest.raises(ValueError, match="fit"):
         pk.flash_attention(torch.zeros(1, 3, 8, 32), k, k)
+    with pytest.raises(ValueError, match="head dim"):
+        pk.flash_attention(torch.zeros(1, 4, 8, 0), torch.zeros(1, 2, 8, 0),
+                           torch.zeros(1, 2, 8, 0))
     assert pk.kernel_ready(q) and pk.kernel_ready(q.transpose(1, 2))
     assert not pk.kernel_ready(q.transpose(2, 3))
+
+
+@pytest.mark.parametrize("D", [1, 36, 80, 128, 136, 256, 300])
+def test_kernel_route_and_ready_copy(D):
+    """bf16 up to D = 256 takes the tensor-core kernel, float32 (and a
+    wider bf16 head) the CUDA-core kernel; ``ready_copy`` pads rows to a
+    multiple of 8 elements and keeps the values."""
+    assert pk.route(torch.bfloat16, D) == ("wgmma" if D <= 256
+                                           else "cuda_cores")
+    assert pk.route(torch.float32, D) == "cuda_cores"
+    t = torch.from_numpy(np.random.default_rng(D).standard_normal(
+        (2, 3, 5, D)).astype(np.float32)).transpose(1, 2)
+    c = pk.ready_copy(t)
+    assert pk.kernel_ready(c) and torch.equal(c, t)
+    assert c.stride(-2) == -(-D // 8) * 8

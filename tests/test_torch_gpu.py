@@ -94,12 +94,12 @@ def test_jsq_scan_kernel_matches_plain(shape, quanta):
         assert torch.equal(g.cpu(), w)
 
 
-def test_jsq_scan_rejects_too_many_ports():
-    dev = cuda_or_skip()
-    t = torch.zeros((1, 1, 4), device=dev)
-    with pytest.raises(ValueError):
-        jsq_ops.jsq_scan(t, t > 0, torch.zeros((1, 1, 4, 33), device=dev),
-                         torch.zeros((1, 33), device=dev))
+@pytest.mark.parametrize("quanta", [None, (0.05, 0.10, 0.20)])
+@pytest.mark.parametrize("h", [33, 64])
+def test_jsq_scan_kernel_many_ports_match_plain(h, quanta):
+    """More ports than a warp has lanes: lane l walks ports l, l + 32, ...;
+    bitwise equal to the plain version, with padded ports on one row."""
+    test_jsq_scan_kernel_matches_plain((2, 4, 60, h), quanta)
 
 
 @pytest.mark.parametrize("scheme", ["host_pkt", "switch_pkt", "switch_pkt_ar",
@@ -147,7 +147,8 @@ _AGG = ("qbuf", "qhead", "qcnt", "alive", "apk", "aq", "to_agg", "asw",
 
 @pytest.mark.parametrize("quanta", [None, (0.05, 0.10, 0.20)])
 @pytest.mark.parametrize("size", [(3, 640, 4, 195, 32), (2, 5120, 8, 195, 128),
-                                  (1, 7, 2, 5, 2)])
+                                  (1, 7, 2, 5, 2), (2, 640, 33, 40, 8),
+                                  (2, 1280, 64, 40, 16)])
 def test_slot_step_kernels_match_plain(size, quanta):
     dev = cuda_or_skip()
     B, M, h, cap, n_aggs = size
@@ -299,6 +300,53 @@ def test_flash_attention_kernel_matches_plain(shape, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("Sq", [1, 13, 2048])
+@pytest.mark.parametrize("D", [36, 80, 128, 136, 256])
+def test_flash_attention_kernel_head_dims_match_plain(D, Sq, dtype):
+    """Both routes (bf16: tensor cores; float32: CUDA cores) at head dims
+    that are not a multiple of 8 or 64, or span two column tiles, for a
+    decode row, a short prompt and a long one (causal, Sq == Sk; a single
+    query sees 2,048 keys).  D = 36 arrives contiguous, so the wrapper
+    copies it into rows padded to 40 elements first."""
+    dev = cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    Sk = 2048 if Sq == 1 else Sq
+    q, k, v = _attn_inputs((1, 8, 2, Sq, Sk, D), dtype, dev, D + Sq)
+    route = "wgmma" if dtype == torch.bfloat16 else "cuda_cores"
+    before = attn_ops.ROUTE_LAUNCHES[route]
+    got = attn_ops.attention(q, k, v)
+    want = attn_ops.attention(q, k, v, backend="torch")
+    torch.cuda.synchronize()
+    assert attn_ops.ROUTE_LAUNCHES[route] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dims", [(192, 128), (48, 32), (64, 192), (32, 300)],
+                         ids=str)
+def test_flash_attention_kernel_value_width_matches_plain(dims, dtype):
+    """v narrower or wider than q and k (MLA's Dk = 192, Dv = 128): the
+    kernels take it, held to the plain path (the reference's route,
+    ``mha_chunked``)."""
+    dev = cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    Dk, Dv = dims
+    g = torch.Generator().manual_seed(Dk + Dv)
+    q, k, v = (torch.randn(s, generator=g).to(dev, dtype)
+               for s in ((1, 8, 100, Dk), (1, 2, 130, Dk), (1, 2, 130, Dv)))
+    before = attn_ops.LAUNCHES
+    got = attn_ops.attention(q, k, v)
+    want = attn_ops.attention(q, k, v, backend="torch")
+    torch.cuda.synchronize()
+    assert attn_ops.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == (1, 8, 100, Dv)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 def test_flash_attention_kernel_strided_and_non_causal():
     """(B, S, H, D) tensors read as (B, H, S, D) views, as the model passes
     them; the output keeps q's layout."""
@@ -379,7 +427,8 @@ def test_serving_on_card_matches_cpu():
 SSD_SHAPES = [(1, 64, 2, 16, 1, 16), (2, 128, 4, 32, 2, 64),
               (1, 96, 8, 64, 4, 32), (1, 1, 80, 64, 1, 64),
               (2, 100, 80, 64, 1, 64), (1, 2048, 80, 64, 1, 64),
-              (2, 37, 24, 64, 1, 128), (1, 2048, 24, 64, 1, 128)]
+              (2, 37, 24, 64, 1, 128), (1, 2048, 24, 64, 1, 128),
+              (1, 300, 4, 128, 1, 256), (2, 77, 6, 100, 2, 200)]
 # float32: the reference's tolerance (tests/test_kernels.py); bf16: the
 # output is rounded once to bf16 (2**-8 relative) from float32 sums taken
 # in another order, so the two can differ by one bf16 step.
@@ -420,6 +469,21 @@ def test_ssd_kernel_matches_plain(shape, dtype, decay):
     if shape[1] <= 128 and dtype == torch.float32:
         seq = ssd_ref.ssd_scan(*args)
         torch.testing.assert_close(got, seq, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_ssd_kernel_wide_chunk_matches_plain(dtype):
+    """P = 128, N = 256 and a requested chunk of 128, which the kernel runs
+    as chunks of 64: held to the plain ``ssd_chunked`` at chunk 128."""
+    dev = cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _ssd_inputs((1, 500, 4, 128, 1, 256), dtype, dev, 3)
+    got = ssd_ops.ssd(*args, chunk=128)
+    want = ssd_ops.ssd(*args, chunk=128, backend="torch")
+    atol, rtol = SSD_TOL[dtype]
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
 
 
 def test_ssd_kernel_reads_strided_slices():

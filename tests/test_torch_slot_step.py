@@ -111,6 +111,35 @@ def test_agg_jsq_enqueue_matches_oracle_and_interpret_kernel(quanta):
         _same(got, qk.agg_jsq_enqueue(*args, interpret=True, **kw), b)
 
 
+@pytest.mark.parametrize("quanta", [None, QUANTA])
+@pytest.mark.parametrize("h", [33, 64])
+def test_wide_ports_match_oracle_and_interpret_kernel(h, quanta):
+    """More ports than a warp has lanes (the CUDA kernels take any h): the
+    pick and the fused agg pick + enqueue against the reference's oracles
+    and its interpret-mode kernels, and the enqueue on the same operands."""
+    off1, n_aggs = 24, 8
+    o = _operands(10 + h, h=h, nq=off1 + n_aggs * h + 16, n_aggs=n_aggs,
+                  pad_ports=3)
+    kw = dict(site=r_ent.SITE_EDGE_JSQ, quanta=quanta, cap=12)
+    got = t_ops.jsq_pick(*[_t(o, k) for k in PICK], o["t"], **kw)
+    akw = dict(site=r_ent.SITE_AGG_JSQ, quanta=quanta, cap=12, ecn_thresh=7,
+               off1=off1, h=h)
+    agg = t_ops.agg_jsq_enqueue(*[_t(o, k) for k in AGG], o["t"], **akw)
+    ekw = dict(cap=12, ecn_thresh=7)
+    enq = t_ops.enqueue(*[_t(o, k) for k in ENQ], **ekw)
+    for b in range(ROWS):
+        args = [_row(o, k, b) for k in PICK] + [o["t"]]
+        _same([got], [qr.jsq_pick(*args, **kw)], b)
+        _same([got], [qk.jsq_pick(*args, interpret=True, **kw)], b)
+        args = [_row(o, k, b) for k in AGG] + [o["t"]]
+        _same(agg, qr.agg_jsq_enqueue(*args, **akw), b)
+        _same(agg, qk.agg_jsq_enqueue(*args, interpret=True, **akw), b)
+        _same(enq, qk.enqueue(*[_row(o, k, b) for k in ENQ],
+                              interpret=True, **ekw), b)
+    assert int(got.max()) >= 32                # a port past the first 32
+    assert (got[1::2] < h - 3).all()           # padded ports never elected
+
+
 def test_wrappers_validate_backend():
     o = _operands(6)
     with pytest.raises(ValueError):

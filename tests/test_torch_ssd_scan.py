@@ -105,6 +105,23 @@ def test_ops_pads_like_the_reference(shape):
     assert ssd_ops.LAUNCHES == before
 
 
+@pytest.mark.parametrize("decay", [1.0, 100.0], ids=str)
+def test_chunked_matches_reference_at_wide_shapes(decay):
+    """Head dim P = 128, state N = 256 and chunk = 128 (the CUDA kernel
+    tiles P and N and runs chunks of 64): the chunked closed form and
+    ``ops.ssd`` against the reference's ``ssd_chunked`` and ``ssd_scan``;
+    ``decay=100`` sums A * dt past 100 within a chunk."""
+    shape = (1, 200, 2, 128, 1, 256)
+    j, t = _both(shape, 11, decay)
+    jp = _pad(j, 128)
+    tp = tref.pad_to_chunk(128, t[0], t[1], t[3], t[4])
+    got = tref.ssd_chunked(tp[0], tp[1], t[2], tp[2], tp[3], chunk=128)
+    assert bool(torch.isfinite(got).all())
+    _close(got, jref.ssd_chunked(*jp, chunk=128))
+    _close(got[:, :200], jref.ssd_scan(*j))
+    _close(ssd_ops.ssd(*t, chunk=128), jref.ssd_scan(*j))
+
+
 def test_large_decay_is_finite():
     """``A * dt`` summing past 100 within a chunk: ``exp(lam_i - lam_j)``
     overflows for j > i, which a 0/1 mask would turn into NaN; the plain
@@ -142,7 +159,7 @@ def test_bf16_inputs_return_bf16():
 def test_kernel_wrapper_checks_its_inputs():
     """The CUDA wrapper refuses what the kernel does not take before it
     builds or launches anything: CPU tensors, mixed dtypes, float32-only
-    dt, too large a chunk, head dim or state."""
+    dt, mismatched shapes, an empty chunk, head dim or state."""
     _, (x, dt, A, Bm, C) = _both((1, 8, 4, 16, 2, 16), 0)
     with pytest.raises(ValueError, match="CUDA"):
         ssd_kernel.ssd_scan(x, dt, A, Bm, C)
@@ -151,11 +168,11 @@ def test_kernel_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="float32"):
         ssd_kernel.ssd_scan(x, dt.double(), A, Bm, C)
     with pytest.raises(ValueError, match="chunk"):
-        ssd_kernel.ssd_scan(x, dt, A, Bm, C, chunk=128)
+        ssd_kernel.ssd_scan(x, dt, A, Bm, C, chunk=0)
     with pytest.raises(ValueError, match="shapes"):
         ssd_kernel.ssd_scan(x, dt, A[:3], Bm, C)
-    big = torch.zeros((1, 8, 2, 256))
-    with pytest.raises(ValueError, match="N <= 128"):
-        ssd_kernel.ssd_scan(x, dt, A, big, big)
+    empty = torch.zeros((1, 8, 2, 0))
+    with pytest.raises(ValueError, match="N >= 1"):
+        ssd_kernel.ssd_scan(x, dt, A, empty, empty)
     with pytest.raises(ValueError, match="backend"):
         ssd_ops.ssd(x, dt, A, Bm, C, backend="pallas")
