@@ -7,9 +7,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 Phases, each timed on its own line; any failure exits non-zero:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, all at once), and read the SASS of the attention library with
-   ``cuobjdump``: every instance of the bf16 kernel must hold ``HGMMA``
-   (Hopper's warpgroup tensor-core instruction);
+   source, all at once), and read the SASS of the attention and SSD
+   libraries with ``cuobjdump``: every instance of the bf16 attention
+   kernel and of the bf16 SSD walk must hold ``HGMMA`` (Hopper's warpgroup
+   tensor-core instruction);
 2. hold each fabric kernel bitwise against its plain PyTorch version on the
    card: ``segmented_cummax`` on random inputs at the engine's sizes and
    flag densities, ``jsq_scan`` on the grids the k=8 points give it (the
@@ -31,7 +32,14 @@ Phases, each timed on its own line; any failure exits non-zero:
    ``enqueue``, ``agg_jsq_enqueue``) bitwise against their plain versions:
    random operands at the k=8 sizes (640 lanes and queues, 195-packet
    buffers, 4 ports), the k=16 sizes (5,120 lanes, 8 ports), 33 and 64
-   ports, and operands recorded from engine calls at a few slots;
+   ports, ``enqueue`` at the edges of its domain (``tests/
+   _torch_compare.py``'s cases at 640 lanes and queues: all lanes on one
+   queue past ``cap``, targets -1, ``nq`` and beyond, dead queues, ``cap``
+   13, 1,280 lanes, 140 rows, queue tiles no lane targets; and at their own
+   12 and 17 queues, one tile a row and a one-queue last tile),
+   ``agg_jsq_enqueue`` with lanes that are not agg-bound targeting keys
+   outside ``[0, nq)``, and operands recorded from engine calls at a few
+   slots;
 5. drive the slotted engine's main path on the k=8 fat tree: the 1 MB
    permutation ``permutation(tree, 256, default_rng(1))`` failure-free, and
    fig 3's point (1 % of links failed, ``rho = rho_max``, ``rto_slots=300``,
@@ -84,11 +92,14 @@ Phases, each timed on its own line; any failure exits non-zero:
     logits within 0.1, tokens equal; a differing token passes only where
     the reference run's top-2 margin is under twice that step's logit gap
     (printed);
-13. ``ssd_vs_plain``: hold the SSD chunked-scan kernel to the plain
-    ``ssd_chunked`` at Zamba2-2.7B's heads (80 of P = 64, N = 64),
+13. ``ssd_vs_plain``: hold the SSD chunked-scan kernels (bf16: the
+    tensor-core walk; float32: the CUDA-core route) to the plain
+    ``ssd_chunked``, and the final state they return to the plain
+    ``ssd_final_state``, at Zamba2-2.7B's heads (80 of P = 64, N = 64),
     Mamba2-130M's (24 of P = 64, N = 128) and the reference's grouped shape
     (8 heads over 4 groups) for L = 1, 37, 64, 100 and 2,048 at batch 1 and
-    2 (float32 at the reference's 5e-5/5e-4, bf16 at 2e-2), a large-decay
+    2 (float32 at the reference's 5e-5/5e-4, bf16 at 2e-2), requested
+    chunks of 1, 16, 32 and 63 (the bf16 walk runs them as 64), a large-decay
     case per head shape (``A * dt`` summing past 100 within a chunk: finite
     and within tolerance), P = 100-128 and N = 200-256 at a requested chunk
     of 128, and, at L <= 100 in float32, to the sequential ``ssd_scan``
@@ -100,13 +111,15 @@ Phases, each timed on its own line; any failure exits non-zero:
 15. ``ssm_serve_main_path``: Zamba2-2.7B at full width and depth in bf16
     through phase 12's batcher mix, ``greedy_decode`` and checks, with the
     ``ssd_scan`` and ``flash_attention`` launch counts set to 0 just before
-    and read just after (54 and 9 a prefill); then Mamba2-130M at full size
-    the same way with 4 requests (24 ``ssd_scan`` launches a prefill);
+    and read just after (54 and 9 a prefill, every one on the tensor-core
+    kernels); then Mamba2-130M at full size the same way with 4 requests
+    (24 ``ssd_scan`` launches a prefill);
 16. time each kernel and its plain version on the largest inputs the main
     paths gave it, beside the bound of the card (and, for flash attention,
     one ``scaled_dot_product_attention`` call as the library's time; no
     single PyTorch call computes the SSD scan); the float32 attention kernel
-    is timed on that input in float32, beside SDPA in float32;
+    and the float32 SSD route are timed on those inputs in float32, and the
+    SSD walk with 32 and with 64 P columns a CTA;
 17. ``serve_profile``: a decode step and a 2,048-token prefill of
     Yi-6B, Zamba2-2.7B and Mamba2-130M under ``torch.profiler``: wall
     time, device busy time, idle share, kernel launches, host
@@ -320,25 +333,30 @@ class HostTimer:
         return False
 
 
+# The tensor-core kernels: (library, kernel name); every instance of each
+# must hold HGMMA.
+TC_KERNELS = (("flash_attn", "flash_attention_wgmma_kernel"),
+              ("ssd_scan", "ssd_wgmma_kernel"))
+
+
 def sass_check(build):
-    """Every instance of the bf16 attention kernel in the built library
-    must hold HGMMA (wgmma, Hopper's warpgroup tensor-core instruction)."""
+    """Every instance of each tensor-core kernel in its built library must
+    hold HGMMA (wgmma, Hopper's warpgroup tensor-core instruction)."""
     import re
     tool = Path(build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass",
-                           str(build.lib_path("flash_attn"))],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
-    funcs = re.split(r"\n\s*Function : ", sass)[1:]
-    wg = [f for f in funcs
-          if "flash_attention_wgmma_kernel" in f.split("\n", 1)[0]]
-    counts = [f.count("HGMMA") for f in wg]
-    check(wg and all(counts), f"flash_attn: the bf16 kernel's SASS holds no "
-          f"HGMMA ({len(wg)} instances, HGMMA counts {counts})")
-    print(f"flash_attn SASS: {len(wg)} instances of "
-          f"flash_attention_wgmma_kernel, each holding HGMMA "
-          f"({min(counts)}-{max(counts)} instructions): the bf16 kernel runs "
-          f"on wgmma; HMMA in the library: {sass.count('HMMA')}", flush=True)
+    for lib, kernel in TC_KERNELS:
+        sass = subprocess.run([str(tool), "-sass", str(build.lib_path(lib))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        funcs = re.split(r"\n\s*Function : ", sass)[1:]
+        wg = [f for f in funcs if kernel in f.split("\n", 1)[0]]
+        counts = [f.count("HGMMA") for f in wg]
+        check(wg and all(counts), f"{lib}: the SASS of {kernel} holds no "
+              f"HGMMA ({len(wg)} instances, HGMMA counts {counts})")
+        print(f"{lib} SASS: {len(wg)} instances of {kernel}, each holding "
+              f"HGMMA ({min(counts)}-{max(counts)} instructions): it runs on "
+              f"wgmma; HMMA in the library: {sass.count('HMMA')}",
+              flush=True)
 
 
 def jsq_grid(B, S, pad, h, quanta, gen, dev):
@@ -582,6 +600,37 @@ def loop_phases(tree, dev, errs, launches, loop_golden):
                     slot_check(name, args, kw_of[name](o, quanta),
                                f"random B={B} M={M} h={h} quanta={quanta}")
                     n_cases += 1
+        # enqueue at the edges of its domain (tests/_torch_compare.py's
+        # cases at the k=8 slot's 640 lanes and queues, and 140 rows): a hot
+        # queue past cap, targets -1, nq and beyond (a negative target
+        # wraps once; two lanes on one cell, the later wins), dead queues,
+        # cap = 195 and 13, 1,280 lanes, tiles no lane targets; the cases
+        # whose point is their queue count (one tile a row, a one-queue
+        # last tile) and the wide row at their own sizes.
+        from _torch_compare import (AGG_OOB_KW, ENQUEUE_CASES,
+                                    agg_oob_operands, enqueue_operands)
+        for case in sorted(ENQUEUE_CASES):
+            cap = ENQUEUE_CASES[case][3]
+            own = case in ("wide_row", "one_tile", "tail_tile")
+            size = None if own else (640, 640, 13 if cap == 13 else 195)
+            for rows in ((None, 140) if case == "cap_195" else (None,)):
+                ops, cap = enqueue_operands(case, seed=n_cases, rows=rows,
+                                            size=size)
+                args = [torch.from_numpy(a).to(dev) for a in ops]
+                slot_check("enqueue", args,
+                           dict(cap=cap, ecn_thresh=cap // 2),
+                           f"{case} rows={args[0].shape[0]} lanes="
+                           f"{args[5].shape[1]} cap={cap}")
+                n_cases += 1
+        # agg_jsq_enqueue: lanes that are not agg-bound on keys outside
+        # [0, nq) (a negative key wraps once; two keys share a ring cell).
+        for seed in (0, 1):
+            *ops, t = agg_oob_operands(seed)
+            args = [torch.from_numpy(a.astype(np.int64) if a.dtype ==
+                                     np.uint32 else a).to(dev) for a in ops]
+            slot_check("agg_jsq_enqueue", args + [t], AGG_OOB_KW,
+                       f"out-of-range keys seed={seed}")
+            n_cases += 1
         # Operands recorded from engine calls, every 100th slot.
         recs = [Recorder(slot_ops, name, lambda a: a[0].numel(),
                          keep_every=100) for name in SLOT_KERNELS]
@@ -1042,6 +1091,10 @@ SSD_DECAY = 100.0      # A scaled so that A * dt sums past 100 in a chunk
 # kernel tiles P and N and runs chunks of 64), for L = 37 and 500.
 SSD_WIDE = ((4, 128, 1, 256), (6, 100, 2, 200))
 SSD_WIDE_CHUNK = 128
+# Requested chunks below 64, which the bf16 walk runs as chunks of 64 (and
+# the float32 route as asked), at Zamba2-2.7B's and the grouped heads, L =
+# 301 (ragged), with and without the large decay.
+SSD_SHORT_CHUNKS = (1, 16, 32, 63)
 
 
 class TimedModel:
@@ -1318,12 +1371,14 @@ def ssm_golden_phase(dev):
     """ssm_serve_golden: Mamba2-130M at full size and Zamba2-2.7B at full
     width cut to 6 layers, float32, numpy weights, held to the CPU JAX
     golden ``serve_ssm.json`` as serve_golden holds Yi-6B.  Returns the
-    float32 attention kernel's launches, counted from 0."""
+    float32 attention and SSD kernels' launches, counted from 0."""
     import torch
     from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     golden = json.loads(SSM_GOLDEN.read_text())
     with Phase("ssm_serve_golden"):
         attn_ops.ROUTE_LAUNCHES["cuda_cores"] = 0
+        ssd_ops.ROUTE_LAUNCHES["cuda_cores"] = 0
         for rec in golden["models"]:
             model, params = golden_model(rec, dev)
             golden_runs(f"ssm_serve_golden {rec['arch']}", rec, model,
@@ -1331,9 +1386,11 @@ def ssm_golden_phase(dev):
             del params
             torch.cuda.empty_cache()
         n = attn_ops.ROUTE_LAUNCHES["cuda_cores"]
+        n_ssd = ssd_ops.ROUTE_LAUNCHES["cuda_cores"]
+        check(n_ssd > 0, "ssm_serve_golden: the float32 SSD route never ran")
         print(f"ssm_serve_golden: float32 attention kernel launched {n} "
-              f"times", flush=True)
-    return n
+              f"times, the float32 SSD route {n_ssd} times", flush=True)
+    return n, n_ssd
 
 
 def serve_main_phase(dev, phase, arch, lens, greedy_batch, kernels):
@@ -1379,9 +1436,10 @@ def serve_main_phase(dev, phase, arch, lens, greedy_batch, kernels):
                     for name, (mod, fn, size_of) in wrappers.items()}
             for mod, _, _ in wrappers.values():
                 mod.LAUNCHES = 0
-            if "flash_attention" in wrappers:
-                routes = wrappers["flash_attention"][0].ROUTE_LAUNCHES
-                routes.update({r: 0 for r in routes})
+            routes = {name: wrappers[name][0].ROUTE_LAUNCHES
+                      for name in kernels}
+            for r in routes.values():
+                r.update({k: 0 for k in r})
             t0 = time.perf_counter()
             cb = batching.ContinuousBatcher(timed, params, SERVE_SLOTS,
                                             SERVE_MAX_LEN, device=dev)
@@ -1400,10 +1458,10 @@ def serve_main_phase(dev, phase, arch, lens, greedy_batch, kernels):
             torch.cuda.synchronize()
             greedy_ms = (time.perf_counter() - t1) * 1e3
             launches = {name: wrappers[name][0].LAUNCHES for name in kernels}
-            if "flash_attention" in wrappers:
-                check(routes["wgmma"] == launches["flash_attention"],
-                      f"{phase}: attention launches {launches} did not all "
-                      f"take the tensor-core kernel ({routes})")
+            for name, r in routes.items():
+                check(r["wgmma"] == launches[name],
+                      f"{phase}: {name} launches {launches} did not all "
+                      f"take the tensor-core kernel ({r})")
         peak = torch.cuda.max_memory_allocated(dev)
         n_prefill = len(prompts) + 1
         for name, per_prefill in kernels.items():
@@ -1585,6 +1643,7 @@ def ssd_phase(dev, errs):
     large-decay case at each head shape, and against the sequential oracle
     ``ssd_scan`` at L <= 100 in float32."""
     import torch
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
     with Phase("ssd_vs_plain"):
@@ -1599,26 +1658,48 @@ def ssd_phase(dev, errs):
                   for H, P, G, N in SSD_WIDE for L in (37, 500)
                   for dt in ("float32", "bfloat16")
                   for decay in (1.0, SSD_DECAY)]
+        cases += [(1, 301, H, P, G, N, dt, decay, chunk)
+                  for H, P, G, N in (SSD_HEADS[0], SSD_HEADS[2])
+                  for chunk in SSD_SHORT_CHUNKS
+                  for dt in ("float32", "bfloat16")
+                  for decay in (1.0, SSD_DECAY)]
         n_seq = 0
         for B, L, H, P, G, N, dt, decay, chunk in cases:
             args = ssd_inputs(B, L, H, P, G, N, getattr(torch, dt), gen, dev,
                               decay)
-            got = ssd_ops.ssd(*args, chunk=chunk)
-            want = ssd_ops.ssd(*args, chunk=chunk, backend="torch")
+            routes = dict(ssd_ops.ROUTE_LAUNCHES)
+            got, got_h = ssd_ops.ssd(*args, chunk=chunk, final_state=True)
+            want, want_h = ssd_ops.ssd(*args, chunk=chunk, backend="torch",
+                                       final_state=True)
             torch.cuda.synchronize()
+            which = ssd_kernel.route(args[0].dtype, N)
+            check(which == ("wgmma" if dt == "bfloat16" and N <= 256
+                            else "cuda_cores")
+                  and ssd_ops.ROUTE_LAUNCHES[which] == routes[which] + 1,
+                  f"ssd_scan {dt} N={N}: took the wrong route")
             err = max_abs_err(got.float(), want.float())
-            errs["ssd_scan"] = max(errs["ssd_scan"], err)
+            herr = max_abs_err(got_h, want_h)
+            key = "ssd_scan" if dt == "bfloat16" else "ssd_scan_f32"
+            errs[key] = max(errs[key], err, herr)
             atol, rtol = SSD_TOL[dt]
             tag = (f"ssd_scan {(B, L, H, P, G, N)} {dt} decay {decay} "
-                   f"chunk {chunk}")
+                   f"chunk {chunk} ({which})")
             check(got.dtype == args[0].dtype and got.shape == args[0].shape
                   and bool(torch.isfinite(got).all())
                   and float(got.float().abs().max()) > 0
                   and torch.allclose(got.float(), want.float(), atol=atol,
                                      rtol=rtol),
                   f"{tag}: kernel != plain (max_abs_err {err})")
-            line = (f"{tag}: max_abs_err {err:.3g} (tolerance atol={atol}, "
-                    f"rtol={rtol})")
+            check(got_h.shape == want_h.shape
+                  and bool(torch.isfinite(got_h).all())
+                  and torch.allclose(got_h, want_h, atol=atol, rtol=rtol),
+                  f"{tag}: final state != ssd_final_state (max_abs_err "
+                  f"{herr})")
+            if (B, L, H, P, G, N) == cases[0][:6]:
+                check(torch.equal(ssd_ops.ssd(*args, chunk=chunk), got),
+                      f"{tag}: y differs without the final state")
+            line = (f"{tag}: max_abs_err {err:.3g}, final state {herr:.3g} "
+                    f"(tolerance atol={atol}, rtol={rtol})")
             if decay != 1.0:
                 lam = (-args[2][None, None] * args[1])[:, :64].sum(1).min()
                 line += f"; smallest chunk decay sum {float(lam):.1f}"
@@ -1631,54 +1712,83 @@ def ssd_phase(dev, errs):
                 line += f"; vs sequential scan {serr:.3g}"
                 n_seq += 1
             print(line, flush=True)
-        print(f"ssd_vs_plain: {len(cases)} cases, {n_seq} also against the "
-              f"sequential scan; largest max_abs_err {errs['ssd_scan']:.3g}",
-              flush=True)
+        print(f"ssd_vs_plain: {len(cases)} cases (y and the final state), "
+              f"{n_seq} also against the sequential scan; largest "
+              f"max_abs_err bf16 {errs['ssd_scan']:.3g}, float32 "
+              f"{errs['ssd_scan_f32']:.3g}", flush=True)
 
 
-def ssd_timing(rec, err, launches):
-    """The ssd_scan row of the ``kernels`` line, at the largest input the
-    serving main paths gave the kernel."""
+def ssd_timing(rec, errs, launches, f32_launches):
+    """The ssd_scan rows of the ``kernels`` line, at the largest input the
+    serving main paths gave the kernel (a prefill: y and the final state):
+    the bf16 tensor-core walk on it (and its device time with 32 and with
+    64 P columns a CTA), and the float32 CUDA-core route on the same input
+    in float32, each beside its plain version."""
     import torch
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     (x, dt, A, Bm, C), kw = rec.largest
     kw = {key: val for key, val in kw.items() if key != "backend"}
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     chunk = kw.get("chunk", 64)
-    got = ssd_ops.ssd(x, dt, A, Bm, C, **kw)
-    want = ssd_ops.ssd(x, dt, A, Bm, C, backend="torch", **kw)
-    atol, rtol = SSD_TOL[str(x.dtype).split(".")[-1]]
-    err = max(err, max_abs_err(got.float(), want.float()))
-    check(torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol),
-          "ssd_scan: kernel != plain on the main path's largest input")
-    ms = cuda_ms(lambda: ssd_ops.ssd(x, dt, A, Bm, C, **kw), 20)
-    dev_ms = device_ms(lambda: ssd_ops.ssd(x, dt, A, Bm, C, **kw), 20,
-                       r"\bssd_(chunk_state|state_carry|chunk_out)")
-    plain_ms = cuda_ms(lambda: ssd_ops.ssd(x, dt, A, Bm, C,
-                                           backend="torch", **kw), 5)
-    esize = x.element_size()
-    nbytes = (2 * Bsz * L * H * P * esize + 2 * Bsz * L * G * N * esize
-              + Bsz * L * H * dt.element_size() + H * 4)
-    # Per (batch, head) and chunk of r rows: C.B^T and S.x over the r(r+1)/2
-    # causal pairs, the chunk state over r rows, and the inter-chunk term
-    # (after the first chunk), N- or P-deep multiply-adds.
-    flops = 0
-    for c0 in range(0, L, chunk):
-        r = min(chunk, L - c0)
-        pairs = r * (r + 1) // 2
-        flops += 2 * (pairs * (N + P) + r * N * P * (2 if c0 else 1))
-    flops *= Bsz * H
-    peak = BF16_FLOP_PER_S if x.dtype == torch.bfloat16 else FP32_FLOP_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return dict(
-        name="ssd_scan", route="cuda",
-        source="src/repro_torch/csrc/ssd_scan.cu",
-        replaces="src/repro/kernels/ssd_scan/kernel.py:66",
-        launches=launches, max_abs_err=err, ms=ms, device_ms=dev_ms,
-        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None, n=int(Bsz * L * H), shape=[Bsz, L, H, P, G, N])
+    rows = []
+    for name, kernel_re, dtype, n in (
+            ("ssd_scan", r"\bssd_wgmma_kernel<", torch.bfloat16, launches),
+            ("ssd_scan_f32", r"\bssd_(chunk_state|state_carry|chunk_out)",
+             torch.float32, f32_launches)):
+        x_, Bm_, C_ = (t.to(dtype) for t in (x, Bm, C))
+        args = (x_, dt, A, Bm_, C_)
+        got = ssd_ops.ssd(*args, **kw)
+        want = ssd_ops.ssd(*args, backend="torch", **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        atol, rtol = SSD_TOL[str(dtype).split(".")[-1]]
+        err = errs[name]
+        for g, w in zip(got, want):
+            err = max(err, max_abs_err(g.float(), w.float()))
+            check(torch.allclose(g.float(), w.float(), atol=atol, rtol=rtol),
+                  f"{name}: kernel != plain on the main path's largest "
+                  f"input")
+        ms = cuda_ms(lambda: ssd_ops.ssd(*args, **kw), 20)
+        dev_ms = device_ms(lambda: ssd_ops.ssd(*args, **kw), 20, kernel_re)
+        plain_ms = cuda_ms(lambda: ssd_ops.ssd(*args, backend="torch",
+                                               **kw), 5)
+        esize = x_.element_size()
+        nbytes = (2 * Bsz * L * H * P * esize + 2 * Bsz * L * G * N * esize
+                  + Bsz * L * H * dt.element_size() + H * 4)
+        if kw.get("final_state"):
+            nbytes += Bsz * H * N * P * 4
+        # Per (batch, head) and chunk of r rows: C.B^T and S.x over the
+        # r(r+1)/2 causal pairs, the chunk state over r rows, and the
+        # inter-chunk term (after the first chunk), N- or P-deep
+        # multiply-adds.
+        flops = 0
+        for c0 in range(0, L, chunk):
+            r = min(chunk, L - c0)
+            pairs = r * (r + 1) // 2
+            flops += 2 * (pairs * (N + P) + r * N * P * (2 if c0 else 1))
+        flops *= Bsz * H
+        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+        row = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan/kernel.py:66",
+            launches=n, max_abs_err=err, ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None, n=int(Bsz * L * H),
+            shape=[Bsz, L, H, P, G, N])
+        if dtype == torch.bfloat16:
+            # The split walk (32 P columns a CTA) against the unsplit one.
+            row["device_ms_by_ptile"] = {
+                pt: device_ms(lambda: ssd_kernel.ssd_scan(
+                    *args, chunk=chunk, final_state=True, ptile=pt), 20,
+                    kernel_re)
+                for pt in (32, 64) if pt == 32 or N <= 128}
+        rows.append(row)
+    return rows
 
 
 def main() -> int:
@@ -1693,6 +1803,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(ROOT / "tests"))
     import numpy as np
     from repro_torch.kernels import _build
     from repro_torch.kernels.lindley import ops as lindley_ops
@@ -1712,7 +1823,7 @@ def main() -> int:
     prop_slots = 0.5e-6 / (4178 * 8 / 800e9)
     check(prop_slots == golden["prop_slots"], "prop_slots differs from golden")
     errs = {"segmented_cummax": 0.0, "jsq_scan": 0.0, "flash_attention": 0.0,
-            "flash_attention_f32": 0.0, "ssd_scan": 0.0}
+            "flash_attention_f32": 0.0, "ssd_scan": 0.0, "ssd_scan_f32": 0.0}
 
     with Phase("build"):
         for name, log in _build.build_all().items():
@@ -1819,7 +1930,8 @@ def main() -> int:
         dev, "serve_main_path", "yi-6b", SERVE_LENS, GREEDY_BATCH,
         {"flash_attention": get_config("yi-6b").n_layers})
     ssd_phase(dev, errs)
-    f32_launches += ssm_golden_phase(dev)
+    n_attn, ssd_f32_launches = ssm_golden_phase(dev)
+    f32_launches += n_attn
     zcfg, mcfg = get_config("zamba2-2.7b"), get_config("mamba2-130m")
     z_launches, z_recs, z_profile = serve_main_phase(
         dev, "ssm_serve_main_path zamba2-2.7b", zcfg.name, SERVE_LENS,
@@ -1900,15 +2012,17 @@ def main() -> int:
             f32_launches)
         ssd_rec = max((z_recs["ssd_scan"], m_recs["ssd_scan"]),
                       key=lambda r: r.size_of(r.largest[0]))
-        kernels.append(ssd_timing(
-            ssd_rec, errs["ssd_scan"],
-            z_launches["ssd_scan"] + m_launches["ssd_scan"]))
+        kernels += ssd_timing(
+            ssd_rec, errs, z_launches["ssd_scan"] + m_launches["ssd_scan"],
+            ssd_f32_launches)
         for k in kernels:
             print(f"kernel {k['name']}: launches={k['launches']} "
                   f"shape={k['shape']} ms={k['ms']:.4f} "
                   f"device_ms={k['device_ms']} "
                   f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.4f} "
-                  f"library_ms={k['library_ms']}",
+                  f"library_ms={k['library_ms']}"
+                  + (f" device_ms_by_ptile={k['device_ms_by_ptile']}"
+                     if "device_ms_by_ptile" in k else ""),
                   flush=True)
 
     with Phase("serve_profile"):

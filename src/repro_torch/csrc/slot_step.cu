@@ -22,21 +22,63 @@
 // Bound: bytes -- per chooser the h queue lengths and dead flags read and
 // one int written; the 20-round PRF per port is ~200 integer operations.
 //
-// enqueue / agg_jsq_enqueue: one block per row, lanes strided over the
-// block, so any M works (M = 5,120 at k=16).  The block first copies the
-// row's ring buffers and occupancy to the outputs (the kernels write new
-// tensors and never their inputs: the engine freezes finished rows by
-// selecting the old state with torch.where, so a frozen row comes out
-// bitwise unchanged), then stages each lane's target queue and enqueue-try
-// flag in shared memory.  A lane's rank is the count of earlier lanes that
-// try the same queue -- the stable order by lane of the reference, an
-// O(M^2) masked count, never the order of atomics.  Room, ring position
-// (qhead + qcnt + rank) % cap, the ring write (cells are distinct by
-// construction), occupancy-after and the ECN mark are per lane; the
-// occupancy add is an integer atomicAdd, whose result does not depend on
-// order.  The fused agg variant first picks each lane's core sub-link with
-// the jsq_pick body (ids = max(apk, 0), qbase = off1 + asw * h) from the
-// start-of-slot occupancy, and rewrites the target of agg-bound lanes.
+// Index rules of the enqueue (both kernels, as the reference's scatters):
+// a lane reads the queue clip(aq, 0, nq - 1) (occupancy, head, alive) and
+// ranks among the earlier enqueue-trying lanes of the same raw aq; its ring
+// write and occupancy add go to tgt = aq, a negative aq wrapping once
+// (aq + nq, JAX's index rule), and are dropped if tgt is still outside
+// [0, nq); where two lanes write one cell (targets q and q - nq) the later
+// lane wins (XLA's sequential scatter).  The engine's arrivals always
+// target [0, nq).
+//
+// enqueue: one CTA per (row, tile of ENQ_QB = 16 queues), so the k=8
+// slot's 6 rows of 640 queues give 240 CTAs on 132 SMs.  Bound: bytes --
+// the row's ring buffers copied out of place (nq * cap ints read and
+// written; 6 x 640 x 195 x 4 B = 3.0 MB each way at k=8) plus the lanes.
+// One block per row (as agg_jsq_enqueue below) would leave 6 SMs to stream
+// those 6 MB and rank each lane with a loop over all earlier lanes (O(M^2)).
+// Here each CTA owns its queues' ring cells, occupancy and the per-lane
+// outputs of the lanes whose clip(aq) it owns:
+//   * it copies its queues' cells as one contiguous run of ENQ_QB * cap ints
+//     (16-byte vectors over the aligned middle: cap = 195 leaves a queue's
+//     own run unaligned), so the outputs are new tensors and a frozen row
+//     comes out bitwise unchanged (the engine selects frozen rows with
+//     torch.where);
+//   * it walks the row's lanes in rounds of 256: each thread flags its
+//     lane if it tries to enqueue into an owned queue (avalid and the
+//     queue alive), a block prefix of per-warp ballots compacts the flagged
+//     lanes in lane order, and one warp ranks them 32 at a time:
+//     __match_any_sync on the raw aq groups equal keys, the rank is a
+//     per-key counter plus the popcount of earlier peers, and the group's
+//     first lane advances the counter.  Counters of owned keys (and of the
+//     negative keys that wrap into owned queues) live in shared memory; a
+//     key outside [0, nq) that wraps into no owned queue (only the first
+//     and last tiles see them) is counted in an open-addressing hash table
+//     in a global scratch, cleared by the CTA when it first needs it.  The
+//     rank is O(M) work per CTA, and no result depends on the order of
+//     atomics: the counters advance in lane order, and a shared-memory
+//     atomicAdd only sums the ring writes of an owned queue;
+//   * the ring writes land in owned cells only (the lanes of a negative
+//     key that wraps into an owned queue are ranked by this CTA too, from
+//     queue 0's occupancy and head), the later lane winning a shared cell
+//     (__match_any_sync on the cell); qcnt' = qcnt + the writes counted.
+// No grid sync, second launch or global atomic is needed.
+//
+// agg_jsq_enqueue: one block per row, lanes strided over the block, so any
+// M works (M = 5,120 at k=16).  The block first copies the row's ring
+// buffers and occupancy to the outputs (out of place, as above), then
+// picks each lane's core sub-link with the jsq_pick body (ids = max(apk,
+// 0), qbase = off1 + asw * h) from the start-of-slot occupancy, rewrites
+// the target of agg-bound lanes and stages each lane's target queue and
+// enqueue-try flag in shared memory.  A lane's rank is the count of earlier
+// lanes that try the same queue -- the stable order by lane of the
+// reference, an O(M^2) masked count, never the order of atomics.  Room,
+// ring position (qhead + qcnt + rank) mod cap, the ring write, occupancy-
+// after and the ECN mark are per lane; the occupancy add is an integer
+// atomicAdd, whose result does not depend on order.  Where a negative
+// target wraps onto a queue that other lanes also target, a lane skips its
+// ring write if the colliding lane of the other key comes later (found by
+// its rank; only rows with such a lane pay for the search).
 // Bound: the row copy (NQ * cap ints read and written) by bytes, or the
 // M^2 / 2 rank comparisons by operations at large M; a row runs on one SM.
 //
@@ -149,12 +191,26 @@ __device__ void copy_row(const int32_t* qbuf, const int32_t* qcnt,
   for (int q = threadIdx.x; q < nq; q += blockDim.x) qcnt_out[q] = qcnt[q];
 }
 
+// Floor modulo (torch.remainder, jnp's %) for cap >= 1.
+__device__ __forceinline__ int floor_mod(int x, int cap) {
+  const int r = x % cap;
+  return r < 0 ? r + cap : r;
+}
+
+// The ring target of a lane's key: a negative key wraps once; -1 if still
+// outside [0, nq).
+__device__ __forceinline__ int ring_target(int key, int nq) {
+  const int w = key < 0 ? key + nq : key;
+  return w >= 0 && w < nq ? w : -1;
+}
+
 // The enqueue update of one row, after s_aq / s_try are staged and the row
-// copied (callers __syncthreads() first).
+// copied (callers __syncthreads() first; `alias` says whether a trying lane
+// has a negative key that wraps into [0, nq)).
 __device__ void enqueue_lanes(const int32_t* qhead, const int32_t* qcnt,
                               const int32_t* apk, const int32_t* s_aq,
                               const uint8_t* s_try, int m, int nq, int cap,
-                              int ecn_thresh, int32_t* qbuf_out,
+                              int ecn_thresh, bool alias, int32_t* qbuf_out,
                               int32_t* qcnt_out, uint8_t* enq_try,
                               uint8_t* do_enq, int32_t* occ_after,
                               uint8_t* marked) {
@@ -168,10 +224,30 @@ __device__ void enqueue_lanes(const int32_t* qhead, const int32_t* qcnt,
     const int aqc = min(max(aq, 0), nq - 1);
     const int qa = qcnt[aqc];
     const bool d = tr && (qa + rk < cap);
-    if (d && aq >= 0 && aq < nq) {
-      const int pos = (qhead[aqc] + qa + rk) % cap;
-      qbuf_out[(int64_t)aq * cap + pos] = apk[i];
-      atomicAdd(&qcnt_out[aq], 1);
+    const int tgt = ring_target(aq, nq);
+    if (d && tgt >= 0) {
+      const int pos = floor_mod(qhead[aqc] + qa + rk, cap);
+      bool keep = true;
+      if (alias) {
+        // The other key writing queue tgt, and its rank that lands on pos.
+        const int k2 = aq < 0 ? tgt : tgt - nq;
+        const int c2 = min(max(k2, 0), nq - 1);
+        const int r2 = floor_mod(pos - qhead[c2] - qcnt[c2], cap);
+        if (qcnt[c2] + r2 < cap) {
+          int seen = 0;
+          for (int j = 0; j < m; ++j) {
+            if (s_try[j] != 0 && s_aq[j] == k2) {
+              if (seen == r2) {
+                keep = j < i;
+                break;
+              }
+              ++seen;
+            }
+          }
+        }
+      }
+      if (keep) qbuf_out[(int64_t)tgt * cap + pos] = apk[i];
+      atomicAdd(&qcnt_out[tgt], 1);
     }
     const int occ = qa + rk + 1;
     enq_try[i] = tr;
@@ -181,38 +257,211 @@ __device__ void enqueue_lanes(const int32_t* qhead, const int32_t* qcnt,
   }
 }
 
-__global__ void __launch_bounds__(ROW_THREADS)
-enqueue_kernel(const int32_t* __restrict__ qbuf,
-               const int32_t* __restrict__ qhead,
-               const int32_t* __restrict__ qcnt,
-               const uint8_t* __restrict__ alive,
-               const int32_t* __restrict__ apk,
-               const int32_t* __restrict__ aq,
-               const uint8_t* __restrict__ avalid, int cap, int ecn_thresh,
-               int m, int nq, int32_t* __restrict__ qbuf_out,
-               int32_t* __restrict__ qcnt_out, uint8_t* __restrict__ enq_try,
-               uint8_t* __restrict__ do_enq, int32_t* __restrict__ occ_after,
-               uint8_t* __restrict__ marked) {
-  extern __shared__ int32_t smem[];
-  int32_t* s_aq = smem;
-  uint8_t* s_try = reinterpret_cast<uint8_t*>(smem + m);
-  const int64_t b = blockIdx.x;
-  const int64_t cells = (int64_t)nq * cap;
-  const int32_t* qcnt_b = qcnt + b * nq;
-  const uint8_t* alive_b = alive + b * nq;
-  copy_row(qbuf + b * cells, qcnt_b, cells, nq, qbuf_out + b * cells,
-           qcnt_out + b * nq);
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const int a = aq[b * m + i];
-    const int aqc = min(max(a, 0), nq - 1);
-    s_aq[i] = a;
-    s_try[i] = (avalid[b * m + i] != 0) && (alive_b[aqc] != 0);
+constexpr int ENQ_THREADS = 256;
+constexpr int ENQ_WARPS = ENQ_THREADS / 32;
+constexpr int ENQ_QB = 16;      // queues an enqueue CTA owns
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+// Copy n ints; 16-byte vectors over the aligned middle when src and dst
+// share their offset mod 16.
+__device__ void copy_run(const int32_t* __restrict__ src,
+                         int32_t* __restrict__ dst, int64_t n) {
+  const uintptr_t sa = reinterpret_cast<uintptr_t>(src);
+  if (((sa ^ reinterpret_cast<uintptr_t>(dst)) & 15) != 0) {
+    for (int64_t c = threadIdx.x; c < n; c += blockDim.x) dst[c] = src[c];
+    return;
   }
-  __syncthreads();
-  enqueue_lanes(qhead + b * nq, qcnt_b, apk + b * m, s_aq, s_try, m, nq, cap,
-                ecn_thresh, qbuf_out + b * cells, qcnt_out + b * nq,
-                enq_try + b * m, do_enq + b * m, occ_after + b * m,
-                marked + b * m);
+  const int64_t head = min((int64_t)(((16 - (sa & 15)) & 15) >> 2), n);
+  const int64_t nv = (n - head) >> 2;
+  const int4* sv = reinterpret_cast<const int4*>(src + head);
+  int4* dv = reinterpret_cast<int4*>(dst + head);
+#pragma unroll 4
+  for (int64_t v = threadIdx.x; v < nv; v += blockDim.x) dv[v] = sv[v];
+  for (int64_t c = threadIdx.x; c < head; c += blockDim.x) dst[c] = src[c];
+  for (int64_t c = head + 4 * nv + threadIdx.x; c < n; c += blockDim.x)
+    dst[c] = src[c];
+}
+
+// Slot of a key in an open-addressing table of `size` (a power of two)
+// keys, 0 marking an empty slot (a hashed key is never 0).
+__device__ int hash_slot(int32_t* keys, int size, int key) {
+  unsigned h = ((unsigned)key * 2654435761u) & (unsigned)(size - 1);
+  while (true) {
+    const int cur = atomicCAS(&keys[h], 0, key);
+    if (cur == 0 || cur == key) return (int)h;
+    h = (h + 1) & (unsigned)(size - 1);
+  }
+}
+
+struct EnqArgs {
+  const int32_t* qbuf;
+  const int32_t* qhead;
+  const int32_t* qcnt;
+  const uint8_t* alive;
+  const int32_t* apk;
+  const int32_t* aq;
+  const uint8_t* avalid;
+  int32_t* qbuf_out;
+  int32_t* qcnt_out;
+  uint8_t* enq_try;
+  uint8_t* do_enq;
+  int32_t* occ_after;
+  uint8_t* marked;
+  int32_t* hash;      // (rows, 2, 2 * hsize): keys, then counts
+  int cap, ecn_thresh, m, nq, tiles, hsize;
+};
+
+__global__ void __launch_bounds__(ENQ_THREADS)
+enqueue_kernel(const EnqArgs a) {
+  __shared__ int32_t s_qa[ENQ_QB];       // occupancy of the owned queues
+  __shared__ int32_t s_head[ENQ_QB];     // their ring heads
+  __shared__ int32_t s_cnt[ENQ_QB];      // lanes ranked, key q0 + c
+  __shared__ int32_t s_cntn[ENQ_QB];     // lanes ranked, key q0 + c - nq
+  __shared__ int32_t s_hit[ENQ_QB];      // ring writes into q0 + c
+  __shared__ int32_t s_lane[ENQ_THREADS];  // a round's lanes
+  __shared__ int32_t s_key[ENQ_THREADS];   // and their keys
+  __shared__ int32_t s_warp[2 * ENQ_WARPS];  // per-warp counts
+  __shared__ uint8_t s_alive[ENQ_QB];
+
+  const int nq = a.nq, m = a.m, cap = a.cap;
+  const int64_t b = blockIdx.x / a.tiles;
+  const int q0 = (int)(blockIdx.x % a.tiles) * ENQ_QB;
+  const int nown = min(ENQ_QB, nq - q0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int32_t* aq_b = a.aq + b * m;
+  const uint8_t* av_b = a.avalid + b * m;
+  // The first round's lanes load while the cells copy; each round loads
+  // the next round's.
+  int key_next = tid < m ? aq_b[tid] : 0;
+  bool av_next = tid < m && av_b[tid] != 0;
+  const int64_t cell0 = (b * nq + q0) * (int64_t)cap;
+  copy_run(a.qbuf + cell0, a.qbuf_out + cell0, (int64_t)nown * cap);
+  for (int c = tid; c < nown; c += ENQ_THREADS) {
+    s_qa[c] = a.qcnt[b * nq + q0 + c];
+    s_head[c] = a.qhead[b * nq + q0 + c];
+    s_alive[c] = a.alive[b * nq + q0 + c];
+    s_cnt[c] = s_cntn[c] = s_hit[c] = 0;
+  }
+  // Queue 0, which the lanes of a negative key read.
+  const int qa0 = a.qcnt[b * nq], head0 = a.qhead[b * nq];
+  const bool alive0 = a.alive[b * nq] != 0;
+  int32_t* hkeys = a.hash + (b * 2 + (q0 == 0 ? 0 : 1)) * 2 * (int64_t)a.hsize;
+  int32_t* hcnt = hkeys + a.hsize;
+  bool hash_ready = false;
+  __syncthreads();   // the copy is done before any ring write
+
+  for (int base = 0; base < m; base += ENQ_THREADS) {
+    const int i = base + tid;
+    const int key = key_next;
+    const bool av = av_next;
+    if (i + ENQ_THREADS < m) {
+      key_next = aq_b[i + ENQ_THREADS];
+      av_next = av_b[i + ENQ_THREADS] != 0;
+    }
+    bool rel = false, hashed = false;
+    if (i < m) {
+      const int c = min(max(key, 0), nq - 1) - q0;
+      const bool own = c >= 0 && c < nown;
+      const int w = key < 0 ? key + nq : key;
+      const bool wraps = key < 0 && w >= q0 && w < q0 + nown;
+      if (own || wraps) {
+        const bool tr = av && (own ? s_alive[c] != 0 : alive0);
+        rel = tr;
+        hashed = tr && !(key >= q0 && key < q0 + nown) && !wraps;
+        if (own && !tr) {
+          const int64_t li = b * m + i;
+          a.enq_try[li] = 0;
+          a.do_enq[li] = 0;
+          a.occ_after[li] = s_qa[c] + 1;
+          a.marked[li] = 0;
+        }
+      }
+    }
+    const unsigned bal = __ballot_sync(FULL, rel);
+    const unsigned hb = __ballot_sync(FULL, hashed);
+    if (lane == 0) {
+      s_warp[warp] = __popc(bal);
+      s_warp[ENQ_WARPS + warp] = __popc(hb);
+    }
+    __syncthreads();
+    int off = 0, total = 0, n_hashed = 0;
+#pragma unroll
+    for (int w = 0; w < ENQ_WARPS; ++w) {
+      off += w < warp ? s_warp[w] : 0;
+      total += s_warp[w];
+      n_hashed += s_warp[ENQ_WARPS + w];
+    }
+    if (rel) {
+      const int k = off + __popc(bal & lanemask_lt());
+      s_lane[k] = i;
+      s_key[k] = key;
+    }
+    if (n_hashed > 0 && !hash_ready) {    // block-uniform
+      for (int e = tid; e < 2 * a.hsize; e += ENQ_THREADS) hkeys[e] = 0;
+      hash_ready = true;
+    }
+    __syncthreads();
+
+    if (warp == 0) {
+      for (int k0 = 0; k0 < total; k0 += 32) {
+        const int k = k0 + lane;
+        const unsigned vm = __ballot_sync(FULL, k < total);
+        if (k < total) {
+          const int li = s_lane[k], key = s_key[k];
+          const unsigned peers = __match_any_sync(vm, key);
+          const int leader = __ffs(peers) - 1;
+          const int w = key < 0 ? key + nq : key;
+          int* ctr;
+          if (key >= q0 && key < q0 + nown) {
+            ctr = &s_cnt[key - q0];
+          } else if (key < 0 && w >= q0 && w < q0 + nown) {
+            ctr = &s_cntn[w - q0];
+          } else {
+            int slot = 0;
+            if (lane == leader) slot = hash_slot(hkeys, a.hsize, key);
+            ctr = &hcnt[__shfl_sync(peers, slot, leader)];
+          }
+          const int before = __shfl_sync(peers, lane == leader ? *ctr : 0,
+                                         leader);
+          if (lane == leader) *ctr = before + __popc(peers);
+          const int rk = before + __popc(peers & lanemask_lt());
+          const int c = min(max(key, 0), nq - 1) - q0;
+          const bool own = c >= 0 && c < nown;
+          const int qa = own ? s_qa[c] : qa0;
+          const bool d = qa + rk < cap;
+          if (own) {
+            const int64_t o = b * m + li;
+            const int occ = qa + rk + 1;
+            a.enq_try[o] = 1;
+            a.do_enq[o] = d;
+            a.occ_after[o] = occ;
+            a.marked[o] = d && occ > a.ecn_thresh;
+          }
+          const bool wr = d && w >= q0 && w < q0 + nown;
+          const unsigned wm = __ballot_sync(vm, wr);
+          if (wr) {
+            const int pos = floor_mod((own ? s_head[c] : head0) + qa + rk, cap);
+            const long long cell = (long long)w * cap + pos;
+            const unsigned same = __match_any_sync(wm, cell);
+            if (lane == 31 - __clz(same))    // the later lane wins
+              a.qbuf_out[b * nq * (int64_t)cap + cell] = a.apk[b * m + li];
+            atomicAdd(&s_hit[w - q0], 1);
+          }
+        }
+        __threadfence_block();
+        __syncwarp();
+      }
+    }
+    __syncthreads();   // s_lane, s_key and s_warp are reused
+  }
+  for (int c = tid; c < nown; c += ENQ_THREADS)
+    a.qcnt_out[b * nq + q0 + c] = s_qa[c] + s_hit[c];
 }
 
 __global__ void __launch_bounds__(ROW_THREADS)
@@ -239,6 +488,7 @@ agg_jsq_enqueue_kernel(
   const uint32_t k1 = (uint32_t)seed_hi[b] ^ a.site_key;
   copy_row(qbuf + b * cells, qcnt_b, cells, nq, qbuf_out + b * cells,
            qcnt_out + b * nq);
+  int alias = 0;
   for (int i = threadIdx.x; i < m; i += blockDim.x) {
     const int64_t li = b * m + i;
     const int pk = apk[li];
@@ -250,10 +500,11 @@ agg_jsq_enqueue_kernel(
     const int aqc = min(max(tq, 0), nq - 1);
     s_aq[i] = tq;
     s_try[i] = (pk >= 0) && (alive_b[aqc] != 0);
+    alias |= s_try[i] && tq < 0 && tq >= -nq;
   }
-  __syncthreads();
+  const bool any_alias = __syncthreads_or(alias) != 0;
   enqueue_lanes(qhead + b * nq, qcnt_b, apk + b * m, s_aq, s_try, m, nq, cap,
-                ecn_thresh, qbuf_out + b * cells, qcnt_out + b * nq,
+                ecn_thresh, any_alias, qbuf_out + b * cells, qcnt_out + b * nq,
                 enq_try + b * m, do_enq + b * m, occ_after + b * m,
                 marked + b * m);
 }
@@ -379,26 +630,43 @@ int slot_jsq_pick(const void* qcnt, const void* qbase, const void* ids,
 }
 
 // qbuf (rows, nq, cap); qhead, qcnt, alive (rows, nq); apk, aq, avalid
-// (rows, m).  Writes new qbuf/qcnt and the per-lane outputs.
+// (rows, m).  Writes new qbuf/qcnt and the per-lane outputs.  hash: rows *
+// 4 * hsize int32 scratch (hsize a power of two >= 2 m), which the kernel
+// clears where it uses it.
 int slot_enqueue(const void* qbuf, const void* qhead, const void* qcnt,
                  const void* alive, const void* apk, const void* aq,
                  const void* avalid, int cap, int ecn_thresh, int rows, int m,
-                 int nq, void* qbuf_out, void* qcnt_out, void* enq_try,
-                 void* do_enq, void* occ_after, void* marked, void* stream) {
-  if (rows < 1 || m < 1 || nq < 1 || cap < 1)
+                 int nq, void* hash, int hsize, void* qbuf_out,
+                 void* qcnt_out, void* enq_try, void* do_enq, void* occ_after,
+                 void* marked, void* stream) {
+  if (rows < 1 || m < 0 || nq < 1 || cap < 1 || hsize < 1 ||
+      (hsize & (hsize - 1)) != 0 || hsize < 2 * m)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = row_smem(m);
-  int err = set_smem(enqueue_kernel, smem);
-  if (err != 0) return err;
-  enqueue_kernel<<<rows, ROW_THREADS, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(qbuf), static_cast<const int32_t*>(qhead),
-      static_cast<const int32_t*>(qcnt), static_cast<const uint8_t*>(alive),
-      static_cast<const int32_t*>(apk), static_cast<const int32_t*>(aq),
-      static_cast<const uint8_t*>(avalid), cap, ecn_thresh, m, nq,
-      static_cast<int32_t*>(qbuf_out), static_cast<int32_t*>(qcnt_out),
-      static_cast<uint8_t*>(enq_try), static_cast<uint8_t*>(do_enq),
-      static_cast<int32_t*>(occ_after), static_cast<uint8_t*>(marked));
+  EnqArgs e;
+  e.qbuf = static_cast<const int32_t*>(qbuf);
+  e.qhead = static_cast<const int32_t*>(qhead);
+  e.qcnt = static_cast<const int32_t*>(qcnt);
+  e.alive = static_cast<const uint8_t*>(alive);
+  e.apk = static_cast<const int32_t*>(apk);
+  e.aq = static_cast<const int32_t*>(aq);
+  e.avalid = static_cast<const uint8_t*>(avalid);
+  e.qbuf_out = static_cast<int32_t*>(qbuf_out);
+  e.qcnt_out = static_cast<int32_t*>(qcnt_out);
+  e.enq_try = static_cast<uint8_t*>(enq_try);
+  e.do_enq = static_cast<uint8_t*>(do_enq);
+  e.occ_after = static_cast<int32_t*>(occ_after);
+  e.marked = static_cast<uint8_t*>(marked);
+  e.hash = static_cast<int32_t*>(hash);
+  e.cap = cap;
+  e.ecn_thresh = ecn_thresh;
+  e.m = m;
+  e.nq = nq;
+  e.tiles = (nq + ENQ_QB - 1) / ENQ_QB;
+  e.hsize = hsize;
+  const int64_t blocks = (int64_t)rows * e.tiles;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  enqueue_kernel<<<(unsigned)blocks, ENQ_THREADS, 0,
+                   static_cast<cudaStream_t>(stream)>>>(e);
   return (int)cudaGetLastError();
 }
 

@@ -1,58 +1,103 @@
-// Mamba2 SSD chunked scan (forward) for the H100 (sm_90a), CUDA cores.
+// Mamba2 SSD chunked scan (forward) for the H100 (sm_90a): a bf16
+// tensor-core walk (wgmma + TMA, one launch) and a CUDA-core route.
 //
 // Replaces the Pallas TPU kernel repro/kernels/ssd_scan/kernel.py:ssd_scan
-// (def at :66, pallas_call at :83, body _ssd_kernel at :26-63).  It computes
-// repro_torch/kernels/ssd_scan/ref.py:ssd_chunked:
+// (def at :66, pallas_call at :83, body _ssd_kernel at :26-63).  Both routes
+// compute repro_torch/kernels/ssd_scan/ref.py:ssd_chunked:
 //
 //   h_t = exp(A_h dt_t) h_{t-1} + dt_t (B_t outer x_t),   y_t = C_t . h_t
 //
 // for x (B, L, H, P), dt (B, L, H) float32, A (H,) float32 and grouped
 // B/C (B, L, G, N) (head h reads group h / (H / G)), with float32
-// accumulation; x, B and C are float32 or bf16 and y (B, L, H, P,
-// contiguous) has x's type.
-//
-// Design.  The TPU kernel runs one program per (b, h) with the chunk loop
-// inside, which at batch 1 gives 80 (Zamba2-2.7B) or 24 (Mamba2-130M)
-// blocks for 132 SMs.  Here the chunked closed form runs as three launches
-// (a "block per chunk" below is one per (chunk, tile of 64 of the P
-// columns); the scan is separable over P):
-//   1. ssd_chunk_state, one block per (chunk, head, batch): the chunk's
-//      cumulative decay lam_i = sum_{j<=i} A dt_j and its state
-//      sum_j exp(lam_end - lam_j) dt_j B_j x_j^T (N x P), written to a
-//      float32 scratch with lam_end;
-//   2. ssd_state_carry, one thread per state element (n, p) of a (b, h):
-//      h_start[c] = h; h = exp(lam_end[c]) h + state[c], written over the
-//      chunk states in place (the only sequential pass: nc steps);
-//   3. ssd_chunk_out, one block per (chunk, head, batch): the intra-chunk
-//      term sum_{j<=i} (C_i.B_j) exp(lam_i - lam_j) dt_j x_j plus the
-//      inter-chunk term exp(lam_i) C_i . h_start, rounded once to y's type.
-// A Zamba2 prefill of L = 2,048 gives 32 chunks x 80 heads = 2,560 blocks
-// a launch.  Tiles are a 64-row chunk in shared memory as float; 256
-// threads each own a 4 x 4 patch of a 64 x 64 product (C.B^T, then S.x
-// and C.h_start), read with float4 shared loads, summed with fmaf.  The
-// state width N is taken in tiles of 128 (B, C and the chunk-start state
-// are staged a tile at a time), so any N works; a requested chunk above 64
-// runs as chunks of 64, the same closed form over a finer cut.  The
-// exponential of the intra-chunk decay is evaluated only for j <= i, where
+// accumulation, y (B, L, H, P, contiguous) in x's type, and, on request,
+// the final state h_L (B, H, N, P) float32 (ref.py:ssd_final_state), which
+// prefill hands to decode.  Per chunk of Q rows, with lam_i =
+// sum_{j<=i} A dt_j:
+//   y_i = exp(lam_i) C_i . h_start + sum_{j<=i} (C_i.B_j) exp(lam_i - lam_j)
+//         dt_j x_j,     h_end = exp(lam_end) h_start + sum_j B_j w_j x_j^T,
+//   w_j = exp(lam_end - lam_j) dt_j.
+// The exponential of the intra-chunk decay is taken only for j <= i, where
 // lam_i - lam_j <= 0: the Pallas kernel's exp(lam_i - lam_j) * mask
 // (kernel.py:47) gives inf * 0 = NaN once a chunk's decay passes ~88, the
-// reference's where (ref.py:71-73) and this kernel do not.  The S.x loop
-// stops at the patch's diagonal.  A ragged last chunk is masked (rows past
-// L load as zeros, which leave the state unchanged), so L needs no padding.
+// reference's where (ref.py:71-73) and these kernels do not.  A ragged last
+// chunk is masked (rows past L load as zeros and dt = 0 leaves the state
+// unchanged), so L needs no padding.  The closed form is the same function
+// for any cut of L into chunks (only the order of the float32 sums
+// changes): the CUDA-core route runs a requested chunk above 64 as chunks
+// of 64, and the tensor-core walk runs every chunk as chunks of 64 (its
+// wgmma tiles are 64 rows; a shorter chunk would leave rows of each tile
+// to the next chunk).
 //
 // Bound on the H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense tensor cores):
 // at Zamba2's heads (H = 80, P = N = 64, G = 1) and L = 2,048, bf16, x, y,
 // B, C and dt are 43.1 MB (12.9 us) and the four 64-deep products of each
 // (chunk, head), counted over the causal pairs only, 4.0 GFLOP (4.1 us on
 // tensor cores), so bytes bound it.
-// This kernel uses float32 CUDA cores (67 TFLOP/s peak), no tensor cores,
-// TMA or copy/compute overlap, and reads x, B and C twice (launches 1 and
-// 3) plus 2 x 42 MB of float32 chunk states: a wgmma kernel that keeps the
-// states on chip is later work.  Shared memory: 49,664 bytes (launch 1);
-// 85,504 at N = 64 and 136,704 at N >= 128 (launch 3), above the 48 KB
-// default via cudaFuncAttributeMaxDynamicSharedMemorySize.
+//
+// ssd_wgmma_kernel (bf16, N <= 256): one CTA per (batch, head, tile of PT
+// of the P columns; the scan is separable over P) walks the chunks in order
+// -- a loop replaces the TPU's sequential grid axis -- and keeps the
+// running state h (N x PT float32) in the registers of one consumer
+// warpgroup as the accumulator of the state update.  No chunk state goes
+// to device memory: x, B, C and dt are read once, y and h_L written once.
+//   * One producer warp.  Lane 0 brings the chunk's C and B (64 rows x 64
+//     state columns a box, 128-byte swizzle) and x (64 rows x PT columns,
+//     128- or 64-byte swizzle) by TMA into a ring of up to 4 stages.  Lane
+//     l owns rows 2l and 2l + 1: their dt (loaded a chunk ahead), the warp
+//     scan of A dt for lam (float32, in row order), w = exp(lam_end - lam)
+//     dt, and, once x has landed, w x beside it.
+//   * Per chunk the consumer warpgroup issues, with wgmma m64nNk16 (bf16
+//     in, float32 accumulate): G = C B^T (N deep) and C h (h^T in shared
+//     memory, K-major); then S = mask(G) exp(lam_i - lam_j) dt_j in
+//     registers (its accumulator layout is the A-fragment layout; exp2 of
+//     log2-scaled lam, and no exponential for a warp's column blocks wholly
+//     above its rows), y += S x, and h = exp(lam_end) h + B^T (w x), with B
+//     read from its TMA tile as a transposed (MN-major) A operand and x and
+//     w x as MN-major B operands.  y goes to a shared tile and out by a TMA
+//     store (rows past L are not written), so the consumers make no global
+//     store inside the walk and their proxy fences wait for shared memory
+//     only.
+//   * Precision: S, h and w x are not bf16 inputs but float32 values, and
+//     one rounding to bf16 left y up to 0.125 from the plain version at
+//     Zamba2's shape (a card run), past the 2e-2 tolerance.  Each is split
+//     into a bf16 high part and the bf16 remainder, and its product runs
+//     twice (hi + lo carries ~16 bits): the tensor cores have room to
+//     spare, the chain of dependent steps a chunk is what costs.
+//   * Every wgmma is issued on every chunk, on no branch: ptxas serializes
+//     all of a kernel's wgmma (a wait after each) when one sits behind a
+//     branch or its accumulators merge across one (C7520), which made the
+//     first version 2-3x slower.
+//   * P tiles: batch 1 gives 80 (Zamba2-2.7B) or 24 (Mamba2-130M) heads for
+//     132 SMs.  A CTA's walk is a chain whose time barely depends on PT, so
+//     tiles of 32 (G recomputed per tile) pay only while they fill idle
+//     SMs; the wrapper takes 32 when those CTAs fit one an SM (Mamba2),
+//     else 64 (Zamba2), and 32 where N > 128 (registers).  Registers hold
+//     h as N / 64 accumulators of PT / 2 floats a thread.  Shared memory:
+//     136 KB at N = 64, PT = 32 (4 stages); 190 KB at N = 256 (2 stages).
+//
+// ssd_scan_fwd, the CUDA-core route: float32 (the goldens' type, where TF32
+// or bf16 operands would miss the 5e-5 tolerance) and bf16 with N > 256.
+// Three launches (a "block per chunk" is one per (chunk, tile of 64 of the
+// P columns)):
+//   1. ssd_chunk_state, one block per (chunk, head, batch): lam and the
+//      chunk state sum_j w_j B_j x_j^T (N x P), written to a float32
+//      scratch with lam_end;
+//   2. ssd_state_carry, one thread per state element (n, p) of a (b, h):
+//      h_start[c] = h; h = exp(lam_end[c]) h + state[c], written over the
+//      chunk states in place (the only sequential pass: nc steps); the
+//      last h is the final state;
+//   3. ssd_chunk_out, one block per (chunk, head, batch): y from the
+//      intra- and inter-chunk terms, rounded once to y's type.
+// Tiles are a 64-row chunk in shared memory as float; 256 threads each own
+// a 4 x 4 patch of a 64 x 64 product, read with float4 shared loads,
+// summed with fmaf; N is taken in tiles of 128.  It reads x, B and C twice
+// plus 2 x 42 MB of float32 chunk states at Zamba2's prefill shape.
+// Shared memory: 49,664 bytes (launch 1); 85,504 at N = 64 and 136,704 at
+// N >= 128 (launch 3), above the 48 KB default via
+// cudaFuncAttributeMaxDynamicSharedMemorySize.
 // Domain: any P, N and L; the wrapper passes chunks of at most 64.
 
+#include <cuda.h>          // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -74,6 +119,7 @@ struct Args {
   void* y;
   float* cs;          // (Bsz, H, nc, N, P) chunk states, then chunk-start states
   float* le;          // (Bsz, H, nc) lam at each chunk's last row
+  float* hfin;        // (Bsz, H, N, P) final states, or null
   int Bsz, L, H, G, P, N, Q, nc, npt;   // npt: tiles of PMAX columns of P
   long long xs0, xs1, xs2;      // x: batch, position, head strides
   long long ds0, ds1, ds2;      // dt
@@ -209,6 +255,7 @@ ssd_state_carry(Args a) {
     st[c * np] = hc;
     hc = __fadd_rn(__fmul_rn(expf(le[c]), hc), s);
   }
+  if (a.hfin != nullptr) a.hfin[(long long)(b * a.H + h) * np + e] = hc;
 }
 
 template <typename T>
@@ -384,28 +431,718 @@ int launch(Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 tensor-core walk (wgmma + TMA): one launch, states on chip
+// ---------------------------------------------------------------------------
+
+constexpr int TC_CONSUMERS = 128;             // one consumer warpgroup
+constexpr int TC_THREADS = TC_CONSUMERS + 32; // and one producer warp
+constexpr int BOX_BYTES = QT * 128;           // 64 rows x 64 bf16 columns
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the special-function unit (2 ulp; 2^-inf = 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma reads its shared operands through it).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The consumer warpgroup's own barrier (id 1; 0 is __syncthreads).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(TC_CONSUMERS) : "memory");
+}
+
+// A box of the 4-D tensor map (coordinates innermost first: column,
+// position, group, batch) into shared memory; completion counts on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A box of shared memory into the 4-D tensor map (a bulk async store,
+// rows and columns outside the tensor are not written), committed as one
+// bulk group of the issuing thread.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Wait until at most N of the thread's bulk stores still read shared
+// memory (N = 0 at exit: and until all have completed).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout B128.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// K-major operand (rows of 64 bf16, 128 bytes, 8-row groups 1,024 bytes
+// apart): k-step kk of 16 columns starts 32 bytes further.
+__device__ __forceinline__ uint64_t kmajor(uint32_t box, int kk) {
+  return sw128_desc(box + kk * 32, 16, 1024);
+}
+
+// Byte offset of element (row r, column e < 64) in a 128-byte-swizzled box
+// of rows of 64 bf16 (the pattern TMA's SWIZZLE_128B writes).
+__device__ __forceinline__ uint32_t swz(int r, int e) {
+  return (uint32_t)(r * 128 + ((((e >> 3) ^ (r & 7)) << 4) | ((e & 7) << 1)));
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// wgmma.mma_async m64nNk16, float32 += bf16 x bf16.  _ss_t00: A and B from
+// shared memory, both K-major; _ss_t11: both MN-major ("transposed");
+// _rs_t1: A from registers, B MN-major.  acc = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n32_t00(float (&d)[16],
+                                                 uint64_t da, uint64_t db,
+                                                 int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss_n32_t11(float (&d)[16],
+                                                 uint64_t da, uint64_t db,
+                                                 int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32_t1(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64_t00(float (&d)[32],
+                                                 uint64_t da, uint64_t db,
+                                                 int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64_t11(float (&d)[32],
+                                                 uint64_t da, uint64_t db,
+                                                 int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64_t1(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int PT>
+__device__ __forceinline__ void mma_ss(float (&d)[PT / 2], uint64_t da,
+                                       uint64_t db, int acc) {
+  if constexpr (PT == 32) wgmma_ss_n32_t00(d, da, db, acc);
+  else wgmma_ss_n64_t00(d, da, db, acc);
+}
+
+template <int PT>
+__device__ __forceinline__ void mma_ss_mn(float (&d)[PT / 2], uint64_t da,
+                                          uint64_t db) {
+  if constexpr (PT == 32) wgmma_ss_n32_t11(d, da, db, 1);
+  else wgmma_ss_n64_t11(d, da, db, 1);
+}
+
+template <int PT>
+__device__ __forceinline__ void mma_rs_mn(float (&d)[PT / 2],
+                                          const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (PT == 32) wgmma_rs_n32_t1(d, a, db);
+  else wgmma_rs_n64_t1(d, a, db);
+}
+
+// MN-major operand of PT (32 or 64) columns a row, k-step kb of 16 rows:
+// rows of 64 bytes with the 64-byte swizzle (PT = 32) or of 128 bytes with
+// the 128-byte swizzle (PT = 64), as TMA writes a box of that width; 8-row
+// groups are SBO apart, the next PT-column chunk (never used) LBO.
+template <int PT>
+__device__ __forceinline__ uint64_t mn_desc(uint32_t tile, int kb) {
+  constexpr uint32_t row = PT * 2;
+  const uint32_t addr = tile + kb * 16 * row;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(((64 * row) >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(((8 * row) >> 4) & 0x3FFF) << 32) |
+         ((PT == 32 ? 2ull : 1ull) << 62);
+}
+
+struct TcArgs {
+  const float* dt;
+  const float* A;
+  float* hfin;          // (Bsz, H, N, P) final states, or null
+  int L, H, G, P, N, nc, npt;
+  long long ds0, ds1, ds2;
+};
+
+constexpr int SMEM_MAX = 227 * 1024;
+
+// NB: boxes of 64 state columns (N <= 64 NB); PT: P columns of a CTA.  A
+// stage holds a chunk's C and B (K-major boxes of 64 state columns), x and
+// (w x) as bf16 high and low parts (64 rows of PT columns, MN-major), and
+// lam, dt and w; as many stages as fit, up to 4.  Beside them: h^T high and
+// low parts and two y tiles for the TMA stores.
+template <int NB, int PT>
+struct TcShape {
+  static constexpr int X_BYTES = QT * PT * 2;
+  static constexpr int C_OFF = 0;
+  static constexpr int B_OFF = NB * BOX_BYTES;
+  static constexpr int X_OFF = 2 * NB * BOX_BYTES;
+  static constexpr int WH_OFF = X_OFF + X_BYTES;
+  static constexpr int WL_OFF = WH_OFF + X_BYTES;
+  static constexpr int LAM_OFF = WL_OFF + X_BYTES;          // lam, dt, w
+  static constexpr int STAGE = LAM_OFF + 1024;
+  static constexpr int FIXED = 2 * NB * PT * 128 + 2 * X_BYTES + 128 + 1024;
+  static constexpr int STAGES =
+      (SMEM_MAX - FIXED) / STAGE >= 4 ? 4 : (SMEM_MAX - FIXED) / STAGE;
+  static constexpr int H_OFF = STAGES * STAGE;              // h^T, high part
+  static constexpr int HL_OFF = H_OFF + NB * PT * 128;      // and low part
+  static constexpr int Y_OFF = HL_OFF + NB * PT * 128;      // two y tiles
+  static constexpr int BAR_OFF = Y_OFF + 2 * X_BYTES;
+  static constexpr int SMEM = BAR_OFF + 128 + 1024;        // + base slack
+  static constexpr int TMA_BYTES = 2 * NB * BOX_BYTES + X_BYTES;
+  static_assert(STAGES >= 2 && SMEM <= SMEM_MAX, "shared memory");
+};
+
+// (hi, lo) bf16 pairs of v0 and v1: hi = bf16(v), lo = bf16(v - hi), so
+// hi + lo carries v to ~2^-16 of its size.
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(__fsub_rn(v0, hf.x), __fsub_rn(v1, hf.y));
+}
+
+template <int NB, int PT>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                 const __grid_constant__ CUtensorMap tb,
+                 const __grid_constant__ CUtensorMap tc,
+                 const __grid_constant__ CUtensorMap ty, const TcArgs a) {
+  using S = TcShape<NB, PT>;
+  constexpr int NS = S::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base_ptr = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(base_ptr);
+  // tma[s] = bar + 8 s: the stage's TMA bytes; ready[s] = bar + 8 (NS + s):
+  // the producer lanes' lam, dt, w and w x; empty[s] = bar + 8 (2 NS + s):
+  // the consumer warps are done with the stage.
+  const uint32_t bar = base + S::BAR_OFF;
+  const int pt = blockIdx.x % a.npt, h = (blockIdx.x / a.npt) % a.H;
+  const int b = blockIdx.x / (a.npt * a.H);
+  const int g = h / (a.H / a.G);
+  const int p0 = pt * PT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(bar + 8 * s, 1);            // the TMA thread's, with bytes
+      mbar_init(bar + 8 * (NS + s), 32);    // one arrival per producer lane
+      mbar_init(bar + 8 * (2 * NS + s), 4); // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // Producer.  Lane 0 brings the chunk's C, B (64 rows x 64 state
+    // columns a box) and x (64 rows x PT columns) by TMA; rows past L and
+    // columns past N or P fill with zeros.  Lane l owns rows 2l and 2l + 1:
+    // their dt (loaded a chunk ahead), the running sum lam of A dt (a warp
+    // scan, in row order) and w = exp(lam_end - lam) dt.  Once x has
+    // landed, the lanes write w x in high and low bf16 parts beside it.
+    const float* db = a.dt + b * a.ds0 + h * a.ds2;
+    const float Ah = a.A[h];
+    float dr[2];
+    auto load_dt = [&](int c) {
+      const int t0 = c * QT, rows = min(QT, a.L - t0);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = 2 * lane + r;
+        dr[r] = j < rows ? db[(long long)(t0 + j) * a.ds1] : 0.f;
+      }
+    };
+    load_dt(0);
+    for (int c = 0; c < a.nc; ++c) {
+      const int s = c % NS, round = c / NS;
+      if (round > 0) mbar_wait(bar + 8 * (2 * NS + s), (round - 1) & 1);
+      const uint32_t stage = base + s * S::STAGE;
+      if (lane == 0) {
+        const uint32_t full = bar + 8 * s;
+        mbar_expect_tx(full, S::TMA_BYTES);
+        for (int kc = 0; kc < NB; ++kc) {
+          tma_load(stage + S::C_OFF + kc * BOX_BYTES, &tc, full, kc * 64,
+                   c * QT, g, b);
+          tma_load(stage + S::B_OFF + kc * BOX_BYTES, &tb, full, kc * 64,
+                   c * QT, g, b);
+        }
+        tma_load(stage + S::X_OFF, &tx, full, p0, h, c * QT, b);
+      }
+      const float d0 = dr[0], d1 = dr[1];
+      if (c + 1 < a.nc) load_dt(c + 1);
+      const float a0 = __fmul_rn(Ah, d0), a1 = __fmul_rn(Ah, d1);
+      float incl = __fadd_rn(a0, a1);
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float v = __shfl_up_sync(FULL_MASK, incl, o);
+        if (lane >= o) incl = __fadd_rn(v, incl);
+      }
+      float excl = __shfl_up_sync(FULL_MASK, incl, 1);
+      if (lane == 0) excl = 0.f;
+      const float lam0 = __fadd_rn(excl, a0), lam1 = __fadd_rn(lam0, a1);
+      const float lam_end = __shfl_sync(FULL_MASK, lam1, 31);
+      float2* ld = reinterpret_cast<float2*>(base_ptr + s * S::STAGE +
+                                             S::LAM_OFF);
+      ld[lane] = make_float2(__fmul_rn(lam0, LOG2E),       // lam log2(e)
+                             __fmul_rn(lam1, LOG2E));
+      ld[QT / 2 + lane] = make_float2(d0, d1);             // dt
+      ld[QT + lane] = make_float2(                         // w
+          __fmul_rn(__expf(__fsub_rn(lam_end, lam0)), d0),
+          __fmul_rn(__expf(__fsub_rn(lam_end, lam1)), d1));
+      __syncwarp();
+      // w x in x's own swizzled layout (a 16-byte chunk is 8 columns of
+      // one row j).
+      uint8_t* sp = base_ptr + s * S::STAGE;
+      const float* wS = reinterpret_cast<const float*>(sp + S::LAM_OFF) + 2 * QT;
+      mbar_wait(bar + 8 * s, round & 1);
+#pragma unroll 4
+      for (int q = lane; q < S::X_BYTES / 16; q += 32) {
+        const float wj = wS[(16 * q) / (PT * 2)];
+        const uint4 u = *reinterpret_cast<const uint4*>(sp + S::X_OFF + 16 * q);
+        const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&u);
+        uint4 hi, lo;
+        uint32_t* hp = reinterpret_cast<uint32_t*>(&hi);
+        uint32_t* lp = reinterpret_cast<uint32_t*>(&lo);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(v[e]);
+          split_bf16(__fmul_rn(f.x, wj), __fmul_rn(f.y, wj), hp[e], lp[e]);
+        }
+        *reinterpret_cast<uint4*>(sp + S::WH_OFF + 16 * q) = hi;
+        *reinterpret_cast<uint4*>(sp + S::WL_OFF + 16 * q) = lo;
+      }
+      fence_async_smem();
+      mbar_arrive(bar + 8 * (NS + s));
+    }
+    return;
+  }
+
+  // Consumers: thread (warp w, lane) holds rows 16 w + gq and 16 w + gq + 8
+  // of each 64-row accumulator, columns 8 n + 2 q4 + {0, 1}.  They make no
+  // generic global store inside the walk (y leaves by TMA), so the proxy
+  // fences below wait for shared-memory writes only.
+  const int gq = lane >> 2, q4 = lane & 3;
+  const int r0 = 16 * warp + gq, r1 = r0 + 8;
+  const uint32_t sH = base + S::H_OFF, sHL = base + S::HL_OFF;
+
+  float hacc[NB][PT / 2];
+#pragma unroll
+  for (int m = 0; m < NB; ++m)
+#pragma unroll
+    for (int i = 0; i < PT / 2; ++i) hacc[m][i] = 0.f;
+  // h^T starts at 0, so the first chunk's C h is 0: every wgmma of the walk
+  // is issued on every chunk, on no divergent path (ptxas serializes wgmma
+  // behind a branch or a merge of its accumulators).
+  for (int q = tid; q < NB * PT * 128 * 2 / 16; q += TC_CONSUMERS)
+    reinterpret_cast<uint4*>(base_ptr + S::H_OFF)[q] = make_uint4(0, 0, 0, 0);
+  fence_async_smem();
+  consumers_sync();
+
+  for (int c = 0; c < a.nc; ++c) {
+    const int s = c % NS;
+    const uint32_t stage = base + s * S::STAGE;
+    uint8_t* sp = base_ptr + s * S::STAGE;
+    const float* lamS = reinterpret_cast<const float*>(sp + S::LAM_OFF);  // log2
+    const float* dtS = lamS + QT;
+    mbar_wait(bar + 8 * s, (c / NS) & 1);             // the TMA bytes
+    mbar_wait(bar + 8 * (NS + s), (c / NS) & 1);      // lam, dt, w, w x
+
+    // G = C B^T over the state columns, and C h (the state at the chunk's
+    // start, high and low bf16 parts in shared memory).
+    float gacc[32];
+    float yacc[PT / 2];
+    fence_regs(gacc);
+    fence_regs(yacc);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < NB; ++kc)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64_t00(gacc, kmajor(stage + S::C_OFF + kc * BOX_BYTES, kk),
+                         kmajor(stage + S::B_OFF + kc * BOX_BYTES, kk),
+                         (kc | kk) ? 1 : 0);
+#pragma unroll
+    for (int kc = 0; kc < NB; ++kc)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dc = kmajor(stage + S::C_OFF + kc * BOX_BYTES, kk);
+        mma_ss<PT>(yacc, dc, kmajor(sH + kc * PT * 128, kk),
+                   (kc | kk) ? 1 : 0);
+        mma_ss<PT>(yacc, dc, kmajor(sHL + kc * PT * 128, kk), 1);
+      }
+    wg_commit();
+    wg_wait0();
+    fence_regs(gacc);
+    fence_regs(yacc);
+
+    // y = exp(lam_i) (C h)_i + (S x)_i with S_ij = G_ij exp(lam_i - lam_j)
+    // dt_j for j <= i (the exponent <= 0 where it is taken) and 0 above;
+    // S in high and low bf16 parts.  Warp w's rows end at 16 w + 15, so its
+    // column blocks past 2 w + 1 are 0 without an exponential.
+    const float lr0 = lamS[r0], lr1 = lamS[r1];
+    const float er0 = ex2(lr0), er1 = ex2(lr1);
+#pragma unroll
+    for (int n = 0; n < PT / 8; ++n) {
+      yacc[4 * n + 0] *= er0;
+      yacc[4 * n + 1] *= er0;
+      yacc[4 * n + 2] *= er1;
+      yacc[4 * n + 3] *= er1;
+    }
+    uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float sv[4] = {0.f, 0.f, 0.f, 0.f};
+      if (n <= 2 * warp + 1) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int col = 8 * n + 2 * q4 + jj;
+          const float lc = lamS[col], dc = dtS[col];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float e = ex2((i ? r1 : r0) >= col
+                                    ? __fsub_rn(i ? lr1 : lr0, lc)
+                                    : -INFINITY);
+            sv[2 * i + jj] =
+                __fmul_rn(__fmul_rn(gacc[4 * n + 2 * i + jj], e), dc);
+          }
+        }
+      }
+      // accumulator n (columns 8n..8n+7) is half of the A fragment of
+      // k-step n / 2: registers 0 and 1 for even n, 2 and 3 for odd n.
+      split_bf16(sv[0], sv[1], ph[n >> 1][2 * (n & 1)], pl[n >> 1][2 * (n & 1)]);
+      split_bf16(sv[2], sv[3], ph[n >> 1][2 * (n & 1) + 1],
+                 pl[n >> 1][2 * (n & 1) + 1]);
+    }
+
+    // h <- exp(lam_end) h + B^T (w x): B read from its TMA tile as a
+    // transposed (MN-major) A operand.
+    const float eend = ex2(lamS[QT - 1]);
+#pragma unroll
+    for (int m = 0; m < NB; ++m)
+#pragma unroll
+      for (int i = 0; i < PT / 2; ++i) hacc[m][i] *= eend;
+    fence_regs(yacc);
+#pragma unroll
+    for (int m = 0; m < NB; ++m) fence_regs(hacc[m]);
+    wg_fence();
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      const uint64_t dx = mn_desc<PT>(stage + S::X_OFF, kb);
+      mma_rs_mn<PT>(yacc, ph[kb], dx);
+      mma_rs_mn<PT>(yacc, pl[kb], dx);
+    }
+#pragma unroll
+    for (int m = 0; m < NB; ++m)
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb) {
+        const uint64_t da = sw128_desc(
+            stage + S::B_OFF + m * BOX_BYTES + kb * 2048, BOX_BYTES, 1024);
+        mma_ss_mn<PT>(hacc[m], da, mn_desc<PT>(stage + S::WH_OFF, kb));
+        mma_ss_mn<PT>(hacc[m], da, mn_desc<PT>(stage + S::WL_OFF, kb));
+      }
+    wg_commit();
+    wg_wait0();
+    fence_regs(yacc);
+#pragma unroll
+    for (int m = 0; m < NB; ++m) fence_regs(hacc[m]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar + 8 * (2 * NS + s));   // the stage is read
+
+    // The chunk's y (64 rows x PT columns, bf16) into a y tile, and h^T for
+    // the next chunk's C h, high and low parts: row p, the state index n
+    // contiguous (K-major), a box per 64 states.
+    uint8_t* yt = base_ptr + S::Y_OFF + (c & 1) * S::X_BYTES;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < PT / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(
+            yt + (i ? r1 : r0) * (PT * 2) + (8 * n + 2 * q4) * 2) =
+            __floats2bfloat162_rn(yacc[4 * n + 2 * i], yacc[4 * n + 2 * i + 1]);
+#pragma unroll
+    for (int m = 0; m < NB; ++m)
+#pragma unroll
+      for (int n = 0; n < PT / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int p = 8 * n + 2 * q4 + jj;
+            const float v = hacc[m][4 * n + 2 * i + jj];
+            const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+            const uint32_t off = m * PT * 128 + swz(p, i ? r1 : r0);
+            *reinterpret_cast<__nv_bfloat16*>(base_ptr + S::H_OFF + off) = hi;
+            *reinterpret_cast<__nv_bfloat16*>(base_ptr + S::HL_OFF + off) =
+                __float2bfloat16_rn(__fsub_rn(v, __bfloat162float(hi)));
+          }
+    fence_async_smem();
+    consumers_sync();
+    if (tid == 0) {
+      // Rows past L and columns past P are not written.  The other y
+      // tile's store (the chunk before) must have read its tile before
+      // the next chunk writes it.
+      tma_store(&ty, base + S::Y_OFF + (c & 1) * S::X_BYTES, p0, h, c * QT,
+                b);
+      bulk_wait_read<1>();
+    }
+  }
+  if (tid == 0) bulk_wait_all();
+
+  // The final state h (N x the CTA's P columns), float32.
+  if (a.hfin != nullptr) {
+    float* hb = a.hfin + ((long long)b * a.H + h) * a.N * a.P + p0;
+#pragma unroll
+    for (int m = 0; m < NB; ++m)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int n = 64 * m + (i ? r1 : r0);
+        if (n >= a.N) continue;
+#pragma unroll
+        for (int k = 0; k < PT / 8; ++k)
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int p = 8 * k + 2 * q4 + jj;
+            if (p0 + p < a.P)
+              hb[(long long)n * a.P + p] = hacc[m][4 * k + 2 * i + jj];
+          }
+      }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a 4-D bf16 operand: sizes dims (innermost first, that
+// axis contiguous), element strides of the other three, a box of box0 x
+// box1 x box2 x 1.  The stride of an axis of size 1 is never used; it is
+// set to a valid one.
+bool encode(CUtensorMap* map, const void* ptr, const int (&dims)[4],
+            const long long (&st)[3], const int (&box)[3],
+            CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encoder();
+  if (fn == nullptr) return false;
+  cuuint64_t bytes[3];
+  cuuint64_t prev = ((cuuint64_t)dims[0] * 2 + 15) / 16 * 16;
+  for (int i = 0; i < 3; ++i) {
+    bytes[i] = dims[i + 1] == 1 ? prev : (cuuint64_t)st[i] * 2;
+    prev = bytes[i] * dims[i + 1];
+  }
+  const cuuint64_t d[4] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1],
+                           (cuuint64_t)dims[2], (cuuint64_t)dims[3]};
+  const cuuint32_t bx[4] = {(cuuint32_t)box[0], (cuuint32_t)box[1],
+                            (cuuint32_t)box[2], 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            d, bytes, bx, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NB, int PT>
+int launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tb,
+                 const CUtensorMap& tc, const CUtensorMap& ty, TcArgs a,
+                 int Bsz, cudaStream_t stream) {
+  using S = TcShape<NB, PT>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ssd_wgmma_kernel<NB, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        S::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  a.npt = (a.P + PT - 1) / PT;
+  const long long blocks = (long long)Bsz * a.H * a.npt;
+  ssd_wgmma_kernel<NB, PT><<<(unsigned)blocks, TC_THREADS, S::SMEM, stream>>>(
+      tx, tb, tc, ty, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, B, C and y); dt and A are float32;
-// chunk <= 64 (the wrapper cuts a longer one into chunks of 64).
-// strides: 12 element strides, (batch, position, head) of x and dt and
-// (batch, position, group) of B and C; the last axis of x, B and C is
-// contiguous.  scratch_states: Bsz * H * nc * N * P floats; scratch_lam:
-// Bsz * H * nc floats, nc = ceil(L / chunk).  Returns cudaGetLastError()
+// ssd_scan_fwd: the CUDA-core route.  dtype: 0 = float32, 1 = bfloat16 (x,
+// B, C and y); dt and A are float32; chunk <= 64 (the wrapper cuts a longer
+// one into chunks of 64).  strides: 12 element strides, (batch, position,
+// head) of x and dt and (batch, position, group) of B and C; the last axis
+// of x, B and C is contiguous.  scratch_states: Bsz * H * nc * N * P
+// floats; scratch_lam: Bsz * H * nc floats, nc = ceil(L / chunk);
+// final_state: Bsz * H * N * P floats, or null.  Returns cudaGetLastError()
 // after the launches (0 on success); the checks of shapes, types and
 // strides are the Python wrapper's.
 extern "C" int ssd_scan_fwd(int dtype, const void* x, const float* dt,
                             const float* A, const void* Bm, const void* C,
                             void* y, float* scratch_states,
-                            float* scratch_lam, int Bsz, int L, int H, int G,
-                            int P, int N, int chunk, const long long* strides,
-                            void* stream) {
+                            float* scratch_lam, float* final_state, int Bsz,
+                            int L, int H, int G, int P, int N, int chunk,
+                            const long long* strides, void* stream) {
   if (Bsz <= 0 || L <= 0 || H <= 0 || G <= 0 || H % G != 0 || P <= 0 ||
       N <= 0 || chunk <= 0 || chunk > QT)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.x = x; a.dt = dt; a.A = A; a.Bm = Bm; a.C = C; a.y = y;
-  a.cs = scratch_states; a.le = scratch_lam;
+  a.cs = scratch_states; a.le = scratch_lam; a.hfin = final_state;
   a.Bsz = Bsz; a.L = L; a.H = H; a.G = G; a.P = P; a.N = N; a.Q = chunk;
   a.nc = (L + chunk - 1) / chunk;
   a.npt = (P + PMAX - 1) / PMAX;
@@ -416,5 +1153,54 @@ extern "C" int ssd_scan_fwd(int dtype, const void* x, const float* dt,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(a, s);
   if (dtype == 1) return launch<__nv_bfloat16>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ssd_scan_wgmma_fwd: the bf16 tensor-core walk, one launch.  x, B, C and
+// y bf16, dt and A float32, N <= 256, chunks of 64; strides as above.  x, B
+// and C: 16-byte aligned, their strides of an axis longer than 1 multiples
+// of 8 elements (TMA reads them); y: contiguous (B, L, H, Py), Py >= P a
+// multiple of 8, its first P columns written.  ptile: P columns of a CTA,
+// 32 or 64 (64 needs N <= 128).  final_state: Bsz * H * N * P floats, or
+// null.
+extern "C" int ssd_scan_wgmma_fwd(const void* x, const float* dt,
+                                  const float* A, const void* Bm,
+                                  const void* C, void* y, int Py,
+                                  float* final_state, int Bsz, int L, int H,
+                                  int G, int P, int N, int ptile,
+                                  const long long* strides, void* stream) {
+  if (Bsz <= 0 || L <= 0 || H <= 0 || G <= 0 || H % G != 0 || P <= 0 ||
+      N <= 0 || N > 256 || Py < P || Py % 8 ||
+      (ptile != 32 && ptile != 64) || (ptile == 64 && N > 128))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tb, tc, ty;
+  const int xdims[4] = {P, H, L, Bsz}, bdims[4] = {N, L, G, Bsz};
+  const long long xst[3] = {strides[2], strides[1], strides[0]};
+  const long long bst[3] = {strides[7], strides[8], strides[6]};
+  const long long cst[3] = {strides[10], strides[11], strides[9]};
+  const long long yst[3] = {Py, (long long)H * Py, (long long)L * H * Py};
+  const int xbox[3] = {ptile, 1, QT}, bbox[3] = {64, QT, 1};
+  const CUtensorMapSwizzle xsw =
+      ptile == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!encode(&tx, x, xdims, xst, xbox, xsw) ||
+      !encode(&tb, Bm, bdims, bst, bbox, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode(&tc, C, bdims, cst, bbox, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode(&ty, y, xdims, yst, xbox, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  TcArgs a;
+  a.dt = dt; a.A = A;
+  a.hfin = final_state;
+  a.L = L; a.H = H; a.G = G; a.P = P; a.N = N;
+  a.nc = (L + QT - 1) / QT;
+  a.npt = 1;
+  a.ds0 = strides[3]; a.ds1 = strides[4]; a.ds2 = strides[5];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nb = (N + 63) / 64;
+#define SSD_WGMMA(NB_, PT_) \
+  if (nb == NB_ && ptile == PT_) \
+    return launch_wgmma<NB_, PT_>(tx, tb, tc, ty, a, Bsz, s);
+  SSD_WGMMA(1, 32) SSD_WGMMA(1, 64) SSD_WGMMA(2, 32) SSD_WGMMA(2, 64)
+  SSD_WGMMA(3, 32) SSD_WGMMA(4, 32)
+#undef SSD_WGMMA
   return (int)cudaErrorInvalidValue;
 }

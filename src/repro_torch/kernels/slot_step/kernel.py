@@ -22,6 +22,9 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 MAX_EDGES = 8               # quantization bin edges
 _EDGES: Dict[Tuple, torch.Tensor] = {}
+# The enqueue kernel's hash tables, one scratch per (device, stream): the
+# kernel clears what it uses, and launches on one stream run in order.
+_TABLES: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -29,7 +32,8 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.slot_jsq_pick.argtypes = [_VP] * 7 + [_I, _I, _VP] + [_I] * 5 + [
             _VP, _VP]
-        lib.slot_enqueue.argtypes = [_VP] * 7 + [_I] * 5 + [_VP] * 7
+        lib.slot_enqueue.argtypes = ([_VP] * 7 + [_I] * 5 + [_VP, _I]
+                                     + [_VP] * 7)
         lib.slot_agg_jsq_enqueue.argtypes = (
             [_VP] * 12 + [_I, _I, _VP] + [_I] * 8 + [_VP] * 8)
         lib.slot_sack_update_scan.argtypes = [_VP] * 6 + [_I] * 4 + [_VP] * 3
@@ -135,12 +139,22 @@ def enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, avalid, *, cap: int,
     alive_row, avalid = _u8(alive_row), _u8(avalid)
     check_cuda("enqueue", qbuf, qhead, qcnt, alive_row, apk, aq, avalid)
     outs = _enqueue_outs(qbuf, B, M)
-    with torch.cuda.device(qbuf.device):
+    # The rank counters of keys outside [0, NQ): an open-addressing table a
+    # row for the first and the last tile, cleared by the kernel where used.
+    hsize = 1 << max(6, (2 * M - 1).bit_length())
+    dev = qbuf.device
+    stream = _stream(dev)
+    key = (dev.index, stream)
+    table = _TABLES.get(key)
+    if table is None or table.numel() < B * 4 * hsize:
+        table = torch.empty(B * 4 * hsize, dtype=torch.int32, device=dev)
+        _TABLES[key] = table
+    with torch.cuda.device(dev):
         err = _lib().slot_enqueue(
             qbuf.data_ptr(), qhead.data_ptr(), qcnt.data_ptr(),
             alive_row.data_ptr(), apk.data_ptr(), aq.data_ptr(),
             avalid.data_ptr(), int(cap), int(ecn_thresh), B, M, NQ,
-            *_out_ptrs(outs), _stream(qbuf.device))
+            table.data_ptr(), hsize, *_out_ptrs(outs), stream)
     _check("slot_enqueue", err)
     return outs
 

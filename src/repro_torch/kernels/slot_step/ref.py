@@ -82,9 +82,15 @@ def enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, avalid, *, cap: int,
     ``qbuf`` (B, NQ, cap) int32; ``qhead``/``qcnt`` (B, NQ) int32;
     ``alive_row`` (B, NQ) bool; ``apk``/``aq`` (B, M) int32; ``avalid``
     (B, M) bool.  Returns new ``(qbuf', qcnt', enq_try, do_enq, occ_after,
-    marked)``; the inputs are not written.  Lanes that enqueue target queues
-    in ``[0, NQ)`` (the engine's arrivals always do); a target outside is
-    dropped.
+    marked)``; the inputs are not written.
+
+    A lane reads the queue ``clip(aq, 0, NQ - 1)`` (occupancy, head, alive)
+    and ranks among the earlier lanes of the same raw ``aq``.  Its ring
+    write and occupancy add go where the reference's scatters put them: a
+    negative ``aq`` wraps once (``aq + NQ``, JAX's index rule), a target
+    still outside ``[0, NQ)`` is dropped, and where two lanes write one cell
+    (``q`` and ``q - NQ``) the later lane wins (XLA's sequential scatter).
+    The engine's arrivals always target ``[0, NQ)``.
     """
     B, NQ = qcnt.shape
     aqc = torch.clamp(aq, 0, NQ - 1).long()
@@ -95,8 +101,14 @@ def enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, avalid, *, cap: int,
     room = qa + rkq < cap
     do_enq = enq_try & room
     pos = torch.remainder(torch.gather(qhead, 1, aqc) + qa + rkq, cap)
-    hit = do_enq & (aq >= 0) & (aq < NQ)
-    cell = torch.where(hit, aq.long() * cap + pos.long(), NQ * cap)
+    tgt = torch.where(aq < 0, aq + NQ, aq)
+    hit = do_enq & (tgt >= 0) & (tgt < NQ)
+    cell = torch.where(hit, tgt.long() * cap + pos.long(), NQ * cap)
+    lanes = torch.arange(aq.shape[1], device=aq.device).expand(cell.shape)
+    last = torch.full((B, NQ * cap + 1), -1, dtype=torch.int64,
+                      device=aq.device)
+    last.scatter_reduce_(1, cell, lanes, "amax")
+    cell = torch.where(torch.gather(last, 1, cell) == lanes, cell, NQ * cap)
     flat = torch.cat([qbuf.reshape(B, NQ * cap),
                       torch.zeros((B, 1), dtype=qbuf.dtype,
                                   device=qbuf.device)], dim=1)
@@ -106,7 +118,7 @@ def enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, avalid, *, cap: int,
     marked = do_enq & (occ_after > ecn_thresh)
     cnt = torch.cat([qcnt, torch.zeros((B, 1), dtype=qcnt.dtype,
                                        device=qcnt.device)], dim=1)
-    cnt.scatter_add_(1, torch.where(hit, aq.long(), NQ),
+    cnt.scatter_add_(1, torch.where(hit, tgt.long(), NQ),
                      hit.to(qcnt.dtype))
     return qbuf2, cnt[:, :NQ], enq_try, do_enq, occ_after, marked
 

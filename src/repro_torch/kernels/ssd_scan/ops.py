@@ -6,8 +6,12 @@ tensors and runs the chunked plain version (``ref.ssd_chunked``, on zero-
 padded inputs) on CPU tensors; ``torch`` runs the chunked plain version on
 any device.  There is no fallback from the kernel to the plain version.
 The kernel masks a ragged last chunk itself, so its inputs are not padded.
-``LAUNCHES`` counts the kernel calls made through this wrapper (each is the
-kernel's three launches).
+``final_state=True`` also returns the state after the last position (the
+kernel's own on CUDA tensors, ``ref.ssd_final_state`` on the plain path),
+which prefill hands to decode.
+``LAUNCHES`` counts the kernel calls made through this wrapper, and
+``ROUTE_LAUNCHES`` each route's share (``kernel.route``: the bf16
+tensor-core walk, one launch; the CUDA-core route, three launches).
 """
 from __future__ import annotations
 
@@ -18,24 +22,30 @@ from . import ref as _ref
 from .._common import resolve_backend
 
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         B_mat: torch.Tensor, C: torch.Tensor, *, chunk: int = 64,
-        backend: str = "auto") -> torch.Tensor:
+        backend: str = "auto", final_state: bool = False):
     """x (B, L, H, P); dt (B, L, H); A (H,); B_mat, C (B, L, G, N) ->
-    y (B, L, H, P) in x's dtype."""
+    y (B, L, H, P) in x's dtype, or ``(y, h)`` with ``final_state``: h
+    (B, H, N, P) float32, the state after position L - 1."""
     global LAUNCHES
     L = x.shape[1]
     if resolve_backend(backend) == "torch" or x.device.type == "cpu":
-        x, dt, B_mat, C = _ref.pad_to_chunk(chunk, x, dt, B_mat, C)
-        return _ref.ssd_chunked(x, dt, A, B_mat, C, chunk=chunk)[:, :L]
+        xp, dtp, Bp, Cp = _ref.pad_to_chunk(chunk, x, dt, B_mat, C)
+        y = _ref.ssd_chunked(xp, dtp, A, Bp, Cp, chunk=chunk)[:, :L]
+        if not final_state:
+            return y
+        return y, _ref.ssd_final_state(x, dt, A, B_mat, C, chunk=chunk)
     if not x.is_cuda:
         raise ValueError(f"ssd: unsupported device {x.device}")
     x, B_mat, C = (t if t.stride(-1) == 1 else t.contiguous()
                    for t in (x, B_mat, C))
-    y = _kernel.ssd_scan(x, dt.float(), A.float().contiguous(), B_mat, C,
-                         chunk=chunk)
-    if y.numel():
+    out = _kernel.ssd_scan(x, dt.float(), A.float().contiguous(), B_mat, C,
+                           chunk=chunk, final_state=final_state)
+    if x.numel():
         LAUNCHES += 1
-    return y
+        ROUTE_LAUNCHES[_kernel.route(x.dtype, B_mat.shape[3])] += 1
+    return out

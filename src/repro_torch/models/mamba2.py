@@ -12,9 +12,11 @@ reference's leaf names and in its ``(in, out)`` orientation.  Decode keeps
 O(1)-in-sequence state: a (K-1)-deep conv cache and the (H, N, P) float32
 SSM state, ``{"conv": (nl, B, K-1, conv_dim), "ssm": (nl, B, H, N, P)}``
 (the reference's flat layout; batch axis 1); each layer writes its slices
-IN PLACE.  The prefill's final state comes from the plain
-``ssd_final_state``, the one-token decode recurrence is plain PyTorch, as
-both are plain jnp in the reference.  The rounding order is the
+IN PLACE.  The prefill's final state comes from the same scan call
+(``ops.ssd(..., final_state=True)``: the kernel's on the card, the plain
+``ssd_final_state`` on the CPU, where the reference computes it in plain
+jnp); the one-token decode recurrence is plain PyTorch, as in the
+reference.  The rounding order is the
 reference's: dt's softplus in float32, the ``D_skip`` term in x's dtype,
 the gate's silu in float32 before the gated RMSNorm.
 """
@@ -29,7 +31,6 @@ from torch import nn
 from . import _params as P
 from . import layers as L
 from ..kernels.ssd_scan import ops as ssd_ops
-from ..kernels.ssd_scan import ref as ssd_ref
 
 STACKED = ("layers",)
 
@@ -191,11 +192,12 @@ def mamba_block(cfg, p: MambaLayer, x, cache=None, mode="train",
         y = torch.einsum("bhn,bhnp->bhp", c1.float(), h)[:, None]
         new_ssm = h.to(cache["ssm"].dtype)
         y = y.to(x.dtype)
-    else:
+    elif cache is None:
         y = ssd_ops.ssd(xc, dt, A, Bm, Cm, backend=backend)
-        if cache is not None:  # prefill: also compute the final state
-            new_ssm = ssd_ref.ssd_final_state(xc, dt, A, Bm, Cm).to(
-                cache["ssm"].dtype)
+    else:  # prefill: the scan also returns the final state
+        y, h = ssd_ops.ssd(xc, dt, A, Bm, Cm, backend=backend,
+                           final_state=True)
+        new_ssm = h.to(cache["ssm"].dtype)
     y = y + xc * p.D_skip.to(x.dtype)[None, None, :, None]
     y = y.reshape(B, S, din)
     y = L.rms_norm(y * F.silu(z.float()).to(x.dtype), p.norm_w, cfg.norm_eps)

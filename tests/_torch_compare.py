@@ -57,3 +57,97 @@ def assert_same_loop_result(ref, port, tag=""):
         assert ref.probe.stride == port.probe.stride
         np.testing.assert_array_equal(np.asarray(ref.probe.series),
                                       port.probe.series, err_msg=tag)
+
+
+# Enqueue operands at the edges of its domain: (rows, lanes, queues, cap)
+# and how the lanes pick their targets.  The CPU tests hold the plain
+# version to the reference on them, the card tests the CUDA kernel to the
+# plain version.
+ENQUEUE_CASES = {
+    # every lane on one queue, more arrivals than room
+    "hot_queue": (2, 64, 40, 12, "hot"),
+    # keys -1, nq, -nq (wraps to queue 0), below -nq and past nq (dropped),
+    # and q - nq beside q (two lanes on one ring cell, the later wins)
+    "out_of_range": (3, 80, 40, 12, "oob"),
+    # half the queues dead: their arrivals are black-holed
+    "dead_queues": (2, 64, 40, 12, "dead"),
+    # one row of 1,280 lanes and queues, 195-packet buffers
+    "wide_row": (1, 1280, 1280, 195, "engine"),
+    # the k=8 slot's sizes
+    "cap_195": (2, 640, 640, 195, "engine"),
+    # a buffer size that is not a multiple of 4 (the ring copy's vectors)
+    "cap_13": (2, 100, 300, 13, "engine"),
+    # no lane targets the queues past the first 32
+    "idle_tiles": (2, 64, 160, 12, "low"),
+    # no more queues than a CTA owns (16): one CTA a row is the first and
+    # the last tile at once, and counts the keys of both sides of [0, NQ)
+    "one_tile": (2, 64, 12, 12, "oob"),
+    # 17 queues: the last tile owns one queue
+    "tail_tile": (2, 64, 17, 12, "oob"),
+}
+
+
+def enqueue_operands(case, seed=0, rows=None, size=None):
+    """numpy operands ``(qbuf, qhead, qcnt, alive, apk, aq, avalid)`` of an
+    ``ENQUEUE_CASES`` entry, and its ``cap``; ``rows`` overrides its row
+    count and ``size`` its ``(lanes, queues, cap)``."""
+    B, M, NQ, cap, kind = ENQUEUE_CASES[case]
+    B = B if rows is None else rows
+    M, NQ, cap = (M, NQ, cap) if size is None else size
+    r = np.random.default_rng(seed)
+    qcnt = r.integers(0, cap, (B, NQ)).astype(np.int32)
+    alive = r.random((B, NQ)) < (0.5 if kind == "dead" else 0.95)
+    if kind == "hot":
+        aq = np.full((B, M), NQ // 3, np.int32)
+        qcnt[:, NQ // 3] = cap // 4
+    elif kind == "oob":
+        keys = np.array([-1, NQ, -NQ, -NQ - 3, NQ + 7, NQ - 1, 0, 5,
+                         5 - NQ, -2 * NQ], np.int32)
+        aq = keys[r.integers(0, len(keys), (B, M))]
+        alive[:, [0, 5, NQ - 1]] = True
+    elif kind == "low":
+        aq = r.integers(0, 32, (B, M)).astype(np.int32)
+    else:
+        aq = (r.integers(0, max(NQ // 4, 1), (B, M)) * 4).astype(np.int32)
+    apk = np.where(r.random((B, M)) < 0.9, r.integers(0, 1 << 20, (B, M)),
+                   -1).astype(np.int32)
+    return (r.integers(-1, 1 << 20, (B, NQ, cap)).astype(np.int32),
+            r.integers(0, cap, (B, NQ)).astype(np.int32), qcnt, alive, apk,
+            aq, apk >= 0), cap
+
+
+AGG_OOB_KW = dict(site=4, quanta=None, cap=12, ecn_thresh=6, off1=8, h=4)
+
+
+def agg_oob_operands(seed, rows=3, m=96, nq=40, n_aggs=4):
+    """numpy operands of ``agg_jsq_enqueue`` (``(qbuf, qhead, qcnt, alive,
+    apk, aq, to_agg, asw, dead, pad_pen, seed_lo, seed_hi)`` and the slot
+    ``t``) whose lanes that are not agg-bound target keys outside ``[0,
+    NQ)``: -1, -NQ (wraps to queue 0), 5 - NQ beside 5 (two keys on one
+    ring: queues 0 and 5 start empty at one head, so their lanes of equal
+    rank write one cell and the later wins), NQ and beyond, below -NQ.
+    Agg-bound lanes pick among ``AGG_OOB_KW``'s ports as the engine's do.
+    Use with ``AGG_OOB_KW``."""
+    kw = AGG_OOB_KW
+    h, cap = kw["h"], kw["cap"]
+    assert kw["off1"] + n_aggs * h <= nq
+    r = np.random.default_rng(seed)
+    keys = np.array([-1, -nq, 5 - nq, 5, nq, nq + 7, -nq - 3, nq - 1, 0,
+                     30], np.int32)
+    qcnt = r.integers(0, cap, (rows, nq)).astype(np.int32)
+    qhead = r.integers(0, cap, (rows, nq)).astype(np.int32)
+    qcnt[:, [0, 5]] = 0
+    qhead[:, 0] = qhead[:, 5]
+    alive = r.random((rows, nq)) < 0.9
+    alive[:, [0, 5, 30, nq - 1]] = True
+    apk = np.where(r.random((rows, m)) < 0.9, r.integers(0, 600, (rows, m)),
+                   -1).astype(np.int32)
+    avalid = apk >= 0
+    return (r.integers(-1, 600, (rows, nq, cap)).astype(np.int32), qhead,
+            qcnt, alive, apk, keys[r.integers(0, len(keys), (rows, m))],
+            avalid & (r.random((rows, m)) < 0.3),
+            r.integers(0, n_aggs, (rows, m)).astype(np.int32),
+            r.random((rows, m, h)) < 0.2, np.zeros((rows, h), np.float32),
+            r.integers(0, 2**32, rows).astype(np.uint32),
+            r.integers(0, 2**32, rows).astype(np.uint32),
+            int(r.integers(0, 4000)))

@@ -17,8 +17,10 @@ import torch
 from repro_torch.kernels.lindley import ops as lindley_ops, ref as lindley_ref
 from repro_torch.kernels.jsq_scan import ops as jsq_ops
 from repro_torch.kernels.slot_step import ops as slot_ops
+from repro_torch.kernels.slot_step import kernel as slot_kernel
 from repro_torch.kernels.flash_attn import ops as attn_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.configs import get_config
 from repro_torch.models.registry import Model
 from repro_torch.serve import batching, serve_step
@@ -28,8 +30,9 @@ from repro_torch.net._batching import port_pad_penalty
 from repro_torch.net.topology import FatTree
 from repro_torch.core import lb_schemes as lbs
 
-from _torch_compare import (assert_same_loop_result, assert_same_result,
-                            cuda_or_skip)
+from _torch_compare import (AGG_OOB_KW, ENQUEUE_CASES, agg_oob_operands,
+                            assert_same_loop_result, assert_same_result,
+                            cuda_or_skip, enqueue_operands)
 
 pytestmark = pytest.mark.gpu
 
@@ -174,6 +177,47 @@ def test_slot_step_kernels_match_plain(size, quanta):
     # the inputs are not written
     assert torch.equal(c["qbuf"].cpu(), o["qbuf"])
     assert torch.equal(c["qcnt"].cpu(), o["qcnt"])
+
+
+@pytest.mark.parametrize("case", sorted(ENQUEUE_CASES) + ["rows_140"])
+def test_enqueue_kernel_cases_match_plain(case):
+    """The enqueue kernel at the edges of its domain (``ENQUEUE_CASES``,
+    among them 12 and 17 queues: one tile a row, a one-queue last tile;
+    and 140 rows: more CTAs than SMs), bitwise against the plain version
+    on the CPU; the inputs are not written."""
+    dev = cuda_or_skip()
+    if case == "rows_140":
+        ops, cap = enqueue_operands("cap_13", seed=140, rows=140)
+    else:
+        ops, cap = enqueue_operands(case, seed=len(case))
+    cpu = [torch.from_numpy(a) for a in ops]
+    card = [a.to(dev) for a in cpu]
+    kw = dict(cap=cap, ecn_thresh=cap // 2)
+    got = slot_kernel.enqueue(*card, **kw)
+    want = slot_ops.enqueue(*cpu, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert torch.equal(card[0].cpu(), cpu[0])
+    assert torch.equal(card[2].cpu(), cpu[2])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_agg_jsq_enqueue_kernel_out_of_range_keys_match_plain(seed):
+    """The fused pick + enqueue kernel where the lanes that are not
+    agg-bound target keys outside ``[0, NQ)`` (``agg_oob_operands``: a
+    negative key wraps once, two keys share a ring cell), bitwise against
+    the plain version on the CPU."""
+    dev = cuda_or_skip()
+    *ops, t = agg_oob_operands(seed)
+    cpu = [torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32
+                            else a) for a in ops]
+    got = slot_ops.agg_jsq_enqueue(*[a.to(dev) for a in cpu], t,
+                                   **AGG_OOB_KW)
+    want = slot_ops.agg_jsq_enqueue(*cpu, t, **AGG_OOB_KW)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
 
 
 @pytest.mark.parametrize("scheme", ["jsq", "simple_rr", "host_pkt_ar"])
@@ -486,6 +530,71 @@ def test_ssd_kernel_wide_chunk_matches_plain(dtype):
                                rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
+def test_ssd_kernel_final_state_matches_plain(shape, dtype):
+    """``final_state=True``: y and the state after the last position
+    against the plain ``ssd_chunked`` and ``ssd_final_state``; bf16 runs
+    the tensor-core walk in one launch, float32 the CUDA-core route."""
+    dev = cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _ssd_inputs(shape, dtype, dev, sum(shape) + 1)
+    before = dict(ssd_ops.ROUTE_LAUNCHES)
+    y, h = ssd_ops.ssd(*args, final_state=True)
+    want_y, want_h = ssd_ops.ssd(*args, final_state=True, backend="torch")
+    torch.cuda.synchronize()
+    which = ssd_kernel.route(dtype, shape[5])
+    assert which == ("wgmma" if dtype == torch.bfloat16 else "cuda_cores")
+    assert ssd_ops.ROUTE_LAUNCHES[which] == before[which] + 1
+    assert h.dtype == torch.float32 and h.shape == want_h.shape
+    atol, rtol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(h, want_h, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("chunk", [1, 16, 32, 63])
+def test_ssd_kernel_bf16_short_chunks_match_plain(chunk):
+    """The bf16 walk at a requested chunk below its 64-row tile, which it
+    runs as chunks of 64 (the same closed form): y and h against the plain
+    ``ssd_chunked`` and ``ssd_final_state`` at the requested chunk, at a
+    ragged L, G > 1 and a large decay."""
+    dev = cuda_or_skip()
+    for decay in (1.0, 100.0):
+        args = _ssd_inputs((2, 301, 8, 64, 2, 64), torch.bfloat16, dev,
+                           chunk, decay)
+        before = dict(ssd_ops.ROUTE_LAUNCHES)
+        y, h = ssd_ops.ssd(*args, chunk=chunk, final_state=True)
+        want_y, want_h = ssd_ops.ssd(*args, chunk=chunk, final_state=True,
+                                     backend="torch")
+        torch.cuda.synchronize()
+        assert ssd_ops.ROUTE_LAUNCHES["wgmma"] == before["wgmma"] + 1
+        assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+        torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(h, want_h, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("ptile", [32, 64])
+@pytest.mark.parametrize("shape", [(1, 2048, 80, 64, 1, 64),
+                                   (2, 130, 24, 64, 1, 128),
+                                   (1, 100, 3, 40, 1, 96)], ids=str)
+def test_ssd_kernel_p_tiles_match_plain(shape, ptile):
+    """The bf16 walk with 32 and with 64 P columns a CTA (the split and
+    the unsplit walk), y and h within the bf16 tolerance; a large decay
+    too."""
+    dev = cuda_or_skip()
+    for decay in (1.0, 100.0):
+        args = _ssd_inputs(shape, torch.bfloat16, dev, 5, decay)
+        y, h = ssd_kernel.ssd_scan(*args, final_state=True, ptile=ptile)
+        want_y, want_h = ssd_ops.ssd(*args, final_state=True,
+                                     backend="torch")
+        assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+        torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(h, want_h, atol=2e-2, rtol=2e-2)
+
+
 def test_ssd_kernel_reads_strided_slices():
     """x, B and C as slices of one (B, L, width) projection, as the model
     passes them: the kernel reads them through their strides."""
@@ -503,6 +612,31 @@ def test_ssd_kernel_reads_strided_slices():
     want = ssd_ops.ssd(x.contiguous(), dt, A, Bm.contiguous(),
                        C.contiguous(), backend="torch")
     torch.testing.assert_close(got, want, atol=5e-5, rtol=5e-4)
+
+
+@pytest.mark.parametrize("P,N", [(32, 16), (20, 12), (64, 64)])
+def test_ssd_kernel_bf16_strided_slices_match_plain(P, N):
+    """The tensor-core walk on x, B and C sliced from one bf16 projection:
+    TMA reads them through their strides where those are multiples of 16
+    bytes, and the wrapper hands it a padded copy where not (P = 20, N =
+    12)."""
+    dev = cuda_or_skip()
+    B, L, H, G = 2, 77, 4, 2
+    g = torch.Generator().manual_seed(2)
+    proj = torch.randn(B, L, H * P + 2 * G * N + 8, generator=g).to(
+        dev, torch.bfloat16)
+    x = proj[..., :H * P].reshape(B, L, H, P)
+    Bm = proj[..., H * P:H * P + G * N].reshape(B, L, G, N)
+    C = proj[..., H * P + G * N:H * P + 2 * G * N].reshape(B, L, G, N)
+    dt = (0.01 + torch.rand(B, L, H, generator=g) * 0.2).to(dev)
+    A = -(0.5 + torch.rand(H, generator=g)).to(dev)
+    y, h = ssd_ops.ssd(x, dt, A, Bm, C, final_state=True)
+    want_y, want_h = ssd_ops.ssd(x.contiguous(), dt, A, Bm.contiguous(),
+                                 C.contiguous(), backend="torch",
+                                 final_state=True)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(h, want_h, atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])

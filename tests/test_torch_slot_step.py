@@ -14,6 +14,9 @@ from repro.kernels.slot_step import kernel as qk, ref as qr
 from repro_torch.kernels.slot_step import ops as t_ops, ref as t_ref
 from repro_torch.kernels.jsq_scan.ref import fma32
 
+from _torch_compare import (AGG_OOB_KW, ENQUEUE_CASES, agg_oob_operands,
+                            enqueue_operands)
+
 ROWS = 3
 QUANTA = (0.05, 0.10, 0.20)
 
@@ -99,6 +102,32 @@ def test_enqueue_matches_oracle_and_interpret_kernel():
         _same(got, qk.enqueue(*args, interpret=True, **kw), b)
 
 
+@pytest.mark.parametrize("case", sorted(ENQUEUE_CASES))
+def test_enqueue_cases_match_oracle_and_interpret_kernel(case):
+    """The enqueue at the edges of its domain (``ENQUEUE_CASES``: a hot
+    queue past ``cap``, targets outside ``[0, NQ)`` on both sides, dead
+    queues, a row of 1,280 lanes, ``cap = 195`` and 13, queues no lane
+    targets, 12 and 17 queues): the plain version against the reference's oracle and its
+    interpret-mode Pallas kernel, bit for bit.  A negative target wraps
+    once and the later of two lanes on one cell wins, as in the
+    reference's scatters."""
+    ops, cap = enqueue_operands(case, seed=len(case))
+    kw = dict(cap=cap, ecn_thresh=cap // 2)
+    got = t_ops.enqueue(*[torch.from_numpy(a) for a in ops], **kw)
+    for b in range(ops[0].shape[0]):
+        args = [jnp.asarray(a[b]) for a in ops]
+        _same(got, qr.enqueue(*args, **kw), b)
+        _same(got, qk.enqueue(*args, interpret=True, **kw), b)
+    enq_try, do_enq = got[2], got[3]
+    if case == "hot_queue":
+        assert int(enq_try.sum()) > int(do_enq.sum()) > 0
+    if case == "dead_queues":
+        assert bool((torch.from_numpy(ops[6]) & ~enq_try).any())
+    if case == "out_of_range":
+        aq = torch.from_numpy(ops[5])
+        assert bool((do_enq & (aq < 0) & (aq >= -40)).any())
+
+
 @pytest.mark.parametrize("quanta", [None, QUANTA])
 def test_agg_jsq_enqueue_matches_oracle_and_interpret_kernel(quanta):
     o = _operands(4)
@@ -109,6 +138,32 @@ def test_agg_jsq_enqueue_matches_oracle_and_interpret_kernel(quanta):
         args = [_row(o, k, b) for k in AGG] + [o["t"]]
         _same(got, qr.agg_jsq_enqueue(*args, **kw), b)
         _same(got, qk.agg_jsq_enqueue(*args, interpret=True, **kw), b)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_agg_jsq_enqueue_out_of_range_keys_match_oracle_and_interpret_kernel(
+        seed):
+    """The fused pick + enqueue where the lanes that are not agg-bound
+    target keys outside ``[0, NQ)`` (``agg_oob_operands``): a negative key
+    wraps once, and where it shares a ring cell with a key in range the
+    later lane wins, as in the reference's scatters; bit for bit against
+    the reference's oracle and its interpret-mode Pallas kernel."""
+    *ops, t = agg_oob_operands(seed)
+    got = t_ops.agg_jsq_enqueue(
+        *[torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32 else a)
+          for a in ops], t, **AGG_OOB_KW)
+    for b in range(ops[0].shape[0]):
+        args = [jnp.asarray(a[b]) for a in ops] + [t]
+        _same(got, qr.agg_jsq_enqueue(*args, **AGG_OOB_KW), b)
+        _same(got, qk.agg_jsq_enqueue(*args, interpret=True, **AGG_OOB_KW),
+              b)
+    aq, to_agg = torch.from_numpy(ops[5]), torch.from_numpy(ops[6])
+    nq, do_enq = ops[2].shape[1], got[4]
+    wraps = do_enq & ~to_agg & (aq < 0) & (aq >= -nq)
+    assert bool(wraps.any())
+    # lanes of keys 5 - NQ and 5 enqueued: those of equal rank share a cell
+    assert bool((wraps & (aq == 5 - nq)).any())
+    assert bool((do_enq & ~to_agg & (aq == 5)).any())
 
 
 @pytest.mark.parametrize("quanta", [None, QUANTA])

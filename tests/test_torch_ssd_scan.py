@@ -105,6 +105,43 @@ def test_ops_pads_like_the_reference(shape):
     assert ssd_ops.LAUNCHES == before
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_ops_final_state_matches_reference(shape):
+    """``ops.ssd(..., final_state=True)`` on CPU tensors (``auto`` and
+    ``torch``): y against the reference's ``ssd_chunked`` (on the padded
+    inputs, cut back) and h against its ``ssd_final_state``, at ragged L
+    and G > 1; no kernel is launched."""
+    j, t = _both(shape, sum(shape) + 4)
+    L = shape[1]
+    want_y = np.asarray(jref.ssd_chunked(*_pad(j)))[:, :L]
+    want_h = jref.ssd_final_state(*j)
+    before = ssd_ops.LAUNCHES
+    for backend in ("auto", "torch"):
+        y, h = ssd_ops.ssd(*t, backend=backend, final_state=True)
+        assert y.shape == shape[:4] and h.dtype == torch.float32
+        assert h.shape == (shape[0], shape[2], shape[5], shape[3])
+        _close(y, want_y)
+        _close(h, want_h)
+    assert ssd_ops.LAUNCHES == before
+
+
+def test_kernel_routes():
+    """The bf16 tensor-core walk takes bf16 with N <= 256; float32 (the
+    goldens) and wider states take the CUDA-core route.  A CTA of the walk
+    takes 32 P columns while those CTAs fit one an SM (Mamba2-130M's 24
+    heads), where N > 128 or P <= 32, else 64 (Zamba2-2.7B's 80 heads)."""
+    assert ssd_kernel.route(torch.bfloat16, 64) == "wgmma"
+    assert ssd_kernel.route(torch.bfloat16, 256) == "wgmma"
+    assert ssd_kernel.route(torch.bfloat16, 257) == "cuda_cores"
+    assert ssd_kernel.route(torch.float32, 64) == "cuda_cores"
+    assert ssd_kernel.p_tile(64, 64, 80) == 64
+    assert ssd_kernel.p_tile(64, 128, 24) == 32
+    assert ssd_kernel.p_tile(64, 64, 66) == 32
+    assert ssd_kernel.p_tile(64, 64, 67) == 64
+    assert ssd_kernel.p_tile(64, 256, 400) == 32
+    assert ssd_kernel.p_tile(16, 64, 400) == 32
+
+
 @pytest.mark.parametrize("decay", [1.0, 100.0], ids=str)
 def test_chunked_matches_reference_at_wide_shapes(decay):
     """Head dim P = 128, state N = 256 and chunk = 128 (the CUDA kernel
