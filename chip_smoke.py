@@ -16,8 +16,12 @@ Phases, each timed on its own line; any failure exits non-zero:
    flag densities, ``jsq_scan`` on the grids the k=8 points give it (the
    permutation's edge and agg layers and the all-to-all's edge layer,
    ``jsq`` and ``jsq_quant``; the largest all-to-all agg grid is held to
-   the plain version in the timing phase) and on random grids of 33 and 64
-   ports (more than a warp has lanes);
+   the plain version in the timing phase; each grid's longest walked prefix
+   is printed beside its ``pad``), on random grids of 33 and 64 ports (more
+   than a warp has lanes), and on grids at the edges of the walk (an empty
+   row, a full row, packets that are not a prefix, ``pad`` 1 and 400, 4, 8,
+   33 and 64 ports, 0, 3 and 10 bin edges), each through both walks
+   (``registers`` and ``lanes``) where both apply;
 3. drive the fast engine's main path: on the paper's k=8 fat tree, the
    1 MB inter-pod permutation (32,768 packets) and the all-to-all at 32
    packets per destination (520,192 packets) through ``simulate_megabatch``
@@ -38,8 +42,11 @@ Phases, each timed on its own line; any failure exits non-zero:
    13, 1,280 lanes, 140 rows, queue tiles no lane targets; and at their own
    12 and 17 queues, one tile a row and a one-queue last tile),
    ``agg_jsq_enqueue`` with lanes that are not agg-bound targeting keys
-   outside ``[0, nq)``, and operands recorded from engine calls at a few
-   slots;
+   outside ``[0, nq)``, on the same edge cases with about half the lanes
+   agg-bound and at the k=16 sizes, both picks where the occupancy gather
+   leaves the row (``qbase`` negative and past ``nq - h``; the reference's
+   picks ``[0, 1, 3, 3]`` on its fault case), and operands recorded from
+   engine calls at a few slots;
 5. drive the slotted engine's main path on the k=8 fat tree: the 1 MB
    permutation ``permutation(tree, 256, default_rng(1))`` failure-free, and
    fig 3's point (1 % of links failed, ``rho = rho_max``, ``rto_slots=300``,
@@ -53,7 +60,9 @@ Phases, each timed on its own line; any failure exits non-zero:
    against their plain versions: random operands at the k=8 sizes (32,768
    packets, 128 flows, 640 lanes) and the k=16 sizes (262,144-packet rows,
    1,024 flows, 5,120 lanes) with empty flows, fully received windows and
-   repeated delivery targets, and operands recorded from engine calls;
+   repeated delivery targets, outside the engine's domain (negative and
+   out-of-range ``pk``, windows before the row's start and past its end),
+   and operands recorded from engine calls;
 7. drive the SACK main path on the k=8 fat tree, one fused dispatch per
    pipeline identity for seeds 0-1: the ``fig12`` preset's grid
    (``sack_thresh=32``) and fig 9's 20-packet buffers (``sack_thresh=8``,
@@ -118,8 +127,10 @@ Phases, each timed on its own line; any failure exits non-zero:
     paths gave it, beside the bound of the card (and, for flash attention,
     one ``scaled_dot_product_attention`` call as the library's time; no
     single PyTorch call computes the SSD scan); the float32 attention kernel
-    and the float32 SSD route are timed on those inputs in float32, and the
-    SSD walk with 32 and with 64 P columns a CTA;
+    and the float32 SSD route are timed on those inputs in float32, the SSD
+    walk with 32 and with 64 P columns a CTA, and ``jsq_scan`` through both
+    walks, beside its longest walked prefix and the device time a walked
+    step;
 17. ``serve_profile``: a decode step and a 2,048-token prefill of
     Yi-6B, Zamba2-2.7B and Mamba2-130M under ``torch.profiler``: wall
     time, device busy time, idle share, kernel launches, host
@@ -376,6 +387,15 @@ def jsq_grid(B, S, pad, h, quanta, gen, dev):
     return t.to(dev), ok.to(dev), noise.to(dev), pen.to(dev), thr
 
 
+def walked(ok_grid) -> int:
+    """The longest walked prefix of a JSQ grid: the last occupied cell of
+    any row, plus one."""
+    import torch
+    pad = ok_grid.shape[-1]
+    idx = torch.arange(pad, device=ok_grid.device)
+    return int(torch.where(ok_grid, idx, -1).amax().item()) + 1
+
+
 def cummax_inputs(n, density, gen, dev):
     import torch
     v = torch.randn(n, generator=gen, device="cpu").mul_(100).to(dev)
@@ -502,11 +522,10 @@ def slot_timing(name, largest, err, launches):
         qbuf, aq = args[0], args[5]
         B, NQ, cap = qbuf.shape
         M = aq.shape[1]
+        # The rank: a per-key counter advanced once an enqueue-trying lane
+        # (this input's lanes; a compare, an add and a write each).
         enq_try = want[3] if name == "agg_jsq_enqueue" else want[2]
-        # The rank compares each enqueue-trying lane with every earlier
-        # lane: this input's pairs, a compare and an add each.
-        lane = torch.arange(M, device=aq.device, dtype=torch.float64)
-        ops = 2 * float((enq_try.double() * lane).sum())
+        ops = 3 * int(enq_try.sum())
         nbytes = (2 * qbuf.numel() * 4 + B * NQ * (4 + 4 + 1 + 4)
                   + B * M * (4 + 4 + 1) + B * M * (1 + 1 + 4 + 1))
         shape = [B, NQ, cap, M]
@@ -607,8 +626,15 @@ def loop_phases(tree, dev, errs, launches, loop_golden):
         # cap = 195 and 13, 1,280 lanes, tiles no lane targets; the cases
         # whose point is their queue count (one tile a row, a one-queue
         # last tile) and the wide row at their own sizes.
-        from _torch_compare import (AGG_OOB_KW, ENQUEUE_CASES,
-                                    agg_oob_operands, enqueue_operands)
+        from _torch_compare import (
+            AGG_OOB_KW, AGG_PICK_OOB_KW, ENQUEUE_CASES, PICK_FAULT_KW,
+            agg_case_operands, agg_oob_operands, agg_pick_oob_operands,
+            enqueue_operands, pick_fault_operands, pick_oob_operands,
+            to_torch)
+
+        def on_card(ops):
+            return [to_torch(a).to(dev) for a in ops]
+
         for case in sorted(ENQUEUE_CASES):
             cap = ENQUEUE_CASES[case][3]
             own = case in ("wide_row", "one_tile", "tail_tile")
@@ -626,11 +652,45 @@ def loop_phases(tree, dev, errs, launches, loop_golden):
         # [0, nq) (a negative key wraps once; two keys share a ring cell).
         for seed in (0, 1):
             *ops, t = agg_oob_operands(seed)
-            args = [torch.from_numpy(a.astype(np.int64) if a.dtype ==
-                                     np.uint32 else a).to(dev) for a in ops]
-            slot_check("agg_jsq_enqueue", args + [t], AGG_OOB_KW,
-                       f"out-of-range keys seed={seed}")
+            slot_check("agg_jsq_enqueue", on_card(ops) + [t],
+                       AGG_OOB_KW, f"out-of-range keys seed={seed}")
             n_cases += 1
+        # agg_jsq_enqueue on the enqueue's edge cases, about half the valid
+        # lanes agg-bound (at the sizes above), and at the k=16 slot's 5,120
+        # lanes and queues with 8 ports.
+        for case in sorted(ENQUEUE_CASES):
+            cap = ENQUEUE_CASES[case][3]
+            own = case in ("wide_row", "one_tile", "tail_tile")
+            size = None if own else (640, 640, 13 if cap == 13 else 195)
+            (*ops, t), kw = agg_case_operands(case, seed=n_cases, size=size)
+            slot_check("agg_jsq_enqueue", on_card(ops) + [t],
+                       kw, f"{case} lanes={ops[5].shape[1]} (agg)")
+            n_cases += 1
+        (*ops, t), kw = agg_case_operands("cap_195", seed=16,
+                                          size=(5120, 5120, 195), h=8)
+        slot_check("agg_jsq_enqueue", on_card(ops) + [t], kw,
+                   "k=16 sizes (agg)")
+        n_cases += 1
+        # Both picks where the occupancy gather leaves the row (a negative
+        # index wraps once, then clamps): qbase = [10, -1, -3, 17] of 12
+        # queues, qbase anywhere in [-2 nq, 2 nq), and agg-bound lanes whose
+        # first port off1 + asw * h lies outside [0, nq - h].
+        *ops, t = pick_fault_operands()
+        args = on_card(ops) + [t]
+        slot_check("jsq_pick", args, PICK_FAULT_KW, "qbase [10, -1, -3, 17]")
+        check(slot_ops.jsq_pick(*args, **PICK_FAULT_KW).tolist()
+              == [[0, 1, 3, 3]], "jsq_pick: the fault case's picks differ "
+              "from the reference's [0, 1, 3, 3]")
+        n_cases += 1
+        for seed in (0, 1):
+            *ops, t = pick_oob_operands(seed)
+            slot_check("jsq_pick", on_card(ops) + [t],
+                       dict(site=3, quanta=quanta3 if seed else None, cap=12),
+                       f"out-of-range qbase seed={seed}")
+            *ops, t = agg_pick_oob_operands(seed)
+            slot_check("agg_jsq_enqueue", on_card(ops) + [t],
+                       AGG_PICK_OOB_KW, f"out-of-range qbase seed={seed}")
+            n_cases += 2
         # Operands recorded from engine calls, every 100th slot.
         recs = [Recorder(slot_ops, name, lambda a: a[0].numel(),
                          keep_every=100) for name in SLOT_KERNELS]
@@ -933,6 +993,21 @@ def dynamic_phases(tree, dev, errs, launches, slot_launches, golden,
                 sack_check(name, [o[k] for k in SACK_ARGS[name]],
                            f"random B={B} F={F} M={M}")
                 n_cases += 1
+        # Outside the engine's domain: delivering lanes at pk = -1, 3, -10,
+        # -11 of a 10-packet row (two wrap once, -11 is dropped), pk in
+        # [-P, -1], below -P and at or past P, and windows before the row's
+        # start and past its end (tests/_torch_compare.py), also at the k=8
+        # sizes.
+        from _torch_compare import sack_fault_operands, sack_oob_operands
+        for what, ops in (("pk [-1, 3, -10, -11]", sack_fault_operands()),
+                          ("out of range seed=0", sack_oob_operands(0)),
+                          ("out of range seed=1", sack_oob_operands(1)),
+                          ("out of range k=8 sizes", sack_oob_operands(
+                              2, rows=4, f=128, m=640, max_flow=512))):
+            args = [torch.from_numpy(a).to(dev) for a in ops]
+            sack_check("sack_update_scan", args, what)
+            sack_check("sack_advance", [args[0]] + args[3:], what)
+            n_cases += 2
         recs = [Recorder(slot_ops, name, lambda a: a[0].numel(),
                          keep_every=50) for name in SACK_KERNELS]
         for r in recs:
@@ -1883,7 +1958,9 @@ def main() -> int:
                               f"kernel != plain (err {err})")
                     print(f"jsq_scan {wl_name}/{scheme}/{layer} grid "
                           f"{tuple(args[0].shape)}: bitwise equal "
-                          f"(tolerance: bitwise)", flush=True)
+                          f"(tolerance: bitwise); walked prefix "
+                          f"{walked(args[1])} of pad {args[0].shape[-1]}",
+                          flush=True)
         for h in (33, 64):
             for quanta in (None, (0.05, 0.10, 0.20)):
                 args = jsq_grid(2, 8, 400, h, quanta, gen, dev)
@@ -1901,6 +1978,34 @@ def main() -> int:
                 print(f"jsq_scan random grid {tuple(args[0].shape)} h={h} "
                       f"quanta={quanta}: bitwise equal (tolerance: bitwise)",
                       flush=True)
+        # The walk's edges (tests/_torch_compare.py:jsq_walk_grid): an empty
+        # row, a full row, packets that are not a prefix, finite times in
+        # empty cells, pad = 1; up to 8 ports and 8 bin edges take the
+        # registers walk, 10 edges the lanes walk.
+        from _torch_compare import jsq_walk_grid
+        n_walk = 0
+        for h in (4, 8, 33, 64):
+            for pad in (1, 400):
+                for quanta in (None, (0.05, 0.10, 0.20),
+                               tuple(0.05 * k for k in range(1, 11))):
+                    grid = [None if a is None else a.to(dev)
+                            for a in jsq_walk_grid(h + pad, 2, 4, pad, h,
+                                                   quanta)]
+                    want = jsq_ops.jsq_scan(*grid, backend="torch")
+                    got = jsq_ops.jsq_scan(*grid)
+                    torch.cuda.synchronize()
+                    for g, w, what in zip(got, want, ("port", "dep", "occ")):
+                        err = max_abs_err(g, w)
+                        errs["jsq_scan"] = max(errs["jsq_scan"], err)
+                        check(torch.equal(g, w),
+                              f"jsq_scan walk grid h={h} pad={pad} "
+                              f"quanta={quanta} {what}: kernel != plain "
+                              f"(err {err})")
+                    n_walk += 1
+        print(f"jsq_scan walk edges: {n_walk} cases bitwise equal (empty "
+              f"and full rows, packets not a prefix, pad 1 and 400, h 4, 8, "
+              f"33, 64, 0, 3 and 10 bin edges, both walks; tolerance: "
+              f"bitwise)", flush=True)
 
     launches = {"segmented_cummax": 0, "jsq_scan": 0}
     with Phase("main_path"), \
@@ -1981,11 +2086,25 @@ def main() -> int:
             lambda: jsq_ops.jsq_scan(*args[:5], backend="torch"))
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
               "jsq_scan: kernel != plain on the main path's largest grid")
-        del got, want
-        ms = cuda_ms(lambda: jsq_ops.jsq_scan(*args[:5]), 3)
-        dev_ms = device_ms(lambda: jsq_ops.jsq_scan(*args[:5]), 3,
-                           r"\bjsq_scan_kernel(<\w+>)?\(")
+        for _ in range(10):     # the card's clocks settle after the plain run
+            jsq_ops.jsq_scan(*args[:5])
+        ms = cuda_ms(lambda: jsq_ops.jsq_scan(*args[:5]), 5)
+        dev_ms = device_ms(lambda: jsq_ops.jsq_scan(*args[:5]), 5,
+                           r"\bjsq_scan_kernel\b")
         nq = 0 if thresholds is None else thresholds.numel()
+        # The walk's step time: the same grid with the last cell of every
+        # row occupied, so each row walks all pad cells and has no tail
+        # (CUDA events: a launch is milliseconds long).
+        ok_walk = ok_grid.clone()
+        ok_walk[..., -1] = True
+        walk_args = (t_grid, ok_walk) + tuple(args[2:5])
+        got = jsq_ops.jsq_scan(*walk_args)
+        want = jsq_ops.jsq_scan(*walk_args, backend="torch")
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              "jsq_scan: kernel != plain on the main grid with no tail")
+        ms_no_tail = cuda_ms(lambda: jsq_ops.jsq_scan(*walk_args), 3)
+        del got, want, ok_walk, walk_args
+        walk = walked(ok_grid)
         nbytes = cells * (4 + 1 + 4 * h + 4 + 4 + 4) + B * h * 4 + nq * 4
         flops = cells * h * (6 + nq)
         kernels.append(dict(
@@ -1999,7 +2118,8 @@ def main() -> int:
                          flops / FP32_FLOP_PER_S) * 1e3,
             bound_by="bytes" if nbytes / HBM_BYTES_PER_S
             >= flops / FP32_FLOP_PER_S else "operations",
-            library_ms=None, n=cells, shape=[B, S, pad, h]))
+            library_ms=None, n=cells, shape=[B, S, pad, h], walked=walk,
+            ms_no_tail=ms_no_tail, walk_ns_per_cell=ms_no_tail * 1e6 / pad))
         for name in SLOT_KERNELS:
             kernels.append(slot_timing(name, recs[name].largest, errs[name],
                                        loop_launches[name]))
@@ -2021,8 +2141,9 @@ def main() -> int:
                   f"device_ms={k['device_ms']} "
                   f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.4f} "
                   f"library_ms={k['library_ms']}"
-                  + (f" device_ms_by_ptile={k['device_ms_by_ptile']}"
-                     if "device_ms_by_ptile" in k else ""),
+                  + "".join(f" {x}={k[x]}" for x in (
+                      "device_ms_by_ptile", "walked", "ms_no_tail",
+                      "walk_ns_per_cell") if x in k),
                   flush=True)
 
     with Phase("serve_profile"):

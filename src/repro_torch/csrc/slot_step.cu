@@ -9,6 +9,19 @@
 // Every operand carries a leading row axis B (the fused megabatch); the
 // plain versions are repro_torch/kernels/slot_step/ref.py.
 //
+// Index rules (the reference's, on every input it takes; the engine's own
+// inputs never leave the rows):
+//   * a gather (the pick's occupancy read qcnt[qbase + l], the SACK
+//     windows' bitmap reads p_recv[pbase + cand]) wraps a negative index
+//     once (+ the row length) and then clamps it to the row (gather_index);
+//   * a scatter (the enqueue's ring write and occupancy add, the SACK
+//     bitmap's p_recv[pk] = 1) wraps a negative index once and drops an
+//     index still outside the row;
+//   * the enqueue reads its queue at clip(aq, 0, nq - 1) (occupancy, head,
+//     alive) and ranks a lane among the earlier enqueue-trying lanes of the
+//     same raw aq; where two lanes write one ring cell (targets q and
+//     q - nq) the later lane wins (XLA's sequential scatter).
+//
 // jsq_pick: one thread per (row, chooser), a loop over its h ports.  Per
 // port: the queue length, Threefry-2x32 (20 rounds, native uint32) keyed
 // k0 = seed_lo, k1 = seed_hi ^ ((site << 16) ^ lane), counter c0 = t,
@@ -22,40 +35,33 @@
 // Bound: bytes -- per chooser the h queue lengths and dead flags read and
 // one int written; the 20-round PRF per port is ~200 integer operations.
 //
-// Index rules of the enqueue (both kernels, as the reference's scatters):
-// a lane reads the queue clip(aq, 0, nq - 1) (occupancy, head, alive) and
-// ranks among the earlier enqueue-trying lanes of the same raw aq; its ring
-// write and occupancy add go to tgt = aq, a negative aq wrapping once
-// (aq + nq, JAX's index rule), and are dropped if tgt is still outside
-// [0, nq); where two lanes write one cell (targets q and q - nq) the later
-// lane wins (XLA's sequential scatter).  The engine's arrivals always
-// target [0, nq).
-//
-// enqueue: one CTA per (row, tile of ENQ_QB = 16 queues), so the k=8
-// slot's 6 rows of 640 queues give 240 CTAs on 132 SMs.  Bound: bytes --
-// the row's ring buffers copied out of place (nq * cap ints read and
-// written; 6 x 640 x 195 x 4 B = 3.0 MB each way at k=8) plus the lanes.
-// One block per row (as agg_jsq_enqueue below) would leave 6 SMs to stream
-// those 6 MB and rank each lane with a loop over all earlier lanes (O(M^2)).
-// Here each CTA owns its queues' ring cells, occupancy and the per-lane
-// outputs of the lanes whose clip(aq) it owns:
+// enqueue and agg_jsq_enqueue: one CTA per (row, tile of ENQ_QB = 16
+// queues), owner-computes (enqueue_tile, shared by both kernels; they differ
+// only in how a lane's key is found).  The k=8 slot's 6 rows of 640 queues
+// give 240 CTAs on 132 SMs, its 2 agg rows 80.  Bound: bytes -- the row's
+// ring buffers copied out of place (nq * cap ints read and written; 6 x 640
+// x 195 x 4 B = 3.0 MB each way at k=8) plus the lanes.  One block per row
+// would leave a few SMs to stream those bytes and rank each lane with a
+// loop over all earlier lanes (O(M^2)).  Here each CTA owns its queues'
+// ring cells, occupancy and the per-lane outputs of the lanes whose
+// clip(key) it owns:
 //   * it copies its queues' cells as one contiguous run of ENQ_QB * cap ints
 //     (16-byte vectors over the aligned middle: cap = 195 leaves a queue's
 //     own run unaligned), so the outputs are new tensors and a frozen row
 //     comes out bitwise unchanged (the engine selects frozen rows with
 //     torch.where);
-//   * it walks the row's lanes in rounds of 256: each thread flags its
-//     lane if it tries to enqueue into an owned queue (avalid and the
-//     queue alive), a block prefix of per-warp ballots compacts the flagged
-//     lanes in lane order, and one warp ranks them 32 at a time:
-//     __match_any_sync on the raw aq groups equal keys, the rank is a
-//     per-key counter plus the popcount of earlier peers, and the group's
-//     first lane advances the counter.  Counters of owned keys (and of the
-//     negative keys that wrap into owned queues) live in shared memory; a
-//     key outside [0, nq) that wraps into no owned queue (only the first
-//     and last tiles see them) is counted in an open-addressing hash table
-//     in a global scratch, cleared by the CTA when it first needs it.  The
-//     rank is O(M) work per CTA, and no result depends on the order of
+//   * it walks the row's lanes in rounds of 256: each thread finds its
+//     lane's key and flags the lane if it tries to enqueue into an owned
+//     queue (valid and the queue alive), a block prefix of per-warp ballots
+//     compacts the flagged lanes in lane order, and one warp ranks them 32
+//     at a time: __match_any_sync on the raw key groups equal keys, the rank
+//     is a per-key counter plus the popcount of earlier peers, and the
+//     group's first lane advances the counter.  Counters of owned keys (and
+//     of the negative keys that wrap into owned queues) live in shared
+//     memory; a key outside [0, nq) that wraps into no owned queue (only the
+//     first and last tiles see them) is counted in an open-addressing hash
+//     table in a global scratch, cleared by the CTA when it first needs it.
+//     The rank is O(M) work per CTA, and no result depends on the order of
 //     atomics: the counters advance in lane order, and a shared-memory
 //     atomicAdd only sums the ring writes of an owned queue;
 //   * the ring writes land in owned cells only (the lanes of a negative
@@ -63,24 +69,17 @@
 //     queue 0's occupancy and head), the later lane winning a shared cell
 //     (__match_any_sync on the cell); qcnt' = qcnt + the writes counted.
 // No grid sync, second launch or global atomic is needed.
-//
-// agg_jsq_enqueue: one block per row, lanes strided over the block, so any
-// M works (M = 5,120 at k=16).  The block first copies the row's ring
-// buffers and occupancy to the outputs (out of place, as above), then
-// picks each lane's core sub-link with the jsq_pick body (ids = max(apk,
-// 0), qbase = off1 + asw * h) from the start-of-slot occupancy, rewrites
-// the target of agg-bound lanes and stages each lane's target queue and
-// enqueue-try flag in shared memory.  A lane's rank is the count of earlier
-// lanes that try the same queue -- the stable order by lane of the
-// reference, an O(M^2) masked count, never the order of atomics.  Room,
-// ring position (qhead + qcnt + rank) mod cap, the ring write, occupancy-
-// after and the ECN mark are per lane; the occupancy add is an integer
-// atomicAdd, whose result does not depend on order.  Where a negative
-// target wraps onto a queue that other lanes also target, a lane skips its
-// ring write if the colliding lane of the other key comes later (found by
-// its rank; only rows with such a lane pay for the search).
-// Bound: the row copy (NQ * cap ints read and written) by bytes, or the
-// M^2 / 2 rank comparisons by operations at large M; a row runs on one SM.
+// enqueue's key is aq, valid avalid.  agg_jsq_enqueue's valid is apk >= 0,
+// and its key is aq for a lane that is not agg-bound, else qb + c, with qb =
+// off1 + asw * h and c the lane's JSQ pick (ids = max(apk, 0)).  The pick
+// reads only the start-of-slot occupancy, so any CTA can compute it: a CTA
+// does when one of the lane's h candidate keys qb..qb + h - 1 clips into
+// its tile or wraps into it (a few integer compares; for h <= 16 at most 2
+// CTAs a lane), and for a lane that is not agg-bound when it owns clip(aq).
+// c_fin is written once a lane, by the CTA that owns clip(key), which
+// always has the pick.
+// Bound of agg_jsq_enqueue: the enqueue's bytes plus the lanes' ports (the
+// PRF's ~200 integer operations a port stay under it).
 //
 // sack_update_scan: one block per row.  The block copies the row's receiver
 // bitmap to the output (out of place, as above), sets out[pk] = 1 for every
@@ -96,13 +95,14 @@
 // Bound: bytes -- the bitmap row read and written once, the lanes and the
 // per-flow counters; a few integer operations per window entry.
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr uint32_t PARITY = 0x1BD11BDAu;
 constexpr int PICK_THREADS = 128;
-constexpr int ROW_THREADS = 512;
 constexpr int MAX_EDGES = 8;
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
@@ -129,37 +129,71 @@ __device__ __forceinline__ uint32_t threefry_x0(uint32_t k0, uint32_t k1,
   return x0;
 }
 
+// The row index a gather reads: a negative index wraps once, then the
+// index clamps to [0, n - 1].
+__device__ __forceinline__ int gather_index(int r, int n) {
+  const int w = r < 0 ? r + n : r;
+  return min(max(w, 0), n - 1);
+}
+
+// a + b with int32 wraparound, as the reference's int32 index arithmetic.
+__device__ __forceinline__ int add_wrap(int a, int b) {
+  return (int)((unsigned)a + (unsigned)b);
+}
+
 struct PickArgs {
-  const float* edges;  // quantization bin edges (nq of them)
-  int nq;
+  const float* edges;  // quantization bin edges (n_edges of them)
+  int n_edges;
   uint32_t site_key;   // site << 16
   uint32_t t;
   int h;
+  int nq;              // a row's queues
 };
 
-// Port of least score for one chooser (first occurrence on ties).
+constexpr int PICK_BATCH = 4;   // ports whose loads and PRFs overlap
+
+// Port of least score for one chooser (first occurrence on ties).  Ports
+// go in batches: a batch's loads are all issued first, and its PRF chains
+// are independent, so neither a load nor a chain waits on another.
 __device__ int pick_port(const int32_t* qcnt_row, int qbase, uint32_t id,
                          const uint8_t* dead, const float* pen,
                          uint32_t k0, uint32_t k1_site, const PickArgs& a) {
+  float edge[MAX_EDGES];          // +inf past the last edge
+#pragma unroll
+  for (int q = 0; q < MAX_EDGES; ++q)
+    edge[q] = q < a.n_edges ? a.edges[q] : INFINITY;
   float best = 0.0f;
   int arg = 0;
-  for (int l = 0; l < a.h; ++l) {
-    const float len = (float)qcnt_row[qbase + l];
-    const uint32_t u = threefry_x0(k0, k1_site ^ (uint32_t)l, a.t, id);
-    const float nz = __fmul_rn((float)(u >> 8), 5.9604644775390625e-08f);
-    float score;
-    if (a.nq == 0) {
-      score = fmaf(nz, 1e-3f, len);
-    } else {
-      int bins = 0;
-      for (int q = 0; q < a.nq; ++q) bins += len > a.edges[q];
-      score = __fadd_rn((float)bins, __fmul_rn(nz, 0.5f));
+  for (int l0 = 0; l0 < a.h; l0 += PICK_BATCH) {
+    float len[PICK_BATCH], pl[PICK_BATCH];
+    bool dl[PICK_BATCH];
+#pragma unroll
+    for (int i = 0; i < PICK_BATCH; ++i) {
+      const int l = min(l0 + i, a.h - 1);
+      len[i] = (float)qcnt_row[gather_index(add_wrap(qbase, l), a.nq)];
+      pl[i] = pen[l];
+      dl[i] = dead[l] != 0;
     }
-    score = __fadd_rn(score, pen[l]);
-    score = __fadd_rn(score, dead[l] ? 1e9f : 0.0f);
-    if (l == 0 || score < best) {
-      best = score;
-      arg = l;
+#pragma unroll
+    for (int i = 0; i < PICK_BATCH; ++i) {
+      const int l = l0 + i;
+      const uint32_t u = threefry_x0(k0, k1_site ^ (uint32_t)l, a.t, id);
+      const float nz = __fmul_rn((float)(u >> 8), 5.9604644775390625e-08f);
+      float score;
+      if (a.n_edges == 0) {
+        score = fmaf(nz, 1e-3f, len[i]);
+      } else {
+        int bins = 0;
+#pragma unroll
+        for (int q = 0; q < MAX_EDGES; ++q) bins += len[i] > edge[q];
+        score = __fadd_rn((float)bins, __fmul_rn(nz, 0.5f));
+      }
+      score = __fadd_rn(score, pl[i]);
+      score = __fadd_rn(score, dl[i] ? 1e9f : 0.0f);
+      if (l < a.h && (l == 0 || score < best)) {
+        best = score;
+        arg = l;
+      }
     }
   }
   return arg;
@@ -173,88 +207,19 @@ jsq_pick_kernel(const int32_t* __restrict__ qcnt,
                 const float* __restrict__ pad_pen,
                 const int32_t* __restrict__ seed_lo,
                 const int32_t* __restrict__ seed_hi, PickArgs a, int rows,
-                int m, int nq_queues, int32_t* __restrict__ out) {
+                int m, int32_t* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * PICK_THREADS + threadIdx.x;
   if (i >= (int64_t)rows * m) return;
   const int64_t b = i / m;
-  out[i] = pick_port(qcnt + b * nq_queues, qbase[i], (uint32_t)ids[i],
+  out[i] = pick_port(qcnt + b * a.nq, qbase[i], (uint32_t)ids[i],
                      dead + i * a.h, pad_pen + b * a.h, (uint32_t)seed_lo[b],
                      (uint32_t)seed_hi[b] ^ a.site_key, a);
-}
-
-// Copy one row's ring buffers and occupancy to the outputs.
-__device__ void copy_row(const int32_t* qbuf, const int32_t* qcnt,
-                         int64_t cells, int nq, int32_t* qbuf_out,
-                         int32_t* qcnt_out) {
-  for (int64_t c = threadIdx.x; c < cells; c += blockDim.x)
-    qbuf_out[c] = qbuf[c];
-  for (int q = threadIdx.x; q < nq; q += blockDim.x) qcnt_out[q] = qcnt[q];
 }
 
 // Floor modulo (torch.remainder, jnp's %) for cap >= 1.
 __device__ __forceinline__ int floor_mod(int x, int cap) {
   const int r = x % cap;
   return r < 0 ? r + cap : r;
-}
-
-// The ring target of a lane's key: a negative key wraps once; -1 if still
-// outside [0, nq).
-__device__ __forceinline__ int ring_target(int key, int nq) {
-  const int w = key < 0 ? key + nq : key;
-  return w >= 0 && w < nq ? w : -1;
-}
-
-// The enqueue update of one row, after s_aq / s_try are staged and the row
-// copied (callers __syncthreads() first; `alias` says whether a trying lane
-// has a negative key that wraps into [0, nq)).
-__device__ void enqueue_lanes(const int32_t* qhead, const int32_t* qcnt,
-                              const int32_t* apk, const int32_t* s_aq,
-                              const uint8_t* s_try, int m, int nq, int cap,
-                              int ecn_thresh, bool alias, int32_t* qbuf_out,
-                              int32_t* qcnt_out, uint8_t* enq_try,
-                              uint8_t* do_enq, int32_t* occ_after,
-                              uint8_t* marked) {
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const int aq = s_aq[i];
-    const bool tr = s_try[i] != 0;
-    int rk = 0;
-    if (tr) {
-      for (int j = 0; j < i; ++j) rk += (s_try[j] != 0) & (s_aq[j] == aq);
-    }
-    const int aqc = min(max(aq, 0), nq - 1);
-    const int qa = qcnt[aqc];
-    const bool d = tr && (qa + rk < cap);
-    const int tgt = ring_target(aq, nq);
-    if (d && tgt >= 0) {
-      const int pos = floor_mod(qhead[aqc] + qa + rk, cap);
-      bool keep = true;
-      if (alias) {
-        // The other key writing queue tgt, and its rank that lands on pos.
-        const int k2 = aq < 0 ? tgt : tgt - nq;
-        const int c2 = min(max(k2, 0), nq - 1);
-        const int r2 = floor_mod(pos - qhead[c2] - qcnt[c2], cap);
-        if (qcnt[c2] + r2 < cap) {
-          int seen = 0;
-          for (int j = 0; j < m; ++j) {
-            if (s_try[j] != 0 && s_aq[j] == k2) {
-              if (seen == r2) {
-                keep = j < i;
-                break;
-              }
-              ++seen;
-            }
-          }
-        }
-      }
-      if (keep) qbuf_out[(int64_t)tgt * cap + pos] = apk[i];
-      atomicAdd(&qcnt_out[tgt], 1);
-    }
-    const int occ = qa + rk + 1;
-    enq_try[i] = tr;
-    do_enq[i] = d;
-    occ_after[i] = occ;
-    marked[i] = d && occ > ecn_thresh;
-  }
 }
 
 constexpr int ENQ_THREADS = 256;
@@ -299,14 +264,13 @@ __device__ int hash_slot(int32_t* keys, int size, int key) {
   }
 }
 
+// The operands and outputs of the enqueue both kernels share.
 struct EnqArgs {
   const int32_t* qbuf;
   const int32_t* qhead;
   const int32_t* qcnt;
   const uint8_t* alive;
   const int32_t* apk;
-  const int32_t* aq;
-  const uint8_t* avalid;
   int32_t* qbuf_out;
   int32_t* qcnt_out;
   uint8_t* enq_try;
@@ -317,8 +281,88 @@ struct EnqArgs {
   int cap, ecn_thresh, m, nq, tiles, hsize;
 };
 
-__global__ void __launch_bounds__(ENQ_THREADS)
-enqueue_kernel(const EnqArgs a) {
+__device__ __forceinline__ bool in_tile(int q, int q0, int nown) {
+  return q >= q0 && q < q0 + nown;
+}
+
+// enqueue's lanes: key aq, valid avalid.
+struct PlainLanes {
+  const int32_t* aq;
+  const uint8_t* avalid;
+  struct Raw {
+    int aq;
+    bool av;
+  };
+  __device__ Raw load(int64_t li) const { return {aq[li], avalid[li] != 0}; }
+  // The lane's key and valid flag; false if the lane cannot concern the
+  // tile (never here: enqueue_tile tests the key itself).
+  __device__ bool key(const Raw& r, int64_t, int, int, int& k,
+                      bool& av) const {
+    k = r.aq;
+    av = r.av;
+    return true;
+  }
+};
+
+// agg_jsq_enqueue's lanes (one row): valid apk >= 0, key aq or, for an
+// agg-bound lane, qb + its JSQ pick; writes c_fin for the lanes whose
+// clip(key) the tile owns.
+struct AggLanes {
+  const int32_t* apk;
+  const int32_t* aq;
+  const uint8_t* to_agg;
+  const int32_t* asw;
+  const uint8_t* dead;      // (rows, m, h)
+  const float* pen;         // the row's pad penalty
+  const int32_t* qcnt;      // the row's start-of-slot occupancy
+  int32_t* c_fin;
+  uint32_t k0, k1;          // the row's key words, k1 with the site
+  PickArgs p;
+  int off1;
+  struct Raw {
+    int pk, aq, asw;
+    bool agg;
+  };
+  __device__ Raw load(int64_t li) const {
+    return {apk[li], aq[li], asw[li], to_agg[li] != 0};
+  }
+  __device__ int pick(const Raw& r, int64_t li, int qb) const {
+    return pick_port(qcnt, qb, (uint32_t)max(r.pk, 0), dead + li * p.h, pen,
+                     k0, k1, p);
+  }
+  // Whether one of the keys qb..qb + h - 1 clips into the tile or wraps
+  // into it (a key range that overflows int32 is taken as touching it).
+  __device__ bool touches(int qb, int q0, int nown) const {
+    const long long lo = qb, hi = lo + p.h - 1, nq = p.nq;
+    if (hi > INT_MAX) return true;
+    const long long t_hi = q0 + nown - 1;
+    const long long c_lo = min(max(lo, 0LL), nq - 1);
+    const long long c_hi = min(max(hi, 0LL), nq - 1);
+    if (c_lo <= t_hi && c_hi >= q0) return true;
+    return lo < 0 && lo + nq <= t_hi && min(hi, -1LL) + nq >= q0;
+  }
+  __device__ bool key(const Raw& r, int64_t li, int q0, int nown, int& k,
+                      bool& av) const {
+    av = r.pk >= 0;
+    const int qb = add_wrap(off1, (int)((unsigned)r.asw * (unsigned)p.h));
+    // The pick: for c_fin where the tile owns clip(aq), for the key where
+    // an agg-bound lane's candidates touch the tile (one call site, so a
+    // warp runs it once).
+    const bool need = r.agg ? touches(qb, q0, nown)
+                            : in_tile(min(max(r.aq, 0), p.nq - 1), q0, nown);
+    if (r.agg && !need) return false;
+    const int c = need ? pick(r, li, qb) : 0;
+    k = r.agg ? add_wrap(qb, c) : r.aq;
+    if (need && in_tile(min(max(k, 0), p.nq - 1), q0, nown)) c_fin[li] = c;
+    return true;
+  }
+};
+
+// The enqueue of row b's queues q0 .. q0 + ENQ_QB - 1 (the file header's
+// scheme), its lanes' keys and valid flags from `lanes`.
+template <class Lanes>
+__device__ void enqueue_tile(const EnqArgs& a, const Lanes& lanes, int64_t b,
+                             int q0) {
   __shared__ int32_t s_qa[ENQ_QB];       // occupancy of the owned queues
   __shared__ int32_t s_head[ENQ_QB];     // their ring heads
   __shared__ int32_t s_cnt[ENQ_QB];      // lanes ranked, key q0 + c
@@ -330,16 +374,12 @@ enqueue_kernel(const EnqArgs a) {
   __shared__ uint8_t s_alive[ENQ_QB];
 
   const int nq = a.nq, m = a.m, cap = a.cap;
-  const int64_t b = blockIdx.x / a.tiles;
-  const int q0 = (int)(blockIdx.x % a.tiles) * ENQ_QB;
   const int nown = min(ENQ_QB, nq - q0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int32_t* aq_b = a.aq + b * m;
-  const uint8_t* av_b = a.avalid + b * m;
   // The first round's lanes load while the cells copy; each round loads
   // the next round's.
-  int key_next = tid < m ? aq_b[tid] : 0;
-  bool av_next = tid < m && av_b[tid] != 0;
+  typename Lanes::Raw raw_next{};
+  if (tid < m) raw_next = lanes.load(b * m + tid);
   const int64_t cell0 = (b * nq + q0) * (int64_t)cap;
   copy_run(a.qbuf + cell0, a.qbuf_out + cell0, (int64_t)nown * cap);
   for (int c = tid; c < nown; c += ENQ_THREADS) {
@@ -358,22 +398,20 @@ enqueue_kernel(const EnqArgs a) {
 
   for (int base = 0; base < m; base += ENQ_THREADS) {
     const int i = base + tid;
-    const int key = key_next;
-    const bool av = av_next;
-    if (i + ENQ_THREADS < m) {
-      key_next = aq_b[i + ENQ_THREADS];
-      av_next = av_b[i + ENQ_THREADS] != 0;
-    }
+    const typename Lanes::Raw raw = raw_next;
+    if (i + ENQ_THREADS < m) raw_next = lanes.load(b * m + i + ENQ_THREADS);
     bool rel = false, hashed = false;
-    if (i < m) {
+    int key = 0;
+    bool av = false;
+    if (i < m && lanes.key(raw, b * m + i, q0, nown, key, av)) {
       const int c = min(max(key, 0), nq - 1) - q0;
       const bool own = c >= 0 && c < nown;
       const int w = key < 0 ? key + nq : key;
-      const bool wraps = key < 0 && w >= q0 && w < q0 + nown;
+      const bool wraps = key < 0 && in_tile(w, q0, nown);
       if (own || wraps) {
         const bool tr = av && (own ? s_alive[c] != 0 : alive0);
         rel = tr;
-        hashed = tr && !(key >= q0 && key < q0 + nown) && !wraps;
+        hashed = tr && !in_tile(key, q0, nown) && !wraps;
         if (own && !tr) {
           const int64_t li = b * m + i;
           a.enq_try[li] = 0;
@@ -418,9 +456,9 @@ enqueue_kernel(const EnqArgs a) {
           const int leader = __ffs(peers) - 1;
           const int w = key < 0 ? key + nq : key;
           int* ctr;
-          if (key >= q0 && key < q0 + nown) {
+          if (in_tile(key, q0, nown)) {
             ctr = &s_cnt[key - q0];
-          } else if (key < 0 && w >= q0 && w < q0 + nown) {
+          } else if (key < 0 && in_tile(w, q0, nown)) {
             ctr = &s_cntn[w - q0];
           } else {
             int slot = 0;
@@ -443,7 +481,7 @@ enqueue_kernel(const EnqArgs a) {
             a.occ_after[o] = occ;
             a.marked[o] = d && occ > a.ecn_thresh;
           }
-          const bool wr = d && w >= q0 && w < q0 + nown;
+          const bool wr = d && in_tile(w, q0, nown);
           const unsigned wm = __ballot_sync(vm, wr);
           if (wr) {
             const int pos = floor_mod((own ? s_head[c] : head0) + qa + rk, cap);
@@ -464,53 +502,25 @@ enqueue_kernel(const EnqArgs a) {
     a.qcnt_out[b * nq + q0 + c] = s_qa[c] + s_hit[c];
 }
 
-__global__ void __launch_bounds__(ROW_THREADS)
-agg_jsq_enqueue_kernel(
-    const int32_t* __restrict__ qbuf, const int32_t* __restrict__ qhead,
-    const int32_t* __restrict__ qcnt, const uint8_t* __restrict__ alive,
-    const int32_t* __restrict__ apk, const int32_t* __restrict__ aq,
-    const uint8_t* __restrict__ to_agg, const int32_t* __restrict__ asw,
-    const uint8_t* __restrict__ dead, const float* __restrict__ pad_pen,
-    const int32_t* __restrict__ seed_lo, const int32_t* __restrict__ seed_hi,
-    PickArgs a, int cap, int ecn_thresh, int off1, int m, int nq,
-    int32_t* __restrict__ qbuf_out, int32_t* __restrict__ qcnt_out,
-    int32_t* __restrict__ c_fin, uint8_t* __restrict__ enq_try,
-    uint8_t* __restrict__ do_enq, int32_t* __restrict__ occ_after,
-    uint8_t* __restrict__ marked) {
-  extern __shared__ int32_t smem[];
-  int32_t* s_aq = smem;
-  uint8_t* s_try = reinterpret_cast<uint8_t*>(smem + m);
-  const int64_t b = blockIdx.x;
-  const int64_t cells = (int64_t)nq * cap;
-  const int32_t* qcnt_b = qcnt + b * nq;
-  const uint8_t* alive_b = alive + b * nq;
-  const uint32_t k0 = (uint32_t)seed_lo[b];
-  const uint32_t k1 = (uint32_t)seed_hi[b] ^ a.site_key;
-  copy_row(qbuf + b * cells, qcnt_b, cells, nq, qbuf_out + b * cells,
-           qcnt_out + b * nq);
-  int alias = 0;
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const int64_t li = b * m + i;
-    const int pk = apk[li];
-    const int qb = off1 + asw[li] * a.h;
-    const int c = pick_port(qcnt_b, qb, (uint32_t)max(pk, 0),
-                            dead + li * a.h, pad_pen + b * a.h, k0, k1, a);
-    c_fin[li] = c;
-    const int tq = to_agg[li] ? qb + c : aq[li];
-    const int aqc = min(max(tq, 0), nq - 1);
-    s_aq[i] = tq;
-    s_try[i] = (pk >= 0) && (alive_b[aqc] != 0);
-    alias |= s_try[i] && tq < 0 && tq >= -nq;
-  }
-  const bool any_alias = __syncthreads_or(alias) != 0;
-  enqueue_lanes(qhead + b * nq, qcnt_b, apk + b * m, s_aq, s_try, m, nq, cap,
-                ecn_thresh, any_alias, qbuf_out + b * cells, qcnt_out + b * nq,
-                enq_try + b * m, do_enq + b * m, occ_after + b * m,
-                marked + b * m);
+__global__ void __launch_bounds__(ENQ_THREADS)
+enqueue_kernel(const EnqArgs a, const PlainLanes lanes) {
+  enqueue_tile(a, lanes, blockIdx.x / a.tiles,
+               (int)(blockIdx.x % a.tiles) * ENQ_QB);
+}
+
+__global__ void __launch_bounds__(ENQ_THREADS)
+agg_jsq_enqueue_kernel(const EnqArgs a, AggLanes lanes,
+                       const int32_t* __restrict__ seed_lo,
+                       const int32_t* __restrict__ seed_hi) {
+  const int64_t b = blockIdx.x / a.tiles;
+  lanes.pen += b * lanes.p.h;
+  lanes.qcnt += b * a.nq;
+  lanes.k0 = (uint32_t)seed_lo[b];
+  lanes.k1 = (uint32_t)seed_hi[b] ^ lanes.p.site_key;
+  enqueue_tile(a, lanes, b, (int)(blockIdx.x % a.tiles) * ENQ_QB);
 }
 
 constexpr int SACK_THREADS = 512;
-constexpr int SACK_WINDOW = 64;
 
 __global__ void __launch_bounds__(SACK_THREADS)
 sack_update_scan_kernel(const uint8_t* __restrict__ p_recv,
@@ -528,7 +538,8 @@ sack_update_scan_kernel(const uint8_t* __restrict__ p_recv,
   __syncthreads();
   for (int i = threadIdx.x; i < m; i += blockDim.x) {
     const int q = pk[b * m + i];
-    if (deliv[b * m + i] && q >= 0 && q < p) dst[q] = 1;
+    const int w = q < 0 ? q + p : q;     // a negative target wraps once
+    if (deliv[b * m + i] && w >= 0 && w < p) dst[w] = 1;
   }
   __syncthreads();
   const int lane = threadIdx.x & 31;
@@ -544,10 +555,10 @@ sack_update_scan_kernel(const uint8_t* __restrict__ p_recv,
     const int base = pbase[k];
     const int c_lo = min(cum + lane, fs - 1);
     const int c_hi = min(cum + lane + 32, fs - 1);
-    const unsigned miss_lo =
-        __ballot_sync(0xffffffffu, dst[base + c_lo] == 0);
-    const unsigned miss_hi =
-        __ballot_sync(0xffffffffu, dst[base + c_hi] == 0);
+    const unsigned miss_lo = __ballot_sync(
+        0xffffffffu, dst[gather_index(add_wrap(base, c_lo), p)] == 0);
+    const unsigned miss_hi = __ballot_sync(
+        0xffffffffu, dst[gather_index(add_wrap(base, c_hi), p)] == 0);
     if (lane == 0) {
       const int w = miss_lo ? __ffs(miss_lo) - 1
                   : miss_hi ? 32 + __ffs(miss_hi) - 1 : 0;
@@ -572,7 +583,8 @@ __global__ void sack_advance_kernel(const uint8_t* __restrict__ p_recv,
     int adv = 0;
     bool run = true;
     for (int w = 0; w < 4; ++w) {
-      run = run && cum + w < fs && row[base + min(cum + w, fs - 1)] != 0;
+      run = run && cum + w < fs &&
+            row[gather_index(add_wrap(base, min(cum + w, fs - 1)), p)] != 0;
       adv += run;
     }
     cum = min(cum + adv, fs);
@@ -580,24 +592,47 @@ __global__ void sack_advance_kernel(const uint8_t* __restrict__ p_recv,
   out[k] = cum;
 }
 
-size_t row_smem(int m) { return (size_t)m * 4 + (size_t)m; }
-
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  if (bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-PickArgs pick_args(const void* edges, int nq_edges, int site, int t, int h) {
+PickArgs pick_args(const void* edges, int n_edges, int site, int t, int h,
+                   int nq) {
   PickArgs a;
   a.edges = static_cast<const float*>(edges);
-  a.nq = nq_edges;
+  a.n_edges = n_edges;
   a.site_key = (uint32_t)site << 16;
   a.t = (uint32_t)t;
   a.h = h;
+  a.nq = nq;
   return a;
+}
+
+// EnqArgs of the shared enqueue operands; 0 or an error code.
+int enq_args(EnqArgs& e, const void* qbuf, const void* qhead,
+             const void* qcnt, const void* alive, const void* apk, int cap,
+             int ecn_thresh, int rows, int m, int nq, void* hash, int hsize,
+             void* qbuf_out, void* qcnt_out, void* enq_try, void* do_enq,
+             void* occ_after, void* marked) {
+  if (rows < 1 || m < 0 || nq < 1 || cap < 1 || hsize < 1 ||
+      (hsize & (hsize - 1)) != 0 || hsize < 2 * m)
+    return (int)cudaErrorInvalidValue;
+  e.qbuf = static_cast<const int32_t*>(qbuf);
+  e.qhead = static_cast<const int32_t*>(qhead);
+  e.qcnt = static_cast<const int32_t*>(qcnt);
+  e.alive = static_cast<const uint8_t*>(alive);
+  e.apk = static_cast<const int32_t*>(apk);
+  e.qbuf_out = static_cast<int32_t*>(qbuf_out);
+  e.qcnt_out = static_cast<int32_t*>(qcnt_out);
+  e.enq_try = static_cast<uint8_t*>(enq_try);
+  e.do_enq = static_cast<uint8_t*>(do_enq);
+  e.occ_after = static_cast<int32_t*>(occ_after);
+  e.marked = static_cast<uint8_t*>(marked);
+  e.hash = static_cast<int32_t*>(hash);
+  e.cap = cap;
+  e.ecn_thresh = ecn_thresh;
+  e.m = m;
+  e.nq = nq;
+  e.tiles = (nq + ENQ_QB - 1) / ENQ_QB;
+  e.hsize = hsize;
+  if ((int64_t)rows * e.tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
@@ -606,14 +641,14 @@ extern "C" {
 
 // (rows, m) choosers; qcnt (rows, nq); dead (rows, m, h) uint8; pad_pen
 // (rows, h); seeds (rows,) int32 bit patterns of the uint32 key words;
-// edges holds nq_edges floats (0: plain JSQ).  Returns cudaGetLastError().
+// edges holds n_edges floats (0: plain JSQ).  Returns cudaGetLastError().
 int slot_jsq_pick(const void* qcnt, const void* qbase, const void* ids,
                   const void* dead, const void* pad_pen, const void* seed_lo,
                   const void* seed_hi, int t, int site, const void* edges,
-                  int nq_edges, int rows, int m, int nq, int h, void* out,
+                  int n_edges, int rows, int m, int nq, int h, void* out,
                   void* stream) {
   if (h < 1 || rows < 1 || m < 1 || nq < 1 || t < 0 ||
-      nq_edges < 0 || nq_edges > MAX_EDGES)
+      n_edges < 0 || n_edges > MAX_EDGES)
     return (int)cudaErrorInvalidValue;
   const int64_t n = (int64_t)rows * m;
   const int64_t blocks = (n + PICK_THREADS - 1) / PICK_THREADS;
@@ -624,7 +659,7 @@ int slot_jsq_pick(const void* qcnt, const void* qbase, const void* ids,
       static_cast<const float*>(pad_pen),
       static_cast<const int32_t*>(seed_lo),
       static_cast<const int32_t*>(seed_hi),
-      pick_args(edges, nq_edges, site, t, h), rows, m, nq,
+      pick_args(edges, n_edges, site, t, h, nq), rows, m,
       static_cast<int32_t*>(out));
   return (int)cudaGetLastError();
 }
@@ -639,77 +674,62 @@ int slot_enqueue(const void* qbuf, const void* qhead, const void* qcnt,
                  int nq, void* hash, int hsize, void* qbuf_out,
                  void* qcnt_out, void* enq_try, void* do_enq, void* occ_after,
                  void* marked, void* stream) {
-  if (rows < 1 || m < 0 || nq < 1 || cap < 1 || hsize < 1 ||
-      (hsize & (hsize - 1)) != 0 || hsize < 2 * m)
-    return (int)cudaErrorInvalidValue;
   EnqArgs e;
-  e.qbuf = static_cast<const int32_t*>(qbuf);
-  e.qhead = static_cast<const int32_t*>(qhead);
-  e.qcnt = static_cast<const int32_t*>(qcnt);
-  e.alive = static_cast<const uint8_t*>(alive);
-  e.apk = static_cast<const int32_t*>(apk);
-  e.aq = static_cast<const int32_t*>(aq);
-  e.avalid = static_cast<const uint8_t*>(avalid);
-  e.qbuf_out = static_cast<int32_t*>(qbuf_out);
-  e.qcnt_out = static_cast<int32_t*>(qcnt_out);
-  e.enq_try = static_cast<uint8_t*>(enq_try);
-  e.do_enq = static_cast<uint8_t*>(do_enq);
-  e.occ_after = static_cast<int32_t*>(occ_after);
-  e.marked = static_cast<uint8_t*>(marked);
-  e.hash = static_cast<int32_t*>(hash);
-  e.cap = cap;
-  e.ecn_thresh = ecn_thresh;
-  e.m = m;
-  e.nq = nq;
-  e.tiles = (nq + ENQ_QB - 1) / ENQ_QB;
-  e.hsize = hsize;
-  const int64_t blocks = (int64_t)rows * e.tiles;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  enqueue_kernel<<<(unsigned)blocks, ENQ_THREADS, 0,
-                   static_cast<cudaStream_t>(stream)>>>(e);
+  const int err = enq_args(e, qbuf, qhead, qcnt, alive, apk, cap, ecn_thresh,
+                           rows, m, nq, hash, hsize, qbuf_out, qcnt_out,
+                           enq_try, do_enq, occ_after, marked);
+  if (err != 0) return err;
+  PlainLanes lanes;
+  lanes.aq = static_cast<const int32_t*>(aq);
+  lanes.avalid = static_cast<const uint8_t*>(avalid);
+  enqueue_kernel<<<(unsigned)(rows * e.tiles), ENQ_THREADS, 0,
+                   static_cast<cudaStream_t>(stream)>>>(e, lanes);
   return (int)cudaGetLastError();
 }
 
-// slot_enqueue's operands plus to_agg (rows, m) uint8, asw (rows, m), dead
-// (rows, m, h) uint8, pad_pen (rows, h), seeds and the pick's constants;
-// also writes c_fin (rows, m).
+// slot_enqueue's operands (and scratch) plus to_agg (rows, m) uint8, asw
+// (rows, m), dead (rows, m, h) uint8, pad_pen (rows, h), seeds and the
+// pick's constants; also writes c_fin (rows, m).
 int slot_agg_jsq_enqueue(const void* qbuf, const void* qhead,
                          const void* qcnt, const void* alive, const void* apk,
                          const void* aq, const void* to_agg, const void* asw,
                          const void* dead, const void* pad_pen,
                          const void* seed_lo, const void* seed_hi, int t,
-                         int site, const void* edges, int nq_edges, int cap,
+                         int site, const void* edges, int n_edges, int cap,
                          int ecn_thresh, int off1, int h, int rows, int m,
-                         int nq, void* qbuf_out, void* qcnt_out, void* c_fin,
-                         void* enq_try, void* do_enq, void* occ_after,
-                         void* marked, void* stream) {
-  if (h < 1 || rows < 1 || m < 1 || nq < 1 || cap < 1 || t < 0 ||
-      nq_edges < 0 || nq_edges > MAX_EDGES)
+                         int nq, void* hash, int hsize, void* qbuf_out,
+                         void* qcnt_out, void* c_fin, void* enq_try,
+                         void* do_enq, void* occ_after, void* marked,
+                         void* stream) {
+  if (h < 1 || m < 1 || t < 0 || n_edges < 0 || n_edges > MAX_EDGES)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = row_smem(m);
-  int err = set_smem(agg_jsq_enqueue_kernel, smem);
+  EnqArgs e;
+  const int err = enq_args(e, qbuf, qhead, qcnt, alive, apk, cap, ecn_thresh,
+                           rows, m, nq, hash, hsize, qbuf_out, qcnt_out,
+                           enq_try, do_enq, occ_after, marked);
   if (err != 0) return err;
-  agg_jsq_enqueue_kernel<<<rows, ROW_THREADS, smem,
+  AggLanes lanes;
+  lanes.apk = e.apk;
+  lanes.aq = static_cast<const int32_t*>(aq);
+  lanes.to_agg = static_cast<const uint8_t*>(to_agg);
+  lanes.asw = static_cast<const int32_t*>(asw);
+  lanes.dead = static_cast<const uint8_t*>(dead);
+  lanes.pen = static_cast<const float*>(pad_pen);
+  lanes.qcnt = e.qcnt;
+  lanes.c_fin = static_cast<int32_t*>(c_fin);
+  lanes.k0 = lanes.k1 = 0;
+  lanes.p = pick_args(edges, n_edges, site, t, h, nq);
+  lanes.off1 = off1;
+  agg_jsq_enqueue_kernel<<<(unsigned)(rows * e.tiles), ENQ_THREADS, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(qbuf), static_cast<const int32_t*>(qhead),
-      static_cast<const int32_t*>(qcnt), static_cast<const uint8_t*>(alive),
-      static_cast<const int32_t*>(apk), static_cast<const int32_t*>(aq),
-      static_cast<const uint8_t*>(to_agg), static_cast<const int32_t*>(asw),
-      static_cast<const uint8_t*>(dead), static_cast<const float*>(pad_pen),
-      static_cast<const int32_t*>(seed_lo),
-      static_cast<const int32_t*>(seed_hi),
-      pick_args(edges, nq_edges, site, t, h), cap, ecn_thresh, off1, m, nq,
-      static_cast<int32_t*>(qbuf_out), static_cast<int32_t*>(qcnt_out),
-      static_cast<int32_t*>(c_fin), static_cast<uint8_t*>(enq_try),
-      static_cast<uint8_t*>(do_enq), static_cast<int32_t*>(occ_after),
-      static_cast<uint8_t*>(marked));
+      e, lanes, static_cast<const int32_t*>(seed_lo),
+      static_cast<const int32_t*>(seed_hi));
   return (int)cudaGetLastError();
 }
 
 // p_recv (rows, p) uint8 0/1; pk, deliv (rows, m) int32 / uint8; f_cum,
 // fsize, pbase (rows, f) int32.  Writes the new bitmap (rows, p) and the
-// first missing sequence fm (rows, f).  Delivering lanes target [0, p) and
-// the windows of flows with fsize > 0 lie in the row.
+// first missing sequence fm (rows, f).
 int slot_sack_update_scan(const void* p_recv, const void* pk,
                           const void* deliv, const void* f_cum,
                           const void* fsize, const void* pbase, int rows,

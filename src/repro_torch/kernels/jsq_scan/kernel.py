@@ -16,7 +16,7 @@ from .. import _build
 from .._common import check_cuda
 
 _VP = ctypes.c_void_p
-MAX_PORTS = 14_560          # 4 warps' ports past 32 in 227 KB of shared memory
+MAX_PORTS = 14_560          # a row's ports' last departures in shared memory
 
 
 def _lib() -> ctypes.CDLL:

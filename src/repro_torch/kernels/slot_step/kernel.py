@@ -22,7 +22,7 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 MAX_EDGES = 8               # quantization bin edges
 _EDGES: Dict[Tuple, torch.Tensor] = {}
-# The enqueue kernel's hash tables, one scratch per (device, stream): the
+# The enqueue kernels' hash tables, one scratch per (device, stream): a
 # kernel clears what it uses, and launches on one stream run in order.
 _TABLES: Dict[Tuple[int, int], torch.Tensor] = {}
 
@@ -35,7 +35,7 @@ def _lib() -> ctypes.CDLL:
         lib.slot_enqueue.argtypes = ([_VP] * 7 + [_I] * 5 + [_VP, _I]
                                      + [_VP] * 7)
         lib.slot_agg_jsq_enqueue.argtypes = (
-            [_VP] * 12 + [_I, _I, _VP] + [_I] * 8 + [_VP] * 8)
+            [_VP] * 12 + [_I, _I, _VP] + [_I] * 8 + [_VP, _I] + [_VP] * 8)
         lib.slot_sack_update_scan.argtypes = [_VP] * 6 + [_I] * 4 + [_VP] * 3
         lib.slot_sack_advance.argtypes = [_VP] * 4 + [_I] * 3 + [_VP] * 2
         for f in (lib.slot_jsq_pick, lib.slot_enqueue,
@@ -139,24 +139,29 @@ def enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, avalid, *, cap: int,
     alive_row, avalid = _u8(alive_row), _u8(avalid)
     check_cuda("enqueue", qbuf, qhead, qcnt, alive_row, apk, aq, avalid)
     outs = _enqueue_outs(qbuf, B, M)
-    # The rank counters of keys outside [0, NQ): an open-addressing table a
-    # row for the first and the last tile, cleared by the kernel where used.
-    hsize = 1 << max(6, (2 * M - 1).bit_length())
-    dev = qbuf.device
-    stream = _stream(dev)
-    key = (dev.index, stream)
-    table = _TABLES.get(key)
-    if table is None or table.numel() < B * 4 * hsize:
-        table = torch.empty(B * 4 * hsize, dtype=torch.int32, device=dev)
-        _TABLES[key] = table
-    with torch.cuda.device(dev):
+    table, hsize = _table(qbuf.device, B, M)
+    with torch.cuda.device(qbuf.device):
         err = _lib().slot_enqueue(
             qbuf.data_ptr(), qhead.data_ptr(), qcnt.data_ptr(),
             alive_row.data_ptr(), apk.data_ptr(), aq.data_ptr(),
             avalid.data_ptr(), int(cap), int(ecn_thresh), B, M, NQ,
-            table.data_ptr(), hsize, *_out_ptrs(outs), stream)
+            table.data_ptr(), hsize, *_out_ptrs(outs), _stream(qbuf.device))
     _check("slot_enqueue", err)
     return outs
+
+
+def _table(dev, B: int, M: int) -> Tuple[torch.Tensor, int]:
+    """The enqueue kernels' rank counters of keys outside ``[0, NQ)``: an
+    open-addressing table of ``hsize`` keys and counts a row for the first
+    and the last queue tile, cleared by the kernel where used; one scratch
+    per (device, stream), grown as needed."""
+    hsize = 1 << max(6, (2 * M - 1).bit_length())
+    key = (dev.index, _stream(dev))
+    table = _TABLES.get(key)
+    if table is None or table.numel() < B * 4 * hsize:
+        table = torch.empty(B * 4 * hsize, dtype=torch.int32, device=dev)
+        _TABLES[key] = table
+    return table, hsize
 
 
 def agg_jsq_enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, to_agg, asw,
@@ -180,6 +185,7 @@ def agg_jsq_enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, to_agg, asw,
                to_agg, asw, dead, pad_pen, lo, hi, edges)
     outs = _enqueue_outs(qbuf, B, M)
     c_fin = torch.empty((B, M), dtype=torch.int32, device=qbuf.device)
+    table, hsize = _table(qbuf.device, B, M)
     with torch.cuda.device(qbuf.device):
         err = _lib().slot_agg_jsq_enqueue(
             qbuf.data_ptr(), qhead.data_ptr(), qcnt.data_ptr(),
@@ -187,7 +193,8 @@ def agg_jsq_enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, to_agg, asw,
             to_agg.data_ptr(), asw.data_ptr(), dead.data_ptr(),
             pad_pen.data_ptr(), lo.data_ptr(), hi.data_ptr(), int(t),
             int(site), edges.data_ptr(), n_edges, int(cap), int(ecn_thresh),
-            int(off1), int(h), B, M, NQ, outs[0].data_ptr(),
+            int(off1), int(h), B, M, NQ, table.data_ptr(), hsize,
+            outs[0].data_ptr(),
             outs[1].data_ptr(), c_fin.data_ptr(), *_out_ptrs(outs[2:]),
             _stream(qbuf.device))
     _check("slot_agg_jsq_enqueue", err)

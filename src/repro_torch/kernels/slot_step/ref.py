@@ -45,13 +45,14 @@ def jsq_score(qcnt, qbase, ids, dead, pad_pen, seed_lo, seed_hi, t: int, *,
     queue id per chooser; ``ids`` (B, M) int32 entropy ids (host ids at the
     edge, packet ids at the agg); ``dead`` (B, M, h) bool failed-port mask
     (already gated on convergence); ``pad_pen`` (B, h) float32
-    ``port_pad_penalty``.
+    ``port_pad_penalty``.  Port ``l`` of chooser ``i`` reads
+    ``qcnt[gather_index(qbase[i] + l, NQ)]``, the reference's gather rule.
     """
     B, M = qbase.shape
     h = pad_pen.shape[-1]
-    lane = torch.arange(h, device=qcnt.device)
-    cols = (qbase.long()[..., None] + lane).reshape(B, M * h)
-    lens = torch.gather(qcnt, 1, cols).reshape(B, M, h)
+    lane = torch.arange(h, dtype=torch.int32, device=qcnt.device)
+    cols = gather_index(qbase[..., None] + lane, qcnt.shape[1])
+    lens = torch.gather(qcnt, 1, cols.reshape(B, M * h)).reshape(B, M, h)
     nz = ent.draw_uniform_torch(seed_lo.reshape(B, 1, 1),
                                 seed_hi.reshape(B, 1, 1), site,
                                 ids[..., None], t, lane=lane)
@@ -145,8 +146,10 @@ def sack_update_scan(p_recv, pk, deliv, f_cum, fsize, pbase, *,
     retransmit candidate), over rows.
 
     ``p_recv`` (B, P) bool; ``pk``/``deliv`` (B, M) int32 / bool: this
-    slot's popped packets and delivery mask (delivering lanes target
-    ``[0, P)``); ``f_cum``/``fsize``/``pbase`` (B, F) int32.  Returns new
+    slot's popped packets and delivery mask; ``f_cum``/``fsize``/``pbase``
+    (B, F) int32.  A delivering lane sets ``p_recv[pk]``, a ``pk`` in
+    ``[-P, -1]`` wrapping once to ``pk + P`` and any other ``pk`` outside
+    ``[0, P)`` dropped, as the reference's scatter does.  Returns new
     ``(p_recv', first_missing (B, F) int32)``: the bitmap with every
     delivered packet set, and per flow the candidate
     ``min(f_cum + w, fsize - 1)`` at the first ``w < window`` whose packet
@@ -155,10 +158,11 @@ def sack_update_scan(p_recv, pk, deliv, f_cum, fsize, pbase, *,
     ``pbase - 1`` with numpy's wrap, which is done here too.
     """
     B, P = p_recv.shape
-    ok = deliv & (pk >= 0) & (pk < P)
+    tgt = torch.where(pk < 0, pk + P, pk)
+    ok = deliv & (tgt >= 0) & (tgt < P)
     bm = torch.cat([p_recv, torch.zeros((B, 1), dtype=p_recv.dtype,
                                         device=p_recv.device)], dim=1)
-    bm.scatter_(1, torch.where(ok, pk, P).long(),
+    bm.scatter_(1, torch.where(ok, tgt, P).long(),
                 torch.ones(pk.shape, dtype=p_recv.dtype,
                            device=p_recv.device))
     p_recv2 = bm[:, :P]
@@ -187,10 +191,17 @@ def sack_advance(p_recv, f_cum, fsize, pbase, *, rounds: int = 2,
     return f_cum
 
 
+def gather_index(idx, n: int):
+    """The row index a gather reads for int32 ``idx`` in a row of ``n``, by
+    the reference's (JAX's) rule: a negative index wraps once, then the index
+    clamps to ``[0, n - 1]``.  Returns int64 indices."""
+    idx = idx.long()
+    return torch.clamp(torch.where(idx < 0, idx + n, idx), 0, n - 1)
+
+
 def _window_bits(bitmap, pbase, cand):
-    """``bitmap[b, pbase[b, f] + cand[b, f, w]]`` with the reference's index
-    rules: a negative index wraps once, then the index clamps to the row."""
+    """``bitmap[b, pbase[b, f] + cand[b, f, w]]`` by :func:`gather_index`'s
+    rule."""
     B, P = bitmap.shape
-    idx = pbase[..., None].long() + cand.long()
-    idx = torch.clamp(torch.where(idx < 0, idx + P, idx), 0, P - 1)
+    idx = gather_index(pbase[..., None] + cand, P)
     return torch.gather(bitmap, 1, idx.reshape(B, -1)).reshape(idx.shape)

@@ -4,6 +4,13 @@ import pytest
 import torch
 
 
+def to_torch(a) -> torch.Tensor:
+    """A numpy operand as a CPU tensor (uint32 key words as int64 values,
+    as the port's seed operands take them)."""
+    return torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32
+                            else np.ascontiguousarray(a))
+
+
 def cuda_or_skip() -> torch.device:
     """The first CUDA device, or skip the calling test when there is none
     (decided at run time, never at import)."""
@@ -151,3 +158,146 @@ def agg_oob_operands(seed, rows=3, m=96, nq=40, n_aggs=4):
             r.integers(0, 2**32, rows).astype(np.uint32),
             r.integers(0, 2**32, rows).astype(np.uint32),
             int(r.integers(0, 4000)))
+
+
+def pick_fault_operands():
+    """The JSQ pick whose occupancy gather leaves the row on both sides
+    (numpy ``(qcnt, qbase, ids, dead, pad_pen, seed_lo, seed_hi)`` of one
+    row, and the slot ``t``; use with ``site=3, quanta=None, cap=12``): 12
+    queues, 4 ports, ``qbase = [10, -1, -3, 17]``.  The reference reads
+    ``qcnt[qbase + l]`` by JAX's gather rule (a negative index wraps once,
+    then the index clamps to the row) and picks ``[0, 1, 3, 3]``."""
+    nq, h = 12, 4
+    return ((np.arange(nq) * 3 % 7).astype(np.int32)[None],
+            np.array([[10, -1, -3, 17]], np.int32),
+            np.arange(4, dtype=np.int32)[None], np.zeros((1, 4, h), bool),
+            np.zeros((1, h), np.float32), np.array([1], np.uint32),
+            np.array([2], np.uint32), 5)
+
+
+PICK_FAULT_KW = dict(site=3, quanta=None, cap=12)
+
+
+def pick_oob_operands(seed, rows=3, m=64, nq=40, h=4):
+    """numpy ``jsq_pick`` operands (as :func:`pick_fault_operands`) whose
+    ``qbase`` lies anywhere in ``[-2 nq, 2 nq)``: below ``-nq`` (wraps, then
+    clamps to 0), in ``[-nq, 0)`` (wraps), and past ``nq - h`` (clamps)."""
+    r = np.random.default_rng(seed)
+    return (r.integers(0, 12, (rows, nq)).astype(np.int32),
+            r.integers(-2 * nq, 2 * nq, (rows, m)).astype(np.int32),
+            r.integers(0, 600, (rows, m)).astype(np.int32),
+            r.random((rows, m, h)) < 0.2, np.zeros((rows, h), np.float32),
+            r.integers(0, 2**32, rows).astype(np.uint32),
+            r.integers(0, 2**32, rows).astype(np.uint32),
+            int(r.integers(0, 4000)))
+
+
+# agg_jsq_enqueue whose agg-bound lanes' first ports qb = off1 + asw * h lie
+# below -NQ, in [-NQ, 0) and past NQ - h (asw in [0, 30), off1 = -50, NQ =
+# 40): the pick's gather wraps and clamps, and the rewritten keys qb + c
+# wrap, clip and drop in the enqueue.
+AGG_PICK_OOB_KW = dict(AGG_OOB_KW, off1=-50)
+
+
+def agg_pick_oob_operands(seed):
+    """numpy ``agg_jsq_enqueue`` operands and slot ``t`` (as
+    :func:`agg_oob_operands`) for ``AGG_PICK_OOB_KW``."""
+    *ops, t = agg_oob_operands(seed)
+    r = np.random.default_rng(seed + 100)
+    ops[7] = r.integers(0, 30, ops[7].shape).astype(np.int32)
+    ops[6] = (ops[4] >= 0) & (r.random(ops[6].shape) < 0.7)
+    return (*ops, t)
+
+
+def sack_fault_operands():
+    """The SACK update whose delivering lanes target ``pk = [-1, 3, -10,
+    -11]`` in a 10-packet row (numpy ``(p_recv, pk, deliv, f_cum, fsize,
+    pbase)`` of one row, one flow of 10 packets from 0): the reference wraps
+    -1 and -10 once (packets 9 and 0) and drops -11, so bits 0, 3 and 9 are
+    set and the flow's first missing packet is 1."""
+    return (np.zeros((1, 10), bool), np.array([[-1, 3, -10, -11]], np.int32),
+            np.ones((1, 4), bool), np.zeros((1, 1), np.int32),
+            np.full((1, 1), 10, np.int32), np.zeros((1, 1), np.int32))
+
+
+def sack_oob_operands(seed, rows=3, f=24, m=50, max_flow=90):
+    """numpy SACK operands (as :func:`sack_fault_operands`) outside the
+    engine's domain: lanes whose ``pk`` lies in ``[-P, -1]`` (wraps once),
+    below ``-P`` and at or past ``P`` (dropped), and flows whose windows
+    leave the row: ``pbase`` negative (reads wrap once), below ``-P``
+    (wrap, then clamp to 0) and near ``P`` (clamp to ``P - 1``)."""
+    r = np.random.default_rng(seed)
+    fsize = r.integers(1, max_flow + 1, (rows, f)).astype(np.int32)
+    fsize[:, ::5] = 0
+    pbase = (np.cumsum(fsize, axis=1) - fsize).astype(np.int32)
+    p = int(fsize.sum(axis=1).max()) + 7
+    pbase[:, 1] = -3
+    pbase[:, 2] = -p - 20
+    pbase[:, 3] = p - 5
+    pbase[:, 4] = p + 30
+    fsize[:, 1:5] = 80
+    f_cum = (r.random((rows, f)) * (fsize + 1)).astype(np.int32)
+    f_cum[:, 1:5] = r.integers(0, 3, (rows, 4))
+    p_recv = r.random((rows, p)) < 0.7
+    p_recv[:, :4] = True
+    p_recv[:, -4:] = True
+    pk = r.integers(-2 * p, 2 * p, (rows, m)).astype(np.int32)
+    pk[:, :4] = [-1, -p, -p - 1, p]
+    deliv = r.random((rows, m)) < 0.8
+    deliv[:, :4] = True
+    return p_recv, pk, deliv, f_cum, fsize, pbase
+
+
+def agg_case_operands(case, seed=0, rows=None, size=None, h=4):
+    """numpy ``agg_jsq_enqueue`` operands and slot ``t`` built on an
+    ``ENQUEUE_CASES`` entry (as :func:`enqueue_operands`), and the keyword
+    arguments to call it with: about half the valid lanes agg-bound, picking
+    among ``h`` ports of ``n_aggs`` switches from ``off1``; the others keep
+    the case's targets (outside ``[0, NQ)`` on both sides for the ``oob``
+    cases).  Odd rows' last port carries the pad penalty."""
+    (qbuf, qhead, qcnt, alive, apk, aq, avalid), cap = enqueue_operands(
+        case, seed=seed, rows=rows, size=size)
+    B, M = aq.shape
+    NQ = qcnt.shape[1]
+    off1 = NQ // 5 if NQ // 5 + h <= NQ else 0
+    n_aggs = max(1, (NQ - off1) // h)
+    r = np.random.default_rng(seed + 1)
+    pad_pen = np.where((np.arange(h) == h - 1)
+                       & (np.arange(B)[:, None] % 2 == 1),
+                       np.float32(1e9), np.float32(0.0)).astype(np.float32)
+    to_agg = avalid & (r.random((B, M)) < 0.5)
+    ops = (qbuf, qhead, qcnt, alive, apk, aq, to_agg,
+           r.integers(0, n_aggs, (B, M)).astype(np.int32),
+           r.random((B, M, h)) < 0.2, pad_pen,
+           r.integers(0, 2**32, B).astype(np.uint32),
+           r.integers(0, 2**32, B).astype(np.uint32), int(r.integers(0, 4000)))
+    kw = dict(site=4, quanta=None, cap=cap, ecn_thresh=cap // 2, off1=off1,
+              h=h)
+    return ops, kw
+
+
+def jsq_walk_grid(seed, B, S, pad, h, quanta=None):
+    """CPU operands ``(t_grid, ok_grid, noise, port_pen, thresholds)`` of the
+    JSQ scan at the edges of its walk: row (0, 0) holds no packet, row (0,
+    1) a packet in every cell, and every other row packets that are not a
+    prefix (a hole before its last packet, stray packets after a long empty
+    run); half the empty cells carry a finite time (a hand-made grid, not
+    the engine's ``-1e9``).  Odd batch rows pad their last port."""
+    from repro_torch.net._batching import port_pad_penalty
+    r = np.random.default_rng(seed)
+    ok = r.random((B, S, pad)) < 0.6
+    ok[..., pad // 4:pad // 2] = False
+    ok[..., 3 * pad // 4:] = r.random((B, S, pad - 3 * pad // 4)) < 0.05
+    ok[0, 0] = False
+    if S > 1:
+        ok[0, 1] = True
+    t = (r.integers(0, max(pad // 2, 1), (B, S, pad))
+         + r.random((B, S, pad))).astype(np.float32)
+    t = np.where(ok | (r.random((B, S, pad)) < 0.5), t, np.float32(-1e9))
+    pen = port_pad_penalty(h, torch.tensor([h - (b % 2) if h > 1 else 1
+                                            for b in range(B)],
+                                           dtype=torch.int32))
+    return (torch.from_numpy(t), torch.from_numpy(ok),
+            torch.from_numpy(r.random((B, S, pad, h)).astype(np.float32)),
+            pen, None if quanta is None
+            else torch.tensor(quanta, dtype=torch.float32) * 40)

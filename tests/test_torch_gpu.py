@@ -30,9 +30,13 @@ from repro_torch.net._batching import port_pad_penalty
 from repro_torch.net.topology import FatTree
 from repro_torch.core import lb_schemes as lbs
 
-from _torch_compare import (AGG_OOB_KW, ENQUEUE_CASES, agg_oob_operands,
+from _torch_compare import (AGG_OOB_KW, AGG_PICK_OOB_KW, ENQUEUE_CASES,
+                            PICK_FAULT_KW, agg_case_operands,
+                            agg_oob_operands, agg_pick_oob_operands,
                             assert_same_loop_result, assert_same_result,
-                            cuda_or_skip, enqueue_operands)
+                            cuda_or_skip, enqueue_operands, jsq_walk_grid,
+                            pick_fault_operands, pick_oob_operands,
+                            sack_fault_operands, sack_oob_operands, to_torch)
 
 pytestmark = pytest.mark.gpu
 
@@ -103,6 +107,32 @@ def test_jsq_scan_kernel_many_ports_match_plain(h, quanta):
     """More ports than a warp has lanes: lane l walks ports l, l + 32, ...;
     bitwise equal to the plain version, with padded ports on one row."""
     test_jsq_scan_kernel_matches_plain((2, 4, 60, h), quanta)
+
+
+# (pad, h): the engine's 4 and 8 ports, a lane group of 2 and 16, ports past
+# a warp's lanes, pad = 1; with no bin edges, the engine's 3, 6 and 10.  Up
+# to 8 ports and 8 edges take the registers walk, 10 edges the lanes walk.
+_WALK_CASES = [(300, 4), (300, 8), (300, 2), (300, 16), (1, 4), (1, 33),
+               (700, 33), (120, 64), (2000, 4)]
+_WALK_QUANTA = [None, (0.05, 0.10, 0.20), (0.05, 0.1, 0.15, 0.2, 0.3, 0.5),
+                tuple(0.05 * k for k in range(1, 11))]
+
+
+@pytest.mark.parametrize("pad,h,quanta", [
+    c + (q,) for c in _WALK_CASES for q in _WALK_QUANTA], ids=str)
+def test_jsq_scan_kernel_walk_edges_match_plain(pad, h, quanta):
+    """The walk of the prefix and the parallel tail (``jsq_walk_grid``: an
+    empty row, a full row, packets that are not a prefix, finite times in
+    empty cells), both walks' steps, bitwise against the plain version on
+    the CPU."""
+    dev = cuda_or_skip()
+    args = jsq_walk_grid(pad + h, 2, 3, pad, h, quanta)
+    want = jsq_ops.jsq_scan(*args)
+    got = jsq_ops.jsq_scan(*[None if a is None else a.to(dev)
+                             for a in args])
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
 
 
 @pytest.mark.parametrize("scheme", ["host_pkt", "switch_pkt", "switch_pkt_ar",
@@ -218,6 +248,81 @@ def test_agg_jsq_enqueue_kernel_out_of_range_keys_match_plain(seed):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("case", sorted(ENQUEUE_CASES) + ["k16"])
+def test_agg_jsq_enqueue_kernel_cases_match_plain(case):
+    """The fused pick + enqueue kernel on the enqueue's edge cases with
+    about half the valid lanes agg-bound (``agg_case_operands``), and at the
+    k=16 slot's 5,120 lanes and queues with 8 ports, bitwise against the
+    plain version on the CPU; the inputs are not written."""
+    dev = cuda_or_skip()
+    if case == "k16":
+        (*ops, t), kw = agg_case_operands("cap_195", seed=16,
+                                          size=(5120, 5120, 195), h=8)
+    else:
+        (*ops, t), kw = agg_case_operands(case, seed=len(case))
+    cpu = [to_torch(a) for a in ops]
+    card = [a.to(dev) for a in cpu]
+    got = slot_ops.agg_jsq_enqueue(*card, t, **kw)
+    want = slot_ops.agg_jsq_enqueue(*cpu, t, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert torch.equal(card[0].cpu(), cpu[0])
+    assert torch.equal(card[2].cpu(), cpu[2])
+
+
+@pytest.mark.parametrize("seed", ["fault", 0, 1])
+def test_pick_kernels_out_of_range_qbase_match_plain(seed):
+    """Both pick kernels where the occupancy gather leaves the row: the
+    pick at ``pick_fault_operands`` (``[0, 1, 3, 3]``) or
+    ``pick_oob_operands``, and the fused agg kernel at
+    ``agg_pick_oob_operands``; bitwise against the plain versions."""
+    dev = cuda_or_skip()
+    if seed == "fault":
+        *ops, t = pick_fault_operands()
+        kw = PICK_FAULT_KW
+    else:
+        *ops, t = pick_oob_operands(seed)
+        kw = dict(site=3, quanta=(0.05, 0.10, 0.20) if seed else None,
+                  cap=12)
+    cpu = [to_torch(a) for a in ops]
+    got = slot_ops.jsq_pick(*[a.to(dev) for a in cpu], t, **kw)
+    want = slot_ops.jsq_pick(*cpu, t, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    if seed == "fault":
+        assert want.tolist() == [[0, 1, 3, 3]]
+        return
+    *ops, t = agg_pick_oob_operands(seed)
+    cpu = [to_torch(a) for a in ops]
+    got = slot_ops.agg_jsq_enqueue(*[a.to(dev) for a in cpu], t,
+                                   **AGG_PICK_OOB_KW)
+    want = slot_ops.agg_jsq_enqueue(*cpu, t, **AGG_PICK_OOB_KW)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("seed", ["fault", 0, 1])
+def test_sack_kernels_out_of_range_match_plain(seed):
+    """Both SACK kernels outside the engine's domain: delivering lanes at
+    negative ``pk`` (wrapping once) and beyond ``[-P, P)`` (dropped), and
+    windows before the row's start and past its end (``sack_fault_operands``,
+    ``sack_oob_operands``); bitwise against the plain versions."""
+    dev = cuda_or_skip()
+    ops = sack_fault_operands() if seed == "fault" else sack_oob_operands(seed)
+    cpu = [to_torch(a) for a in ops]
+    card = [a.to(dev) for a in cpu]
+    for g, w in zip(slot_ops.sack_update_scan(*card),
+                    slot_ops.sack_update_scan(*cpu)):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    adv = [card[0]] + card[3:]
+    got = slot_ops.sack_advance(*adv)
+    assert torch.equal(got.cpu(),
+                       slot_ops.sack_advance(*[cpu[0]] + cpu[3:]))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("scheme", ["jsq", "simple_rr", "host_pkt_ar"])

@@ -14,8 +14,12 @@ from repro.kernels.slot_step import kernel as qk, ref as qr
 from repro_torch.kernels.slot_step import ops as t_ops, ref as t_ref
 from repro_torch.kernels.jsq_scan.ref import fma32
 
-from _torch_compare import (AGG_OOB_KW, ENQUEUE_CASES, agg_oob_operands,
-                            enqueue_operands)
+from _torch_compare import (AGG_OOB_KW, AGG_PICK_OOB_KW, ENQUEUE_CASES,
+                            PICK_FAULT_KW, agg_case_operands, agg_oob_operands,
+                            agg_pick_oob_operands, enqueue_operands,
+                            pick_fault_operands, pick_oob_operands,
+                            sack_fault_operands, sack_oob_operands,
+                            to_torch)
 
 ROWS = 3
 QUANTA = (0.05, 0.10, 0.20)
@@ -317,3 +321,114 @@ def test_plb_ewma_is_one_rounding_like_xla():
     separate = ewma * (np.float32(1) - np.float32(0.125) * dec) \
         + np.float32(0.125) * inc
     assert (separate != xla).any()
+
+
+def test_jsq_pick_fault_inputs_match_oracle_and_interpret_kernel():
+    """The pick whose occupancy gather leaves the row (``qbase = [10, -1,
+    -3, 17]`` of 12 queues and 4 ports): the plain version reads by the
+    reference's gather rule (wrap once, then clamp) and picks ``[0, 1, 3,
+    3]``, as the reference's oracle and interpret-mode kernel do."""
+    *ops, t = pick_fault_operands()
+    got = t_ops.jsq_pick(*[to_torch(a) for a in ops], t, **PICK_FAULT_KW)
+    assert got.tolist() == [[0, 1, 3, 3]]
+    args = [jnp.asarray(a[0]) for a in ops] + [t]
+    _same([got], [qr.jsq_pick(*args, **PICK_FAULT_KW)], 0)
+    _same([got], [qk.jsq_pick(*args, interpret=True, **PICK_FAULT_KW)], 0)
+
+
+@pytest.mark.parametrize("quanta", [None, QUANTA])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_jsq_pick_out_of_range_qbase_matches_oracle_and_interpret_kernel(
+        seed, quanta):
+    """``qbase`` below ``-NQ``, in ``[-NQ, 0)`` and past ``NQ - h``
+    (``pick_oob_operands``): bit for bit against the reference's oracle and
+    its interpret-mode Pallas kernel."""
+    *ops, t = pick_oob_operands(seed)
+    kw = dict(site=r_ent.SITE_EDGE_JSQ, quanta=quanta, cap=12)
+    got = t_ops.jsq_pick(*[to_torch(a) for a in ops], t, **kw)
+    for b in range(ops[0].shape[0]):
+        args = [jnp.asarray(a[b]) for a in ops] + [t]
+        _same([got], [qr.jsq_pick(*args, **kw)], b)
+        _same([got], [qk.jsq_pick(*args, interpret=True, **kw)], b)
+    qbase, nq = ops[1], ops[0].shape[1]
+    assert (qbase < -nq).any() and ((qbase < 0) & (qbase >= -nq)).any()
+    assert (qbase > nq - 4).any()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_agg_out_of_range_qbase_matches_oracle_and_interpret_kernel(seed):
+    """The fused pick + enqueue whose agg-bound lanes' first ports ``off1 +
+    asw * h`` leave ``[0, NQ - h]`` on both sides (``agg_pick_oob_operands``):
+    the pick's gather wraps and clamps, the rewritten keys wrap, clip and
+    drop; bit for bit against the reference's oracle and its interpret-mode
+    Pallas kernel, and ``c_fin`` is the plain pick of the same choosers."""
+    *ops, t = agg_pick_oob_operands(seed)
+    kw = AGG_PICK_OOB_KW
+    got = t_ops.agg_jsq_enqueue(*[to_torch(a) for a in ops], t, **kw)
+    for b in range(ops[0].shape[0]):
+        args = [jnp.asarray(a[b]) for a in ops] + [t]
+        _same(got, qr.agg_jsq_enqueue(*args, **kw), b)
+        _same(got, qk.agg_jsq_enqueue(*args, interpret=True, **kw), b)
+    qb = kw["off1"] + ops[7] * kw["h"]
+    pick = t_ops.jsq_pick(to_torch(ops[2]), torch.from_numpy(qb),
+                          torch.from_numpy(np.maximum(ops[4], 0)),
+                          *[to_torch(a) for a in ops[8:]], t, site=kw["site"],
+                          quanta=kw["quanta"], cap=kw["cap"])
+    assert torch.equal(got[2], pick)
+    nq, to_agg = ops[2].shape[1], ops[6]
+    assert (to_agg & (qb < -nq)).any() and (to_agg & (qb < 0)
+                                            & (qb >= -nq)).any()
+    assert (to_agg & (qb > nq - kw["h"])).any()
+
+
+def test_sack_update_scan_fault_inputs_match_oracle_and_interpret_kernel():
+    """Delivering lanes at ``pk = [-1, 3, -10, -11]`` of a 10-packet row:
+    -1 and -10 wrap once (packets 9 and 0), -11 is dropped, so bits 0, 3
+    and 9 are set and the first missing packet is 1, as in the reference's
+    oracle and interpret-mode kernel."""
+    ops = sack_fault_operands()
+    got = t_ops.sack_update_scan(*[to_torch(a) for a in ops])
+    assert torch.nonzero(got[0][0]).flatten().tolist() == [0, 3, 9]
+    assert got[1].tolist() == [[1]]
+    args = [jnp.asarray(a[0]) for a in ops]
+    _same(got, qr.sack_update_scan(*args), 0)
+    _same(got, qk.sack_update_scan(*args, interpret=True), 0)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sack_out_of_range_match_oracle_and_interpret_kernel(seed):
+    """Both SACK kernels outside the engine's domain
+    (``sack_oob_operands``): ``pk`` in ``[-P, -1]``, below ``-P`` and at or
+    past ``P``; windows that start before the row (wrapping once, or
+    clamping after the wrap) and run past its end (clamping)."""
+    ops = sack_oob_operands(seed)
+    got = t_ops.sack_update_scan(*[to_torch(a) for a in ops])
+    adv = t_ops.sack_advance(*[to_torch(a) for i, a in enumerate(ops)
+                               if i not in (1, 2)])
+    for b in range(ops[0].shape[0]):
+        args = [jnp.asarray(a[b]) for a in ops]
+        _same(got, qr.sack_update_scan(*args), b)
+        _same(got, qk.sack_update_scan(*args, interpret=True), b)
+        args = [args[0]] + args[3:]
+        _same([adv], [qr.sack_advance(*args)], b)
+        _same([adv], [qk.sack_advance(*args, interpret=True)], b)
+    p_recv, pk, deliv = ops[:3]
+    P = p_recv.shape[1]
+    assert (deliv & (pk < 0) & (pk >= -P)).any()
+    assert (deliv & (pk < -P)).any() and (deliv & (pk >= P)).any()
+
+
+@pytest.mark.parametrize("case", sorted(ENQUEUE_CASES))
+def test_agg_jsq_enqueue_cases_match_oracle_and_interpret_kernel(case):
+    """The fused pick + enqueue on the enqueue's edge cases
+    (``agg_case_operands``: about half the valid lanes agg-bound, the others
+    on the case's targets): bit for bit against the reference's oracle and
+    its interpret-mode Pallas kernel."""
+    (*ops, t), kw = agg_case_operands(case, seed=len(case))
+    got = t_ops.agg_jsq_enqueue(*[to_torch(a) for a in ops], t, **kw)
+    for b in range(ops[0].shape[0]):
+        args = [jnp.asarray(a[b]) for a in ops] + [t]
+        _same(got, qr.agg_jsq_enqueue(*args, **kw), b)
+        _same(got, qk.agg_jsq_enqueue(*args, interpret=True, **kw), b)
+    to_agg, do_enq = torch.from_numpy(ops[6]), got[4]
+    assert bool((do_enq & to_agg).any()) and bool((do_enq & ~to_agg).any())
