@@ -61,8 +61,13 @@ Phases, each timed on its own line; any failure exits non-zero:
    packets, 128 flows, 640 lanes) and the k=16 sizes (262,144-packet rows,
    1,024 flows, 5,120 lanes) with empty flows, fully received windows and
    repeated delivery targets, outside the engine's domain (negative and
-   out-of-range ``pk``, windows before the row's start and past its end),
-   and operands recorded from engine calls;
+   out-of-range ``pk``, windows before the row's start and past its end,
+   flows of size <= 0 whose windows start below ``fsize - 1``, acks past
+   the flow's end and within 64 of INT_MAX), at the edges of
+   ``sack_update_scan``'s grid (rows shorter than a tile, a tile and a
+   byte, rows at every alignment mod 16, windows across tile boundaries,
+   no lanes, no flows, each form of the delivered set), and operands
+   recorded from engine calls;
 7. drive the SACK main path on the k=8 fat tree, one fused dispatch per
    pipeline identity for seeds 0-1: the ``fig12`` preset's grid
    (``sack_thresh=32``) and fig 9's 20-packet buffers (``sack_thresh=8``,
@@ -130,7 +135,7 @@ Phases, each timed on its own line; any failure exits non-zero:
     and the float32 SSD route are timed on those inputs in float32, the SSD
     walk with 32 and with 64 P columns a CTA, and ``jsq_scan`` through both
     walks, beside its longest walked prefix and the device time a walked
-    step;
+    step; and the launch floor, one 1-element ``add_`` timed the same way;
 17. ``serve_profile``: a decode step and a 2,048-token prefill of
     Yi-6B, Zamba2-2.7B and Mamba2-130M under ``torch.profiler``: wall
     time, device busy time, idle share, kernel launches, host
@@ -997,13 +1002,26 @@ def dynamic_phases(tree, dev, errs, launches, slot_launches, golden,
         # -11 of a 10-packet row (two wrap once, -11 is dropped), pk in
         # [-P, -1], below -P and at or past P, and windows before the row's
         # start and past its end (tests/_torch_compare.py), also at the k=8
-        # sizes.
-        from _torch_compare import sack_fault_operands, sack_oob_operands
-        for what, ops in (("pk [-1, 3, -10, -11]", sack_fault_operands()),
-                          ("out of range seed=0", sack_oob_operands(0)),
-                          ("out of range seed=1", sack_oob_operands(1)),
-                          ("out of range k=8 sizes", sack_oob_operands(
-                              2, rows=4, f=128, m=640, max_flow=512))):
+        # sizes; flows of size <= 0 whose windows start below fsize - 1,
+        # acks past the flow's end and within 64 of INT_MAX; and the grid's
+        # edges (SACK_TILE_CASES: rows shorter than a tile, a tile and a
+        # byte, every alignment mod 16, windows across tile boundaries, no
+        # lanes, no flows, each form of the delivered set).
+        from _torch_compare import (SACK_EDGE_CASES, SACK_TILE_CASES,
+                                    sack_edge_operands, sack_fault_operands,
+                                    sack_oob_operands, sack_tile_operands)
+        for what, ops in (
+                ("pk [-1, 3, -10, -11]", sack_fault_operands()),
+                ("out of range seed=0", sack_oob_operands(0)),
+                ("out of range seed=1", sack_oob_operands(1)),
+                ("out of range k=8 sizes", sack_oob_operands(
+                    2, rows=4, f=128, m=640, max_flow=512)),
+                *((f"counters {c}", sack_edge_operands(c))
+                  for c in SACK_EDGE_CASES),
+                ("counters int_max k=8 sizes", sack_edge_operands(
+                    "int_max", seed=3, rows=4, f=128, m=640, p=32_768)),
+                *((f"grid {c}", sack_tile_operands(c))
+                  for c in SACK_TILE_CASES)):
             args = [torch.from_numpy(a).to(dev) for a in ops]
             sack_check("sack_update_scan", args, what)
             sack_check("sack_advance", [args[0]] + args[3:], what)
@@ -2145,6 +2163,15 @@ def main() -> int:
                       "device_ms_by_ptile", "walked", "ms_no_tail",
                       "walk_ns_per_cell") if x in k),
                   flush=True)
+        # The launch floor: one trivial PyTorch launch (a 1-element add_),
+        # timed as the kernels are; a launch-bound kernel's device ms cannot
+        # go below its device ms.
+        one = torch.zeros(1, device=dev)
+        floor_dev = device_ms(lambda: one.add_(1.0), 50,
+                              r"elementwise_kernel")
+        floor_ms = cuda_ms(lambda: one.add_(1.0), 50)
+        print(f"launch floor: a 1-element add_ device_ms={floor_dev} "
+              f"ms={floor_ms:.4f}", flush=True)
 
     with Phase("serve_profile"):
         yi_profile()

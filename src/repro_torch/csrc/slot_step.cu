@@ -81,19 +81,47 @@
 // Bound of agg_jsq_enqueue: the enqueue's bytes plus the lanes' ports (the
 // PRF's ~200 integer operations a port stay under it).
 //
-// sack_update_scan: one block per row.  The block copies the row's receiver
-// bitmap to the output (out of place, as above), sets out[pk] = 1 for every
-// delivering lane (duplicate targets all write 1, so the order of the
-// writes cannot matter), then gives each flow one warp: lane l holds the
-// window entries w = l and w = l + 32, cand_w = min(cum + w, fsize - 1),
-// and two ballots find the first entry not received.  The result is that
-// entry's candidate, or cand_0 when all 64 are received (argmin's first
-// occurrence).  A zero-size flow gives -1 without reading the bitmap.
-// sack_advance: one thread per (row, flow), two rounds of the 4-wide
-// running product of received bits, masked to cum + w < fsize.  Both are
-// integer-only, without atomics.
+// sack_update_scan: a grid over the bitmap, one launch.  A row gets one CTA
+// per tile of 2,048 bytes (P / 64 rounded up to 16 where that is more: at
+// most 64 tiles), and more CTAs where its flows need them, one warp a flow
+// (up to 64 CTAs; kernel.py:sack_layout).  The k=8 slot's 4 rows of 32,768
+// packets and 128 flows give 16 CTAs a row, 64 in all.  (On the card at
+// that shape, tools/sack_layout_times.py: 0.0025 ms; tiles of 4,096 bytes
+// 0.0028, of 1,024 0.0029, of 512 0.0031; two flows a warp 0.0034.)  CTA
+// t of a row
+//   * copies tile t out of place, if the row has one (copy_run: 16-byte
+//     vectors over the aligned middle, bytes at the ends, for a row
+//     starting at any alignment);
+//   * reads the row's M lanes (3.2 KB at k=8, shared by the row's CTAs
+//     through L2) and writes out[w] = 1 in its own tile for each delivering
+//     target w (pk wrapped once, the rest dropped; duplicates all write 1);
+//   * puts the targets in the row's delivered set, in the form that clears
+//     fewer ints: a bitset of the row, or an open-addressing table of keys
+//     w + 1 (a power of two >= 2 M slots), in shared memory where it fits
+//     48 KB, else the table in a global scratch of its own;
+//   * scans flows 8 t .. 8 t + 7 of its row, then those 8 * ctas further
+//     on, one warp a flow: lane l holds the window entries w = l
+//     and w = l + 32, cand_w = min(cum + w, fsize - 1) with int32
+//     wraparound (add_wrap), each tested against the source bitmap or the
+//     set (= the new bitmap, which other CTAs may not have written yet);
+//     two ballots find the first entry not received, and the result is its
+//     candidate, or cand_0 when all 64 are received (argmin's first
+//     occurrence).  Every flow reads its window, whatever its size.
+// No CTA reads what another writes: no grid sync or second launch, and the
+// set's atomics (atomicOr, atomicCAS) only insert, so no result depends on
+// their order.
 // Bound: bytes -- the bitmap row read and written once, the lanes and the
-// per-flow counters; a few integer operations per window entry.
+// per-flow counters (0.28 MB at k=8: 8.5e-5 ms at 3.35 TB/s).  At that size
+// the kernel is latency-bound: a launch, one round of loads (tile, lanes,
+// first flow), two barriers and one round of window reads.
+// sack_advance: one thread per (row, flow).  Two rounds of the 4-wide
+// running product of received bits (masked to cum + w < fsize) reach at
+// most the entries cum .. cum + 7, so the thread issues those 8 reads at
+// once, as independent loads, and takes their leading run of received
+// entries (sack_advance_kernel says why that equals the two rounds).
+// Bound: bytes -- the entries these inputs make it read and the per-flow
+// counters; a few integer operations per entry.  Both kernels are
+// integer-only.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -233,23 +261,26 @@ __device__ __forceinline__ unsigned lanemask_lt() {
   return m;
 }
 
-// Copy n ints; 16-byte vectors over the aligned middle when src and dst
+// Copy n elements; 16-byte vectors over the aligned middle when src and dst
 // share their offset mod 16.
-__device__ void copy_run(const int32_t* __restrict__ src,
-                         int32_t* __restrict__ dst, int64_t n) {
+template <class T>
+__device__ void copy_run(const T* __restrict__ src, T* __restrict__ dst,
+                         int64_t n) {
+  constexpr int V = 16 / sizeof(T);
   const uintptr_t sa = reinterpret_cast<uintptr_t>(src);
   if (((sa ^ reinterpret_cast<uintptr_t>(dst)) & 15) != 0) {
     for (int64_t c = threadIdx.x; c < n; c += blockDim.x) dst[c] = src[c];
     return;
   }
-  const int64_t head = min((int64_t)(((16 - (sa & 15)) & 15) >> 2), n);
-  const int64_t nv = (n - head) >> 2;
+  const int64_t head =
+      min((int64_t)(((16 - (sa & 15)) & 15) / sizeof(T)), n);
+  const int64_t nv = (n - head) / V;
   const int4* sv = reinterpret_cast<const int4*>(src + head);
   int4* dv = reinterpret_cast<int4*>(dst + head);
 #pragma unroll 4
   for (int64_t v = threadIdx.x; v < nv; v += blockDim.x) dv[v] = sv[v];
   for (int64_t c = threadIdx.x; c < head; c += blockDim.x) dst[c] = src[c];
-  for (int64_t c = head + 4 * nv + threadIdx.x; c < n; c += blockDim.x)
+  for (int64_t c = head + V * nv + threadIdx.x; c < n; c += blockDim.x)
     dst[c] = src[c];
 }
 
@@ -520,76 +551,175 @@ agg_jsq_enqueue_kernel(const EnqArgs a, AggLanes lanes,
   enqueue_tile(a, lanes, b, (int)(blockIdx.x % a.tiles) * ENQ_QB);
 }
 
-constexpr int SACK_THREADS = 512;
+constexpr int SACK_THREADS = 256;
+constexpr int SACK_WARPS = SACK_THREADS / 32;
+constexpr int SACK_LPT = 4;     // lanes a thread loads before the set clears
+constexpr int SACK_SMEM = 48 * 1024;   // shared bytes the delivered set may take
+constexpr int ADV_THREADS = 32;   // on the card 64 ran 1.5 % slower, 128 6 %
+constexpr int ADV_REACH = 8;    // entries two rounds of a 4-wide window reach
 
-__global__ void __launch_bounds__(SACK_THREADS)
-sack_update_scan_kernel(const uint8_t* __restrict__ p_recv,
-                        const int32_t* __restrict__ pk,
-                        const uint8_t* __restrict__ deliv,
-                        const int32_t* __restrict__ f_cum,
-                        const int32_t* __restrict__ fsize,
-                        const int32_t* __restrict__ pbase, int p, int m,
-                        int f, uint8_t* __restrict__ out,
-                        int32_t* __restrict__ fm) {
-  const int64_t b = blockIdx.x;
-  const uint8_t* src = p_recv + b * p;
-  uint8_t* dst = out + b * p;
-  for (int i = threadIdx.x; i < p; i += blockDim.x) dst[i] = src[i];
-  __syncthreads();
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const int q = pk[b * m + i];
-    const int w = q < 0 ? q + p : q;     // a negative target wraps once
-    if (deliv[b * m + i] && w >= 0 && w < p) dst[w] = 1;
+// The set of a row's delivered targets, as the scan tests it: a bitset of
+// the row (bit w of word w / 32) or an open-addressing table of keys w + 1
+// (hash_slot's), in shared memory or in a global scratch.
+struct SackSet {
+  int32_t* s;
+  int hsize;      // 0: a bitset
+  __device__ void add(int w) const {
+    if (hsize == 0)
+      atomicOr(reinterpret_cast<unsigned*>(s) + (w >> 5), 1u << (w & 31));
+    else
+      hash_slot(s, hsize, w + 1);
   }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  for (int fl = threadIdx.x >> 5; fl < f; fl += n_warps) {
-    const int64_t k = b * f + fl;
-    const int cum = f_cum[k];
-    const int fs = fsize[k];
-    if (fs <= 0) {                 // every candidate is fsize - 1 = -1
-      if (lane == 0) fm[k] = fs - 1;
-      continue;
+  __device__ bool has(int w) const {
+    const volatile int32_t* v = s;   // written by this CTA's atomics
+    if (hsize == 0) return ((unsigned)v[w >> 5] >> (w & 31)) & 1u;
+    const int key = w + 1;
+    unsigned h = ((unsigned)key * 2654435761u) & (unsigned)(hsize - 1);
+    while (true) {
+      const int cur = v[h];
+      if (cur == key) return true;
+      if (cur == 0) return false;
+      h = (h + 1) & (unsigned)(hsize - 1);
     }
-    const int base = pbase[k];
-    const int c_lo = min(cum + lane, fs - 1);
-    const int c_hi = min(cum + lane + 32, fs - 1);
-    const unsigned miss_lo = __ballot_sync(
-        0xffffffffu, dst[gather_index(add_wrap(base, c_lo), p)] == 0);
-    const unsigned miss_hi = __ballot_sync(
-        0xffffffffu, dst[gather_index(add_wrap(base, c_hi), p)] == 0);
+  }
+};
+
+struct SackArgs {
+  const uint8_t* p_recv;
+  const int32_t* pk;
+  const uint8_t* deliv;
+  const int32_t* f_cum;
+  const int32_t* fsize;
+  const int32_t* pbase;
+  uint8_t* out;
+  int32_t* fm;
+  int32_t* scratch;   // (rows * ctas, hsize) when the table is global
+  int64_t tile;       // bitmap bytes a CTA copies, a multiple of 16
+  int p, m, f, ctas;  // ctas: CTAs a row
+  int hsize;          // 0: bitset
+  int set_words;      // ints of the set a CTA clears
+  bool set_shared;
+};
+
+// CTA t of row b copies tile t of the row (nothing past its end) and scans
+// flows 8 t .. 8 t + 7, 8 ctas further on, ...; the file header's scheme.
+__global__ void __launch_bounds__(SACK_THREADS)
+sack_update_scan_kernel(const SackArgs a) {
+  extern __shared__ int32_t s_set[];
+  const int64_t b = blockIdx.x / a.ctas;
+  const int t = (int)(blockIdx.x % a.ctas);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int p = a.p, m = a.m;
+  const uint8_t* src = a.p_recv + b * p;
+  uint8_t* dst = a.out + b * p;
+  const int64_t t0 = min(t * a.tile, (int64_t)p);
+  const int64_t t1 = min(t0 + a.tile, (int64_t)p);
+  const SackSet set{a.set_shared ? s_set
+                                 : a.scratch + (int64_t)blockIdx.x * a.hsize,
+                    a.hsize};
+  // The first lanes and this warp's first flow load while the set clears
+  // and the tile copies.
+  int tgt[SACK_LPT];
+#pragma unroll
+  for (int j = 0; j < SACK_LPT; ++j) {
+    const int i = tid + j * SACK_THREADS;
+    tgt[j] = -1;
+    if (i < m) {
+      const int q = a.pk[b * m + i];
+      const int w = q < 0 ? q + p : q;   // a negative target wraps once
+      if (a.deliv[b * m + i] && w >= 0 && w < p) tgt[j] = w;
+    }
+  }
+  const int fl0 = t * SACK_WARPS + warp;
+  const int fstep = a.ctas * SACK_WARPS;
+  int cum = 0, fs = 0, base = 0;
+  if (fl0 < a.f) {
+    cum = a.f_cum[b * a.f + fl0];
+    fs = a.fsize[b * a.f + fl0];
+    base = a.pbase[b * a.f + fl0];
+  }
+  const bool scans = t * SACK_WARPS < a.f;    // block-uniform
+  if (scans)
+    for (int i = tid; i < a.set_words; i += SACK_THREADS) set.s[i] = 0;
+  copy_run(src + t0, dst + t0, t1 - t0);
+  __syncthreads();   // the set is clear and the tile copied
+#pragma unroll
+  for (int j = 0; j < SACK_LPT; ++j) {
+    const int w = tgt[j];
+    if (w >= 0) {
+      if (scans) set.add(w);
+      if (w >= t0 && w < t1) dst[w] = 1;
+    }
+  }
+  for (int i = tid + SACK_LPT * SACK_THREADS; i < m; i += SACK_THREADS) {
+    const int q = a.pk[b * m + i];
+    const int w = q < 0 ? q + p : q;
+    if (a.deliv[b * m + i] && w >= 0 && w < p) {
+      if (scans) set.add(w);
+      if (w >= t0 && w < t1) dst[w] = 1;
+    }
+  }
+  if (!scans) return;
+  __syncthreads();   // the set is complete
+  // Flows fl0, fl0 + fstep, ...: lane l tests the window entries l and
+  // l + 32 against the source bitmap or the delivered set.
+  for (int fl = fl0; fl < a.f; fl += fstep) {
+    if (fl != fl0) {
+      cum = a.f_cum[b * a.f + fl];
+      fs = a.fsize[b * a.f + fl];
+      base = a.pbase[b * a.f + fl];
+    }
+    const int last = add_wrap(fs, -1);
+    const int i_lo = gather_index(add_wrap(base, min(add_wrap(cum, lane),
+                                                     last)), p);
+    const int i_hi = gather_index(add_wrap(base, min(add_wrap(cum, lane + 32),
+                                                     last)), p);
+    const bool got_lo = src[i_lo] != 0, got_hi = src[i_hi] != 0;
+    const unsigned miss_lo = __ballot_sync(FULL, !(got_lo || set.has(i_lo)));
+    const unsigned miss_hi = __ballot_sync(FULL, !(got_hi || set.has(i_hi)));
     if (lane == 0) {
       const int w = miss_lo ? __ffs(miss_lo) - 1
                   : miss_hi ? 32 + __ffs(miss_hi) - 1 : 0;
-      fm[k] = min(cum + w, fs - 1);
+      a.fm[b * a.f + fl] = min(add_wrap(cum, w), last);
     }
   }
 }
 
-__global__ void sack_advance_kernel(const uint8_t* __restrict__ p_recv,
-                                    const int32_t* __restrict__ f_cum,
-                                    const int32_t* __restrict__ fsize,
-                                    const int32_t* __restrict__ pbase, int p,
-                                    int f, int64_t n,
-                                    int32_t* __restrict__ out) {
-  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+// One thread per (row, flow).  Two rounds of the 4-wide running product
+// read at most the entries cum .. cum + 7 (the second round starts where
+// the first stopped, and it adds only after a full first round), so the
+// thread issues those 8 reads at once and takes the leading run of
+// received entries, each masked to cum + j < fsize.  When f_cum >= fsize
+// the first round adds nothing and clamps cum to fsize, and the second reads
+// nothing: min(cum + 0, fsize) gives that too.
+__global__ void __launch_bounds__(ADV_THREADS)
+sack_advance_kernel(const uint8_t* __restrict__ p_recv,
+                    const int32_t* __restrict__ f_cum,
+                    const int32_t* __restrict__ fsize,
+                    const int32_t* __restrict__ pbase, int p, int f, int64_t n,
+                    int32_t* __restrict__ out) {
+  const int64_t k = (int64_t)blockIdx.x * ADV_THREADS + threadIdx.x;
   if (k >= n) return;
   const uint8_t* row = p_recv + (k / f) * p;
   const int fs = fsize[k];
   const int base = pbase[k];
-  int cum = f_cum[k];
-  for (int r = 0; r < 2; ++r) {
-    int adv = 0;
-    bool run = true;
-    for (int w = 0; w < 4; ++w) {
-      run = run && cum + w < fs &&
-            row[gather_index(add_wrap(base, min(cum + w, fs - 1)), p)] != 0;
-      adv += run;
-    }
-    cum = min(cum + adv, fs);
+  const int cum = f_cum[k];
+  const int last = add_wrap(fs, -1);
+  bool got[ADV_REACH];
+#pragma unroll
+  for (int j = 0; j < ADV_REACH; ++j) {
+    const int c = add_wrap(cum, j);
+    const bool r = row[gather_index(add_wrap(base, min(c, last)), p)] != 0;
+    got[j] = r & (c < fs);
   }
-  out[k] = cum;
+  int adv = 0;
+  bool run = true;
+#pragma unroll
+  for (int j = 0; j < ADV_REACH; ++j) {
+    run = run && got[j];
+    adv += run;
+  }
+  out[k] = min(add_wrap(cum, adv), fs);
 }
 
 PickArgs pick_args(const void* edges, int n_edges, int site, int t, int h,
@@ -729,19 +859,48 @@ int slot_agg_jsq_enqueue(const void* qbuf, const void* qhead,
 
 // p_recv (rows, p) uint8 0/1; pk, deliv (rows, m) int32 / uint8; f_cum,
 // fsize, pbase (rows, f) int32.  Writes the new bitmap (rows, p) and the
-// first missing sequence fm (rows, f).
+// first missing sequence fm (rows, f).  ctas CTAs a row, each copying
+// `tile` bytes of it (a multiple of 16; ctas * tile >= p); the delivered set
+// is a bitset of the row (hsize 0) or a table of hsize keys (a power of two
+// >= 2 m), in shared memory (shared != 0; at most SACK_SMEM bytes) or in
+// `scratch`, rows * ctas * hsize int32 that the kernel clears where it uses
+// them (kernel.py:sack_layout chooses).
 int slot_sack_update_scan(const void* p_recv, const void* pk,
                           const void* deliv, const void* f_cum,
                           const void* fsize, const void* pbase, int rows,
-                          int p, int m, int f, void* out, void* fm,
-                          void* stream) {
-  if (rows < 1 || p < 1 || m < 0 || f < 0) return (int)cudaErrorInvalidValue;
-  sack_update_scan_kernel<<<rows, SACK_THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(p_recv), static_cast<const int32_t*>(pk),
-      static_cast<const uint8_t*>(deliv), static_cast<const int32_t*>(f_cum),
-      static_cast<const int32_t*>(fsize), static_cast<const int32_t*>(pbase),
-      p, m, f, static_cast<uint8_t*>(out), static_cast<int32_t*>(fm));
+                          int p, int m, int f, long long tile, int ctas,
+                          int hsize, int shared, void* scratch, void* out,
+                          void* fm, void* stream) {
+  if (rows < 1 || p < 1 || m < 0 || f < 0 || tile < 16 || tile % 16 != 0 ||
+      ctas < (p + tile - 1) / tile ||
+      hsize < 0 || (hsize & (hsize - 1)) != 0 ||
+      (hsize > 0 && hsize < 2 * (long long)m) || (!shared && hsize == 0) ||
+      (!shared && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  SackArgs a;
+  a.p_recv = static_cast<const uint8_t*>(p_recv);
+  a.pk = static_cast<const int32_t*>(pk);
+  a.deliv = static_cast<const uint8_t*>(deliv);
+  a.f_cum = static_cast<const int32_t*>(f_cum);
+  a.fsize = static_cast<const int32_t*>(fsize);
+  a.pbase = static_cast<const int32_t*>(pbase);
+  a.out = static_cast<uint8_t*>(out);
+  a.fm = static_cast<int32_t*>(fm);
+  a.scratch = static_cast<int32_t*>(scratch);
+  a.tile = tile;
+  a.p = p;
+  a.m = m;
+  a.f = f;
+  a.ctas = ctas;
+  a.hsize = hsize;
+  a.set_words = hsize == 0 ? (int)(((long long)p + 31) / 32) : hsize;
+  a.set_shared = shared != 0;
+  const size_t smem = a.set_shared ? (size_t)a.set_words * 4 : 0;
+  if (smem > SACK_SMEM || (long long)rows * ctas > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  sack_update_scan_kernel<<<(unsigned)((long long)rows * ctas), SACK_THREADS,
+                            smem,
+                            static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -751,9 +910,8 @@ int slot_sack_advance(const void* p_recv, const void* f_cum,
                       int f, void* out, void* stream) {
   if (rows < 1 || p < 1 || f < 1) return (int)cudaErrorInvalidValue;
   const int64_t n = (int64_t)rows * f;
-  const int threads = 128;
-  sack_advance_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  sack_advance_kernel<<<(unsigned)((n + ADV_THREADS - 1) / ADV_THREADS),
+                        ADV_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(p_recv), static_cast<const int32_t*>(f_cum),
       static_cast<const int32_t*>(fsize), static_cast<const int32_t*>(pbase),
       p, f, n, static_cast<int32_t*>(out));

@@ -21,10 +21,14 @@ from .ref import thresholds
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 MAX_EDGES = 8               # quantization bin edges
+SACK_TILE = 2048            # bitmap bytes a sack_update_scan CTA copies
+SACK_WARPS = 8              # its warps, one a flow
+SACK_MAX_CTAS = 64          # its CTAs a row, at most
+SACK_SMEM = 48 * 1024       # shared bytes its delivered set may take
 _EDGES: Dict[Tuple, torch.Tensor] = {}
-# The enqueue kernels' hash tables, one scratch per (device, stream): a
+# The kernels' hash tables, one scratch per (kernel, device, stream): a
 # kernel clears what it uses, and launches on one stream run in order.
-_TABLES: Dict[Tuple[int, int], torch.Tensor] = {}
+_TABLES: Dict[Tuple[str, int, int], torch.Tensor] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -36,7 +40,9 @@ def _lib() -> ctypes.CDLL:
                                      + [_VP] * 7)
         lib.slot_agg_jsq_enqueue.argtypes = (
             [_VP] * 12 + [_I, _I, _VP] + [_I] * 8 + [_VP, _I] + [_VP] * 8)
-        lib.slot_sack_update_scan.argtypes = [_VP] * 6 + [_I] * 4 + [_VP] * 3
+        lib.slot_sack_update_scan.argtypes = ([_VP] * 6 + [_I] * 4
+                                              + [ctypes.c_longlong, _I, _I, _I]
+                                              + [_VP] * 4)
         lib.slot_sack_advance.argtypes = [_VP] * 4 + [_I] * 3 + [_VP] * 2
         for f in (lib.slot_jsq_pick, lib.slot_enqueue,
                   lib.slot_agg_jsq_enqueue, lib.slot_sack_update_scan,
@@ -150,18 +156,23 @@ def enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, avalid, *, cap: int,
     return outs
 
 
+def _scratch(name: str, dev, n: int) -> torch.Tensor:
+    """``n`` int32 of the kernel's scratch, one per (kernel, device,
+    stream), grown as needed."""
+    key = (name, dev.index, _stream(dev))
+    table = _TABLES.get(key)
+    if table is None or table.numel() < n:
+        table = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
+        _TABLES[key] = table
+    return table
+
+
 def _table(dev, B: int, M: int) -> Tuple[torch.Tensor, int]:
     """The enqueue kernels' rank counters of keys outside ``[0, NQ)``: an
     open-addressing table of ``hsize`` keys and counts a row for the first
-    and the last queue tile, cleared by the kernel where used; one scratch
-    per (device, stream), grown as needed."""
+    and the last queue tile, cleared by the kernel where used."""
     hsize = 1 << max(6, (2 * M - 1).bit_length())
-    key = (dev.index, _stream(dev))
-    table = _TABLES.get(key)
-    if table is None or table.numel() < B * 4 * hsize:
-        table = torch.empty(B * 4 * hsize, dtype=torch.int32, device=dev)
-        _TABLES[key] = table
-    return table, hsize
+    return _scratch("enqueue", dev, B * 4 * hsize), hsize
 
 
 def agg_jsq_enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, to_agg, asw,
@@ -211,6 +222,27 @@ def _sack_shapes(name, p_recv, f_cum, fsize, pbase):
     return B, P, f_cum.shape[1]
 
 
+def sack_layout(P: int, M: int, F: int) -> Tuple[int, int, int, bool]:
+    """``(tile, ctas, hsize, shared)``: ``sack_update_scan``'s grid over rows
+    of ``P`` packets, ``M`` lanes and ``F`` flows (``csrc/slot_step.cu``'s
+    header).  ``ctas`` CTAs a row: one per ``tile`` bytes of the row
+    (``SACK_TILE``, more where a row would take over ``SACK_MAX_CTAS``), and
+    more where the row's flows need them (a warp a flow, ``SACK_WARPS`` a
+    CTA, up to ``SACK_MAX_CTAS``); those past the row's end copy nothing.
+    The delivered set is a bitset of the row (``hsize`` 0) or a table of
+    ``hsize`` keys, whichever has fewer ints, in shared memory where it fits
+    ``SACK_SMEM`` (``shared``), else the table in a global scratch."""
+    per_cta = -(-P // SACK_MAX_CTAS)
+    tile = max(SACK_TILE, (per_cta + 15) // 16 * 16)
+    ctas = max(-(-P // tile), min(-(-F // SACK_WARPS), SACK_MAX_CTAS))
+    words = -(-P // 32)
+    hsize = 1 << max(5, (2 * M - 1).bit_length())
+    fits = lambda n: 4 * n <= SACK_SMEM               # noqa: E731
+    if fits(words) and (words <= hsize or not fits(hsize)):
+        hsize = 0
+    return tile, ctas, hsize, hsize == 0 or fits(hsize)
+
+
 def sack_update_scan(p_recv, pk, deliv, f_cum, fsize, pbase):
     """Launch ``slot_sack_update_scan``; shapes and meaning as
     ``ref.sack_update_scan`` (window 64)."""
@@ -224,11 +256,15 @@ def sack_update_scan(p_recv, pk, deliv, f_cum, fsize, pbase):
     check_cuda("sack_update_scan", p_recv, pk, deliv, f_cum, fsize, pbase)
     out = torch.empty_like(p_recv)
     fm = torch.empty((B, F), dtype=torch.int32, device=p_recv.device)
+    tile, ctas, hsize, shared = sack_layout(P, M, F)
+    scratch = 0 if shared else _scratch("sack_update_scan", p_recv.device,
+                                        B * ctas * hsize).data_ptr()
     with torch.cuda.device(p_recv.device):
         err = _lib().slot_sack_update_scan(
             _u8(p_recv).data_ptr(), pk.data_ptr(), _u8(deliv).data_ptr(),
             f_cum.data_ptr(), fsize.data_ptr(), pbase.data_ptr(), B, P, M, F,
-            _u8(out).data_ptr(), fm.data_ptr(), _stream(p_recv.device))
+            tile, ctas, hsize, int(shared), scratch, _u8(out).data_ptr(),
+            fm.data_ptr(), _stream(p_recv.device))
     _check("slot_sack_update_scan", err)
     return out, fm
 

@@ -154,8 +154,11 @@ def sack_update_scan(p_recv, pk, deliv, f_cum, fsize, pbase, *,
     delivered packet set, and per flow the candidate
     ``min(f_cum + w, fsize - 1)`` at the first ``w < window`` whose packet
     is not received (``w = 0`` when all are, ``argmin``'s first-occurrence
-    rule).  A zero-size flow gives ``-1``; the reference reads its window at
-    ``pbase - 1`` with numpy's wrap, which is done here too.
+    rule), in int32 arithmetic that wraps, as the reference's.  Every flow
+    reads its window, whatever its size: a flow of size 0 gives ``-1`` only
+    where ``f_cum >= -1`` (every candidate is then ``fsize - 1``); below
+    that its candidates ``f_cum + w`` read the bitmap at ``pbase + cand``
+    by :func:`gather_index`'s rule.
     """
     B, P = p_recv.shape
     tgt = torch.where(pk < 0, pk + P, pk)

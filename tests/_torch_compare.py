@@ -248,6 +248,109 @@ def sack_oob_operands(seed, rows=3, f=24, m=50, max_flow=90):
     return p_recv, pk, deliv, f_cum, fsize, pbase
 
 
+# SACK counters outside the engine's domain (sack_edge_operands): a flow of
+# size <= 0 whose window starts below its last candidate (f_cum < fsize - 1
+# <= -1), an ack past the flow's end (f_cum > fsize), and acks within 64 of
+# INT_MAX (the candidates f_cum + w and the reads pbase + cand wrap in int32).
+SACK_EDGE_CASES = ("zero_size", "below_size", "past_size", "int_max")
+
+
+def sack_edge_operands(case, seed=0, rows=3, f=24, m=50, p=200):
+    """numpy SACK operands (as :func:`sack_fault_operands`) of a
+    ``SACK_EDGE_CASES`` entry.  ``zero_size`` is one row: P = 10, bits 0, 1
+    and 2 set, no delivery, flows ``f_cum = [-3, -5, 0, -2]``, ``fsize =
+    [0, -2, 0, 0]``, ``pbase = [5, 4, 5, 3]``; the reference's first missing
+    packets are ``[-2, -5, -1, -2]`` and its advanced acks ``[-2, -5, 0,
+    0]``.  The others draw ``rows`` rows of ``p`` packets."""
+    if case == "zero_size":
+        p_recv = np.zeros((1, 10), bool)
+        p_recv[0, :3] = True
+        return (p_recv, np.array([[4, -2]], np.int32), np.zeros((1, 2), bool),
+                np.array([[-3, -5, 0, -2]], np.int32),
+                np.array([[0, -2, 0, 0]], np.int32),
+                np.array([[5, 4, 5, 3]], np.int32))
+    i32 = np.iinfo(np.int32)
+    r = np.random.default_rng(seed)
+    p_recv = r.random((rows, p)) < 0.8
+    p_recv[:, :4] = True
+    pk = r.integers(-p - 3, p + 3, (rows, m))
+    deliv = r.random((rows, m)) < 0.5
+    pbase = r.integers(-p, 2 * p, (rows, f))
+    if case == "below_size":
+        fsize = r.integers(-70, 1, (rows, f))
+        f_cum = fsize - r.integers(2, 90, (rows, f))
+    elif case == "past_size":
+        fsize = r.integers(0, 90, (rows, f))
+        f_cum = fsize + r.integers(1, 70, (rows, f))
+    elif case == "int_max":
+        f_cum = i32.max - r.integers(0, 65, (rows, f))
+        fsize = r.choice(np.array([i32.max, i32.max - 3, i32.min, 5, -7, 0]),
+                         (rows, f))
+        pbase[:, 0::3] = i32.max - r.integers(0, 80, (rows, (f + 2) // 3))
+        pbase[:, 1::3] = i32.min + r.integers(0, 80, (rows, (f + 1) // 3))
+    else:
+        raise ValueError(case)
+    i = lambda a: a.astype(np.int32)                    # noqa: E731
+    return p_recv, i(pk), deliv, i(f_cum), i(fsize), i(pbase)
+
+
+# Shapes at the edges of sack_update_scan's grid: (rows, packets P, flows F,
+# lanes M).  A row gets a CTA per 2,048-byte tile (more bytes a tile where
+# it would take over 64), and more CTAs, up to 64, where its flows need them
+# (a warp a flow, 8 a CTA); the delivered set is a bitset of the row or a
+# table of the lanes' targets, in shared memory or, where neither fits 48
+# KB, the table in a global scratch (kernel.py:sack_layout).
+SACK_TILE_CASES = {
+    "below_tile": (3, 1000, 16, 40),         # a row shorter than a tile
+    "one_tile": (3, 2048, 24, 64),           # exactly one tile
+    "two_tiles": (2, 4096, 8, 64),           # two tiles, a CTA each
+    "tile_plus_one": (3, 2049, 24, 64),      # a last tile of one byte
+    "odd_rows": (16, 8199, 40, 100),         # rows at every alignment mod 16
+    "no_lanes": (2, 9000, 30, 0),            # M = 0
+    "no_flows": (2, 9000, 0, 50),            # F = 0
+    "many_flows": (2, 20_000, 700, 300),     # more flows than 64 CTAs' warps
+    "table_shared": (2, 300_000, 64, 64),    # the table in shared memory
+    "table_global": (1, 400_003, 96, 7000),  # the table in global memory
+    "wide_tiles": (1, 1_000_003, 128, 640),  # tiles of P / 64 bytes
+}
+
+
+def sack_tile_operands(case, seed=0):
+    """numpy SACK operands (as :func:`sack_fault_operands`) of a
+    ``SACK_TILE_CASES`` entry: windows that straddle a boundary of the
+    kernel's ``SACK_TILE``-byte tiles (from up to 63 entries before it),
+    start before the row (wrap once) or run past its end (clamp), and
+    delivering lanes that fill holes in the windows (so the delivered set
+    decides the scan) besides random ones in ``[-P - 5, P + 5)``; 90 % of
+    the bitmap set, so windows run deep."""
+    from repro_torch.kernels.slot_step.kernel import SACK_TILE
+    B, P, F, M = SACK_TILE_CASES[case]
+    r = np.random.default_rng(seed)
+    p_recv = r.random((B, P)) < 0.9
+    edges = np.arange(0, P + SACK_TILE, SACK_TILE)
+    kind = r.integers(0, 4, (B, F))
+    pbase = np.select(
+        [kind == 0, kind == 1, kind == 2],
+        [edges[r.integers(0, len(edges), (B, F))] - r.integers(0, 64, (B, F)),
+         r.integers(-70, 0, (B, F)), P - r.integers(1, 70, (B, F))],
+        r.integers(0, P, (B, F)))
+    fsize = r.integers(0, 300, (B, F))
+    f_cum = np.where(kind == 0, 0, (r.random((B, F)) * (fsize + 1)).astype(
+        np.int64))
+    pk = r.integers(-P - 5, P + 5, (B, M))
+    deliv = r.random((B, M)) < 0.7
+    if F and M:
+        fl = r.integers(0, F, (B, M))
+        rows = np.arange(B)[:, None]
+        hole = (pbase[rows, fl] + f_cum[rows, fl]
+                + r.integers(0, 64, (B, M)))
+        into = (r.random((B, M)) < 0.5) & (hole >= 0) & (hole < P)
+        pk = np.where(into, hole, pk)
+        p_recv[np.broadcast_to(rows, (B, M))[into], hole[into]] = False
+    i = lambda a: a.astype(np.int32)                    # noqa: E731
+    return p_recv, i(pk), deliv, i(f_cum), i(fsize), i(pbase)
+
+
 def agg_case_operands(case, seed=0, rows=None, size=None, h=4):
     """numpy ``agg_jsq_enqueue`` operands and slot ``t`` built on an
     ``ENQUEUE_CASES`` entry (as :func:`enqueue_operands`), and the keyword

@@ -36,7 +36,9 @@ from _torch_compare import (AGG_OOB_KW, AGG_PICK_OOB_KW, ENQUEUE_CASES,
                             assert_same_loop_result, assert_same_result,
                             cuda_or_skip, enqueue_operands, jsq_walk_grid,
                             pick_fault_operands, pick_oob_operands,
-                            sack_fault_operands, sack_oob_operands, to_torch)
+                            SACK_EDGE_CASES, SACK_TILE_CASES,
+                            sack_edge_operands, sack_fault_operands,
+                            sack_oob_operands, sack_tile_operands, to_torch)
 
 pytestmark = pytest.mark.gpu
 
@@ -305,16 +307,14 @@ def test_pick_kernels_out_of_range_qbase_match_plain(seed):
         assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("seed", ["fault", 0, 1])
-def test_sack_kernels_out_of_range_match_plain(seed):
-    """Both SACK kernels outside the engine's domain: delivering lanes at
-    negative ``pk`` (wrapping once) and beyond ``[-P, P)`` (dropped), and
-    windows before the row's start and past its end (``sack_fault_operands``,
-    ``sack_oob_operands``); bitwise against the plain versions."""
+def _sack_kernels_match_plain(ops):
+    """Both SACK kernels on numpy operands ``ops`` against their plain
+    versions, bitwise; each call launches its kernel once (``sack_advance``
+    none when there is no flow) and leaves its inputs unwritten."""
     dev = cuda_or_skip()
-    ops = sack_fault_operands() if seed == "fault" else sack_oob_operands(seed)
     cpu = [to_torch(a) for a in ops]
     card = [a.to(dev) for a in cpu]
+    before = dict(slot_ops.LAUNCHES)
     for g, w in zip(slot_ops.sack_update_scan(*card),
                     slot_ops.sack_update_scan(*cpu)):
         assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
@@ -323,6 +323,37 @@ def test_sack_kernels_out_of_range_match_plain(seed):
     assert torch.equal(got.cpu(),
                        slot_ops.sack_advance(*[cpu[0]] + cpu[3:]))
     torch.cuda.synchronize()
+    assert slot_ops.LAUNCHES["sack_update_scan"] == \
+        before["sack_update_scan"] + 1
+    assert slot_ops.LAUNCHES["sack_advance"] == \
+        before["sack_advance"] + (cpu[3].numel() > 0)
+    for c, a in zip(card, cpu):                        # inputs unwritten
+        assert torch.equal(c.cpu(), a)
+
+
+@pytest.mark.parametrize("seed", ["fault", 0, 1, *SACK_EDGE_CASES])
+def test_sack_kernels_out_of_range_match_plain(seed):
+    """Both SACK kernels outside the engine's domain: delivering lanes at
+    negative ``pk`` (wrapping once) and beyond ``[-P, P)`` (dropped), and
+    windows before the row's start and past its end (``sack_fault_operands``,
+    ``sack_oob_operands``); flows of size <= 0 whose windows start below
+    ``fsize - 1``, acks past the flow's end and acks within 64 of INT_MAX
+    (``sack_edge_operands``); bitwise against the plain versions."""
+    ops = (sack_fault_operands() if seed == "fault"
+           else sack_edge_operands(seed) if seed in SACK_EDGE_CASES
+           else sack_oob_operands(seed))
+    _sack_kernels_match_plain(ops)
+
+
+@pytest.mark.parametrize("case", sorted(SACK_TILE_CASES))
+def test_sack_kernels_tile_edges_match_plain(case):
+    """``sack_update_scan``'s grid at its edges (``SACK_TILE_CASES``: a row
+    shorter than a tile, one tile, a tile and a byte, rows at every
+    alignment mod 16, windows across tile boundaries and the row's ends, no
+    lanes, no flows, each form of the delivered set, tiles wider than 2,048
+    bytes), and ``sack_advance`` on the same operands: bitwise against the
+    plain versions."""
+    _sack_kernels_match_plain(sack_tile_operands(case))
 
 
 @pytest.mark.parametrize("scheme", ["jsq", "simple_rr", "host_pkt_ar"])

@@ -12,14 +12,16 @@ from repro.core import entropy as r_ent
 from repro.kernels.slot_step import kernel as qk, ref as qr
 
 from repro_torch.kernels.slot_step import ops as t_ops, ref as t_ref
+from repro_torch.kernels.slot_step import kernel as t_kernel
 from repro_torch.kernels.jsq_scan.ref import fma32
 
 from _torch_compare import (AGG_OOB_KW, AGG_PICK_OOB_KW, ENQUEUE_CASES,
-                            PICK_FAULT_KW, agg_case_operands, agg_oob_operands,
+                            PICK_FAULT_KW, SACK_EDGE_CASES, SACK_TILE_CASES,
+                            agg_case_operands, agg_oob_operands,
                             agg_pick_oob_operands, enqueue_operands,
                             pick_fault_operands, pick_oob_operands,
-                            sack_fault_operands, sack_oob_operands,
-                            to_torch)
+                            sack_edge_operands, sack_fault_operands,
+                            sack_oob_operands, sack_tile_operands, to_torch)
 
 ROWS = 3
 QUANTA = (0.05, 0.10, 0.20)
@@ -395,27 +397,111 @@ def test_sack_update_scan_fault_inputs_match_oracle_and_interpret_kernel():
     _same(got, qk.sack_update_scan(*args, interpret=True), 0)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_sack_out_of_range_match_oracle_and_interpret_kernel(seed):
-    """Both SACK kernels outside the engine's domain
-    (``sack_oob_operands``): ``pk`` in ``[-P, -1]``, below ``-P`` and at or
-    past ``P``; windows that start before the row (wrapping once, or
-    clamping after the wrap) and run past its end (clamping)."""
-    ops = sack_oob_operands(seed)
+def _same_sack(ops):
+    """Both SACK functions' plain versions on numpy operands ``ops``
+    (``(p_recv, pk, deliv, f_cum, fsize, pbase)``), bit for bit against the
+    reference's oracles and interpret-mode Pallas kernels, row by row (the
+    oracles alone where a row has no lanes or no flows: the interpreter
+    divides by a block's size).  Returns ``(p_recv', first_missing,
+    advanced f_cum)``."""
+    interpret = min(ops[1].shape[1], ops[3].shape[1]) > 0
     got = t_ops.sack_update_scan(*[to_torch(a) for a in ops])
     adv = t_ops.sack_advance(*[to_torch(a) for i, a in enumerate(ops)
                                if i not in (1, 2)])
     for b in range(ops[0].shape[0]):
         args = [jnp.asarray(a[b]) for a in ops]
         _same(got, qr.sack_update_scan(*args), b)
-        _same(got, qk.sack_update_scan(*args, interpret=True), b)
+        if interpret:
+            _same(got, qk.sack_update_scan(*args, interpret=True), b)
         args = [args[0]] + args[3:]
         _same([adv], [qr.sack_advance(*args)], b)
-        _same([adv], [qk.sack_advance(*args, interpret=True)], b)
+        if interpret:
+            _same([adv], [qk.sack_advance(*args, interpret=True)], b)
+    return got + (adv,)
+
+
+@pytest.mark.parametrize("seed", [0, 1, *SACK_EDGE_CASES])
+def test_sack_out_of_range_match_oracle_and_interpret_kernel(seed):
+    """Both SACK kernels outside the engine's domain
+    (``sack_oob_operands``): ``pk`` in ``[-P, -1]``, below ``-P`` and at or
+    past ``P``; windows that start before the row (wrapping once, or
+    clamping after the wrap) and run past its end (clamping).  And
+    (``sack_edge_operands``) flows of size <= 0 whose windows start below
+    ``fsize - 1``, acks past the flow's end and acks within 64 of INT_MAX,
+    where the candidates and the reads wrap in int32."""
+    if seed in SACK_EDGE_CASES:
+        ops = sack_edge_operands(seed)
+        _, fm, adv = _same_sack(ops)
+        f_cum, fsize = ops[3:5]
+        if seed == "zero_size":
+            assert fm.tolist() == [[-2, -5, -1, -2]]
+            assert adv.tolist() == [[-2, -5, 0, 0]]
+        elif seed == "below_size":
+            assert (f_cum < fsize - 1).all() and (fsize <= 0).all()
+            assert (fm.numpy() != fsize - 1).any()
+        elif seed == "past_size":
+            assert (f_cum > fsize).all()
+            np.testing.assert_array_equal(adv.numpy(), fsize)
+        else:
+            assert (f_cum >= np.iinfo(np.int32).max - 64).all()
+            assert (fm.numpy() < 0).any()           # wrapped candidates
+        return
+    ops = sack_oob_operands(seed)
+    _same_sack(ops)
     p_recv, pk, deliv = ops[:3]
     P = p_recv.shape[1]
     assert (deliv & (pk < 0) & (pk >= -P)).any()
     assert (deliv & (pk < -P)).any() and (deliv & (pk >= P)).any()
+
+
+SMALL_TILE_CASES = [c for c, (_, P, _, _) in SACK_TILE_CASES.items()
+                    if P < 10_000]
+
+
+@pytest.mark.parametrize("case", SMALL_TILE_CASES)
+def test_sack_tile_cases_match_oracle_and_interpret_kernel(case):
+    """The card kernel's grid edges (``SACK_TILE_CASES`` below 10,000
+    packets: a row shorter than a tile, one tile, a tile and a byte, rows at
+    every alignment, no lanes, no flows): the plain versions bit for bit
+    against the reference's oracles and interpret-mode kernels, so that the
+    card tests, which hold the kernels to the plain versions there, hold
+    them to the reference."""
+    ops = sack_tile_operands(case)
+    new_bitmap, fm, _ = _same_sack(ops)
+    B, P, F, M = SACK_TILE_CASES[case]
+    assert new_bitmap.shape == (B, P) and fm.shape == (B, F)
+    if F and M:      # deliveries fill window holes: the set decides the scan
+        hole = ops[2] & ~ops[0][np.arange(B)[:, None],
+                                np.clip(ops[1], 0, P - 1)] & (ops[1] >= 0)
+        assert hole.any()
+
+
+def test_sack_layout_reaches_every_set_form():
+    """``kernel.sack_layout`` on ``SACK_TILE_CASES`` and the k=8 slot's
+    (4, 32,768, M = 640, F = 128): CTAs past the row's last tile, tiles
+    wider than ``SACK_TILE``, flows past the warps of 64 CTAs, the bitset,
+    the table in shared memory and the table in a global scratch all occur;
+    every tile of a row has its CTA, and the shared set fits ``SACK_SMEM``."""
+    seen = set()
+    shapes = [(P, M, F) for _, P, F, M in SACK_TILE_CASES.values()]
+    for P, M, F in shapes + [(32_768, 640, 128)]:
+        tile, ctas, hsize, shared = t_kernel.sack_layout(P, M, F)
+        tiles = -(-P // tile)
+        assert tile % 16 == 0 and tile >= t_kernel.SACK_TILE
+        assert tiles <= ctas <= t_kernel.SACK_MAX_CTAS
+        assert ctas * t_kernel.SACK_WARPS >= F or ctas == t_kernel.SACK_MAX_CTAS
+        assert hsize == 0 or (hsize >= 2 * M and hsize & (hsize - 1) == 0)
+        words = -(-P // 32) if hsize == 0 else hsize
+        assert not shared or 4 * words <= t_kernel.SACK_SMEM
+        seen |= {"past the end"} if ctas > tiles else set()
+        seen |= {"wide"} if tile > t_kernel.SACK_TILE else set()
+        seen |= {"flows loop"} if ctas * t_kernel.SACK_WARPS < F else set()
+        seen.add(("bitset" if hsize == 0 else "table",
+                  "shared" if shared else "global"))
+    assert t_kernel.sack_layout(32_768, 640, 128) == (2048, 16, 0, True)
+    assert seen == {"past the end", "wide", "flows loop",
+                    ("bitset", "shared"), ("table", "shared"),
+                    ("table", "global")}
 
 
 @pytest.mark.parametrize("case", sorted(ENQUEUE_CASES))

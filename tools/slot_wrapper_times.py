@@ -6,10 +6,11 @@ two trees of the port on one card.
 SRC is a directory that holds ``repro_torch`` (default: this checkout's
 ``src``); its kernels are built from its own sources.  The operands are the
 k=8 slot's largest enqueue input (6 rows of 640 lanes and 640 queues,
-195-packet buffers, 4 ports), drawn with numpy from a fixed seed, so two
-trees get the same ones.  For each of ``enqueue``, ``jsq_pick`` and
-``agg_jsq_enqueue`` (through ``ops``, as the engine calls them) it
-measures, in one process:
+195-packet buffers, 4 ports) and its SACK scoreboard (4 rows of 32,768
+packets, 128 flows of 256, 640 lanes), drawn with numpy from a fixed seed,
+so two trees get the same ones.  For each of ``enqueue``, ``jsq_pick``,
+``agg_jsq_enqueue``, ``sack_update_scan`` and ``sack_advance`` (through
+``ops``, as the engine calls them) it measures, in one process:
 
 - ``call_ms``: CUDA events around N back-to-back calls, per call (the
   host's time where the kernel is shorter, as ``chip_smoke.py`` reports);
@@ -17,8 +18,9 @@ measures, in one process:
   synchronize, per call;
 - ``python_us``: the same with the library call replaced by a stub that
   returns 0 (the wrapper's Python part: checks, output tensors, scratch);
-- ``device_ms``: profiler kernel time per call.
+- ``device_ms``: profiler kernel time per call;
 
+and ``launch_floor_device_ms``, the profiler time of a 1-element ``add_``.
 It prints the card's name and power limit, then one JSON line.  It needs a
 CUDA card and exits 2 without one.
 """
@@ -56,6 +58,18 @@ def operands(dev, B=6, M=640, cap=195, h=4, n_aggs=32, seed=0):
              seed_hi=r.integers(0, 2**32, B).astype(np.int64))
     o["avalid"] = o["apk"] >= 0
     o["to_agg"] = o["avalid"] & (r.random((B, M)) < 0.5)
+    # The SACK scoreboard: 4 rows of 128 flows of 256 packets back to back,
+    # acks anywhere in [0, 256], every 4th flow received whole, 640 lanes
+    # delivering half the time.
+    SB, SF, fs = 4, 128, 256
+    o["fsize"] = np.full((SB, SF), fs, np.int32)
+    o["pbase"] = np.broadcast_to(np.arange(SF, dtype=np.int32) * fs,
+                                 (SB, SF))
+    o["f_cum"] = r.integers(0, fs + 1, (SB, SF)).astype(np.int32)
+    o["p_recv"] = r.random((SB, SF * fs)) < 0.8
+    o["p_recv"].reshape(SB, SF, fs)[:, ::4] = True
+    o["spk"] = r.integers(0, SF * fs, (SB, M)).astype(np.int32)
+    o["deliv"] = r.random((SB, M)) < 0.5
     return {k: t(np.ascontiguousarray(v)).to(dev) for k, v in o.items()}
 
 
@@ -69,6 +83,9 @@ CALLS = {
                          "seed_hi"), (77,),
                         dict(site=4, quanta=None, cap=195, ecn_thresh=97,
                              off1=128, h=4)),
+    "sack_update_scan": (("p_recv", "spk", "deliv", "f_cum", "fsize",
+                          "pbase"), (), {}),
+    "sack_advance": (("p_recv", "f_cum", "fsize", "pbase"), (), {}),
 }
 
 
@@ -99,7 +116,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     out = {"tag": args.tag, "src": args.src, "card": card,
-           "shape": [6, 640, 640, 195], "reps": args.reps, "wrappers": {}}
+           "shape": [6, 640, 640, 195], "sack_shape": [4, 32768, 640, 128],
+           "reps": args.reps, "wrappers": {}}
     n = args.reps
     for name, (keys, extra, kw) in CALLS.items():
         fn = getattr(slot_ops, name)
@@ -143,6 +161,17 @@ def main() -> int:
         out["wrappers"][name] = dict(call_ms=call_ms, host_us=host,
                                      python_us=python,
                                      device_ms=dev_us / 200 / 1e3)
+    one = torch.zeros(1, device=dev)
+    for _ in range(20):
+        one.add_(1.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(200):
+            one.add_(1.0)
+        torch.cuda.synchronize()
+    out["launch_floor_device_ms"] = sum(
+        getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
+        if "elementwise_kernel" in e.key) / 200 / 1e3
     print(card)
     print(json.dumps(out))
     return 0
