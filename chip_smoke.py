@@ -45,7 +45,10 @@ Phases, each timed on its own line; any failure exits non-zero:
    outside ``[0, nq)``, on the same edge cases with about half the lanes
    agg-bound and at the k=16 sizes, both picks where the occupancy gather
    leaves the row (``qbase`` negative and past ``nq - h``; the reference's
-   picks ``[0, 1, 3, 3]`` on its fault case), and operands recorded from
+   picks ``[0, 1, 3, 3]`` on its fault case), both picks at the edges of
+   their domain (``PICK_CASES``: 0-1,100 bin edges, slots -1, -2**31 and
+   2**31 + 5, NaN and +-inf scores, all ports tied or dead, 1-400 ports,
+   rows of 2,000-12,300 queues), and operands recorded from
    engine calls at a few slots;
 5. drive the slotted engine's main path on the k=8 fat tree: the 1 MB
    permutation ``permutation(tree, 256, default_rng(1))`` failure-free, and
@@ -632,9 +635,10 @@ def loop_phases(tree, dev, errs, launches, loop_golden):
         # whose point is their queue count (one tile a row, a one-queue
         # last tile) and the wide row at their own sizes.
         from _torch_compare import (
-            AGG_OOB_KW, AGG_PICK_OOB_KW, ENQUEUE_CASES, PICK_FAULT_KW,
-            agg_case_operands, agg_oob_operands, agg_pick_oob_operands,
-            enqueue_operands, pick_fault_operands, pick_oob_operands,
+            AGG_OOB_KW, AGG_PICK_OOB_KW, ENQUEUE_CASES, PICK_CASES,
+            PICK_FAULT_KW, agg_case_operands, agg_oob_operands,
+            agg_pick_case_operands, agg_pick_oob_operands, enqueue_operands,
+            pick_case_operands, pick_fault_operands, pick_oob_operands,
             to_torch)
 
         def on_card(ops):
@@ -696,6 +700,24 @@ def loop_phases(tree, dev, errs, launches, loop_golden):
             slot_check("agg_jsq_enqueue", on_card(ops) + [t],
                        AGG_PICK_OOB_KW, f"out-of-range qbase seed={seed}")
             n_cases += 2
+        # Both picks at the edges of their domain (PICK_CASES): 0, 10, 16
+        # and 1,100 bin edges, the slot -1, -2**31 and 2**31 + 5, NaN and
+        # +-inf scores (the first NaN is the pick), all ports tied or dead,
+        # h = 1-400, choosers not a multiple of a CTA's tile, and rows of
+        # 2,000, 12,285 and 12,300 queues.
+        for case in sorted(PICK_CASES):
+            (*ops, t), kw = pick_case_operands(case)
+            args = on_card(ops) + [t]
+            slot_check("jsq_pick", args, kw, case)
+            (*ops, _), akw = agg_pick_case_operands(case)
+            slot_check("agg_jsq_enqueue", on_card(ops) + [t], akw,
+                       f"{case} (agg)")
+            n_cases += 2
+            if case == "nan_score":
+                check(slot_ops.jsq_pick(*args, **kw).tolist()
+                      == [[1] * 64, [2] * 64, [3] * 64],
+                      "jsq_pick: a NaN score's row does not pick its first "
+                      "NaN")
         # Operands recorded from engine calls, every 100th slot.
         recs = [Recorder(slot_ops, name, lambda a: a[0].numel(),
                          keep_every=100) for name in SLOT_KERNELS]

@@ -22,18 +22,39 @@
 //     same raw aq; where two lanes write one ring cell (targets q and
 //     q - nq) the later lane wins (XLA's sequential scatter).
 //
-// jsq_pick: one thread per (row, chooser), a loop over its h ports.  Per
-// port: the queue length, Threefry-2x32 (20 rounds, native uint32) keyed
-// k0 = seed_lo, k1 = seed_hi ^ ((site << 16) ^ lane), counter c0 = t,
-// c1 = id, the uniform (x0 >> 8) * 2^-24, and the score
+// The JSQ score of a port (both picks): the queue length, Threefry-2x32
+// (20 rounds, native uint32) keyed k0 = seed_lo, k1 = seed_hi ^ ((site <<
+// 16) ^ port), counter c0 = t (the slot as uint32: a negative or >= 2^31
+// slot wraps, as the plain version's _u32_torch does), c1 = id, the uniform
+// (x0 >> 8) * 2^-24, and
 //   JSQ:       fmaf(nz, 1e-3f, len)  -- one rounding, as XLA:CPU contracts
 //              `lens + nz * 1e-3` in the reference's engine;
-//   quantized: #{edges < len} + nz * 0.5 (exact either way);
+//   quantized: #{edges < len} + nz * 0.5 (exact either way), over any
+//              number of edges (none at all is still quantized: nz * 0.5);
 // then + pad_pen and + (dead ? 1e9 : 0), each rounded on its own
-// (__fadd_rn; the file is built with --fmad=false).  A strict `<` keeps the
-// first minimum, as jnp.argmin does.
-// Bound: bytes -- per chooser the h queue lengths and dead flags read and
-// one int written; the 20-round PRF per port is ~200 integer operations.
+// (__fadd_rn; the file is built with --fmad=false).  The first EDGE_ARGS
+// edges come by value in the kernel's arguments (+inf past the last), the
+// rest are read from device memory (every scheme has 3).  The
+// pick is the first minimum in torch.argmin's (and jnp.argmin's) order: the
+// first NaN score if there is one, else the lowest port among equal minima
+// (first_min, before).
+//
+// jsq_pick: one CTA per (row, tile of choosers), a group of G lanes a
+// chooser, G the power of two >= min(h, 32).  Lane j scores ports j, j + G,
+// ... (one port a lane for h <= 32), so a lane runs one Threefry chain, not
+// h; a __shfl_xor_sync reduction over the group picks (score, port) by the
+// rule above, and the group's first lane writes the pick.  A lane's loads
+// (qbase, id, dead flag, penalty) and the occupancy gather it feeds
+// (gather_index) come from device memory while its Threefry chain runs; no
+// shared memory, no barrier.  The engine's (2 rows, 128 choosers, 4 ports,
+// 640-queue rows) makes 2 x 4 CTAs of 128 threads.  (Staging the row in
+// shared memory first tied or lost on the card: tools/slot_wrapper_times.py,
+// PERF.md's PR 20 findings.)
+// Bound: bytes -- per chooser the h dead flags, its qbase and id read and
+// one int written, the row's queues and penalties; the 20-round PRF per
+// port is ~125 integer operations.  At the engine's size the kernel is
+// latency-bound: a launch, two dependent rounds of loads (qbase, then the
+// gather) beside the chain, and a log2(G)-step shuffle.
 //
 // enqueue and agg_jsq_enqueue: one CTA per (row, tile of ENQ_QB = 16
 // queues), owner-computes (enqueue_tile, shared by both kernels; they differ
@@ -131,7 +152,8 @@ namespace {
 
 constexpr uint32_t PARITY = 0x1BD11BDAu;
 constexpr int PICK_THREADS = 128;
-constexpr int MAX_EDGES = 8;
+constexpr int EDGE_ARGS = 8;          // bin edges passed by value
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -170,26 +192,57 @@ __device__ __forceinline__ int add_wrap(int a, int b) {
 }
 
 struct PickArgs {
-  const float* edges;  // quantization bin edges (n_edges of them)
-  int n_edges;
-  uint32_t site_key;   // site << 16
-  uint32_t t;
+  float edge[EDGE_ARGS];  // the first bin edges, +inf past the last
+  const float* tail;      // the others (n_tail), in device memory
+  int n_tail;
+  int quantized;          // 0: plain JSQ
+  uint32_t site_key;      // site << 16
+  uint32_t t;             // the slot, wrapped to uint32
   int h;
-  int nq;              // a row's queues
+  int nq;                 // a row's queues
 };
+
+// The score of one port (the file header's formula), from its queue length,
+// its Threefry word u, its dead flag and its pad penalty.
+__device__ __forceinline__ float port_score(float len, uint32_t u, bool dead,
+                                            float pen, const PickArgs& a) {
+  const float nz = __fmul_rn((float)(u >> 8), 5.9604644775390625e-08f);
+  float score;
+  if (!a.quantized) {
+    score = fmaf(nz, 1e-3f, len);
+  } else {
+    int bins = 0;
+#pragma unroll
+    for (int q = 0; q < EDGE_ARGS; ++q) bins += len > a.edge[q];
+    for (int q = 0; q < a.n_tail; ++q) bins += len > a.tail[q];
+    score = __fadd_rn((float)bins, __fmul_rn(nz, 0.5f));
+  }
+  score = __fadd_rn(score, pen);
+  return __fadd_rn(score, dead ? 1e9f : 0.0f);
+}
+
+// Whether a later port's score s replaces the best so far: a first NaN
+// does, then only a smaller score.
+__device__ __forceinline__ bool first_min(float s, float best) {
+  return isnan(s) ? !isnan(best) : s < best;
+}
+
+// Whether (s, l) comes before (bs, bl) in argmin's order: NaN first, then
+// the smaller score, then the lower port.
+__device__ __forceinline__ bool before(float s, int l, float bs, int bl) {
+  if (isnan(s)) return !isnan(bs) || l < bl;
+  return !isnan(bs) && (s < bs || (s == bs && l < bl));
+}
 
 constexpr int PICK_BATCH = 4;   // ports whose loads and PRFs overlap
 
-// Port of least score for one chooser (first occurrence on ties).  Ports
-// go in batches: a batch's loads are all issued first, and its PRF chains
-// are independent, so neither a load nor a chain waits on another.
+// Port of least score for one chooser, one thread over all h ports (the
+// agg kernel's pick).  Ports go in batches: a batch's loads are all issued
+// first, and its PRF chains are independent, so neither a load nor a chain
+// waits on another.
 __device__ int pick_port(const int32_t* qcnt_row, int qbase, uint32_t id,
                          const uint8_t* dead, const float* pen,
                          uint32_t k0, uint32_t k1_site, const PickArgs& a) {
-  float edge[MAX_EDGES];          // +inf past the last edge
-#pragma unroll
-  for (int q = 0; q < MAX_EDGES; ++q)
-    edge[q] = q < a.n_edges ? a.edges[q] : INFINITY;
   float best = 0.0f;
   int arg = 0;
   for (int l0 = 0; l0 < a.h; l0 += PICK_BATCH) {
@@ -206,19 +259,8 @@ __device__ int pick_port(const int32_t* qcnt_row, int qbase, uint32_t id,
     for (int i = 0; i < PICK_BATCH; ++i) {
       const int l = l0 + i;
       const uint32_t u = threefry_x0(k0, k1_site ^ (uint32_t)l, a.t, id);
-      const float nz = __fmul_rn((float)(u >> 8), 5.9604644775390625e-08f);
-      float score;
-      if (a.n_edges == 0) {
-        score = fmaf(nz, 1e-3f, len[i]);
-      } else {
-        int bins = 0;
-#pragma unroll
-        for (int q = 0; q < MAX_EDGES; ++q) bins += len[i] > edge[q];
-        score = __fadd_rn((float)bins, __fmul_rn(nz, 0.5f));
-      }
-      score = __fadd_rn(score, pl[i]);
-      score = __fadd_rn(score, dl[i] ? 1e9f : 0.0f);
-      if (l < a.h && (l == 0 || score < best)) {
+      const float score = port_score(len[i], u, dl[i], pl[i], a);
+      if (l < a.h && (l == 0 || first_min(score, best))) {
         best = score;
         arg = l;
       }
@@ -227,6 +269,8 @@ __device__ int pick_port(const int32_t* qcnt_row, int qbase, uint32_t id,
   return arg;
 }
 
+// One CTA per (row, tile of PICK_THREADS >> glog choosers), 1 << glog
+// lanes a chooser; the file header's scheme.
 __global__ void __launch_bounds__(PICK_THREADS)
 jsq_pick_kernel(const int32_t* __restrict__ qcnt,
                 const int32_t* __restrict__ qbase,
@@ -234,14 +278,43 @@ jsq_pick_kernel(const int32_t* __restrict__ qcnt,
                 const uint8_t* __restrict__ dead,
                 const float* __restrict__ pad_pen,
                 const int32_t* __restrict__ seed_lo,
-                const int32_t* __restrict__ seed_hi, PickArgs a, int rows,
-                int m, int32_t* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * PICK_THREADS + threadIdx.x;
-  if (i >= (int64_t)rows * m) return;
-  const int64_t b = i / m;
-  out[i] = pick_port(qcnt + b * a.nq, qbase[i], (uint32_t)ids[i],
-                     dead + i * a.h, pad_pen + b * a.h, (uint32_t)seed_lo[b],
-                     (uint32_t)seed_hi[b] ^ a.site_key, a);
+                const int32_t* __restrict__ seed_hi, PickArgs a, int m,
+                int tiles, int glog, int32_t* __restrict__ out) {
+  const int64_t b = blockIdx.x / tiles;
+  const int tid = threadIdx.x, g = 1 << glog, j = tid & (g - 1);
+  const int i = (int)(blockIdx.x % tiles) * (PICK_THREADS >> glog) +
+                (tid >> glog);
+  const int h = a.h, nq = a.nq;
+  const int32_t* occ = qcnt + b * nq;
+  const int64_t li = b * m + (i < m ? i : 0);
+  const int qb = qbase[li];
+  const uint32_t id = (uint32_t)ids[li];
+  const uint32_t k0 = (uint32_t)seed_lo[b];
+  const uint32_t k1 = (uint32_t)seed_hi[b] ^ a.site_key;
+  const uint8_t* dl = dead + li * h;
+  const float* pl = pad_pen + b * h;
+  // A lane without a port (j >= h) holds +inf at port h: any port's score
+  // comes before it.  A lane's first port is taken whatever its score.
+  float best = INFINITY;
+  int arg = h;
+  for (int l = j; l < h; l += g) {   // one port a lane for h <= 32
+    const float s = port_score(
+        (float)occ[gather_index(add_wrap(qb, l), nq)],
+        threefry_x0(k0, k1 ^ (uint32_t)l, a.t, id), dl[l] != 0, pl[l], a);
+    if (l == j || first_min(s, best)) {
+      best = s;
+      arg = l;
+    }
+  }
+  for (int o = g >> 1; o > 0; o >>= 1) {
+    const float s = __shfl_xor_sync(FULL, best, o);
+    const int l = __shfl_xor_sync(FULL, arg, o);
+    if (before(s, l, best, arg)) {
+      best = s;
+      arg = l;
+    }
+  }
+  if (i < m && j == 0) out[li] = arg;
 }
 
 // Floor modulo (torch.remainder, jnp's %) for cap >= 1.
@@ -253,7 +326,6 @@ __device__ __forceinline__ int floor_mod(int x, int cap) {
 constexpr int ENQ_THREADS = 256;
 constexpr int ENQ_WARPS = ENQ_THREADS / 32;
 constexpr int ENQ_QB = 16;      // queues an enqueue CTA owns
-constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ unsigned lanemask_lt() {
   unsigned m;
@@ -722,13 +794,20 @@ sack_advance_kernel(const uint8_t* __restrict__ p_recv,
   out[k] = min(add_wrap(cum, adv), fs);
 }
 
-PickArgs pick_args(const void* edges, int n_edges, int site, int t, int h,
-                   int nq) {
+// The pick's constants: edges (host memory, n_edges floats) gives the
+// first EDGE_ARGS by value, edges_dev (their device copy) the rest.
+PickArgs pick_args(const void* edges, const void* edges_dev, int n_edges,
+                   int quantized, int site, uint32_t t, int h, int nq) {
   PickArgs a;
-  a.edges = static_cast<const float*>(edges);
-  a.n_edges = n_edges;
+  const float* e = static_cast<const float*>(edges);
+  for (int q = 0; q < EDGE_ARGS; ++q)
+    a.edge[q] = q < n_edges ? e[q] : INFINITY;
+  a.n_tail = n_edges > EDGE_ARGS ? n_edges - EDGE_ARGS : 0;
+  a.tail = a.n_tail > 0 ? static_cast<const float*>(edges_dev) + EDGE_ARGS
+                        : nullptr;
+  a.quantized = quantized != 0;
   a.site_key = (uint32_t)site << 16;
-  a.t = (uint32_t)t;
+  a.t = t;
   a.h = h;
   a.nq = nq;
   return a;
@@ -770,26 +849,32 @@ int enq_args(EnqArgs& e, const void* qbuf, const void* qhead,
 extern "C" {
 
 // (rows, m) choosers; qcnt (rows, nq); dead (rows, m, h) uint8; pad_pen
-// (rows, h); seeds (rows,) int32 bit patterns of the uint32 key words;
-// edges holds n_edges floats (0: plain JSQ).  Returns cudaGetLastError().
+// (rows, h); seeds (rows,) int32 bit patterns of the uint32 key words; t
+// the slot as uint32; edges n_edges floats in host memory and edges_dev
+// their device copy (quantized 0: plain JSQ, the edges unused).  Returns
+// cudaGetLastError().
 int slot_jsq_pick(const void* qcnt, const void* qbase, const void* ids,
                   const void* dead, const void* pad_pen, const void* seed_lo,
-                  const void* seed_hi, int t, int site, const void* edges,
-                  int n_edges, int rows, int m, int nq, int h, void* out,
-                  void* stream) {
-  if (h < 1 || rows < 1 || m < 1 || nq < 1 || t < 0 ||
-      n_edges < 0 || n_edges > MAX_EDGES)
+                  const void* seed_hi, uint32_t t, int site, const void* edges,
+                  const void* edges_dev, int n_edges, int quantized, int rows,
+                  int m, int nq, int h, void* out, void* stream) {
+  if (h < 1 || rows < 1 || m < 1 || nq < 1 || n_edges < 0 ||
+      (n_edges > EDGE_ARGS && edges_dev == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int64_t n = (int64_t)rows * m;
-  const int64_t blocks = (n + PICK_THREADS - 1) / PICK_THREADS;
-  jsq_pick_kernel<<<(unsigned)blocks, PICK_THREADS, 0,
+  const PickArgs a =
+      pick_args(edges, edges_dev, n_edges, quantized, site, t, h, nq);
+  int glog = 0;
+  while ((1 << glog) < min(h, 32)) ++glog;
+  const int per = PICK_THREADS >> glog;     // choosers a CTA
+  const int tiles = (m + per - 1) / per;
+  if ((int64_t)rows * tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  jsq_pick_kernel<<<(unsigned)((int64_t)rows * tiles), PICK_THREADS, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(qcnt), static_cast<const int32_t*>(qbase),
       static_cast<const int32_t*>(ids), static_cast<const uint8_t*>(dead),
       static_cast<const float*>(pad_pen),
       static_cast<const int32_t*>(seed_lo),
-      static_cast<const int32_t*>(seed_hi),
-      pick_args(edges, n_edges, site, t, h, nq), rows, m,
+      static_cast<const int32_t*>(seed_hi), a, m, tiles, glog,
       static_cast<int32_t*>(out));
   return (int)cudaGetLastError();
 }
@@ -819,19 +904,20 @@ int slot_enqueue(const void* qbuf, const void* qhead, const void* qcnt,
 
 // slot_enqueue's operands (and scratch) plus to_agg (rows, m) uint8, asw
 // (rows, m), dead (rows, m, h) uint8, pad_pen (rows, h), seeds and the
-// pick's constants; also writes c_fin (rows, m).
+// pick's constants (as slot_jsq_pick's); also writes c_fin (rows, m).
 int slot_agg_jsq_enqueue(const void* qbuf, const void* qhead,
                          const void* qcnt, const void* alive, const void* apk,
                          const void* aq, const void* to_agg, const void* asw,
                          const void* dead, const void* pad_pen,
-                         const void* seed_lo, const void* seed_hi, int t,
-                         int site, const void* edges, int n_edges, int cap,
-                         int ecn_thresh, int off1, int h, int rows, int m,
-                         int nq, void* hash, int hsize, void* qbuf_out,
-                         void* qcnt_out, void* c_fin, void* enq_try,
-                         void* do_enq, void* occ_after, void* marked,
-                         void* stream) {
-  if (h < 1 || m < 1 || t < 0 || n_edges < 0 || n_edges > MAX_EDGES)
+                         const void* seed_lo, const void* seed_hi, uint32_t t,
+                         int site, const void* edges, const void* edges_dev,
+                         int n_edges, int quantized, int cap, int ecn_thresh,
+                         int off1, int h, int rows, int m, int nq, void* hash,
+                         int hsize, void* qbuf_out, void* qcnt_out,
+                         void* c_fin, void* enq_try, void* do_enq,
+                         void* occ_after, void* marked, void* stream) {
+  if (h < 1 || m < 1 || n_edges < 0 ||
+      (n_edges > EDGE_ARGS && edges_dev == nullptr))
     return (int)cudaErrorInvalidValue;
   EnqArgs e;
   const int err = enq_args(e, qbuf, qhead, qcnt, alive, apk, cap, ecn_thresh,
@@ -848,7 +934,7 @@ int slot_agg_jsq_enqueue(const void* qbuf, const void* qhead,
   lanes.qcnt = e.qcnt;
   lanes.c_fin = static_cast<int32_t*>(c_fin);
   lanes.k0 = lanes.k1 = 0;
-  lanes.p = pick_args(edges, n_edges, site, t, h, nq);
+  lanes.p = pick_args(edges, edges_dev, n_edges, quantized, site, t, h, nq);
   lanes.off1 = off1;
   agg_jsq_enqueue_kernel<<<(unsigned)(rows * e.tiles), ENQ_THREADS, 0,
                            static_cast<cudaStream_t>(stream)>>>(

@@ -20,12 +20,12 @@ from .ref import thresholds
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
-MAX_EDGES = 8               # quantization bin edges
+_U32 = ctypes.c_uint32
 SACK_TILE = 2048            # bitmap bytes a sack_update_scan CTA copies
 SACK_WARPS = 8              # its warps, one a flow
 SACK_MAX_CTAS = 64          # its CTAs a row, at most
 SACK_SMEM = 48 * 1024       # shared bytes its delivered set may take
-_EDGES: Dict[Tuple, torch.Tensor] = {}
+_EDGES: Dict[Tuple, Tuple[ctypes.Array, torch.Tensor, int]] = {}
 # The kernels' hash tables, one scratch per (kernel, device, stream): a
 # kernel clears what it uses, and launches on one stream run in order.
 _TABLES: Dict[Tuple[str, int, int], torch.Tensor] = {}
@@ -34,12 +34,13 @@ _TABLES: Dict[Tuple[str, int, int], torch.Tensor] = {}
 def _lib() -> ctypes.CDLL:
     lib = _build.load("slot_step")
     if not getattr(lib, "_typed", False):
-        lib.slot_jsq_pick.argtypes = [_VP] * 7 + [_I, _I, _VP] + [_I] * 5 + [
-            _VP, _VP]
+        lib.slot_jsq_pick.argtypes = ([_VP] * 7 + [_U32, _I, _VP, _VP]
+                                      + [_I] * 6 + [_VP, _VP])
         lib.slot_enqueue.argtypes = ([_VP] * 7 + [_I] * 5 + [_VP, _I]
                                      + [_VP] * 7)
         lib.slot_agg_jsq_enqueue.argtypes = (
-            [_VP] * 12 + [_I, _I, _VP] + [_I] * 8 + [_VP, _I] + [_VP] * 8)
+            [_VP] * 12 + [_U32, _I, _VP, _VP] + [_I] * 9 + [_VP, _I]
+            + [_VP] * 8)
         lib.slot_sack_update_scan.argtypes = ([_VP] * 6 + [_I] * 4
                                               + [ctypes.c_longlong, _I, _I, _I]
                                               + [_VP] * 4)
@@ -52,19 +53,27 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _edges(quanta, cap: int, device) -> Tuple[torch.Tensor, int]:
-    """Device copy of the float32 bin edges (cached per quanta/cap/device);
-    a one-element placeholder and 0 edges for plain JSQ."""
+def _edges(quanta, cap: int, device) -> Tuple[int, torch.Tensor, int, int]:
+    """The float32 bin edges as the pick kernels take them: the address of
+    a host copy (the first ones go into the kernel's arguments), a device
+    copy (the rest are read from it), their count and whether the score is
+    quantized at all (``quanta`` not None, even with no edges).  Cached per
+    quanta/cap/device."""
     key = (quanta, int(cap), str(device))
-    t = _EDGES.get(key)
-    if t is None:
-        vals = [0.0] if quanta is None else thresholds(quanta, cap)
-        t = torch.tensor(vals, dtype=torch.float32, device=device)
-        _EDGES[key] = t
-    n = 0 if quanta is None else len(quanta)
-    if n > MAX_EDGES:
-        raise ValueError(f"slot_step kernels: at most {MAX_EDGES} bin edges")
-    return t, n
+    hit = _EDGES.get(key)
+    if hit is None:
+        vals = [] if quanta is None else thresholds(quanta, cap).tolist()
+        host = (ctypes.c_float * max(len(vals), 1))(*vals)
+        dev = torch.tensor(vals or [0.0], dtype=torch.float32, device=device)
+        hit = _EDGES[key] = (host, dev, len(vals))
+    host, dev, n = hit
+    return ctypes.addressof(host), dev, n, int(quanta is not None)
+
+
+def _slot(t: int) -> int:
+    """The slot as the uint32 counter word of Threefry (a negative or wider
+    slot wraps, as ``core.entropy._u32_torch`` wraps it)."""
+    return int(t) & 0xFFFFFFFF
 
 
 def _u8(x: torch.Tensor) -> torch.Tensor:
@@ -107,15 +116,15 @@ def jsq_pick(qcnt, qbase, ids, dead, pad_pen, seed_lo, seed_hi, t: int, *,
     _check_int32("jsq_pick", qcnt, qbase, ids)
     dead = _u8(dead)
     lo, hi = _seed32(seed_lo), _seed32(seed_hi)
-    edges, n_edges = _edges(quanta, cap, qcnt.device)
+    host, edges, n_edges, quantized = _edges(quanta, cap, qcnt.device)
     check_cuda("jsq_pick", qcnt, qbase, ids, dead, pad_pen, lo, hi, edges)
     out = torch.empty((B, M), dtype=torch.int32, device=qcnt.device)
     with torch.cuda.device(qcnt.device):
         err = _lib().slot_jsq_pick(
             qcnt.data_ptr(), qbase.data_ptr(), ids.data_ptr(),
             dead.data_ptr(), pad_pen.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            int(t), int(site), edges.data_ptr(), n_edges, B, M,
-            qcnt.shape[1], h, out.data_ptr(), _stream(qcnt.device))
+            _slot(t), int(site), host, edges.data_ptr(), n_edges, quantized,
+            B, M, qcnt.shape[1], h, out.data_ptr(), _stream(qcnt.device))
     _check("slot_jsq_pick", err)
     return out
 
@@ -191,7 +200,7 @@ def agg_jsq_enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, to_agg, asw,
     _check_int32("agg_jsq_enqueue", qbuf, qhead, qcnt, apk, aq, asw)
     alive_row, to_agg, dead = _u8(alive_row), _u8(to_agg), _u8(dead)
     lo, hi = _seed32(seed_lo), _seed32(seed_hi)
-    edges, n_edges = _edges(quanta, cap, qbuf.device)
+    host, edges, n_edges, quantized = _edges(quanta, cap, qbuf.device)
     check_cuda("agg_jsq_enqueue", qbuf, qhead, qcnt, alive_row, apk, aq,
                to_agg, asw, dead, pad_pen, lo, hi, edges)
     outs = _enqueue_outs(qbuf, B, M)
@@ -202,9 +211,10 @@ def agg_jsq_enqueue(qbuf, qhead, qcnt, alive_row, apk, aq, to_agg, asw,
             qbuf.data_ptr(), qhead.data_ptr(), qcnt.data_ptr(),
             alive_row.data_ptr(), apk.data_ptr(), aq.data_ptr(),
             to_agg.data_ptr(), asw.data_ptr(), dead.data_ptr(),
-            pad_pen.data_ptr(), lo.data_ptr(), hi.data_ptr(), int(t),
-            int(site), edges.data_ptr(), n_edges, int(cap), int(ecn_thresh),
-            int(off1), int(h), B, M, NQ, table.data_ptr(), hsize,
+            pad_pen.data_ptr(), lo.data_ptr(), hi.data_ptr(), _slot(t),
+            int(site), host, edges.data_ptr(), n_edges, quantized, int(cap),
+            int(ecn_thresh), int(off1), int(h), B, M, NQ, table.data_ptr(),
+            hsize,
             outs[0].data_ptr(),
             outs[1].data_ptr(), c_fin.data_ptr(), *_out_ptrs(outs[2:]),
             _stream(qbuf.device))

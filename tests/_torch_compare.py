@@ -404,3 +404,86 @@ def jsq_walk_grid(seed, B, S, pad, h, quanta=None):
             torch.from_numpy(r.random((B, S, pad, h)).astype(np.float32)),
             pen, None if quanta is None
             else torch.tensor(quanta, dtype=torch.float32) * 40)
+
+
+# The JSQ picks at the edges of their domain: (rows, choosers, queues,
+# ports) and what the case sets.  Every case draws its occupancy in [0, 30)
+# and its first ports in [0, NQ - h]; "t" sets the slot (the counter word of
+# Threefry wraps as uint32), "quanta" the bin edges (cap 30), "pen" the pad
+# penalty row by row, "dead" every port dead (True) or none (False; else
+# 20 % of them).  The CPU tests hold the plain
+# versions to the reference on them, the card tests the CUDA picks to the
+# plain versions.
+PICK_CASES = {
+    "edges_0": (3, 64, 40, 4, dict(quanta=())),      # quantized, no edge
+    "edges_10": (3, 64, 40, 4,
+                 dict(quanta=tuple(np.linspace(0.05, 0.95, 10).tolist()))),
+    "edges_16": (3, 64, 40, 4,
+                 dict(quanta=tuple(np.linspace(0.02, 0.98, 16).tolist()))),
+    # far more edges than the 8 a kernel takes by value (the rest are read
+    # from device memory)
+    "edges_1100": (2, 64, 40, 4,
+                   dict(quanta=tuple(np.linspace(0.0, 1.0, 1100).tolist()))),
+    "t_minus_1": (3, 64, 40, 4, dict(t=-1)),
+    "t_int_min": (3, 64, 40, 4, dict(t=-2**31)),
+    "t_past_int_max": (3, 64, 40, 4, dict(t=2**31 + 5)),
+    # row 0 a NaN at port 1, row 1 at ports 2 and 3, row 2 at the last
+    "nan_score": (3, 64, 40, 4, dict(pen=[[0, np.nan, 0, 0],
+                                          [0, 0, np.nan, np.nan],
+                                          [0, 0, 0, np.nan]])),
+    # +inf and -inf penalties: every port +inf, ties at -inf
+    "inf_score": (3, 64, 40, 4, dict(pen=[[np.inf, 0, -np.inf, 0],
+                                          [np.inf] * 4,
+                                          [-np.inf, -np.inf, 0, 0]])),
+    # every score 1e9 (the noise and the bins round away): port 0
+    "all_tied": (2, 64, 40, 4, dict(pen=[[1e9] * 4] * 2, dead=False,
+                                    quanta=(0.05, 0.10, 0.20))),
+    "all_dead": (2, 64, 40, 4, dict(dead=True)),
+    **{f"ports_{h}": (2, 96, 8 * h + 40, h, {})
+       for h in (1, 2, 3, 5, 8, 31, 32, 33, 64, 100)},
+    # choosers not a multiple of a CTA's tile (32 at h = 3: 77 = 2 x 32 +
+    # 13)
+    "ragged_tile": (3, 77, 40, 3, {}),
+    # rows far wider than their choosers' reads: 2,000 queues for 64
+    # choosers, and rows of about 48 KB of int32 (12,285 and 12,300 queues)
+    # under 9 choosers of 400 ports
+    "sparse_row": (2, 64, 2_000, 4, {}),
+    "wide_row": (2, 9, 12_285, 400, {}),
+    "wider_row": (2, 9, 12_300, 400, {}),
+}
+
+
+def _pick_case(case, seed):
+    B, M, NQ, h, o = PICK_CASES[case]
+    r = np.random.default_rng(seed)
+    dead = r.random((B, M, h)) < 0.2
+    if "dead" in o:
+        dead[:] = o["dead"]
+    pen = np.asarray(o.get("pen", np.zeros((B, h))), np.float32)
+    kw = dict(site=3, quanta=o.get("quanta"), cap=30)
+    t = o.get("t", int(r.integers(0, 4000)))
+    return B, M, NQ, h, r, dead, pen, kw, t
+
+
+def pick_case_operands(case, seed=0):
+    """numpy ``jsq_pick`` operands of a ``PICK_CASES`` entry (as
+    :func:`pick_fault_operands`), its slot ``t`` and the keyword arguments
+    to call it with."""
+    B, M, NQ, h, r, dead, pen, kw, t = _pick_case(case, seed)
+    ops = (r.integers(0, 30, (B, NQ)).astype(np.int32),
+           r.integers(0, NQ - h + 1, (B, M)).astype(np.int32),
+           r.integers(0, 1 << 20, (B, M)).astype(np.int32), dead, pen,
+           r.integers(0, 2**32, B).astype(np.uint32),
+           r.integers(0, 2**32, B).astype(np.uint32))
+    return (*ops, t), kw
+
+
+def agg_pick_case_operands(case, seed=0):
+    """numpy ``agg_jsq_enqueue`` operands of a ``PICK_CASES`` entry (as
+    :func:`agg_case_operands`, 30-packet buffers, about half the valid lanes
+    agg-bound), its slot ``t`` and the keyword arguments to call it with."""
+    B, M, NQ, h, r, dead, pen, kw, t = _pick_case(case, seed)
+    (*ops, _), akw = agg_case_operands("cap_13", seed=seed, rows=B,
+                                       size=(M, NQ, 30), h=h)
+    ops[8], ops[9] = dead, pen
+    return (*ops, t), dict(akw, site=4, quanta=kw["quanta"])

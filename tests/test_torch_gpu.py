@@ -31,12 +31,13 @@ from repro_torch.net.topology import FatTree
 from repro_torch.core import lb_schemes as lbs
 
 from _torch_compare import (AGG_OOB_KW, AGG_PICK_OOB_KW, ENQUEUE_CASES,
-                            PICK_FAULT_KW, agg_case_operands,
-                            agg_oob_operands, agg_pick_oob_operands,
+                            PICK_CASES, PICK_FAULT_KW, agg_case_operands,
+                            agg_oob_operands, agg_pick_case_operands,
+                            agg_pick_oob_operands,
                             assert_same_loop_result, assert_same_result,
                             cuda_or_skip, enqueue_operands, jsq_walk_grid,
-                            pick_fault_operands, pick_oob_operands,
-                            SACK_EDGE_CASES, SACK_TILE_CASES,
+                            pick_case_operands, pick_fault_operands,
+                            pick_oob_operands, SACK_EDGE_CASES, SACK_TILE_CASES,
                             sack_edge_operands, sack_fault_operands,
                             sack_oob_operands, sack_tile_operands, to_torch)
 
@@ -305,6 +306,32 @@ def test_pick_kernels_out_of_range_qbase_match_plain(seed):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("case", sorted(PICK_CASES))
+def test_pick_kernels_domain_cases_match_plain(case):
+    """Both CUDA picks at the edges of their domain (``PICK_CASES``: 0, 10,
+    16 and 1,100 bin edges, the slot -1, -2**31 and 2**31 + 5, NaN and
+    +-inf scores, all ports tied or dead, 1-400 ports, choosers not a
+    multiple of a CTA's tile, rows of 2,000, 12,285 and 12,300 queues),
+    bitwise against the plain versions on the CPU; each call
+    launches its kernel once."""
+    dev = cuda_or_skip()
+    (*ops, t), kw = pick_case_operands(case)
+    (*aops, _), akw = agg_pick_case_operands(case)
+    cpu, acpu = [to_torch(a) for a in ops], [to_torch(a) for a in aops]
+    before = dict(slot_ops.LAUNCHES)
+    got = slot_ops.jsq_pick(*[a.to(dev) for a in cpu], t, **kw)
+    agot = slot_ops.agg_jsq_enqueue(*[a.to(dev) for a in acpu], t, **akw)
+    torch.cuda.synchronize()
+    assert all(slot_ops.LAUNCHES[k] == before[k] + 1
+               for k in ("jsq_pick", "agg_jsq_enqueue"))
+    want = slot_ops.jsq_pick(*cpu, t, **kw)
+    assert torch.equal(got.cpu(), want)
+    for g, w in zip(agot, slot_ops.agg_jsq_enqueue(*acpu, t, **akw)):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    if case == "nan_score":          # the first NaN of each row
+        assert want.tolist() == [[1] * 64, [2] * 64, [3] * 64]
 
 
 def _sack_kernels_match_plain(ops):

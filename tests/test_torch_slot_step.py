@@ -16,15 +16,21 @@ from repro_torch.kernels.slot_step import kernel as t_kernel
 from repro_torch.kernels.jsq_scan.ref import fma32
 
 from _torch_compare import (AGG_OOB_KW, AGG_PICK_OOB_KW, ENQUEUE_CASES,
-                            PICK_FAULT_KW, SACK_EDGE_CASES, SACK_TILE_CASES,
-                            agg_case_operands, agg_oob_operands,
+                            PICK_CASES, PICK_FAULT_KW, SACK_EDGE_CASES,
+                            SACK_TILE_CASES, agg_case_operands,
+                            agg_oob_operands, agg_pick_case_operands,
                             agg_pick_oob_operands, enqueue_operands,
-                            pick_fault_operands, pick_oob_operands,
-                            sack_edge_operands, sack_fault_operands,
+                            pick_case_operands, pick_fault_operands,
+                            pick_oob_operands, sack_edge_operands, sack_fault_operands,
                             sack_oob_operands, sack_tile_operands, to_torch)
 
 ROWS = 3
 QUANTA = (0.05, 0.10, 0.20)
+# More bin edges than the CUDA picks take by value (8), and none at all
+# (a quantized score of noise alone).
+QUANTA_10 = PICK_CASES["edges_10"][4]["quanta"]
+QUANTA_16 = PICK_CASES["edges_16"][4]["quanta"]
+PICK_QUANTA = [None, QUANTA, QUANTA_10, QUANTA_16, ()]
 
 
 def _operands(seed, m=40, h=4, nq=120, cap=12, n_aggs=8, pad_ports=1):
@@ -81,7 +87,7 @@ def _same(port_outs, ref_outs, b):
         np.testing.assert_array_equal(got, r)
 
 
-@pytest.mark.parametrize("quanta", [None, QUANTA])
+@pytest.mark.parametrize("quanta", PICK_QUANTA)
 def test_jsq_pick_matches_oracle_and_interpret_kernel(quanta):
     o = _operands(1)
     kw = dict(site=r_ent.SITE_EDGE_JSQ, quanta=quanta, cap=12)
@@ -134,7 +140,7 @@ def test_enqueue_cases_match_oracle_and_interpret_kernel(case):
         assert bool((do_enq & (aq < 0) & (aq >= -40)).any())
 
 
-@pytest.mark.parametrize("quanta", [None, QUANTA])
+@pytest.mark.parametrize("quanta", PICK_QUANTA)
 def test_agg_jsq_enqueue_matches_oracle_and_interpret_kernel(quanta):
     o = _operands(4)
     kw = dict(site=r_ent.SITE_AGG_JSQ, quanta=quanta, cap=12, ecn_thresh=7,
@@ -518,3 +524,63 @@ def test_agg_jsq_enqueue_cases_match_oracle_and_interpret_kernel(case):
         _same(got, qk.agg_jsq_enqueue(*args, interpret=True, **kw), b)
     to_agg, do_enq = torch.from_numpy(ops[6]), got[4]
     assert bool((do_enq & to_agg).any()) and bool((do_enq & ~to_agg).any())
+
+
+# Cases the reference's Pallas picks do not take: scores that hold a NaN,
+# which they miss (test_reference_pallas_pick_misses_nan), edges too many to
+# unroll in the interpreter, and a slot past INT_MAX (their jitted slot is
+# int32).  The plain versions are held to the oracles alone there.
+ORACLE_ONLY = ("nan_score", "edges_1100", "t_past_int_max")
+
+
+@pytest.mark.parametrize("case", sorted(PICK_CASES))
+def test_pick_cases_match_oracle_and_interpret_kernel(case):
+    """Both picks at the edges of their domain (``PICK_CASES``: 0, 10, 16
+    and 1,100 bin edges, the slot -1, -2**31 and 2**31 + 5, NaN and +-inf
+    scores, all ports tied or dead, 1-400 ports, rows of 2,000-12,300
+    queues): the plain ``jsq_pick`` and
+    ``agg_jsq_enqueue`` bit for bit against the reference's oracles and,
+    but for ``ORACLE_ONLY``, its
+    interpret-mode Pallas kernels.  The pick is the first NaN score, else
+    the first minimum (``torch.argmin``'s and ``jnp.argmin``'s order), and
+    the slot wraps as uint32."""
+    (*ops, t), kw = pick_case_operands(case)
+    got = t_ops.jsq_pick(*[to_torch(a) for a in ops], t, **kw)
+    (*aops, _), akw = agg_pick_case_operands(case)
+    agg = t_ops.agg_jsq_enqueue(*[to_torch(a) for a in aops], t, **akw)
+    for b in range(ops[0].shape[0]):
+        args = [jnp.asarray(a[b]) for a in ops] + [t]
+        _same([got], [qr.jsq_pick(*args, **kw)], b)
+        aargs = [jnp.asarray(a[b]) for a in aops] + [t]
+        _same(agg, qr.agg_jsq_enqueue(*aargs, **akw), b)
+        if case not in ORACLE_ONLY:
+            _same([got], [qk.jsq_pick(*args, interpret=True, **kw)], b)
+            _same(agg, qk.agg_jsq_enqueue(*aargs, interpret=True, **akw), b)
+    g = got.numpy()
+    if case == "nan_score":
+        assert (g == np.array([1, 2, 3])[:, None]).all()
+    elif case == "inf_score":
+        assert (g[0] == 2).all() and (g[1:] == 0).all()
+    elif case in ("all_tied", "all_dead"):
+        assert (g == 0).all()
+    elif case == "t_past_int_max":      # the slot wraps: 2**31 + 5 - 2**32
+        wrapped = t_ops.jsq_pick(*[to_torch(a) for a in ops], t - 2**32, **kw)
+        assert torch.equal(got, wrapped)
+    else:
+        assert g.min() >= 0 and g.max() < ops[4].shape[1]
+
+
+def test_reference_pallas_pick_misses_nan():
+    """A reference-side fault, recorded: the reference's Pallas pick takes
+    the first index whose score equals the row's minimum
+    (``repro/kernels/slot_step/kernel.py:_first_min_index``), and a NaN
+    equals nothing, so a row with a NaN score gets ``h``, a port past the
+    last.  Its oracle (``jnp.argmin``) and the port (``torch.argmin`` and
+    both CUDA picks) give the first NaN."""
+    (*ops, t), kw = pick_case_operands("nan_score")
+    h = ops[4].shape[1]
+    for b in range(ops[0].shape[0]):
+        args = [jnp.asarray(a[b]) for a in ops] + [t]
+        kern = np.asarray(qk.jsq_pick(*args, interpret=True, **kw))
+        assert (kern == h).all()
+        assert (np.asarray(qr.jsq_pick(*args, **kw)) == b + 1).all()
