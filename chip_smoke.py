@@ -13,7 +13,8 @@ Phases, each timed on its own line; any failure exits non-zero:
    tensor-core instruction);
 2. hold each fabric kernel bitwise against its plain PyTorch version on the
    card: ``segmented_cummax`` on random inputs at the engine's sizes and
-   flag densities, ``jsq_scan`` on the grids the k=8 points give it (the
+   flag densities, and with NaNs (which hold to their segment's end, as
+   ``jnp.maximum`` gives them) and int64 flags, ``jsq_scan`` on the grids the k=8 points give it (the
    permutation's edge and agg layers and the all-to-all's edge layer,
    ``jsq`` and ``jsq_quant``; the largest all-to-all agg grid is held to
    the plain version in the timing phase; each grid's longest walked prefix
@@ -85,20 +86,36 @@ Phases, each timed on its own line; any failure exits non-zero:
 9. drive the fast engine on the ``train_iter`` preset's collective phases:
    DeepSeek-V3 671B at ep = dp = 8, two iterations, 8 and 16 packets per
    flow, for its four schemes;
-10. ``attention_vs_plain``: hold both flash-attention kernels to their plain
+10. ``campaign``: the campaign pipeline, through the port's CLI in this
+    process (``repro_torch.sweep.__main__.main`` with an argv, on the
+    card): ``run --preset table2 --k 8 --seeds 0,1`` (28 points, 8 fused
+    fast-engine dispatches) and ``run --preset fig12 --k 8 --seeds 0`` (5
+    SACK points, 4 fused slotted-engine dispatches), each with every
+    kernel's launch count set to 0 just before and read just after (each
+    kernel of its path must have launched).  ``results.jsonl`` must equal
+    ``tests/torch_golden/sweep_k8.json`` (the JAX reference runner on CPU
+    JAX) byte for byte and the trace its spans after ``strip_timing``,
+    apart from the slot-step ``impl`` (``"cuda"`` here); a ``--resume`` of
+    the same ``--out`` must keep the bytes and re-run nothing; ``report``
+    must render.  Each campaign's wall seconds and dispatch seconds are
+    printed;
+11. ``attention_vs_plain``: hold both flash-attention kernels to their plain
     version (bf16: the tensor-core kernel at atol = rtol = 2e-2; float32:
     the CUDA-core kernel at 2e-5; the reference's own tolerances) at Yi-6B's
     heads (32 query heads, 4 KV heads, D = 128) for S = 1-2,048, two query
     tails, D = 32, 64, 96, Zamba2-2.7B's shared block (32 query and 32 KV
-    heads of D = 80), D = 36, 136 and 256, and v of another width than q
-    and k (MLA's 192/128 among them);
-11. ``serve_golden``: Yi-6B at full width, 2 layers, float32 (the float32
+    heads of D = 80), D = 36, 136 and 256, v of another width than q
+    and k (MLA's 192/128 among them), causal with more queries than keys
+    (the first Sq - Sk rows see no key and give the mean of v) on both
+    kernels, and float16 and mixed dtypes (read in float32, the CUDA-core
+    kernel, at 2e-2);
+12. ``serve_golden``: Yi-6B at full width, 2 layers, float32 (the float32
     attention kernel's path: its launch count is set to 0 just before this
-    phase and phase 14 and read just after), with the
+    phase and phase 15 and read just after), with the
     numpy-drawn weights of ``tests/torch_golden/serve_yi6b_l2.json``; two
     prompts (37 and 256 tokens) decoded 4 greedy steps on the card must give
     the golden's tokens and its logits within 1e-3 (CPU JAX made it);
-12. ``serve_main_path``: Yi-6B at full width and depth in bf16, random
+13. ``serve_main_path``: Yi-6B at full width and depth in bf16, random
     weights from a ``torch.Generator`` on the card.  A ``ContinuousBatcher``
     (4 slots of 2,304 positions) answers 8 requests of 13-2,048 prompt
     tokens and 16 new tokens each, and ``greedy_decode`` a batch of two
@@ -109,7 +126,7 @@ Phases, each timed on its own line; any failure exits non-zero:
     logits within 0.1, tokens equal; a differing token passes only where
     the reference run's top-2 margin is under twice that step's logit gap
     (printed);
-13. ``ssd_vs_plain``: hold the SSD chunked-scan kernels (bf16: the
+14. ``ssd_vs_plain``: hold the SSD chunked-scan kernels (bf16: the
     tensor-core walk; float32: the CUDA-core route) to the plain
     ``ssd_chunked``, and the final state they return to the plain
     ``ssd_final_state``, at Zamba2-2.7B's heads (80 of P = 64, N = 64),
@@ -119,19 +136,20 @@ Phases, each timed on its own line; any failure exits non-zero:
     chunks of 1, 16, 32 and 63 (the bf16 walk runs them as 64), a large-decay
     case per head shape (``A * dt`` summing past 100 within a chunk: finite
     and within tolerance), P = 100-128 and N = 200-256 at a requested chunk
-    of 128, and, at L <= 100 in float32, to the sequential ``ssd_scan``
-    too;
-14. ``ssm_serve_golden``: Mamba2-130M at full size and Zamba2-2.7B at full
+    of 128, float16 and mixed dtypes of x, B and C (read in float32, the
+    CUDA-core route, at 2e-2), and, at L <= 100 in float32, to the
+    sequential ``ssd_scan`` too;
+15. ``ssm_serve_golden``: Mamba2-130M at full size and Zamba2-2.7B at full
     width cut to 6 layers (one shared-block application), float32, numpy
     weights, held to ``tests/torch_golden/serve_ssm.json`` (CPU JAX) as
-    phase 11 holds Yi-6B;
-15. ``ssm_serve_main_path``: Zamba2-2.7B at full width and depth in bf16
-    through phase 12's batcher mix, ``greedy_decode`` and checks, with the
+    phase 12 holds Yi-6B;
+16. ``ssm_serve_main_path``: Zamba2-2.7B at full width and depth in bf16
+    through phase 13's batcher mix, ``greedy_decode`` and checks, with the
     ``ssd_scan`` and ``flash_attention`` launch counts set to 0 just before
     and read just after (54 and 9 a prefill, every one on the tensor-core
     kernels); then Mamba2-130M at full size the same way with 4 requests
     (24 ``ssd_scan`` launches a prefill);
-16. time each kernel and its plain version on the largest inputs the main
+17. time each kernel and its plain version on the largest inputs the main
     paths gave it, beside the bound of the card (and, for flash attention,
     one ``scaled_dot_product_attention`` call as the library's time; no
     single PyTorch call computes the SSD scan); the float32 attention kernel
@@ -139,14 +157,14 @@ Phases, each timed on its own line; any failure exits non-zero:
     walk with 32 and with 64 P columns a CTA, and ``jsq_scan`` through both
     walks, beside its longest walked prefix and the device time a walked
     step; and the launch floor, one 1-element ``add_`` timed the same way;
-17. ``serve_profile``: a decode step and a 2,048-token prefill of
+18. ``serve_profile``: a decode step and a 2,048-token prefill of
     Yi-6B, Zamba2-2.7B and Mamba2-130M under ``torch.profiler``: wall
     time, device busy time, idle share, kernel launches, host
     synchronisations and the five device events with the most time (last,
     as a profiler session followed by long unprofiled work left later
     traces short of kernel events).
 
-Every main-path run of phases 3, 5, 7-9, 12 and 15 sets the kernels'
+Every main-path run of phases 3, 5, 7-10, 13 and 16 sets the kernels'
 launch counts to 0 just before it and reads them just after.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
@@ -168,6 +186,8 @@ LOOP_GOLDEN = ROOT / "tests" / "torch_golden" / "loopsim_k8.json"
 SFP_GOLDEN = ROOT / "tests" / "torch_golden" / "sack_faults_phases_k8.json"
 SERVE_GOLDEN = ROOT / "tests" / "torch_golden" / "serve_yi6b_l2.json"
 SSM_GOLDEN = ROOT / "tests" / "torch_golden" / "serve_ssm.json"
+SWEEP_GOLDEN = ROOT / "tests" / "torch_golden" / "sweep_k8.json"
+CAMPAIGN_OUT = ROOT / "build" / "chip_smoke_campaign"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor fp32.
 HBM_BYTES_PER_S = 3.35e12
@@ -202,6 +222,17 @@ TRAIN_LOADS = (8, 16)
 TRAIN_PROP = 12.0            # the train_iter campaign's prop_slots
 CUMMAX_SIZES = (0, 1, 1023, 1025, (1 << 20) + 3, 6_242_304)
 DENSITIES = ("first", 1e-3, 0.5, "all")
+# segmented_cummax with NaNs: the documented case ([1, 5, nan, 2, 7, 3, 0,
+# 9], flags at 0 and 5) and random inputs of these sizes, about 1 % NaN,
+# int64 flags of 0 or 7; each also as 4 rows.
+CUMMAX_NAN_SIZES = (1 << 16, (1 << 20) + 4)
+# The campaign phase: each campaign of the golden and the kernels its path
+# must launch.
+CAMPAIGN_KERNELS = {
+    "table2": ("segmented_cummax", "jsq_scan"),
+    "fig12": ("jsq_pick", "enqueue", "agg_jsq_enqueue", "sack_update_scan",
+              "sack_advance"),
+}
 
 
 def fail(msg: str):
@@ -376,6 +407,22 @@ def sass_check(build):
               f"HGMMA ({min(counts)}-{max(counts)} instructions): it runs on "
               f"wgmma; HMMA in the library: {sass.count('HMMA')}",
               flush=True)
+
+
+def cummax_nan_inputs(case, gen, dev):
+    """(v, int64 flags) on the card: the documented case, or ``case``
+    random values with about 1 % NaN and flags of 0 or 7."""
+    import torch
+    if case == "documented":
+        v = torch.tensor([1, 5, float("nan"), 2, 7, 3, 0, 9])
+        f = torch.zeros(8, dtype=torch.int64)
+        f[[0, 5]] = 1
+        return v.to(dev), f.to(dev)
+    v = torch.randn(case, generator=gen) * 100
+    v[torch.rand(case, generator=gen) < 0.01] = float("nan")
+    f = (torch.rand(case, generator=gen) < 0.02).to(torch.int64) * 7
+    f[0] = 7
+    return v.to(dev), f.to(dev)
 
 
 def jsq_grid(B, S, pad, h, quanta, gen, dev):
@@ -1152,6 +1199,15 @@ ATTN_MIXED = ((1, 16, 16, 300, 300, 192, 128), (2, 4, 2, 37, 37, 48, 32),
               (1, 8, 2, 100, 130, 64, 192), (1, 4, 1, 64, 64, 32, 300))
 # The reference's own tolerances (tests/test_kernels.py:88), atol = rtol.
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# The domain past the models' path: causal with more queries than keys
+# (B, Hq, Hkv, Sq, Sk, D) on both kernels, and float16 and mixed dtypes of
+# (q, k, v) at 2e-2 (read in float32, the CUDA-core kernel).
+ATTN_BLIND = ((1, 2, 1, 160, 128, 16), (1, 32, 4, 300, 100, 128),
+              (1, 8, 2, 1000, 999, 80))
+HALF_MIXED = (("float16",) * 3, ("bfloat16", "float32", "float32"),
+              ("float32", "bfloat16", "float16"))
+ATTN_HALF_SHAPES = ((1, 4, 2, 128, 128, 16), (1, 32, 4, 100, 300, 128))
+HALF_TOL = 2e-2
 # serve_golden: the port in float32 on the card against CPU JAX.  Logits
 # differ only by float32 sums taken in another order (widths up to
 # 11,008); the golden's smallest top-2 margin is 0.0025, more than twice
@@ -1210,6 +1266,8 @@ SSD_WIDE_CHUNK = 128
 # the float32 route as asked), at Zamba2-2.7B's and the grouped heads, L =
 # 301 (ragged), with and without the large decay.
 SSD_SHORT_CHUNKS = (1, 16, 32, 63)
+# float16 and mixed dtypes of (x, B, C), (B, L, H, P, G, N), at HALF_TOL.
+SSD_HALF_SHAPES = ((1, 64, 2, 16, 1, 16), (1, 100, 80, 64, 1, 64))
 
 
 class TimedModel:
@@ -1363,6 +1421,103 @@ def same_tokens(tag, got, want, got_steps, want_steps):
     return len(want), worst
 
 
+def campaign_phase():
+    """campaign: the port's CLI, in this process, on each campaign of
+    SWEEP_GOLDEN (CPU JAX's reference runner); returns {kernel: launches}
+    over both runs.  Every kernel's count is set to 0 just before a run and
+    read just after."""
+    import contextlib
+    import hashlib
+    import io
+    import re
+    import shutil
+    from repro_torch.kernels.jsq_scan import ops as jsq_ops
+    from repro_torch.kernels.lindley import ops as lindley_ops
+    from repro_torch.kernels.slot_step import ops as slot_ops
+    from repro_torch.obs import load_trace, strip_timing
+    from repro_torch.sweep.__main__ import main as sweep_main
+
+    def counts():
+        return {"segmented_cummax": lindley_ops.LAUNCHES,
+                "jsq_scan": jsq_ops.LAUNCHES, **slot_ops.LAUNCHES}
+
+    def zero():
+        lindley_ops.LAUNCHES = jsq_ops.LAUNCHES = 0
+        for name in slot_ops.LAUNCHES:
+            slot_ops.LAUNCHES[name] = 0
+
+    def no_impl(spans):
+        out = []
+        for span in spans:
+            span = {k: v for k, v in span.items() if k != "impl"}
+            if "key" in span:
+                span["key"] = re.sub(r"impl='[a-z]+'", "impl=_", span["key"])
+            out.append(span)
+        return out
+
+    golden = json.loads(SWEEP_GOLDEN.read_text())["campaigns"]
+    launches = {}
+    with Phase("campaign"):
+        for name, want in CAMPAIGN_KERNELS.items():
+            g = golden[name]
+            out = CAMPAIGN_OUT / name
+            shutil.rmtree(out, ignore_errors=True)
+            argv = [str(out) if a == "OUT" else a for a in g["argv"]
+                    if a != "--quiet"] + ["--device", "cuda"]
+            print(f"campaign {name}: python -m repro_torch.sweep "
+                  f"{' '.join(argv)}", flush=True)
+            zero()
+            t0 = time.perf_counter()
+            rc = sweep_main(argv)
+            wall = time.perf_counter() - t0
+            got = counts()
+            check(rc == 0, f"campaign {name}: the CLI returned {rc}")
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+            for k in want:
+                check(got[k] > 0, f"campaign {name}: {k} never launched")
+            text = (out / "results.jsonl").read_text()
+            sha = hashlib.sha256(text.encode()).hexdigest()
+            check(text == g["results"] and sha == g["sha256"],
+                  f"campaign {name}: results.jsonl differs from the golden "
+                  f"(sha256 {sha}, golden {g['sha256']})")
+            spans = load_trace(out / "trace.jsonl")
+            disp = [sp for sp in spans if sp["kind"] == "dispatch"]
+            check(no_impl([strip_timing(sp) for sp in spans])
+                  == no_impl(g["trace"]),
+                  f"campaign {name}: the trace differs from the golden's "
+                  f"apart from impl")
+            check(all(sp.get("impl", "cuda") == "cuda" for sp in disp),
+                  f"campaign {name}: a loop dispatch ran the plain versions")
+            print(f"campaign {name}: {text.count(chr(10))} records == golden "
+                  f"(sha256 {sha[:16]}), trace == golden apart from impl; "
+                  f"wall {wall:.2f} s, {len(disp)} dispatches "
+                  f"{[round(sp['wall_s'], 3) for sp in disp]} s; launches "
+                  f"{got}", flush=True)
+            zero()
+            rc = sweep_main(argv + ["--resume"])
+            check(rc == 0 and (out / "results.jsonl").read_text() == text,
+                  f"campaign {name}: --resume changed results.jsonl")
+            resume = [sp for sp in load_trace(out / "trace.jsonl")
+                      if sp["kind"] == "resume"]
+            check(len(resume) == 1
+                  and resume[0]["dispatches_kept"] == len(disp)
+                  and sum(counts().values()) == 0,
+                  f"campaign {name}: --resume re-ran a dispatch")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = sweep_main(["report", "--trace", str(out / "trace.jsonl"),
+                                 "--results", str(out / "results.jsonl")])
+            rep = buf.getvalue()
+            check(rc == 0 and f"campaign '{name}'" in rep
+                  and "dispatch timeline" in rep and "resume" in rep,
+                  f"campaign {name}: report did not render")
+            print(f"campaign {name}: --resume kept all {len(disp)} "
+                  f"dispatches and the bytes; report rendered "
+                  f"({rep.count(chr(10)) + 1} lines)", flush=True)
+    return launches
+
+
 def attention_phase(dev, errs):
     """attention_vs_plain: the kernel against its plain version on the
     card at ATTN_SHAPES, in float32 and bf16, causal (the path) and, at one
@@ -1399,6 +1554,38 @@ def attention_phase(dev, errs):
                   f"plain (max_abs_err {err})")
             print(f"flash_attention {shape} {dt} causal={causal} "
                   f"({attn_kernel.route(q.dtype, D)}): max_abs_err "
+                  f"{err:.3g} (tolerance atol=rtol={tol})", flush=True)
+        cases = [(s, (dt,) * 3) for s in ATTN_BLIND
+                 for dt in ("float32", "bfloat16")]
+        cases += [(s, dts) for s in ATTN_HALF_SHAPES for dts in HALF_MIXED]
+        for (B, Hq, Hkv, Sq, Sk, D), dts in cases:
+            q, k, v = (torch.randn(s, generator=gen).to(dev, getattr(torch,
+                                                                     dt))
+                       for s, dt in zip(((B, Hq, Sq, D), (B, Hkv, Sk, D),
+                                         (B, Hkv, Sk, D)), dts))
+            cd = attn_kernel.compute_dtype(q, k, v)
+            route = attn_kernel.route(cd, D)
+            before = attn_ops.ROUTE_LAUNCHES[route]
+            got = attn_ops.attention(q, k, v)
+            want = attn_ops.attention(q, k, v, backend="torch")
+            torch.cuda.synchronize()
+            err = max_abs_err(got.float(), want.float())
+            tol = ATTN_TOL[dts[0]] if len(set(dts)) == 1 and dts[0] in \
+                ATTN_TOL else HALF_TOL
+            blind = max(Sq - Sk, 0)
+            mean_v = v.float().mean(dim=2, keepdim=True).repeat_interleave(
+                Hq // Hkv, dim=1).expand(-1, -1, blind, -1)
+            check(attn_ops.ROUTE_LAUNCHES[route] == before + 1
+                  and got.dtype == q.dtype and got.shape == q.shape
+                  and bool(torch.isfinite(got).all())
+                  and torch.allclose(got.float(), want.float(), atol=tol,
+                                     rtol=tol)
+                  and torch.allclose(got[:, :, :blind].float(), mean_v,
+                                     atol=tol, rtol=tol),
+                  f"flash_attention {(B, Hq, Hkv, Sq, Sk, D)} {dts}: kernel "
+                  f"!= plain (max_abs_err {err})")
+            print(f"flash_attention {(B, Hq, Hkv, Sq, Sk, D)} {dts} causal "
+                  f"({route}; {blind} rows see no key): max_abs_err "
                   f"{err:.3g} (tolerance atol=rtol={tol})", flush=True)
 
 
@@ -1831,6 +2018,26 @@ def ssd_phase(dev, errs):
               f"{n_seq} also against the sequential scan; largest "
               f"max_abs_err bf16 {errs['ssd_scan']:.3g}, float32 "
               f"{errs['ssd_scan_f32']:.3g}", flush=True)
+        for shape in SSD_HALF_SHAPES:
+            for dts in HALF_MIXED:
+                x, dt, A, Bm, C = ssd_inputs(*shape, torch.float32, gen, dev)
+                x, Bm, C = (t.to(getattr(torch, d))
+                            for t, d in zip((x, Bm, C), dts))
+                before = ssd_ops.ROUTE_LAUNCHES["cuda_cores"]
+                got = ssd_ops.ssd(x, dt, A, Bm, C)
+                want = ssd_ops.ssd(x, dt, A, Bm, C, backend="torch")
+                torch.cuda.synchronize()
+                err = max_abs_err(got.float(), want.float())
+                check(ssd_ops.ROUTE_LAUNCHES["cuda_cores"] == before + 1
+                      and got.dtype == x.dtype
+                      and bool(torch.isfinite(got).all())
+                      and torch.allclose(got.float(), want.float(),
+                                         atol=HALF_TOL, rtol=HALF_TOL),
+                      f"ssd_scan {shape} {dts}: kernel != plain "
+                      f"(max_abs_err {err})")
+                print(f"ssd_scan {shape} {dts} (cuda_cores, read in "
+                      f"float32): max_abs_err {err:.3g} (tolerance "
+                      f"atol=rtol={HALF_TOL})", flush=True)
 
 
 def ssd_timing(rec, errs, launches, f32_launches):
@@ -1913,7 +2120,8 @@ def main() -> int:
         return 2
     if not ((SRC / "repro_torch").is_dir() and GOLDEN.is_file()
             and LOOP_GOLDEN.is_file() and SFP_GOLDEN.is_file()
-            and SERVE_GOLDEN.is_file() and SSM_GOLDEN.is_file()):
+            and SERVE_GOLDEN.is_file() and SSM_GOLDEN.is_file()
+            and SWEEP_GOLDEN.is_file()):
         print("chip_smoke: run from the root of a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -1972,6 +2180,27 @@ def main() -> int:
         print(f"segmented_cummax: {len(CUMMAX_SIZES) * len(DENSITIES) + 4} "
               f"cases bitwise equal (tolerance: bitwise, max_abs_err 0; max "
               f"is exact in any scan order)", flush=True)
+        n_nan = 0
+        for case in ("documented",) + CUMMAX_NAN_SIZES:
+            v, f = cummax_nan_inputs(case, gen, dev)
+            for vv, ff in ((v, f), (v.view(4, -1), f.view(4, -1))):
+                got = lindley_ops.segmented_cummax(vv, ff)
+                want = lindley_ops.segmented_cummax(vv, ff, backend="torch")
+                torch.cuda.synchronize()
+                nan = torch.isnan(want)
+                check(bool(nan.any()) and torch.equal(torch.isnan(got), nan)
+                      and torch.equal(got[~nan], want[~nan]),
+                      f"segmented_cummax NaN case {case} {tuple(vv.shape)}: "
+                      f"kernel != plain")
+                n_nan += 1
+            if case == "documented":
+                one = lindley_ops.segmented_cummax(v, f).cpu()
+                check(bool(torch.isnan(one[2:5]).all())
+                      and one[:2].tolist() == [1, 5]
+                      and one[5:].tolist() == [3, 3, 9],
+                      f"segmented_cummax: documented NaN case gave {one}")
+        print(f"segmented_cummax NaN: {n_nan} cases equal (NaN positions "
+              f"and every other value bitwise; int64 flags)", flush=True)
         for wl_name, wl in wls.items():
             for scheme in ("jsq", "switch_pkt_ar"):
                 with Recorder(jsq_ops, "jsq_scan", lambda a: a[0].numel(),
@@ -2068,6 +2297,7 @@ def main() -> int:
         tree, dev, errs, launches, json.loads(LOOP_GOLDEN.read_text()))
     sack_recs = dynamic_phases(tree, dev, errs, launches, loop_launches,
                                json.loads(SFP_GOLDEN.read_text()), prop_slots)
+    campaign_launches = campaign_phase()
     attention_phase(dev, errs)
     f32_launches = serve_golden_phase(dev)
     from repro_torch.configs import get_config
@@ -2176,6 +2406,9 @@ def main() -> int:
             ssd_rec, errs, z_launches["ssd_scan"] + m_launches["ssd_scan"],
             ssd_f32_launches)
         for k in kernels:
+            if k["name"] in campaign_launches:
+                k["campaign_launches"] = campaign_launches[k["name"]]
+        for k in kernels:
             print(f"kernel {k['name']}: launches={k['launches']} "
                   f"shape={k['shape']} ms={k['ms']:.4f} "
                   f"device_ms={k['device_ms']} "
@@ -2183,7 +2416,7 @@ def main() -> int:
                   f"library_ms={k['library_ms']}"
                   + "".join(f" {x}={k[x]}" for x in (
                       "device_ms_by_ptile", "walked", "ms_no_tail",
-                      "walk_ns_per_cell") if x in k),
+                      "walk_ns_per_cell", "campaign_launches") if x in k),
                   flush=True)
         # The launch floor: one trivial PyTorch launch (a 1-element add_),
         # timed as the kernels are; a launch-bound kernel's device ms cannot

@@ -12,11 +12,15 @@
 // KV-cache alignment of the reference).  Masked logits are -1e30 and the
 // denominator is floored at 1e-30, as in the reference; the online softmax
 // runs in float32 in the log2 domain.  Unlike the Pallas kernel (which
-// refuses Sk % block_k != 0), the ragged last key tile is masked, so any
-// Sk >= 1 works (causal needs Sq <= Sk), with any depth D >= 1 of q and k
-// and any width Dv >= 1 of v and the output (MLA's Dv != D).  The
-// causal loop stops at the last key tile any query of the block can see
-// (the reference's causal tile skip, kernel.py:36-41), query tiles are
+// refuses Sk % block_k != 0), the ragged last key tile is masked (its
+// padding at -inf, so it weighs nothing in any row), so any Sk >= 1 works,
+// with any depth D >= 1 of q and k and any width Dv >= 1 of v and the output
+// (MLA's Dv != D).  Causal with Sq > Sk puts the first Sq - Sk queries at
+// negative positions: they see no key, every logit of their row is -1e30,
+// and, as in the reference, their output is the mean of v over all Sk keys.
+// The causal loop stops at the last key tile any query of the block can see
+// (the reference's causal tile skip, kernel.py:36-41), except in a block
+// holding such a query, which walks every key tile; query tiles are
 // scheduled heaviest first, and the KV head is h / group (GQA), so the
 // group's query heads read the same K/V tiles, which the 50 MB L2 keeps.
 //
@@ -82,6 +86,7 @@
 #include <cuda.h>          // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -220,12 +225,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (n_dc == 1) stage_t(qb, qss, q0, Sq, 0, D, Qt, QS);
 
+  const int q_first = q_offset + q0;   // the block's earliest query position
   int n_kt = (Sk + BK - 1) / BK;
-  if (causal) {
-    const int q_last = q_offset + min(q0 + BQ, Sq) - 1;  // >= 0: Sq <= Sk
+  if (causal && q_first >= 0) {        // else a row sees no key: walk all
+    const int q_last = q_offset + min(q0 + BQ, Sq) - 1;
     n_kt = min(n_kt, q_last / BK + 1);
   }
-  const int q_first = q_offset + q0;   // the block's earliest query position
 
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
@@ -276,7 +281,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float x = s[i][j] * scale_log2;
         if (edge) {
           const int kpos = k0 + tc * 4 + j;
-          if (kpos >= Sk || (causal && kpos > qpos)) x = NEG;
+          if (kpos >= Sk) x = -INFINITY;
+          else if (causal && kpos > qpos) x = NEG;
         }
         s[i][j] = x;
       }
@@ -647,7 +653,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = qt * TC_QROWS;
   const int q_offset = a.Sk - a.Sq;
   int n_kt = (a.Sk + KB - 1) / KB;
-  if (a.causal) {
+  if (a.causal && q_offset + q0 >= 0) {   // else a row sees no key: walk all
     const int q_last = q_offset + min(q0 + TC_QROWS, a.Sq) - 1;
     n_kt = min(n_kt, q_last / KB + 1);
   }
@@ -709,7 +715,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // (above its diagonal): its arrivals on the empty barrier then never run
     // ahead of the producer into the stage's next round.
     mbar_wait(bar + 8 * (1 + s), phase);
-    if (!(a.causal && k0 > wg_last)) {
+    if (!(a.causal && wg_first >= 0 && k0 > wg_last)) {
       float sc[KB / 2];
       fence_regs(sc);
       wg_fence();
@@ -742,7 +748,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             float x = sc[4 * n + 2 * i + j] * a.scale_log2;
             if (edge) {
               const int key = k0 + 8 * n + 2 * q4 + j;
-              if (key >= a.Sk || (a.causal && key > (i ? qpos_hi : qpos_lo)))
+              if (key >= a.Sk)
+                x = -INFINITY;
+              else if (a.causal && key > (i ? qpos_hi : qpos_lo))
                 x = NEG;
             }
             sc[4 * n + 2 * i + j] = x;
@@ -906,10 +914,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
-bool args_ok(int B, int Hq, int Hkv, int Sq, int Sk, int D, int Dv,
-             int causal) {
-  return B > 0 && D > 0 && Dv > 0 && Hkv > 0 && Hq % Hkv == 0 && Sq > 0 && Sk > 0 &&
-         !(causal && Sq > Sk);
+bool args_ok(int B, int Hq, int Hkv, int Sq, int Sk, int D, int Dv) {
+  return B > 0 && D > 0 && Dv > 0 && Hkv > 0 && Hq % Hkv == 0 && Sq > 0 &&
+         Sk > 0;
 }
 
 }  // namespace
@@ -925,7 +932,7 @@ extern "C" int flash_attention_cuda_cores_fwd(
     int dtype, const void* q, const void* k, const void* v, void* o, int B,
     int Hq, int Hkv, int Sq, int Sk, int D, int Dv, const long long* strides,
     float scale, int causal, void* stream) {
-  if (!args_ok(B, Hq, Hkv, Sq, Sk, D, Dv, causal))
+  if (!args_ok(B, Hq, Hkv, Sq, Sk, D, Dv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -944,7 +951,7 @@ extern "C" int flash_attention_wgmma_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
     int Hkv, int Sq, int Sk, int D, int Dv, const long long* strides,
     float scale, int causal, void* stream) {
-  if (!args_ok(B, Hq, Hkv, Sq, Sk, D, Dv, causal) || D > 256)
+  if (!args_ok(B, Hq, Hkv, Sq, Sk, D, Dv) || D > 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int dpc = (D + 63) / 64;

@@ -9,7 +9,8 @@ stay bitwise those of their plain versions; the attention kernels, held to
 a tolerance, let the compiler contract (:func:`flags`).  A library that is already there is loaded as it is, so
 only the first use after a change pays for ``nvcc``.  :func:`build_all`
 starts one ``nvcc`` per source at once; :func:`load` builds one source if
-needed and returns its ``ctypes.CDLL``.
+needed and returns its ``ctypes.CDLL``.  ``BUILDS`` counts the ``nvcc``
+runs of this process (the sweep runner's compile-cache misses).
 
 Nothing is compiled or loaded at import time: the CPU tests import every
 module of the package on machines with no CUDA toolkit.
@@ -31,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 CONTRACTED = ("flash_attn",)    # sources built without --fmad=false
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+BUILDS = 0
 
 
 def sources() -> List[str]:
@@ -72,10 +74,12 @@ def _start(name: str):
 
 
 def _finish(name: str, job) -> str:
+    global BUILDS
     if job is None:
         return ""
     proc, tmp, out = job
     log, _ = proc.communicate()
+    BUILDS += 1
     (BUILD_DIR / f"{name}.log").write_text(log)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")

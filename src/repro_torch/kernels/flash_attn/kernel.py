@@ -8,6 +8,10 @@ fails.  :func:`route` names the kernel: bf16 with a head dim up to 256 (every
 model of the repo) runs the tensor-core kernel (``wgmma`` + TMA); float32,
 and bf16 with a wider head, the CUDA-core kernel.  Float32 stays off the
 tensor cores on purpose: TF32 would miss the 2e-5 tolerance of the goldens.
+Any other floating dtype, and operands of mixed dtypes, are cast to float32
+(exact for float16 and bf16), as the reference's ``mha`` casts them, and
+take the CUDA-core kernel; the output is cast back to q's dtype
+(:func:`compute_dtype`).  A float32 operand is never rounded to bf16.
 
 The kernels read q, k and v through their (batch, head, position) strides,
 so a (B, H, S, D) view of a (B, S, H, D) tensor needs no copy; the last axis
@@ -47,6 +51,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def compute_dtype(*tensors: torch.Tensor) -> torch.dtype:
+    """The dtype the kernels read: bf16 when every operand is bf16, else
+    float32."""
+    return (torch.bfloat16 if all(t.dtype == torch.bfloat16 for t in tensors)
+            else torch.float32)
+
+
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that takes (dtype, head_dim): ``"wgmma"`` (bf16 tensor
     cores) or ``"cuda_cores"`` (float32 CUDA cores)."""
@@ -76,10 +87,13 @@ def ready_copy(t: torch.Tensor) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q (B, Hq, Sq, D); k (B, Hkv, Sk, D); v (B, Hkv, Sk, Dv), all float32
-    or all bf16 on one CUDA device, ``Hq % Hkv == 0``, ``D, Dv >= 1``,
-    ``Sk >= 1`` and, when causal, ``Sq <= Sk``.  Returns (B, Hq, Sq, Dv) in
-    q's dtype."""
+    """q (B, Hq, Sq, D); k (B, Hkv, Sk, D); v (B, Hkv, Sk, Dv), floating
+    point on one CUDA device, ``Hq % Hkv == 0``, ``D, Dv >= 1``, ``Sk >= 1``.
+    All bf16 or all float32 run as they are; other and mixed dtypes in
+    float32 (:func:`compute_dtype`).  Causal queries are the last Sq
+    positions of the Sk-long context; with ``Sq > Sk`` the first ``Sq - Sk``
+    see no key and give the mean of v.  Returns (B, Hq, Sq, Dv) in q's
+    dtype."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
             or v.shape[:3] != k.shape[:3]:
         raise ValueError("flash_attention kernel: q (B, Hq, Sq, D), k (B, "
@@ -90,14 +104,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != B or Dk != D or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention kernel: q {tuple(q.shape)} does "
                          f"not fit k/v {tuple(k.shape)}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("flash_attention kernel: q, k, v must all be "
-                         "float32 or all bfloat16")
+    if not all(t.is_floating_point() for t in (q, k, v)):
+        raise ValueError("flash_attention kernel: q, k, v must be floating "
+                         "point")
     if D < 1 or Dv < 1:
         raise ValueError("flash_attention kernel: head dims must be >= 1")
-    if Sk == 0 or (causal and Sq > Sk):
-        raise ValueError(f"flash_attention kernel: needs Sk >= 1 and, when "
-                         f"causal, Sq <= Sk (Sq={Sq}, Sk={Sk})")
+    if Sk == 0:
+        raise ValueError("flash_attention kernel: needs Sk >= 1")
+    out_dtype, cd = q.dtype, compute_dtype(q, k, v)
+    if any(t.dtype != cd for t in (q, k, v)):
+        q, k, v = (t if t.dtype == cd else ready_copy(t.to(cd))
+                   for t in (q, k, v))
     dev = q.device
     for t in (q, k, v):
         if not t.is_cuda or t.device != dev:
@@ -129,4 +146,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed ({route(q.dtype, D)}"
                            f" route): cudaError {err}")
-    return out
+    return out if out.dtype == out_dtype else out.to(out_dtype)

@@ -7,7 +7,9 @@ launches a CUDA kernel (``kernel.py``: the tensor-core kernel in bf16, the
 CUDA-core kernel in float32).  ``backend="torch"`` takes the plain
 version's route on any device.  A tensor the kernels cannot read as it
 lies (``kernel.kernel_ready``) is copied first (``kernel.ready_copy``).
-``Dv != Dk`` (MLA, off the dense path) takes the reference's own route to
+float16 and mixed dtypes run in float32 on the CUDA-core kernel, returning
+q's dtype (``kernel.compute_dtype``), as the reference's ``mha`` computes
+them.  ``Dv != Dk`` (MLA, off the dense path) takes the reference's own route to
 ``mha_chunked`` on the plain path (``repro/kernels/flash_attn/ops.py:30-31``)
 and the kernels on CUDA tensors, which take any Dv.  ``LAUNCHES`` counts the
 kernel launches made through this wrapper, and ``ROUTE_LAUNCHES`` the same
@@ -46,5 +48,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = _kernel.flash_attention(q, k, v, causal=causal, scale=scale)
     if out.numel():
         LAUNCHES += 1
-        ROUTE_LAUNCHES[_kernel.route(q.dtype, q.shape[-1])] += 1
+        ROUTE_LAUNCHES[_kernel.route(_kernel.compute_dtype(q, k, v),
+                                     q.shape[-1])] += 1
     return out

@@ -19,7 +19,9 @@ LAUNCHES = 0
 def segmented_cummax(v: torch.Tensor, flags: torch.Tensor,
                      backend: str = "auto") -> torch.Tensor:
     """Running max of ``v`` along the last axis, restarting where ``flags``
-    is set; rows of a batched input are scanned independently."""
+    is nonzero (any flag dtype: cast to bool as the reference casts it);
+    rows of a batched input are scanned independently.  A NaN propagates
+    to its segment's end, as ``jnp.maximum`` does."""
     global LAUNCHES
     if resolve_backend(backend) == "torch" or v.device.type == "cpu":
         return _ref.segmented_cummax(v, flags)
@@ -29,7 +31,7 @@ def segmented_cummax(v: torch.Tensor, flags: torch.Tensor,
         return torch.empty_like(v, dtype=torch.float32)
     shape = v.shape
     v1 = v.to(torch.float32).contiguous().view(-1)
-    f1 = flags.contiguous()
+    f1 = (flags if flags.dtype == torch.bool else flags != 0).contiguous()
     if v.dim() > 1:
         # Rows are independent: a flag at every row start keeps the
         # flattened scan from carrying one row's maximum into the next.

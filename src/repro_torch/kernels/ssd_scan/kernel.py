@@ -9,7 +9,10 @@ tensors on the current stream and raises if a launch fails
 float32 (the goldens' type, where TF32 would miss the 5e-5 tolerance) and
 bf16 with N > 256 the CUDA-core route (three launches: chunk states, the
 state carry across chunks, the chunk outputs).  Both can return the final
-state.
+state.  float16, or x, B and C of mixed dtypes, are cast to float32 (exact
+for float16 and bf16), as the reference's ``ssd_chunked`` casts them, and
+take the float32 route; y is cast back to x's dtype (:func:`compute_dtype`).
+A float32 operand is never rounded to bf16.
 
 The kernel reads x and dt through their (batch, position, head) strides and
 B and C through their (batch, position, group) strides, so the model's
@@ -53,6 +56,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def compute_dtype(x: torch.Tensor, B_mat: torch.Tensor,
+                  C: torch.Tensor) -> torch.dtype:
+    """The dtype the kernels read x, B and C in: bf16 when all three are
+    bf16, else float32."""
+    return (torch.bfloat16 if x.dtype == B_mat.dtype == C.dtype
+            == torch.bfloat16 else torch.float32)
+
+
 def route(dtype: torch.dtype, N: int) -> str:
     """``"wgmma"`` (the bf16 tensor-core walk) or ``"cuda_cores"``."""
     return ("wgmma" if dtype == torch.bfloat16 and N <= WGMMA_MAX_N
@@ -92,12 +103,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B_mat: torch.Tensor, C: torch.Tensor, *,
              chunk: int = 64, final_state: bool = False,
              ptile: Optional[int] = None):
-    """x (B, L, H, P) float32 or bf16; dt (B, L, H) float32; A (H,)
-    float32, contiguous; B_mat, C (B, L, G, N) of x's dtype, ``H % G ==
-    0``; all on one CUDA device; chunk, P and N >= 1.  Returns y (B, L, H,
-    P) in x's dtype, and with ``final_state`` also the state after the last
-    position, (B, H, N, P) float32.  ``ptile`` (32 or 64) overrides the P
-    columns of a tensor-core CTA (:func:`p_tile`)."""
+    """x (B, L, H, P); dt (B, L, H); A (H,); B_mat, C (B, L, G, N),
+    ``H % G == 0``; all floating point on one CUDA device; chunk, P and N
+    >= 1.  x, B and C all bf16 take the tensor-core walk, else they are
+    read in float32 (:func:`compute_dtype`); dt and A are read in float32.
+    Returns y (B, L, H, P) in x's dtype, and with ``final_state`` also the
+    state after the last position, (B, H, N, P) float32.  ``ptile`` (32 or
+    64) overrides the P columns of a tensor-core CTA (:func:`p_tile`)."""
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B_mat.dim() != 4 \
             or C.shape != B_mat.shape:
         raise ValueError("ssd_scan kernel: x (B, L, H, P), dt (B, L, H), "
@@ -109,12 +121,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_scan kernel: shapes x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B/C "
                          f"{tuple(B_mat.shape)} do not fit")
-    if x.dtype not in _DTYPES or B_mat.dtype != x.dtype \
-            or C.dtype != x.dtype:
-        raise ValueError("ssd_scan kernel: x, B and C must all be float32 "
-                         "or all bfloat16")
-    if dt.dtype != torch.float32 or A.dtype != torch.float32:
-        raise ValueError("ssd_scan kernel: dt and A must be float32")
+    if not all(t.is_floating_point() for t in (x, dt, A, B_mat, C)):
+        raise ValueError("ssd_scan kernel: x, dt, A, B and C must be "
+                         "floating point")
+    out_dtype, cd = x.dtype, compute_dtype(x, B_mat, C)
+    x, B_mat, C = (t if t.dtype == cd else t.to(cd) for t in (x, B_mat, C))
+    dt, A = dt.float(), A.float().contiguous()
     if chunk < 1 or P < 1 or N < 1:
         raise ValueError(f"ssd_scan kernel: needs chunk, P and N >= 1 "
                          f"(chunk={chunk}, P={P}, N={N})")
@@ -135,7 +147,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     hfin = (torch.empty((Bsz, H, N, P), dtype=torch.float32, device=dev)
             if final_state else None)
     if y.numel() == 0:
-        y = y[..., :P]
+        y = y[..., :P].to(out_dtype)
         return (y, hfin.zero_()) if final_state else y
     if which == "wgmma":
         x, B_mat, C = _tma_ready(x), _tma_ready(B_mat), _tma_ready(C)
@@ -170,4 +182,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            f"{err}")
     if Py != P:
         y = y[..., :P]
+    if y.dtype != out_dtype:
+        y = y.to(out_dtype)
     return (y, hfin) if final_state else y

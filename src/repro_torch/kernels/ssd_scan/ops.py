@@ -6,6 +6,9 @@ tensors and runs the chunked plain version (``ref.ssd_chunked``, on zero-
 padded inputs) on CPU tensors; ``torch`` runs the chunked plain version on
 any device.  There is no fallback from the kernel to the plain version.
 The kernel masks a ragged last chunk itself, so its inputs are not padded.
+float16 and mixed dtypes run in float32 on the CUDA-core route, returning
+x's dtype (``kernel.compute_dtype``), as the reference's ``ssd_chunked``
+computes them.
 ``final_state=True`` also returns the state after the last position (the
 kernel's own on CUDA tensors, ``ref.ssd_final_state`` on the plain path),
 which prefill hands to decode.
@@ -47,5 +50,6 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            chunk=chunk, final_state=final_state)
     if x.numel():
         LAUNCHES += 1
-        ROUTE_LAUNCHES[_kernel.route(x.dtype, B_mat.shape[3])] += 1
+        ROUTE_LAUNCHES[_kernel.route(_kernel.compute_dtype(x, B_mat, C),
+                                     B_mat.shape[3])] += 1
     return out

@@ -1,7 +1,21 @@
 """Shared checks for the differential tests of the PyTorch port."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
+
+
+@contextlib.contextmanager
+def one_jax_device():
+    """Run the JAX reference as on a one-device host (the suite's conftest
+    splits the CPU in two): its spans' shard counts and device fields then
+    count what the port's CPU runs count.  Imports JAX only when used."""
+    import jax
+    real = jax.devices
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "devices", lambda *a, **k: real(*a, **k)[:1])
+        yield
 
 
 def to_torch(a) -> torch.Tensor:

@@ -164,7 +164,8 @@ def test_attention_routes_like_the_reference_cpu_path(backend, monkeypatch):
 
 
 def test_kernel_wrapper_refuses_what_it_cannot_take():
-    """Malformed input only: every head dim >= 1 is taken."""
+    """Malformed input only: every head dim >= 1, causal Sq > Sk and every
+    floating dtype are taken."""
     q = torch.zeros(1, 4, 8, 32)
     k = torch.zeros(1, 2, 8, 32)
     with pytest.raises(ValueError, match="CUDA"):
@@ -172,10 +173,16 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="CUDA"):
         pk.flash_attention(torch.zeros(1, 4, 8, 36), torch.zeros(1, 2, 8, 36),
                            torch.zeros(1, 2, 8, 36))
-    with pytest.raises(ValueError, match="Sq <= Sk"):
+    # causal Sq > Sk, float16 and mixed dtypes are taken: they reach the
+    # device check
+    with pytest.raises(ValueError, match="CUDA"):
         pk.flash_attention(torch.zeros(1, 4, 9, 32), k, k)
-    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+    with pytest.raises(ValueError, match="CUDA"):
         pk.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="CUDA"):
+        pk.flash_attention(q.bfloat16(), k, k)
+    with pytest.raises(ValueError, match="floating point"):
+        pk.flash_attention(q.int(), k, k)
     with pytest.raises(ValueError, match="fit"):
         pk.flash_attention(torch.zeros(1, 3, 8, 32), k, k)
     with pytest.raises(ValueError, match="head dim"):
@@ -198,3 +205,46 @@ def test_kernel_route_and_ready_copy(D):
     c = pk.ready_copy(t)
     assert pk.kernel_ready(c) and torch.equal(c, t)
     assert c.stride(-2) == -(-D // 8) * 8
+
+
+def test_causal_more_queries_than_keys_matches_reference():
+    """Causal with Sq > Sk: the first Sq - Sk queries sit at negative
+    positions, see no key and give the mean of v (every logit -1e30);
+    the port's plain path against ``mha``, the Pallas kernel in interpret
+    mode and ``ops.attention(backend="xla")``, float32 at 2e-5."""
+    q, k, v = _inputs((1, 2, 1, 160, 128, 16), 21)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    got = po.attention(*map(torch.from_numpy, (q, k, v)), causal=True)
+    assert torch.isfinite(got).all()
+    for want in (ref_mha(jq, jk, jv, causal=True),
+                 fk.flash_attention(jq, jk, jv, causal=True, interpret=True),
+                 fo.attention(jq, jk, jv, causal=True, backend="xla")):
+        _close(got, want, 2e-5)
+    mean_v = torch.from_numpy(v[0, 0].mean(0))
+    for h in range(2):
+        _close(got[0, h, :32], mean_v.expand(32, 16).numpy(), 2e-5)
+
+
+@pytest.mark.parametrize("dtypes", [("float16",) * 3,
+                                    ("bfloat16", "float32", "float32"),
+                                    ("float32", "bfloat16", "float16")],
+                         ids=["float16", "bf16_q", "mixed3"])
+def test_half_and_mixed_dtypes_match_reference(dtypes):
+    """float16 and mixed dtypes compute in float32 from the inputs' own
+    values and return q's dtype, as the reference's ``mha`` and (for
+    float16) its Pallas kernel in interpret mode do; at 2e-2."""
+    arrs = _inputs((1, 4, 2, 128, 128, 16), 22)
+    jdt = {"float16": jnp.float16, "bfloat16": jnp.bfloat16,
+           "float32": jnp.float32}
+    tdt = {"float16": torch.float16, "bfloat16": torch.bfloat16,
+           "float32": torch.float32}
+    j = [jnp.asarray(a, jdt[d]) for a, d in zip(arrs, dtypes)]
+    t = [torch.from_numpy(a).to(tdt[d]) for a, d in zip(arrs, dtypes)]
+    got = po.attention(*t)
+    assert got.dtype == tdt[dtypes[0]]
+    want = fr.mha(*j)
+    assert want.dtype == jdt[dtypes[0]]
+    _close(got, want, 2e-2)
+    if len(set(dtypes)) == 1:
+        _close(got, fk.flash_attention(*j, causal=True, interpret=True),
+               2e-2)

@@ -840,3 +840,113 @@ def test_ssm_serving_on_card_matches_cpu(arch):
         done[str(d)] = {rid: q.out for rid, q in
                         cb.run_to_completion(max_ticks=200).items()}
     assert done["cpu"] == done[str(dev)]
+
+
+# ---- the wrappers' domain: NaN and any flag dtype (cummax), causal Sq > Sk,
+# float16 and mixed dtypes (attention and SSD) ------------------------------
+
+def _nan_cummax_inputs(case):
+    if case == "documented":
+        v = torch.tensor([1, 5, float("nan"), 2, 7, 3, 0, 9])
+        f = torch.zeros(8, dtype=torch.int64)
+        f[[0, 5]] = 1
+        return v, f
+    g = torch.Generator().manual_seed(case)
+    n = 1 << 16
+    v = torch.randn(n, generator=g) * 100
+    v[torch.rand(n, generator=g) < 0.01] = float("nan")
+    f = (torch.rand(n, generator=g) < 0.02).to(torch.int64) * 7
+    return v, f
+
+
+@pytest.mark.parametrize("case", ["documented", 0, 1], ids=str)
+def test_segmented_cummax_kernel_nan_and_int64_flags_match_plain(case):
+    """NaN holds to its segment's end (jnp.maximum's rule; CUDA's fmaxf
+    alone drops it), int64 flags count where nonzero; also as 4 rows."""
+    dev = cuda_or_skip()
+    v, f = _nan_cummax_inputs(case)
+    outs = []
+    for vv, ff in ((v, f), (v.view(4, -1), f.view(4, -1))):
+        want = lindley_ops.segmented_cummax(vv, ff)
+        got = lindley_ops.segmented_cummax(vv.to(dev), ff.to(dev)).cpu()
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   equal_nan=True)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        outs.append(got)
+    if case == "documented":
+        got = outs[0]
+        assert torch.isnan(got[2:5]).all() and got[5:].tolist() == [3, 3, 9]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(1, 2, 1, 160, 128, 16),
+                                   (1, 32, 4, 300, 100, 128),
+                                   (2, 4, 4, 129, 1, 32),
+                                   (1, 8, 2, 1000, 999, 80)], ids=str)
+def test_flash_attention_kernel_causal_more_queries_than_keys(shape, dtype):
+    """Causal with Sq > Sk: rows at negative positions see no key and give
+    the mean of v, on both routes."""
+    dev = cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _attn_inputs(shape, dtype, dev, sum(shape))
+    route = "wgmma" if dtype == torch.bfloat16 else "cuda_cores"
+    before = attn_ops.ROUTE_LAUNCHES[route]
+    got = attn_ops.attention(q, k, v)
+    want = attn_ops.attention(q, k, v, backend="torch")
+    torch.cuda.synchronize()
+    assert attn_ops.ROUTE_LAUNCHES[route] == before + 1
+    assert bool(torch.isfinite(got).all())
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    n_blind = shape[3] - shape[4]
+    mean_v = v.float().mean(dim=2, keepdim=True).repeat_interleave(
+        shape[1] // shape[2], dim=1)
+    torch.testing.assert_close(got[:, :, :n_blind].float(),
+                               mean_v.expand(-1, -1, n_blind, -1),
+                               atol=tol, rtol=tol)
+
+
+HALF_MIXED = [(torch.float16,) * 3,
+              (torch.bfloat16, torch.float32, torch.float32),
+              (torch.float32, torch.bfloat16, torch.float16)]
+
+
+@pytest.mark.parametrize("dtypes", HALF_MIXED, ids=["float16", "bf16_first",
+                                                    "mixed3"])
+@pytest.mark.parametrize("shape", [(1, 4, 2, 128, 128, 16),
+                                   (1, 32, 4, 100, 300, 128)], ids=str)
+def test_flash_attention_kernel_half_and_mixed_dtypes(shape, dtypes):
+    """Read in float32 (exact), the CUDA-core kernel, q's dtype out."""
+    dev = cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = (t.to(d) for t, d in zip(
+        _attn_inputs(shape, torch.float32, dev, sum(shape)), dtypes))
+    before = attn_ops.ROUTE_LAUNCHES["cuda_cores"]
+    got = attn_ops.attention(q, k, v)
+    want = attn_ops.attention(q, k, v, backend="torch")
+    torch.cuda.synchronize()
+    assert attn_ops.ROUTE_LAUNCHES["cuda_cores"] == before + 1
+    assert got.dtype == dtypes[0] and want.dtype == dtypes[0]
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtypes", HALF_MIXED, ids=["float16", "bf16_x",
+                                                    "mixed3"])
+@pytest.mark.parametrize("shape", [(1, 64, 2, 16, 1, 16),
+                                   (1, 100, 80, 64, 1, 64)], ids=str)
+def test_ssd_kernel_half_and_mixed_dtypes(shape, dtypes):
+    """x, B, C in float16 or mixed dtypes: read in float32 (exact), the
+    CUDA-core route, x's dtype out."""
+    dev = cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, dt, A, Bm, C = _ssd_inputs(shape, torch.float32, dev, sum(shape))
+    x, Bm, C = (t.to(d) for t, d in zip((x, Bm, C), dtypes))
+    before = ssd_ops.ROUTE_LAUNCHES["cuda_cores"]
+    got = ssd_ops.ssd(x, dt, A, Bm, C)
+    want = ssd_ops.ssd(x, dt, A, Bm, C, backend="torch")
+    torch.cuda.synchronize()
+    assert ssd_ops.ROUTE_LAUNCHES["cuda_cores"] == before + 1
+    assert got.dtype == dtypes[0] and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)

@@ -63,7 +63,18 @@ def test_port_imports_without_jax_or_reference():
                      "repro_torch.models._params",
                      "repro_torch.models.mamba2",
                      "repro_torch.models.hybrid",
-                     "repro_torch.interop"):
+                     "repro_torch.interop",
+                     "repro_torch.core.retry",
+                     "repro_torch.obs.log",
+                     "repro_torch.obs.trace",
+                     "repro_torch.obs.report",
+                     "repro_torch.sweep.spec",
+                     "repro_torch.sweep.planner",
+                     "repro_torch.sweep.costmodel",
+                     "repro_torch.sweep.results",
+                     "repro_torch.sweep.compile_cache",
+                     "repro_torch.sweep.runner",
+                     "repro_torch.sweep.__main__"):
             assert name in names, name
         print(len(names))
     """)
@@ -71,7 +82,7 @@ def test_port_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 69
+    assert int(out.stdout.strip()) >= 81
 
 
 def test_entry_points_raise_without_a_card():

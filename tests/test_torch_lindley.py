@@ -87,3 +87,40 @@ def test_lindley_departures_match_reference():
                                                      jnp.asarray(seg)))
     got = ops.lindley_departures(torch.from_numpy(a), torch.from_numpy(seg))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _nan_inputs(seed, n=4000):
+    """Random values with about 1 % NaN and int64 flags (0, 1 and 7)."""
+    rng = np.random.default_rng(seed)
+    v = (rng.standard_normal(n) * 100).astype(np.float32)
+    v[rng.random(n) < 0.01] = np.nan
+    f = np.where(rng.random(n) < 0.02, rng.choice([1, 7], n), 0)
+    f[0] = 1
+    return v, f.astype(np.int64)
+
+
+@pytest.mark.parametrize("case", ["documented", "seed0", "seed1"])
+def test_nan_propagates_and_flags_of_any_dtype(case):
+    """NaN holds from its position to its segment's end, as jnp.maximum
+    gives it, and int64 flags count where nonzero (the reference casts
+    them to bool): the port's wrapper against the oracle and the Pallas
+    kernel in interpret mode, bitwise (NaN positions included)."""
+    if case == "documented":
+        v = np.array([1, 5, np.nan, 2, 7, 3, 0, 9], np.float32)
+        f = np.zeros(8, np.int64)
+        f[[0, 5]] = 1
+    else:
+        v, f = _nan_inputs(int(case[-1]))
+    got = ops.segmented_cummax(torch.from_numpy(v), torch.from_numpy(f))
+    oracle = np.asarray(ref_lindley.segmented_cummax(jnp.asarray(v),
+                                                     jnp.asarray(f, bool)))
+    pallas = np.asarray(ref_kernel.segmented_cummax(
+        jnp.asarray(v), jnp.asarray(f.astype(np.int32)), interpret=True))
+    np.testing.assert_array_equal(got.numpy(), oracle)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    if case == "documented":
+        np.testing.assert_array_equal(
+            got.numpy(), np.array([1, 5, np.nan, np.nan, np.nan, 3, 3, 9],
+                                  np.float32))
+    else:
+        assert np.isnan(oracle).any() and not np.isnan(oracle).all()

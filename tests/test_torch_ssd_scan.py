@@ -195,15 +195,18 @@ def test_bf16_inputs_return_bf16():
 
 def test_kernel_wrapper_checks_its_inputs():
     """The CUDA wrapper refuses what the kernel does not take before it
-    builds or launches anything: CPU tensors, mixed dtypes, float32-only
-    dt, mismatched shapes, an empty chunk, head dim or state."""
+    builds or launches anything: CPU tensors, integer inputs, mismatched
+    shapes, an empty chunk, head dim or state.  Mixed dtypes and a float64
+    dt are taken: they reach the device check."""
     _, (x, dt, A, Bm, C) = _both((1, 8, 4, 16, 2, 16), 0)
     with pytest.raises(ValueError, match="CUDA"):
         ssd_kernel.ssd_scan(x, dt, A, Bm, C)
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(ValueError, match="CUDA"):
         ssd_kernel.ssd_scan(x, dt, A, Bm.bfloat16(), C)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="CUDA"):
         ssd_kernel.ssd_scan(x, dt.double(), A, Bm, C)
+    with pytest.raises(ValueError, match="floating point"):
+        ssd_kernel.ssd_scan(x, dt, A, Bm.int(), C)
     with pytest.raises(ValueError, match="chunk"):
         ssd_kernel.ssd_scan(x, dt, A, Bm, C, chunk=0)
     with pytest.raises(ValueError, match="shapes"):
@@ -213,3 +216,31 @@ def test_kernel_wrapper_checks_its_inputs():
         ssd_kernel.ssd_scan(x, dt, A, empty, empty)
     with pytest.raises(ValueError, match="backend"):
         ssd_ops.ssd(x, dt, A, Bm, C, backend="pallas")
+
+
+@pytest.mark.parametrize("dtypes", [("float16",) * 3,
+                                    ("bfloat16", "float32", "float32"),
+                                    ("float32", "float16", "bfloat16")],
+                         ids=["float16", "bf16_x", "mixed3"])
+def test_half_and_mixed_dtypes_match_reference(dtypes):
+    """x, B and C in float16 or mixed dtypes compute in float32 from the
+    inputs' own values and return x's dtype, as the reference's
+    ``ssd_chunked`` does (its Pallas kernel does not run here); at 2e-2."""
+    shape = (1, 64, 2, 16, 1, 16)
+    x, dt, A, Bm, C = _inputs(shape, 12)
+    jdt = {"float16": jnp.float16, "bfloat16": jnp.bfloat16,
+           "float32": jnp.float32}
+    tdt = {"float16": torch.float16, "bfloat16": torch.bfloat16,
+           "float32": torch.float32}
+    dx, dB, dC = dtypes
+    got = ssd_ops.ssd(torch.from_numpy(x).to(tdt[dx]), torch.from_numpy(dt),
+                      torch.from_numpy(A), torch.from_numpy(Bm).to(tdt[dB]),
+                      torch.from_numpy(C).to(tdt[dC]))
+    assert got.dtype == tdt[dx]
+    want = jref.ssd_chunked(jnp.asarray(x, jdt[dx]), jnp.asarray(dt),
+                            jnp.asarray(A), jnp.asarray(Bm, jdt[dB]),
+                            jnp.asarray(C, jdt[dC]))
+    assert want.dtype == jdt[dx]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=2e-2,
+                               rtol=2e-2)
