@@ -107,8 +107,12 @@ Phases, each timed on its own line; any failure exits non-zero:
     heads of D = 80), D = 36, 136 and 256, v of another width than q
     and k (MLA's 192/128 among them), causal with more queries than keys
     (the first Sq - Sk rows see no key and give the mean of v) on both
-    kernels, and float16 and mixed dtypes (read in float32, the CUDA-core
-    kernel, at 2e-2);
+    kernels, float16 and mixed dtypes (read in float32, the CUDA-core
+    kernel, at 2e-2), and the zoo's shapes (``ATTN_ZOO``): MLA's prefill
+    (128 heads, Dk 192, Dv 128), Whisper's encoder (1,500 ragged keys, not
+    causal) and cross attention (1 and 37 queries against 1,500 keys, not
+    causal), LLaVA-NeXT-34B's 2,980-position prefill, Qwen3-MoE's
+    2,048-token prefill and Phi-3-mini's D = 96;
 12. ``serve_golden``: Yi-6B at full width, 2 layers, float32 (the float32
     attention kernel's path: its launch count is set to 0 just before this
     phase and phase 15 and read just after), with the
@@ -156,7 +160,9 @@ Phases, each timed on its own line; any failure exits non-zero:
     and the float32 SSD route are timed on those inputs in float32, the SSD
     walk with 32 and with 64 P columns a CTA, and ``jsq_scan`` through both
     walks, beside its longest walked prefix and the device time a walked
-    step; and the launch floor, one 1-element ``add_`` timed the same way;
+    step; the launch floor, one 1-element ``add_`` timed the same way; and
+    the bf16 attention kernel at each ``ATTN_ZOO`` shape (random inputs)
+    beside its plain version, its bound and one SDPA call;
 18. ``serve_profile``: a decode step and a 2,048-token prefill of
     Yi-6B, Zamba2-2.7B and Mamba2-130M under ``torch.profiler``: wall
     time, device busy time, idle share, kernel launches, host
@@ -164,7 +170,30 @@ Phases, each timed on its own line; any failure exits non-zero:
     as a profiler session followed by long unprofiled work left later
     traces short of kernel events).
 
-Every main-path run of phases 3, 5, 7-10, 13 and 16 sets the kernels'
+19. ``zoo_serve_golden``: the rest of the zoo at full width in float32,
+    numpy weights, held to the CPU JAX goldens of
+    ``tests/torch_golden/make_zoo_golden.py`` as phase 12 holds Yi-6B:
+    Qwen3-MoE-30B-A3B cut to 2 layers (128 experts, top 8, the dense
+    oracle), DeepSeek-V3 cut to one MLA layer with the dense MLP,
+    LLaVA-NeXT-34B cut to 2 layers after 2,880 vision embeds, and
+    Whisper-small whole with 1,500 frames;
+20. ``zoo_serve_main_path``: each of those families in bf16 at full width,
+    random weights, through phase 13's batcher, ``greedy_decode`` and
+    checks (kernel path vs plain path within 0.1, batcher == solo), with
+    the flash-attention launch count set to 0 just before and read just
+    after: Qwen3-MoE-30B-A3B at full depth (48 layers, 30.5 B parameters;
+    ``SERVE_LENS``), DeepSeek-V3 cut to its 3 dense layers and 1 MoE layer
+    (15.1 B parameters; prompts of 13-511 tokens), LLaVA-NeXT-34B cut to 20
+    of its 60 layers (``greedy_decode`` with 2,880 vision embeds before
+    100-token prompts, at the token embeddings' scale), Whisper-small whole
+    (``greedy_decode`` with 1,500 frames; its cross attention launches the
+    kernel each decode step); after LLaVA, ``zoo_vlm_float32_anchor``: the
+    same 20 layers prefilled after 2,880 unit-normal vision embeds through
+    the kernel path, the plain path and the plain path in float32 (the
+    weights upcast), the kernel path no further from float32 than the plain
+    path plus 0.1.
+
+Every main-path run of phases 3, 5, 7-10, 13, 16 and 20 sets the kernels'
 launch counts to 0 just before it and reads them just after.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
@@ -1232,6 +1261,46 @@ GREEDY_BATCH = (2, 100)          # greedy_decode: 2 prompts of 100 tokens
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
 # Mamba2-130M's main path: fewer requests than Zamba2-2.7B's SERVE_LENS.
 MAMBA_LENS = (13, 511, 2048, 37)
+# The rest of the zoo (float32 goldens of tests/torch_golden/
+# make_zoo_golden.py, then bf16 main paths at full width).  DeepSeek-V3
+# keeps its prompts at 512 tokens or fewer (each MoE layer's dense oracle
+# holds (T, 256, 7,168) outputs in float32) and its depth at its three
+# dense layers and one MoE layer; LLaVA-NeXT-34B is cut to LLAVA_LAYERS of
+# its 60 layers and takes its 2,880 vision embeds in greedy_decode;
+# Whisper-small runs whole with its 1,500 frames in greedy_decode.
+ZOO_GOLDENS = tuple(ROOT / "tests" / "torch_golden" / n for n in (
+    "serve_moe_l2.json", "serve_mla_l1.json", "serve_vlm_l2.json",
+    "serve_encdec.json"))
+DEEPSEEK_LAYERS = 4
+DEEPSEEK_LENS = (13, 100, 511, 37)
+LLAVA_LAYERS = 20
+ZOO_LENS = (13, 100, 511, 37)
+# LLaVA's vision embeds in its bf16 main path are normals times
+# vocab ** -0.5: projected by vision_proj (fan-in scaled), each position
+# then enters the residual stream at the token embeddings' scale.  Unit
+# normals, as the float32 golden draws them, put the 2,880 vision positions
+# at about 50x the tokens' RMS, and bf16 rounding then moves the tokens'
+# logits in both bf16 paths: that case is held to a float32 run of the
+# same weights in phase zoo_vlm_float32_anchor.
+# flash_attention at the zoo's shapes, (label, (B, Hq, Hkv, Sq, Sk, D, Dv),
+# causal): held to the plain version in attention_vs_plain and timed in
+# the timing phase.  MLA's prefill (128 heads, Dk 192, Dv 128), Whisper's
+# encoder (1,500 ragged keys, not causal) and its cross attention (one
+# decode query a row, and a 37-token prefill, against 1,500 keys),
+# LLaVA's prefill after 2,880 vision embeds, Qwen3-MoE's 2,048-token
+# prefill and Phi-3-mini's head dim of 96 (the dense config no main path
+# runs).
+ATTN_ZOO = (
+    ("mla_prefill_511", (1, 128, 128, 511, 511, 192, 128), True),
+    ("mla_prefill_13", (1, 128, 128, 13, 13, 192, 128), True),
+    ("whisper_encoder", (1, 12, 12, 1500, 1500, 64, 64), False),
+    ("whisper_cross_decode", (2, 12, 12, 1, 1500, 64, 64), False),
+    ("whisper_cross_prefill", (1, 12, 12, 37, 1500, 64, 64), False),
+    ("llava_prefill", (1, 56, 8, 2980, 2980, 128, 128), True),
+    ("qwen3_moe_prefill", (1, 32, 4, 2048, 2048, 128, 128), True),
+    ("phi3_d96_prefill", (1, 32, 32, 2048, 2048, 96, 96), True),
+    ("phi3_d96_decode", (1, 32, 32, 1, 2048, 96, 96), True),
+)
 
 
 def _flash_wrapper():
@@ -1270,6 +1339,83 @@ SSD_SHORT_CHUNKS = (1, 16, 32, 63)
 SSD_HALF_SHAPES = ((1, 64, 2, 16, 1, 16), (1, 100, 80, 64, 1, 64))
 
 
+class RouteLog:
+    """Records every MoE routing (``repro_torch.models.moe.route``) while
+    active, in call order: (the experts it chose (T, k), the float32 router
+    logits (T, E), the experts it used), kept on the card.  A model with n MoE layers routes n
+    times a prefill or decode step.  With ``replay`` (another run's calls,
+    in order) each call routes to that run's experts instead, gated by this
+    run's own probabilities at them (renormalised as ``route`` does), and
+    records the experts it would have chosen: two runs of one input then
+    follow the same experts, so that a near tie in the top k, which bf16
+    sums taken in another order can flip, does not turn a small difference
+    into another expert's output."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.calls, self.moe, self.real = [], moe, moe.route
+
+        def recording(x2d, router, k):
+            gates, own = self.real(x2d, router, k)
+            logits = x2d.float() @ router
+            if self.replay is None:
+                self.calls.append((own.clone(), logits, own))
+                return gates, own
+            idx = self.replay[len(self.calls)][2]
+            self.calls.append((own.clone(), logits, idx))
+            gates = torch.softmax(logits, dim=-1).gather(1, idx)
+            return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), idx
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+        return False
+
+
+def moe_layers(cfg) -> int:
+    from repro_torch.models import transformer
+    if not cfg.n_experts:
+        return 0
+    return transformer.section_layers(cfg).get("moe", 0)
+
+
+def replayed_ties(tag, replayed, own, n_moe, got_toks, want_toks):
+    """Check every expert choice that a replaying run (RouteLog ``own``
+    calls) would have made otherwise than the run it replayed
+    (``replayed``): the choice must sit at a near tie, its k-th and
+    (k+1)-th router logits in ``own`` closer than twice the most any of
+    that token's router logits moved between the runs, and that move at
+    most BF16_LOGIT_ATOL; else a defect.  A decode step of a batch row is
+    checked only while both runs fed the row the same tokens (each row's
+    greedy tokens in ``got_toks``/``want_toks``).  Returns the number of
+    near ties replayed."""
+    ties = 0
+    for c, ((_, gl, gi), (wi, wl, _)) in enumerate(zip(replayed, own)):
+        step, layer = divmod(c, n_moe)
+        k, T = wi.shape[1], wi.shape[0]
+        batch = len(got_toks)
+        diff = (gi.sort(-1).values != wi.sort(-1).values).any(-1)
+        for t in diff.nonzero().flatten().tolist():
+            row, pos = divmod(t, T // batch)
+            if list(got_toks[row][:step]) != list(want_toks[row][:step]):
+                continue                      # fed other tokens
+            top = wl[t].topk(k + 1).values
+            gap = float(top[k - 1] - top[k])
+            moved = float((gl[t] - wl[t]).abs().max())
+            check(moved <= BF16_LOGIT_ATOL and gap < 2 * moved,
+                  f"{tag}: step {step} row {row} position {pos} chose other "
+                  f"experts in MoE layer {layer} at a router-logit gap of "
+                  f"{gap:.5f} (logits moved by {moved:.5f}; a near tie needs "
+                  f"gap < 2 x moved, moved <= {BF16_LOGIT_ATOL})")
+            ties += 1
+    return ties
+
+
 class TimedModel:
     """A ``Model`` whose prefill and decode calls are timed on the host
     clock between two device synchronisations (the batcher and
@@ -1285,6 +1431,9 @@ class TimedModel:
         self.prefills, self.decodes = [], []
         self.batcher = None
         self.steps, self.free = {}, []
+        # MoE models: each request's routing, per call (RouteLog calls)
+        self.n_moe = moe_layers(model.cfg)
+        self.routes = {}
 
     def cache_shapes(self, batch, max_len):
         return self.model.cache_shapes(batch, max_len)
@@ -1293,12 +1442,16 @@ class TimedModel:
         return self.model.cache_batch_axes()
 
     def _timed(self, fn, log, size, *args):
+        import contextlib
         import torch
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fn(*args)
+        with (RouteLog() if self.n_moe and self.batcher is not None
+              else contextlib.nullcontext()) as rl:
+            out = fn(*args)
         torch.cuda.synchronize()
         log.append((size, (time.perf_counter() - t0) * 1e3))
+        self.last_routes = rl.calls if rl is not None else []
         return out
 
     def _keep(self, logits, rids):
@@ -1312,6 +1465,11 @@ class TimedModel:
               "TimedModel: a decode group does not match the batcher's slots")
         for row, rid in enumerate(rids):
             self.steps.setdefault(rid, []).append(last[row])
+            T = logits.shape[0] * logits.shape[1]
+            n = T // len(rids)
+            self.routes.setdefault(rid, []).extend(
+                tuple(a[row * n:(row + 1) * n] for a in call)
+                for call in self.last_routes)
 
     def prefill(self, params, batch, cache):
         logits, cache = self._timed(self.model.prefill, self.prefills,
@@ -1371,21 +1529,27 @@ def profile_window(fn, reps: int):
     return wall / reps, busy, launches / reps, syncs / reps, top
 
 
-def decode_trace(model, params, prompt, n_new, dev):
-    """Greedy decoding as ``serve_step.greedy_decode`` does it, keeping the
-    prefill's logits at every position and each step's last-position
-    logits: (tokens (B, n_new), prefill logits (B, S, V), [step logits
-    (B, V)])."""
+def decode_trace(model, params, prompt, n_new, dev, extra=None):
+    """Greedy decoding as ``serve_step.greedy_decode`` does it (``extra``
+    its ``extra_batch``: vision embeds shift the cache and the decode index
+    by their positions), keeping the prefill's logits at every position and
+    each step's last-position logits: (tokens (B, n_new), prefill logits
+    (B, S, V), [step logits (B, V)])."""
     import torch
     from repro_torch.serve import serve_step
     prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
     B, S = prompt.shape
-    cache = serve_step.zero_cache(model, B, S + n_new, dev)
-    full, cache = model.prefill(params, {"tokens": prompt}, cache)
+    n_front = 0
+    if extra and "vision_embeds" in extra:
+        n_front = extra["vision_embeds"].shape[1]
+    cache = serve_step.zero_cache(model, B, n_front + S + n_new, dev)
+    batch = {"tokens": prompt, **(extra or {})}
+    full, cache = model.prefill(params, batch, cache)
     steps = [full[:, -1].to(torch.float32, copy=True)]
     toks = [steps[-1].argmax(-1, keepdim=True).to(torch.int32)]
     for i in range(n_new - 1):
-        logits, cache = model.decode_step(params, toks[-1], cache, S + i)
+        logits, cache = model.decode_step(params, toks[-1], cache,
+                                          n_front + S + i)
         steps.append(logits[:, -1].to(torch.float32, copy=True))
         toks.append(steps[-1].argmax(-1, keepdim=True).to(torch.int32))
     return torch.cat(toks, dim=1), full, steps
@@ -1396,14 +1560,15 @@ def top2_margin(logits) -> float:
     return float((top[..., 0] - top[..., 1]).min())
 
 
-def same_tokens(tag, got, want, got_steps, want_steps):
-    """Compare two greedy runs step by step.  Each step's largest logit gap
-    between the runs must be within BF16_LOGIT_ATOL; a differing token
-    passes only where ``want``'s top-2 margin is under twice that step's
-    gap (printed; the rest of the row is then not compared, as the runs'
-    inputs differ from there).  Returns (steps compared, largest gap)."""
+def same_tokens(tag, got, want, got_steps, want_steps, limit=None):
+    """Compare two greedy runs step by step (the first ``limit`` steps:
+    route_stops' stop).  Each step's largest logit gap between the runs
+    must be within BF16_LOGIT_ATOL; a differing token passes only where
+    ``want``'s top-2 margin is under twice that step's gap (printed; the
+    rest of the row is then not compared, as the runs' inputs differ from
+    there).  Returns (steps compared, largest gap)."""
     worst = 0.0
-    for i, (a, b) in enumerate(zip(got, want)):
+    for i, (a, b) in enumerate(zip(got[:limit], want[:limit])):
         gap = max_abs_err(got_steps[i], want_steps[i])
         worst = max(worst, gap)
         check(gap <= BF16_LOGIT_ATOL,
@@ -1418,7 +1583,7 @@ def same_tokens(tag, got, want, got_steps, want_steps):
                   f"top-2 margin {margin:.4f} < 2 x the step's logit gap "
                   f"{gap:.4f}; not compared further", flush=True)
             return i, worst
-    return len(want), worst
+    return len(want[:limit]), worst
 
 
 def campaign_phase():
@@ -1555,6 +1720,30 @@ def attention_phase(dev, errs):
             print(f"flash_attention {shape} {dt} causal={causal} "
                   f"({attn_kernel.route(q.dtype, D)}): max_abs_err "
                   f"{err:.3g} (tolerance atol=rtol={tol})", flush=True)
+        for label, shape, causal in ATTN_ZOO:
+            for dt in ("float32", "bfloat16"):
+                B, Hq, Hkv, Sq, Sk, D, Dv = shape
+                q, k, v = (torch.randn(sh, generator=gen).to(
+                    dev, getattr(torch, dt)) for sh in (
+                        (B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, Dv)))
+                got = attn_ops.attention(q, k, v, causal=causal)
+                want = attn_ops.attention(q, k, v, causal=causal,
+                                          backend="torch")
+                torch.cuda.synchronize()
+                err = max_abs_err(got.float(), want.float())
+                key = ("flash_attention" if dt == "bfloat16"
+                       else "flash_attention_f32")
+                errs[key] = max(errs[key], err)
+                tol = ATTN_TOL[dt]
+                check(got.dtype == q.dtype and got.shape == (B, Hq, Sq, Dv)
+                      and torch.allclose(got.float(), want.float(), atol=tol,
+                                         rtol=tol),
+                      f"flash_attention {label} {shape} {dt} causal="
+                      f"{causal}: kernel != plain (max_abs_err {err})")
+                print(f"flash_attention {label} {shape} {dt} causal={causal} "
+                      f"({attn_kernel.route(q.dtype, D)}): max_abs_err "
+                      f"{err:.3g} (tolerance atol=rtol={tol})", flush=True)
+                del q, k, v, got, want
         cases = [(s, (dt,) * 3) for s in ATTN_BLIND
                  for dt in ("float32", "bfloat16")]
         cases += [(s, dts) for s in ATTN_HALF_SHAPES for dts in HALF_MIXED]
@@ -1598,10 +1787,11 @@ def golden_runs(tag, rec, model, params, dev):
     from repro_torch.serve import serve_step
     ids = torch.tensor(rec["fixed_ids"], device=dev)
     worst = 0.0
+    extra = front_input(rec.get("front"), dev)
     for run in rec["runs"]:
         prompt = np.asarray(run["prompt"], np.int32)[None]
         toks, _, steps = decode_trace(model, params, prompt, rec["n_new"],
-                                      dev)
+                                      dev, extra)
         toks = toks[0].tolist()
         for i, (st, step) in enumerate(zip(steps, run["steps"])):
             st = st[0]
@@ -1618,7 +1808,7 @@ def golden_runs(tag, rec, model, params, dev):
               f"{tag} prompt {prompt.shape[1]}: tokens {toks} != golden "
               f"{run['tokens']}")
         solo = serve_step.greedy_decode(model, params, prompt, rec["n_new"],
-                                        device=dev)
+                                        device=dev, extra_batch=extra)
         check(solo[0].tolist() == toks,
               f"{tag}: greedy_decode != the traced decode")
         print(f"{tag} prompt {prompt.shape[1]}: tokens {toks} == golden; "
@@ -1627,17 +1817,30 @@ def golden_runs(tag, rec, model, params, dev):
               f"{[round(s['margin'], 5) for s in run['steps']]}", flush=True)
 
 
+def front_input(spec, dev):
+    """The frontend input of a golden record (``make_zoo_golden.py``:
+    numpy normals from its seed, on the card) as an ``extra_batch``, or
+    None."""
+    import numpy as np
+    import torch
+    if spec is None:
+        return None
+    x = np.random.default_rng(spec["seed"]).standard_normal(
+        (1, spec["n"], spec["width"]), dtype=np.float32)
+    return {spec["key"]: torch.from_numpy(x).to(dev)}
+
+
 def golden_model(rec, dev):
     """(model, parameters) of a golden record: its architecture cut to its
-    layers and dtype, with ``numpy_reference_params(cfg, param_seed)``
-    carried to the card."""
+    layers (and the record's other ``cut`` fields) and dtype, with
+    ``numpy_reference_params(cfg, param_seed)`` carried to the card."""
     import dataclasses as dc
     from repro_torch.configs import get_config
     from repro_torch.interop import (numpy_reference_params,
                                      params_from_reference)
     from repro_torch.models.registry import Model
-    cfg = dc.replace(get_config(rec["arch"]), n_layers=rec["n_layers"],
-                     dtype=rec["dtype"])
+    cut = rec.get("cut") or {"n_layers": rec["n_layers"]}
+    cfg = dc.replace(get_config(rec["arch"]), dtype=rec["dtype"], **cut)
     t0 = time.perf_counter()
     params = params_from_reference(
         cfg, numpy_reference_params(cfg, rec["param_seed"]), dev)
@@ -1695,25 +1898,214 @@ def ssm_golden_phase(dev):
     return n, n_ssd
 
 
-def serve_main_phase(dev, phase, arch, lens, greedy_batch, kernels):
-    """A serving main path: ``arch`` at full width and depth in its dtype,
-    random weights from a torch.Generator on the card.  A ContinuousBatcher
-    (SERVE_SLOTS slots of SERVE_MAX_LEN positions) answers one request a
-    prompt length of ``lens`` (SERVE_NEW new tokens each) and
-    greedy_decode a batch of ``greedy_batch`` prompts, with the launch
-    counts of ``kernels`` ({name: launches per prefill}) set to 0 just
-    before and read just after.  Then each request is decoded alone through
-    the kernel path and through the plain path (``backend="torch"``).
-    Returns (launches, {name: recorder of the wrapper's calls}, a function
-    that profiles a decode step and the longest prefill; it holds the
-    weights)."""
+def zoo_golden_phase(dev):
+    """zoo_serve_golden: the MoE, MLA, VLM and enc-dec goldens
+    (ZOO_GOLDENS: Qwen3-MoE-30B-A3B at 2 layers, DeepSeek-V3 at one MLA
+    layer with the dense MLP, LLaVA-NeXT-34B at 2 layers with 2,880 vision
+    embeds, Whisper-small whole with 1,500 frames; full width, float32,
+    numpy weights), held to CPU JAX as serve_golden holds Yi-6B.  Returns
+    the float32 attention kernel's launches, counted from 0."""
+    import torch
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    with Phase("zoo_serve_golden"):
+        attn_ops.ROUTE_LAUNCHES["cuda_cores"] = 0
+        for path in ZOO_GOLDENS:
+            rec = json.loads(path.read_text())
+            model, params = golden_model(rec, dev)
+            golden_runs(f"zoo_serve_golden {rec['arch']} {rec['cut']}", rec,
+                        model, params, dev)
+            del params
+            torch.cuda.empty_cache()
+        n = attn_ops.ROUTE_LAUNCHES["cuda_cores"]
+        check(n > 0, "zoo_serve_golden: the float32 attention kernel never "
+              "ran")
+        print(f"zoo_serve_golden: float32 attention kernel launched {n} "
+              f"times", flush=True)
+    return n
+
+
+def zoo_phases(dev):
+    """The rest of the zoo on the card: the float32 goldens, then each
+    family's bf16 main path at full width (serve_main_phase).  Returns
+    (float32 attention launches of the goldens, bf16 attention launches of
+    the main paths)."""
+    import torch
+    from repro_torch.configs import get_config
+    n_f32 = zoo_golden_phase(dev)
+    qcfg, wcfg = get_config("qwen3-moe-30b-a3b"), get_config("whisper-small")
+    lcfg = get_config("llava-next-34b")
+    runs = (
+        ("zoo_serve_main_path qwen3-moe-30b-a3b", qcfg.name, SERVE_LENS,
+         {"flash_attention": qcfg.n_layers}, None, None),
+        ("zoo_serve_main_path deepseek-v3-671b", "deepseek-v3-671b",
+         DEEPSEEK_LENS, {"flash_attention": DEEPSEEK_LAYERS},
+         {"n_layers": DEEPSEEK_LAYERS}, None),
+        # Vision embeds at the token embeddings' scale (LLAVA_LAYERS' note).
+        ("zoo_serve_main_path llava-next-34b", lcfg.name, ZOO_LENS,
+         {"flash_attention": LLAVA_LAYERS}, {"n_layers": LLAVA_LAYERS},
+         ("vision_embeds", lcfg.n_frontend_tokens, lcfg.vocab ** -0.5)),
+        # Whisper: a prefill's decoder self-attention and cross attention
+        # a layer, the encoder's a layer more with frames, the cross
+        # attention a layer each decode step.
+        ("zoo_serve_main_path whisper-small", wcfg.name, ZOO_LENS,
+         {"flash_attention": (2 * wcfg.n_layers, wcfg.n_layers,
+                              wcfg.n_encoder_layers)},
+         None, ("frames", wcfg.n_frontend_tokens, 1.0)),
+    )
+    n_bf16 = 0
+    for phase, arch, lens, kernels, cut, front in runs:
+        # [0]: the profile function holds the weights; drop it at once
+        launches = serve_main_phase(dev, phase, arch, lens, GREEDY_BATCH,
+                                    kernels, cut, front)[0]
+        torch.cuda.empty_cache()
+        n_bf16 += launches["flash_attention"]
+        if arch == lcfg.name:
+            vlm_float32_anchor(dev)
+            torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    return n_f32, n_bf16
+
+
+def vlm_float32_anchor(dev):
+    """zoo_vlm_float32_anchor: LLaVA-NeXT-34B at full width cut to
+    LLAVA_LAYERS, the main path's bf16 random weights, prefilled with
+    2,880 unit-normal vision embeds (rounded to bf16 for all three runs)
+    before two 100-token prompts through the kernel path and the plain path,
+    then through the plain path with the same weights upcast (exactly) to
+    float32.  At the token positions each bf16 path's largest logit gap to
+    the float32 run is printed, and the kernel path's may exceed the plain
+    path's by at most BF16_LOGIT_ATOL: the kernel adds no more than the
+    tolerance every phase holds it to."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import Model
+    cfg = dc.replace(get_config("llava-next-34b"), n_layers=LLAVA_LAYERS)
+    with Phase("zoo_vlm_float32_anchor"):
+        params = Model(cfg).init_params(
+            torch.Generator(device=dev).manual_seed(0), device=dev)
+        rng = np.random.default_rng(4)
+        pair = rng.integers(0, cfg.vocab, GREEDY_BATCH).astype(np.int32)
+        n_front = cfg.n_frontend_tokens
+        ve = torch.from_numpy(rng.standard_normal(
+            (GREEDY_BATCH[0], n_front, cfg.frontend_dim), dtype=np.float32))
+        extra = {"vision_embeds": ve.to(dev, torch.bfloat16).float()}
+        logits = {}
+        for name, c, backend in (("kernel", cfg, "auto"),
+                                 ("plain", cfg, "torch"),
+                                 ("float32", dc.replace(cfg, dtype="float32"),
+                                  "torch")):
+            if name == "float32":
+                for t in params.parameters():
+                    t.data = t.data.float()
+                torch.cuda.empty_cache()
+            _, full, _ = decode_trace(Model(c, backend=backend), params, pair,
+                                      1, dev, extra)
+            logits[name] = full[:, n_front:].float()
+            check(bool(torch.isfinite(logits[name]).all()),
+                  f"zoo_vlm_float32_anchor: non-finite {name} logits")
+            del full
+        del params
+        err_k = max_abs_err(logits["kernel"], logits["float32"])
+        err_p = max_abs_err(logits["plain"], logits["float32"])
+        gap = max_abs_err(logits["kernel"], logits["plain"])
+        print(f"zoo_vlm_float32_anchor: {cfg.name} n_layers={cfg.n_layers}, "
+              f"{n_front} unit-normal vision embeds, prompts {GREEDY_BATCH}: "
+              f"token logits' largest gap to float32: kernel path "
+              f"{err_k:.4f}, plain path {err_p:.4f} (kernel vs plain "
+              f"{gap:.4f}); logit RMS "
+              f"{float(logits['float32'].pow(2).mean().sqrt()):.4f}",
+              flush=True)
+        check(err_k <= err_p + BF16_LOGIT_ATOL,
+              f"zoo_vlm_float32_anchor: the kernel path is {err_k} from "
+              f"float32, more than the plain path's {err_p} + "
+              f"{BF16_LOGIT_ATOL}")
+
+
+def attention_zoo_timing():
+    """The bf16 tensor-core kernel at each ATTN_ZOO shape (random inputs):
+    call ms, device ms, plain ms, the bound and one SDPA call (the library's
+    time; GQA's K/V repeated to every head first), one dict a shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(1)
+    rows = []
+    for label, (B, Hq, Hkv, Sq, Sk, D, Dv), causal in ATTN_ZOO:
+        q, k, v = (torch.randn(sh, generator=gen).to(dev, torch.bfloat16)
+                   for sh in ((B, Hq, Sq, D), (B, Hkv, Sk, D),
+                              (B, Hkv, Sk, Dv)))
+
+        def call():
+            return attn_ops.attention(q, k, v, causal=causal)
+
+        ms = cuda_ms(call, 20)
+        dev_ms = device_ms(call, 20, r"flash_attention_wgmma_kernel")
+        plain_ms = cuda_ms(lambda: attn_ops.attention(
+            q, k, v, causal=causal, backend="torch"), 3)
+        # SDPA aligns a causal mask top-left: the same function when
+        # Sq == Sk, and with no mask when not causal or when one query,
+        # aligned bottom-right, sees every key.
+        library_ms = None
+        lib_causal = causal and Sq > 1
+        if not causal or Sq == Sk or Sq == 1:
+            kc = k.repeat_interleave(Hq // Hkv, dim=1).contiguous()
+            vc = v.repeat_interleave(Hq // Hkv, dim=1).contiguous()
+            lib = F.scaled_dot_product_attention(q, kc, vc,
+                                                 is_causal=lib_causal)
+            check(torch.allclose(lib.float(), call().float(), atol=2e-2,
+                                 rtol=2e-2),
+                  f"scaled_dot_product_attention disagrees with the kernel "
+                  f"at {label}")
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, kc, vc, is_causal=lib_causal), 20)
+            del kc, vc, lib
+        nbytes = 2 * B * (Hq * Sq * (D + Dv) + Hkv * Sk * (D + Dv))
+        pairs = (sum(min(Sk, Sk - Sq + i + 1) for i in range(Sq)) if causal
+                 else Sq * Sk)
+        flops = 2 * B * Hq * pairs * (D + Dv)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+        rows.append(dict(label=label, shape=[B, Hq, Hkv, Sq, Sk, D, Dv],
+                         causal=causal, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms,
+                         bound_ms=max(t_bytes, t_ops) * 1e3,
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations", library_ms=library_ms))
+        print(f"attention at {label}: {json.dumps(rows[-1])}", flush=True)
+        del q, k, v
+    return rows
+
+
+def serve_main_phase(dev, phase, arch, lens, greedy_batch, kernels,
+                     cut=None, front=None):
+    """A serving main path: ``arch`` at full width, at full depth unless
+    ``cut`` ({config field: value}) cuts it, in its dtype, random weights
+    from a torch.Generator on the card.  A ContinuousBatcher (SERVE_SLOTS
+    slots of SERVE_MAX_LEN positions) answers one request a prompt length
+    of ``lens`` (SERVE_NEW new tokens each; tokens only, as the reference's
+    batcher prefills) and greedy_decode a batch of ``greedy_batch`` prompts
+    (with ``front`` = (batch key, positions, scale) of frontend input,
+    numpy normals times the scale, as its ``extra_batch``), with the launch
+    counts of ``kernels``
+    set to 0 just before and read just after.  ``kernels`` gives each
+    kernel's launches a prefill, or (a prefill, a decode step, more in a
+    prefill with the frontend input).  Then each request, and the greedy
+    batch, is decoded alone through the kernel path and through the plain
+    path (``backend="torch"``).  Returns (launches, {name: recorder of the
+    wrapper's calls}, a function that profiles a decode step and the
+    longest prefill; it holds the weights)."""
     import contextlib
+    import dataclasses as dc
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.registry import Model
     from repro_torch.serve import batching, serve_step
-    cfg = get_config(arch)
+    cfg = dc.replace(get_config(arch), **(cut or {}))
+    per = {name: (n, 0, 0) if isinstance(n, int) else n
+           for name, n in kernels.items()}
     wrappers = {name: KERNEL_WRAPPERS[name]() for name in kernels}
     with Phase(phase):
         model = Model(cfg)
@@ -1722,7 +2114,8 @@ def serve_main_phase(dev, phase, arch, lens, greedy_batch, kernels):
         params = model.init_params(torch.Generator(device=dev).manual_seed(0),
                                    device=dev)
         torch.cuda.synchronize()
-        print(f"{phase}: {cfg.name} {cfg.dtype}, "
+        print(f"{phase}: {cfg.name} {cfg.dtype}, n_layers={cfg.n_layers}"
+              f"{f' (cut: {cut})' if cut else ''}, "
               f"{sum(p.numel() for p in params.parameters()):,} parameters "
               f"drawn on the card in {time.perf_counter() - t0:.1f} s",
               flush=True)
@@ -1730,6 +2123,12 @@ def serve_main_phase(dev, phase, arch, lens, greedy_batch, kernels):
         prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
                    for n in lens]
         pair = rng.integers(0, cfg.vocab, greedy_batch).astype(np.int32)
+        extra = None
+        if front is not None:
+            key, n_front, scale = front
+            extra = {key: torch.from_numpy(rng.standard_normal(
+                (greedy_batch[0], n_front, cfg.frontend_dim or cfg.d_model),
+                dtype=np.float32) * np.float32(scale)).to(dev)}
         timed = TimedModel(model)
         decode_trace(model, params, prompts[0][None], 2, dev)  # warm-up
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1756,7 +2155,7 @@ def serve_main_phase(dev, phase, arch, lens, greedy_batch, kernels):
             timed.batcher = None
             t1 = time.perf_counter()
             greedy = serve_step.greedy_decode(timed, params, pair, SERVE_NEW,
-                                              device=dev)
+                                              device=dev, extra_batch=extra)
             torch.cuda.synchronize()
             greedy_ms = (time.perf_counter() - t1) * 1e3
             launches = {name: wrappers[name][0].LAUNCHES for name in kernels}
@@ -1766,10 +2165,14 @@ def serve_main_phase(dev, phase, arch, lens, greedy_batch, kernels):
                       f"take the tensor-core kernel ({r})")
         peak = torch.cuda.max_memory_allocated(dev)
         n_prefill = len(prompts) + 1
-        for name, per_prefill in kernels.items():
-            check(launches[name] == per_prefill * n_prefill,
+        for name, (n_pre, n_dec, n_front) in per.items():
+            want = (n_pre * n_prefill + n_dec * len(timed.decodes)
+                    + n_front * (extra is not None))
+            check(launches[name] == want,
                   f"{phase}: {name} launched {launches[name]} times, "
-                  f"expected {per_prefill} a prefill x {n_prefill}")
+                  f"expected {want} ({n_pre} a prefill x {n_prefill}, "
+                  f"{n_dec} a decode step x {len(timed.decodes)}, "
+                  f"{n_front} more with the frontend input)")
         check(sorted(done) == list(range(len(prompts)))
               and all(len(r.out) == SERVE_NEW for r in done.values()),
               f"{phase}: the batcher did not answer every request in full")
@@ -1785,7 +2188,9 @@ def serve_main_phase(dev, phase, arch, lens, greedy_batch, kernels):
               f"{dec_ms / dec_tokens:.3f} ms per token, "
               f"{dec_ms / len(dec):.3f} ms per step (median "
               f"{sorted(ms for _, ms in dec)[len(dec) // 2]:.3f}); "
-              f"greedy_decode batch {greedy_batch}: {greedy_ms:.1f} ms "
+              f"greedy_decode batch {greedy_batch}"
+              f"{f' with {front[1]} {front[0]}' if front else ''}: "
+              f"{greedy_ms:.1f} ms "
               f"(prefill {timed.prefills[-1][1]:.2f} ms, decode "
               f"{sum(ms for _, ms in timed.decodes[-(SERVE_NEW - 1):]) / (SERVE_NEW - 1):.3f} "
               f"ms per step); launches {launches}; max_memory_allocated "
@@ -1797,43 +2202,84 @@ def serve_main_phase(dev, phase, arch, lens, greedy_batch, kernels):
         # path (== its batcher run) and on the plain path.
         plain_model = Model(cfg, backend="torch")
         worst = {"prefill": 0.0, "batcher": 0.0, "plain": 0.0}
-        for rid, p in enumerate(prompts):
-            toks, full, steps = decode_trace(model, params, p[None],
-                                             SERVE_NEW, dev)
-            ptoks, pfull, psteps = decode_trace(plain_model, params, p[None],
-                                                SERVE_NEW, dev)
-            err = max_abs_err(full, pfull)
+
+        n_moe = moe_layers(cfg)
+
+        def kernel_vs_plain(tag, prompt, extra, replay=None):
+            """The kernel path's and the plain path's greedy decode of
+            ``prompt``, the plain path on the kernel path's experts (and the
+            kernel path on ``replay``'s, RouteLog): prefill logits at the
+            token positions within BF16_LOGIT_ATOL, steps by
+            ``same_tokens``.  Returns the kernel path's (tokens, steps,
+            RouteLog calls) and the comparison's numbers."""
+            with RouteLog(replay) as rk:
+                toks, full, steps = decode_trace(model, params, prompt,
+                                                 SERVE_NEW, dev, extra)
+            with RouteLog(rk.calls) as rp:
+                ptoks, pfull, psteps = decode_trace(
+                    plain_model, params, prompt, SERVE_NEW, dev, extra)
+            ties = (replayed_ties(f"{phase} {tag} plain vs kernel", rk.calls,
+                                  rp.calls, n_moe, toks.tolist(),
+                                  ptoks.tolist()) if n_moe else 0)
+            check(bool(torch.isfinite(full).all()),
+                  f"{phase} {tag}: non-finite prefill logits")
+            # The frontend positions' logits (vision embeds) are no model
+            # output: the reference's loss and decode read the tokens' only.
+            n_front = full.shape[1] - prompt.shape[1]
+            err = max_abs_err(full[:, n_front:], pfull[:, n_front:])
+            front = (f"; at the {n_front} frontend positions (not held) "
+                     f"{max_abs_err(full[:, :n_front], pfull[:, :n_front]):.4f}"
+                     if n_front else "")
             worst["prefill"] = max(worst["prefill"], err)
-            check(bool(torch.isfinite(full).all()) and err <= BF16_LOGIT_ATOL,
-                  f"{phase} request {rid} ({len(p)} tokens): prefill logits "
-                  f"of the kernel path differ from the plain path by {err} > "
-                  f"{BF16_LOGIT_ATOL}")
+            check(err <= BF16_LOGIT_ATOL,
+                  f"{phase} {tag}: prefill logits of the kernel path differ "
+                  f"from the plain path by {err} > {BF16_LOGIT_ATOL}{front}")
             del full, pfull
-            toks, ptoks = toks[0].tolist(), ptoks[0].tolist()
-            steps, psteps = [s[0] for s in steps], [s[0] for s in psteps]
+            for b in range(toks.shape[0]):
+                n_p, gap_p = same_tokens(
+                    f"{phase} {tag} row {b} kernel vs plain",
+                    toks[b].tolist(), ptoks[b].tolist(),
+                    [st[b] for st in steps], [st[b] for st in psteps])
+                worst["plain"] = max(worst["plain"], gap_p)
+            if ties or front:
+                print(f"{phase} {tag}: {ties} expert choices at near ties "
+                      f"replayed{front}", flush=True)
+            return toks, steps, rk.calls, err, n_p, gap_p
+
+        for rid, p in enumerate(prompts):
+            tag = f"request {rid} ({len(p)} tokens)"
+            toks, steps, routes, err, n_p, gap_p = kernel_vs_plain(
+                tag, p[None], None, timed.routes.get(rid))
+            toks, steps = toks[0].tolist(), [st[0] for st in steps]
+            if n_moe:
+                ties = replayed_ties(f"{phase} {tag} solo vs batcher",
+                                     timed.routes[rid], routes, n_moe,
+                                     [done[rid].out], [toks])
+                if ties:
+                    print(f"{phase} {tag} solo vs batcher: {ties} expert "
+                          f"choices at near ties replayed", flush=True)
             n_b, gap_b = same_tokens(f"{phase} request {rid} batcher vs solo",
                                      done[rid].out, toks, timed.steps[rid],
                                      steps)
-            n_p, gap_p = same_tokens(f"{phase} request {rid} kernel vs plain",
-                                     toks, ptoks, steps, psteps)
             worst["batcher"] = max(worst["batcher"], gap_b)
-            worst["plain"] = max(worst["plain"], gap_p)
-            print(f"{phase} request {rid} ({len(p)} tokens): prefill logits "
-                  f"kernel vs plain max_abs_err {err:.4f}; batcher == solo on "
-                  f"{n_b} tokens (step logits max gap {gap_b:.4f}), kernel == "
-                  f"plain on {n_p} (max gap {gap_p:.4f}); tolerance "
+            print(f"{phase} {tag}: prefill logits kernel vs plain "
+                  f"max_abs_err {err:.4f}; batcher == solo on {n_b} tokens "
+                  f"(step logits max gap {gap_b:.4f}), kernel == plain on "
+                  f"{n_p} (max gap {gap_p:.4f}); tolerance "
                   f"{BF16_LOGIT_ATOL}; reference top-2 margins "
-                  f"{min(top2_margin(s) for s in steps):.4f} at least",
+                  f"{min(top2_margin(st) for st in steps):.4f} at least",
                   flush=True)
-        gt, _, gsteps = decode_trace(model, params, pair, SERVE_NEW, dev)
+        gt, gsteps, _, err, _, _ = kernel_vs_plain("greedy_decode", pair,
+                                                   extra)
         for b in range(greedy_batch[0]):
             same_tokens(f"{phase} greedy_decode row {b}", greedy[b].tolist(),
-                        gt[b].tolist(), [s[b] for s in timed.free],
-                        [s[b] for s in gsteps])
+                        gt[b].tolist(), [st[b] for st in timed.free],
+                        [st[b] for st in gsteps])
         print(f"{phase}: largest logit gaps (tolerance {BF16_LOGIT_ATOL}): "
               f"prefill kernel vs plain {worst['prefill']:.4f}, batcher vs "
               f"solo steps {worst['batcher']:.4f}, kernel vs plain steps "
-              f"{worst['plain']:.4f}", flush=True)
+              f"{worst['plain']:.4f}; greedy_decode == its traced decode, "
+              f"kernel vs plain prefill {err:.4f}", flush=True)
 
     def profile():
         """Where a step's time goes: one decode step against a batcher
@@ -1891,21 +2337,23 @@ def attention_timing(rec, errs, launches, f32_launches):
         plain_ms = cuda_ms(lambda: attn_ops.attention(
             q, k, v, backend="torch", **kw), 5)
         # One PyTorch call of the same function: SDPA aligns its causal
-        # mask top-left, the same as bottom-right only when Sq == Sk.  In
-        # float32 it is held at 1e-3: a yardstick, not an oracle.
+        # mask top-left, the same as bottom-right when Sq == Sk, and with
+        # no mask when one query sees every key.  In float32 it is held at
+        # 1e-3: a yardstick, not an oracle.
         library_ms = None
-        if Sq == Sk:
+        if Sq == Sk or Sq == 1:
             qc = q.contiguous()
             kc = k.repeat_interleave(Hq // Hkv, dim=1).contiguous()
             vc = v.repeat_interleave(Hq // Hkv, dim=1).contiguous()
-            lib = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True)
+            lib = F.scaled_dot_product_attention(qc, kc, vc,
+                                                 is_causal=Sq > 1)
             ltol = max(tol, 1e-3)
             check(torch.allclose(lib.float(), want.float(), atol=ltol,
                                  rtol=ltol),
                   "scaled_dot_product_attention disagrees with the plain "
                   "version")
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qc, kc, vc, is_causal=True), 20)
+                qc, kc, vc, is_causal=Sq > 1), 20)
         esize = q.element_size()
         nbytes = esize * (2 * B * Hq * Sq * D + 2 * B * Hkv * Sk * D)
         # Visible (query, key) pairs of the causal mask, two products of D
@@ -2121,6 +2569,7 @@ def main() -> int:
     if not ((SRC / "repro_torch").is_dir() and GOLDEN.is_file()
             and LOOP_GOLDEN.is_file() and SFP_GOLDEN.is_file()
             and SERVE_GOLDEN.is_file() and SSM_GOLDEN.is_file()
+            and all(p.is_file() for p in ZOO_GOLDENS)
             and SWEEP_GOLDEN.is_file()):
         print("chip_smoke: run from the root of a checkout of the repository",
               file=sys.stderr)
@@ -2427,12 +2876,23 @@ def main() -> int:
         floor_ms = cuda_ms(lambda: one.add_(1.0), 50)
         print(f"launch floor: a 1-element add_ device_ms={floor_dev} "
               f"ms={floor_ms:.4f}", flush=True)
+        # The zoo's attention shapes (random inputs), here: profiler traces
+        # taken after serve_profile's came back short of kernel events.
+        attention_zoo_timing()
 
     with Phase("serve_profile"):
         yi_profile()
         z_profile()
         m_profile()
-    del yi_profile, z_profile, m_profile
+    del yi_profile, z_profile, m_profile, yi_recs, z_recs, m_recs, ssd_rec
+    zoo_f32, zoo_bf16 = zoo_phases(dev)
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["launches"] += zoo_bf16
+        elif k["name"] == "flash_attention_f32":
+            k["launches"] += zoo_f32
+    print(f"flash_attention launches with the zoo's: bf16 {zoo_bf16} more, "
+          f"float32 {zoo_f32} more", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

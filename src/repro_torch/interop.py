@@ -8,10 +8,9 @@ never imports ``repro``: objects are recognised by their class name, so
 both packages can simulate the identical tree, workload, failure pattern,
 scheme, engine configuration, fault schedule and phase schedule.
 
-For the model zoo (the dense, SSM and hybrid families),
-:func:`params_from_reference` carries a ``repro`` params pytree (numpy
-arrays) into the port's parameter module of the config's family,
-:func:`cache_from_reference` a ``repro`` cache, and
+For the model zoo (every family), :func:`params_from_reference` carries a
+``repro`` params pytree (numpy arrays) into the port's parameter module of
+the config's family, :func:`cache_from_reference` a ``repro`` cache, and
 :func:`numpy_reference_params` draws a reference-shaped tree from a numpy
 seed by the family's init rule (the inputs both packages share when no JAX
 is at hand).
@@ -107,8 +106,9 @@ def params_from_reference(cfg, params,
     """The port's parameters of a ``repro`` params tree (nested dicts of
     numpy arrays, as ``jax.tree_util.tree_map(np.asarray, params)`` gives),
     cast to each leaf's dtype, on ``device`` (``None``: CUDA).  The
-    layer-stacked ``(nl, ...)`` leaves (``"dense"``, or ``"layers"`` of the
-    SSM and hybrid families) are split per layer."""
+    layer-stacked ``(nl, ...)`` leaves (``"dense"`` and ``"moe"`` of the
+    transformer, ``"layers"`` of the SSM and hybrid families, ``"encoder"``
+    and ``"decoder"`` of enc-dec) are split per layer."""
     dev = resolve_device(device)
     mod = family_module(cfg)
     out = mod.new_params(cfg, dev)
@@ -140,10 +140,11 @@ def cache_from_reference(cache, device: Optional[Union[str, torch.device]]
 
 def numpy_reference_params(cfg, seed: int) -> dict:
     """A ``repro``-shaped params tree of float32 numpy arrays drawn by the
-    family's init rule in flatten order from ``np.random.default_rng(seed)``
-    (a stacked leaf in one draw): for the dense family standard normals
-    times ``shape[-2] ** -0.5`` for leaves of two or more axes and ones for
-    1-D leaves; for the SSM and hybrid families normals where the last axis
-    exceeds 8, else 0.1, with ``A_log = 0`` and ``dt_bias = -2``."""
+    family's init rule from numpy streams of ``seed``, a block of each leaf
+    a stream (``_params.numpy_tree``): for the transformer and enc-dec
+    families standard normals times ``shape[-2] ** -0.5`` for leaves of two
+    or more axes and ones for 1-D leaves; for the SSM and hybrid families
+    normals where the last axis exceeds 8, else 0.1, with ``A_log = 0`` and
+    ``dt_bias = -2``."""
     mod = family_module(cfg)
     return _params.numpy_tree(mod.param_shapes(cfg), mod.init_rule, seed)

@@ -1,16 +1,17 @@
-"""Serving launcher: continuous-batching server over a ported architecture.
+"""Serving launcher: continuous-batching server over any architecture of
+the zoo.
 
     python -m repro_torch.launch.serve --arch yi-6b --requests 8
-    python -m repro_torch.launch.serve --arch zamba2-2.7b --requests 8
-    python -m repro_torch.launch.serve --arch mamba2-130m --smoke --device cpu
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --requests 8
+    python -m repro_torch.launch.serve --arch whisper-small --smoke --device cpu
 
-Copied from ``repro.launch.serve`` for one card, for the dense, Mamba2 and
-Zamba2-hybrid architectures: random parameters from seed 0 (the reference's
-fixed key, by the family's init rule), ``--requests`` prompts of 4-15 random
-tokens, decoded by a ``ContinuousBatcher``.  Runs on CUDA unless
-``--device cpu`` is given (raising without a card).  Prints the device,
-then the reference's ``served ... tok/s`` line (wall clock, after a device
-synchronise).
+Copied from ``repro.launch.serve`` for one card: random parameters from
+seed 0 (the reference's fixed key, by the family's init rule),
+``--requests`` prompts of 4-15 random tokens, decoded by a
+``ContinuousBatcher`` (which prefills tokens only, as the reference's does:
+no vision embeds or frames).  Runs on CUDA unless ``--device cpu`` is
+given (raising without a card).  Prints the device, then the reference's
+``served ... tok/s`` line (wall clock, after a device synchronise).
 """
 from __future__ import annotations
 

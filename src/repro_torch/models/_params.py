@@ -54,25 +54,49 @@ def draw_(params: torch.nn.Module, shapes: Dict, stacked: Tuple[str, ...],
             if kind == "fill":
                 t.fill_(value)
             else:
+                # scaled in place: one float32 draw at a time on the card
                 t.copy_(torch.randn(t.shape, generator=generator,
-                                    device=t.device, dtype=torch.float32)
-                        * value)
+                                    device=t.device,
+                                    dtype=torch.float32).mul_(value))
     return params
 
 
+BLOCK = 1 << 22       # elements a stream of numpy_tree
+
+
+def _draw_blocks(out: np.ndarray, seed: int, leaf: int,
+                 scale: float) -> None:
+    """Fill ``out`` with standard normals times ``scale``, its flat block
+    ``c`` of BLOCK elements from ``np.random.default_rng([seed, leaf,
+    c])``, the blocks drawn on threads (numpy releases the GIL while it
+    fills)."""
+    import concurrent.futures as cf
+    import os
+    flat = out.reshape(-1)
+
+    def draw(c):
+        block = flat[c * BLOCK:(c + 1) * BLOCK]
+        np.random.default_rng([seed, leaf, c]).standard_normal(
+            out=block, dtype=np.float32)
+        block *= np.float32(scale)
+    n = -(-flat.size // BLOCK)
+    with cf.ThreadPoolExecutor(min(n, os.cpu_count() or 1) or 1) as pool:
+        list(pool.map(draw, range(n)))
+
+
 def numpy_tree(shapes: Dict, rule: Rule, seed: int) -> dict:
-    """A reference-shaped tree of float32 numpy arrays drawn by ``rule`` in
-    flatten order from ``np.random.default_rng(seed)`` (a stacked leaf in
-    one draw)."""
-    rng = np.random.default_rng(seed)
+    """A reference-shaped tree of float32 numpy arrays drawn by ``rule``:
+    the k-th leaf (in flatten order; a stacked leaf is one leaf) in blocks
+    of BLOCK elements, each from its own stream ``default_rng([seed, k,
+    block])``, drawn in parallel (billions of parameters in seconds)."""
     tree: dict = {}
-    for key, (shape, _) in leaves(shapes):
+    for i, (key, (shape, _)) in enumerate(leaves(shapes)):
         kind, value = rule(key, shape)
         if kind == "fill":
             w = np.full(shape, value, np.float32)
         else:
-            w = rng.standard_normal(shape, dtype=np.float32)
-            w *= np.float32(value)
+            w = np.empty(shape, np.float32)
+            _draw_blocks(w, seed, i, value)
         node = tree
         for k in key[:-1]:
             node = node.setdefault(k, {})

@@ -1,4 +1,4 @@
-"""Shared neural building blocks of the dense transformer, in PyTorch.
+"""Shared neural building blocks of the model zoo, in PyTorch.
 
 Copied from ``repro.models.layers``.  Parameters are ``nn.Parameter``s of a
 layer module, read by the reference's leaf names (``p.wq``, ``p.w_gate``)
@@ -12,10 +12,10 @@ reference's:
   (exact) so its logits stay float32 as with ``preferred_element_type``,
   and rounds the probabilities to v's dtype before the second contraction.
 
-Prefill and training attention go through
-``repro_torch.kernels.flash_attn.ops.attention`` (the CUDA kernel on the
-card, the plain version on the CPU); decode attention over the cache is
-plain PyTorch, as it is plain jnp in the reference.  The reference's
+Prefill and training attention, and the enc-dec cross attention, go
+through ``repro_torch.kernels.flash_attn.ops.attention`` (the CUDA kernel
+on the card, the plain version on the CPU); decode attention over the
+cache is plain PyTorch, as it is plain jnp in the reference.  The reference's
 sharding constraints, no-ops without a mesh, are dropped.
 """
 from __future__ import annotations
@@ -133,6 +133,22 @@ def gqa_attention(x: torch.Tensor, p, cfg, positions: torch.Tensor,
                              v.transpose(1, 2), causal=True, backend=backend)
     out = out.transpose(1, 2).reshape(B, S, H * hd)
     return out @ p.wo, cache
+
+
+def cross_attention(x: torch.Tensor, enc_kv, wq: torch.Tensor,
+                    wo: torch.Tensor, cfg, backend: str = "auto"):
+    """Cross attention of the enc-dec decoder (not causal): x (B, S, D);
+    ``enc_kv`` the precomputed (k, v), each (B, T, Hkv, hd).  Goes through
+    the attention kernel like prefill (the reference passes
+    ``backend="xla"``, as its Pallas kernel refuses ragged key lengths;
+    the port's kernels take them)."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    q = (x @ wq).reshape(B, S, H, hd)
+    k, v = enc_kv
+    out = attn_ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=False, backend=backend)
+    return out.transpose(1, 2).reshape(B, S, H * hd) @ wo
 
 
 def _cached_attention(q, k, v, valid_len: int, kv_len: int):

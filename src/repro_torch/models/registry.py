@@ -1,5 +1,6 @@
-"""Uniform model API over the zoo families; the dense, SSM (Mamba2) and
-hybrid (Zamba2) families are ported.
+"""Uniform model API over the zoo families: dense, MoE and VLM
+(``transformer``), SSM (``mamba2``), hybrid (``hybrid``) and enc-dec
+(``encdec``).
 
 ``Model`` wraps a config with family-dispatched functions:
 
@@ -8,13 +9,16 @@ hybrid (Zamba2) families are ported.
   decode_step(params, tokens, cache, index)  -> (logits, cache)
   cache_shapes(batch, max_len) / cache_batch_axes()
 
-Copied from ``repro.models.registry``.  Caches are written in place.
+Copied from ``repro.models.registry``.  Batch layout: ``{"tokens": (B, S)
+int}`` plus, per family, ``"vision_embeds"`` (VLM: (B, n_front,
+frontend_dim), put before the tokens) or ``"frames"`` (enc-dec: (B, T,
+frontend_dim) for the encoder).  Caches are written in place.
 ``backend`` is the kernels' switch: ``auto`` launches the CUDA kernels
-(flash attention in prefill, the SSD scan in a Mamba2 layer's prefill) on
-CUDA tensors and runs their plain versions on CPU tensors; ``torch`` runs
-the plain versions on any device.  Training (``loss``) is not ported yet;
-the other families (MoE, MLA, VLM, enc-dec) raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.
+(flash attention in prefill and in the enc-dec's encoder and cross
+attention, the SSD scan in a Mamba2 layer's prefill) on CUDA tensors and
+runs their plain versions on CPU tensors; ``torch`` runs the plain versions
+on any device.  Training (``loss``) is not ported yet (``ROADMAP.md``
+A4).
 """
 from __future__ import annotations
 
@@ -24,23 +28,22 @@ from typing import Optional, Union
 
 import torch
 
-from . import hybrid, mamba2, transformer
+from . import encdec, hybrid, mamba2, transformer
 from ..configs.base import ModelConfig
 from ..configs import base as _cfg_base
 from ..kernels._common import resolve_backend, resolve_device
 
-_FAMILIES = {"dense": transformer, "ssm": mamba2, "hybrid": hybrid}
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+             "ssm": mamba2, "hybrid": hybrid, "encdec": encdec}
 
 
 def family_module(cfg: ModelConfig) -> ModuleType:
     """The port's module of the config's family (``param_shapes``,
     ``new_params``, ``init_rule``, ``STACKED``, ``init_params``,
-    ``forward``, ``cache_shapes``, ``cache_batch_axes``);
-    raises ``NotImplementedError`` naming the ``ROADMAP.md`` item of a
-    family that is not ported."""
+    ``forward``, ``cache_shapes``, ``cache_batch_axes``)."""
     mod = _FAMILIES.get(cfg.family)
-    if mod is None or mod is transformer:
-        transformer.check_supported(cfg)
+    if mod is None:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     return mod
 
 
@@ -82,8 +85,18 @@ class Model:
 
     # ---- forward paths -----------------------------------------------------
     def _fwd(self, params, batch, **kw):
+        fam = self.cfg.family
+        if fam == "encdec":
+            kw["frames"] = batch.get("frames")
+        elif fam == "vlm":
+            kw["vision_embeds"] = batch.get("vision_embeds")
         return self._mod.forward(self.cfg, params, batch["tokens"],
                                  backend=self.backend, **kw)
+
+    def loss(self, params, batch):
+        raise NotImplementedError(
+            f"{self.cfg.name}: training (Model.loss) is not ported yet "
+            f"(ROADMAP.md A4)")
 
     def prefill(self, params, batch, cache):
         return self._fwd(params, batch, mode="prefill", cache=cache,

@@ -1,106 +1,134 @@
-"""Decoder-only transformer of the dense LM family (GQA + RoPE, optional
-QKV bias, SwiGLU), in PyTorch.
+"""Decoder-only transformer covering the dense, MoE and VLM LM families, in
+PyTorch.
 
-Copied from the dense section of ``repro.models.transformer``.  The
-reference stacks each section's layer parameters on a leading ``(nl, ...)``
-axis and scans over it; here the parameters live in a :class:`Transformer`
-module with one :class:`DenseLayer` a layer (``params.dense[l].wq``), under
-the reference's leaf names and in its ``(in, out)`` orientation, and
-``forward`` runs a Python loop over the layers.  The KV cache keeps the
-reference's layout, ``{"dense": {"k": (nl, B, S_max, Hkv, hd), "v": ...}}``;
-each layer writes its slice IN PLACE.
+Copied from ``repro.models.transformer``.  One module, composed per config:
 
-MLA (``cfg.mla``), MoE (``cfg.n_experts``) and the VLM frontend
-(``family == "vlm"``) are not ported yet and raise ``NotImplementedError``.
+* attention: GQA (+RoPE, optional QKV bias) or MLA (DeepSeek's compressed
+  latent, ``cfg.mla``: :mod:`.mla`);
+* MLP: dense SwiGLU, or MoE (:mod:`.moe`, the reference's one-card dense
+  oracle) after ``cfg.n_dense_layers`` leading dense layers (the DeepSeek-V3
+  layout);
+* the stubbed modality frontend of the ``"vlm"`` family: precomputed patch
+  embeddings projected by ``vision_proj`` and put before the tokens.
+
+The reference stacks each section's layer parameters (``"dense"`` and
+``"moe"``) on a leading ``(nl, ...)`` axis and scans over it; here the
+parameters live in a :class:`Transformer` module with one layer module a
+layer in each section (``params.dense[l].wq``, ``params.moe[l].w_gate``),
+under the reference's leaf names and in its ``(in, out)`` orientation, and
+``forward`` runs a Python loop over the layers.  The cache keeps the
+reference's sectioned layout, ``{"dense": {"k": (nl, B, S_max, Hkv, hd),
+"v": ...}, "moe": {...}}`` (``{"c_kv", "k_rope"}`` leaves with MLA); each
+layer writes its slice IN PLACE.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from . import _params as P
 from . import layers as L
+from . import mla as mla_mod
+from . import moe as moe_mod
 
 Shape = P.Shape
+STACKED = ("dense", "moe")
 
 
-def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a configuration outside the ported
-    dense family, naming its ``ROADMAP.md`` item."""
-    if cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP.md A8)")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP.md A8)")
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP.md A8)")
+def section_layers(cfg) -> Dict[str, int]:
+    """Layers of each non-empty section: ``n_dense_layers`` dense layers
+    before ``n_layers - n_dense_layers`` MoE layers when the config has
+    experts, else ``n_layers`` dense layers."""
+    n_moe = (cfg.n_layers - cfg.n_dense_layers) if cfg.n_experts else 0
+    if n_moe < 0:
+        raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is below "
+                         f"n_dense_layers={cfg.n_dense_layers}")
+    out = {"dense": cfg.n_layers - n_moe, "moe": n_moe}
+    return {k: n for k, n in out.items() if n}
 
 
 # ---------------------------------------------------------------------------
 # Param shapes
 # ---------------------------------------------------------------------------
 
-def _layer_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
-    D, H, Hkv, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                        cfg.head_dim, cfg.d_ff)
-    out = {"ln1": (D,), "ln2": (D,),
-           "wq": (D, H * hd), "wk": (D, Hkv * hd), "wv": (D, Hkv * hd),
-           "wo": (H * hd, D)}
+def _attn_shapes(cfg) -> Dict[str, Shape]:
+    if cfg.mla:
+        return mla_mod.layer_shapes(cfg)
+    d = L.dtype_of(cfg)
+    D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {"wq": ((D, H * hd), d), "wk": ((D, Hkv * hd), d),
+           "wv": ((D, Hkv * hd), d), "wo": ((H * hd, D), d)}
     if cfg.qkv_bias:
-        out.update({"bq": (H * hd,), "bk": (Hkv * hd,), "bv": (Hkv * hd,)})
-    out.update({"w_gate": (D, F), "w_up": (D, F), "w_down": (F, D)})
+        out.update({"bq": ((H * hd,), d), "bk": ((Hkv * hd,), d),
+                    "bv": ((Hkv * hd,), d)})
     return out
 
 
-def param_shapes(cfg) -> Dict[str, Union[Shape, Dict[str, Shape]]]:
-    """The reference's parameter tree: ``(shape, dtype)`` leaves, the
-    ``"dense"`` section layer-stacked on a leading ``n_layers`` axis."""
-    check_supported(cfg)
+def _layer_shapes(cfg, section: str) -> Dict[str, Shape]:
+    """One layer's ``(shape, dtype)`` leaves (no layer axis)."""
+    d = L.dtype_of(cfg)
+    D, F = cfg.d_model, cfg.d_ff
+    out = {"ln1": ((D,), d), "ln2": ((D,), d), **_attn_shapes(cfg)}
+    if section == "moe":
+        out.update(moe_mod.layer_shapes(cfg))
+    else:
+        out.update({"w_gate": ((D, F), d), "w_up": ((D, F), d),
+                    "w_down": ((F, D), d)})
+    return out
+
+
+def param_shapes(cfg) -> Dict:
+    """The reference's parameter tree: ``(shape, dtype)`` leaves, each
+    section's leaves stacked on a leading axis of its layers."""
     d = L.dtype_of(cfg)
     p = {"embed": ((cfg.vocab, cfg.d_model), d),
          "final_norm": ((cfg.d_model,), d)}
     if not cfg.tie_embeddings:
         p["lm_head"] = ((cfg.d_model, cfg.vocab), d)
-    p["dense"] = {k: ((cfg.n_layers,) + s, d)
-                  for k, s in _layer_shapes(cfg).items()}
+    if cfg.family == "vlm":
+        p["vision_proj"] = ((cfg.frontend_dim or cfg.d_model, cfg.d_model), d)
+    for section, nl in section_layers(cfg).items():
+        p[section] = {k: ((nl,) + s, dt)
+                      for k, (s, dt) in _layer_shapes(cfg, section).items()}
     return p
 
 
-class DenseLayer(nn.Module):
-    """One layer's parameters: ``ln1``, ``ln2``, ``wq``, ``wk``, ``wv``,
-    ``wo`` (+ ``bq``, ``bk``, ``bv``), ``w_gate``, ``w_up``, ``w_down``."""
+class Layer(nn.Module):
+    """One layer's parameters: ``ln1``, ``ln2``, the attention leaves (GQA's
+    ``wq``, ``wk``, ``wv``, ``wo`` (+ ``bq``, ``bk``, ``bv``), or MLA's),
+    and the MLP's (SwiGLU's ``w_gate``, ``w_up``, ``w_down``, or in a MoE
+    layer the router, the (E, ...) experts and the shared expert)."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, section: str, device=None):
         super().__init__()
-        d = L.dtype_of(cfg)
-        for name, shape in _layer_shapes(cfg).items():
-            setattr(self, name, P.param(shape, d, device))
+        for name, (shape, dt) in _layer_shapes(cfg, section).items():
+            setattr(self, name, P.param(shape, dt, device))
 
 
 class Transformer(nn.Module):
     """The model's parameters: ``embed``, ``final_norm``, ``lm_head``
-    (unless tied) and ``dense``, a list of :class:`DenseLayer`.  Created
+    (unless tied), ``vision_proj`` (VLM), and ``dense`` and ``moe``, lists
+    of :class:`Layer` (empty when the config has no such layers).  Created
     uninitialised; :func:`init_params` or
     ``repro_torch.interop.params_from_reference`` fill it."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        check_supported(cfg)
         d = L.dtype_of(cfg)
         self.embed = P.param((cfg.vocab, cfg.d_model), d, device)
         self.final_norm = P.param((cfg.d_model,), d, device)
         if not cfg.tie_embeddings:
             self.lm_head = P.param((cfg.d_model, cfg.vocab), d, device)
-        self.dense = nn.ModuleList(DenseLayer(cfg, device)
-                                   for _ in range(cfg.n_layers))
-
-
-STACKED = ("dense",)
+        if cfg.family == "vlm":
+            self.vision_proj = P.param(
+                (cfg.frontend_dim or cfg.d_model, cfg.d_model), d, device)
+        nls = section_layers(cfg)
+        for section in STACKED:
+            setattr(self, section, nn.ModuleList(
+                Layer(cfg, section, device)
+                for _ in range(nls.get(section, 0))))
 
 
 def new_params(cfg, device=None) -> Transformer:
@@ -116,8 +144,8 @@ def leaves(cfg) -> Tuple[Tuple[Tuple[str, ...], Shape], ...]:
 def init_rule(key, shape):
     """``repro.models.transformer.init_params``'s rule: a leaf of two or
     more (stacked) axes is standard normal times ``shape[-2] ** -0.5`` (so
-    the stacked norm gains and biases ``(nl, D)`` get ``nl ** -0.5``), a
-    1-D leaf is ones."""
+    the stacked norm gains and biases ``(nl, D)`` get ``nl ** -0.5``, and
+    the experts ``(nl, E, D, F)`` ``D ** -0.5``), a 1-D leaf is ones."""
     if len(shape) < 2:
         return "fill", 1.0
     return "normal", shape[-2] ** -0.5
@@ -126,7 +154,7 @@ def init_rule(key, shape):
 def init_params(cfg, generator: torch.Generator, device) -> Transformer:
     """Random parameters drawn by :func:`init_rule` for each leaf in
     flatten order (a stacked leaf one layer at a time) in float32, cast to
-    the config's dtype.  The numbers differ from ``jax.random``'s."""
+    the leaf's dtype.  The numbers differ from ``jax.random``'s."""
     return P.draw_(Transformer(cfg, device), param_shapes(cfg), STACKED,
                    init_rule, generator)
 
@@ -135,31 +163,44 @@ def init_params(cfg, generator: torch.Generator, device) -> Transformer:
 # Forward
 # ---------------------------------------------------------------------------
 
-def _layer(cfg, p: DenseLayer, x, positions, lc, cache_index, mode,
-           backend):
+def _layer(cfg, use_moe: bool, p: Layer, x, positions, lc, cache_index,
+           mode, backend):
     h = L.rms_norm(x, p.ln1, cfg.norm_eps)
-    attn_out, _ = L.gqa_attention(h, p, cfg, positions, lc, cache_index,
-                                  mode, backend)
+    if cfg.mla:
+        attn_out, _ = mla_mod.mla_attention(h, p, cfg, positions, lc,
+                                            cache_index, mode, backend)
+    else:
+        attn_out, _ = L.gqa_attention(h, p, cfg, positions, lc, cache_index,
+                                      mode, backend)
     x = x + attn_out
     h = L.rms_norm(x, p.ln2, cfg.norm_eps)
+    if use_moe:
+        return x + moe_mod.moe_block(cfg, p, h)
     return x + L.swiglu(h, p.w_gate, p.w_up, p.w_down)
 
 
 @torch.no_grad()
 def forward(cfg, params: Transformer, tokens: torch.Tensor, *,
             mode: str = "train", cache: Optional[dict] = None,
-            cache_index: int = 0, backend: str = "auto"):
-    """tokens (B, S) -> float32 logits (B, S, vocab), or (logits, cache)
-    when a cache is given (written in place and returned)."""
-    check_supported(cfg)
+            cache_index: int = 0, vision_embeds: Optional[torch.Tensor] = None,
+            backend: str = "auto"):
+    """tokens (B, S) -> float32 logits (B, n_front + S, vocab), or (logits,
+    cache) when a cache is given (written in place and returned).
+    ``vision_embeds`` (B, n_front, frontend_dim), VLM only, are projected
+    and put before the tokens."""
     x = L.embed(tokens, params.embed)
-    B, S, _ = x.shape
+    if vision_embeds is not None:
+        v = vision_embeds.to(x.dtype) @ params.vision_proj
+        x = torch.cat([v, x], dim=1)
+    S = x.shape[1]
     positions = cache_index + torch.arange(S, device=x.device)[None, :]
-    for l, lp in enumerate(params.dense):
-        lc = None
-        if cache is not None:
-            lc = {"k": cache["dense"]["k"][l], "v": cache["dense"]["v"][l]}
-        x = _layer(cfg, lp, x, positions, lc, cache_index, mode, backend)
+    for section in STACKED:
+        sc = cache[section] if cache is not None and section in cache \
+            else None
+        for l, lp in enumerate(getattr(params, section)):
+            lc = None if sc is None else {n: t[l] for n, t in sc.items()}
+            x = _layer(cfg, section == "moe", lp, x, positions, lc,
+                       cache_index, mode, backend)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     head = params.lm_head if not cfg.tie_embeddings else params.embed.T
     logits = L.unembed(x, head)
@@ -167,13 +208,19 @@ def forward(cfg, params: Transformer, tokens: torch.Tensor, *,
 
 
 def cache_shapes(cfg, batch: int, max_len: int) -> Dict[str, Dict[str, Shape]]:
-    check_supported(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     d = L.dtype_of(cfg)
-    return {"dense": {"k": (shape, d), "v": (shape, d)}}
+    out = {}
+    for section, nl in section_layers(cfg).items():
+        if cfg.mla:
+            out[section] = mla_mod.cache_shapes(cfg, nl, batch, max_len)
+        else:
+            shape = (nl, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+            out[section] = {"k": (shape, d), "v": (shape, d)}
+    return out
 
 
 def cache_batch_axes(cfg) -> Dict[str, Dict[str, int]]:
     """The batch axis of each cache leaf (the reference's
     ``cache_logical_axes`` "batch")."""
-    return {"dense": {"k": 1, "v": 1}}
+    names = ("c_kv", "k_rope") if cfg.mla else ("k", "v")
+    return {section: {n: 1 for n in names} for section in section_layers(cfg)}

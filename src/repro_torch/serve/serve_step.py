@@ -3,8 +3,8 @@
 Copied from ``repro.serve.serve_step`` for one card: ``build_serve_fns``
 returns plain callables (PyTorch runs eagerly; no ``jit``, no mesh), and
 caches are written in place.  A cache is the tree of its family's
-``cache_shapes`` (sectioned for the dense and hybrid families, flat for
-Mamba2); :func:`tree_map` walks it.  ``cache_shardings`` waits for a
+``cache_shapes`` (sectioned for the transformer, hybrid and enc-dec
+families, flat for Mamba2); :func:`tree_map` walks it.  ``cache_shardings`` waits for a
 multi-card slice.
 """
 from __future__ import annotations
@@ -64,19 +64,30 @@ def build_serve_fns(model: Model):
 
 
 def greedy_decode(model: Model, params, prompt_tokens, n_new: int,
-                  device: Device = None) -> torch.Tensor:
+                  device: Device = None, extra_batch=None) -> torch.Tensor:
     """Greedy decoding of ``n_new`` tokens after each prompt row: (B, S)
     int tokens -> (B, n_new) int32 on ``device`` (``None``: CUDA, raising
-    without a card), where ``params`` must lie."""
+    without a card), where ``params`` must lie.  ``extra_batch`` joins the
+    prefill's batch: ``{"vision_embeds": (B, n_front, frontend_dim)}``
+    (VLM; the cache then holds ``n_front`` more positions and decoding
+    starts after them) or ``{"frames": (B, T, frontend_dim)}`` (enc-dec)."""
     dev = resolve_device(device)
     check_params_device(params, dev)
     prompt = torch.as_tensor(prompt_tokens, device=dev).to(torch.int32)
     B, S = prompt.shape
-    cache = zero_cache(model, B, S + n_new, dev)
+    n_front = 0
+    if model.cfg.family == "vlm" and extra_batch:
+        n_front = extra_batch["vision_embeds"].shape[1]
+    cache = zero_cache(model, B, S + n_front + n_new, dev)
     prefill_fn, decode_fn = build_serve_fns(model)
-    logits, cache = prefill_fn(params, {"tokens": prompt}, cache)
+    batch = {"tokens": prompt}
+    if extra_batch:
+        batch.update({k: torch.as_tensor(v, device=dev)
+                      for k, v in extra_batch.items()})
+    logits, cache = prefill_fn(params, batch, cache)
     out = [logits.argmax(-1).to(torch.int32)]
+    idx = S + n_front
     for i in range(n_new - 1):
-        logits, cache = decode_fn(params, out[-1], cache, S + i)
+        logits, cache = decode_fn(params, out[-1], cache, idx + i)
         out.append(logits.argmax(-1).to(torch.int32))
     return torch.cat(out, dim=1)

@@ -1,7 +1,7 @@
 """Tests of the PyTorch port that need a CUDA card: each kernel against its
 plain version, both engines on the card against the engines on the CPU, and
-the dense, Mamba2 and Zamba2-hybrid serving paths on the card against the
-CPU.
+the serving paths of every family (dense, Mamba2, Zamba2 hybrid, MoE, MLA,
+VLM, enc-dec) on the card against the CPU.
 
 They skip without a card.  The machine with the card has no JAX, and
 ``tests/conftest.py`` imports it, so run them there with
@@ -509,7 +509,7 @@ def test_flash_attention_kernel_matches_plain(shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("Sq", [1, 13, 2048])
-@pytest.mark.parametrize("D", [36, 80, 128, 136, 256])
+@pytest.mark.parametrize("D", [36, 80, 96, 128, 136, 256])
 def test_flash_attention_kernel_head_dims_match_plain(D, Sq, dtype):
     """Both routes (bf16: tensor cores; float32: CUDA cores) at head dims
     that are not a multiple of 8 or 64, or span two column tiles, for a
@@ -950,3 +950,84 @@ def test_ssd_kernel_half_and_mixed_dtypes(shape, dtypes):
     assert got.dtype == dtypes[0] and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+# ---- the rest of the zoo: attention at its shapes, its serving paths ------
+
+# (B, Hq, Hkv, Sq, Sk, Dk, Dv, causal): MLA's prefill (128 heads, Dk 192,
+# Dv 128), Whisper's encoder (1,500 ragged keys) and cross attention (a
+# decode query against 1,500 keys), not causal.
+ZOO_ATTN = [(1, 128, 128, 64, 64, 192, 128, True),
+            (1, 12, 12, 1500, 1500, 64, 64, False),
+            (2, 12, 12, 1, 1500, 64, 64, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", ZOO_ATTN, ids=str)
+def test_flash_attention_kernel_zoo_shapes_match_plain(shape, dtype):
+    dev = cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Hq, Hkv, Sq, Sk, Dk, Dv, causal = shape
+    g = torch.Generator().manual_seed(Sk + Dk)
+    q, k, v = (torch.randn(s, generator=g).to(dev, dtype)
+               for s in ((B, Hq, Sq, Dk), (B, Hkv, Sk, Dk), (B, Hkv, Sk, Dv)))
+    before = attn_ops.LAUNCHES
+    got = attn_ops.attention(q, k, v, causal=causal)
+    want = attn_ops.attention(q, k, v, causal=causal, backend="torch")
+    torch.cuda.synchronize()
+    assert attn_ops.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == (B, Hq, Sq, Dv)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v3-671b",
+                                  "llava-next-34b", "whisper-small"])
+def test_zoo_serving_on_card_matches_cpu(arch):
+    """The smoke configs in float32: prefill logits within 1e-4 of the
+    CPU's (vision embeds or frames in the batch), the attention kernel's
+    launches a prefill, greedy tokens with the frontend input equal to the
+    CPU's, and the batcher's tokens equal to the CPU's."""
+    dev = cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Model(get_config(arch, smoke=True))
+    cfg = model.cfg
+    cpu_params = model.init_params(0, device="cpu")
+    card_params = model.init_params(0, device="cpu").to(dev)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 37)))
+    extra, n_front, per_prefill = {}, 0, cfg.n_layers
+    if cfg.family == "vlm":
+        n_front = 16
+        extra = {"vision_embeds": torch.from_numpy(rng.standard_normal(
+            (2, n_front, cfg.frontend_dim), dtype=np.float32))}
+    elif cfg.family == "encdec":
+        extra = {"frames": torch.from_numpy(rng.standard_normal(
+            (2, 10, cfg.frontend_dim), dtype=np.float32))}
+        per_prefill = 2 * cfg.n_layers + cfg.n_encoder_layers
+    cache_c = serve_step.zero_cache(model, 2, n_front + 41, "cpu")
+    cache_g = serve_step.zero_cache(model, 2, n_front + 41, dev)
+    want, _ = model.prefill(cpu_params, {"tokens": prompt, **extra}, cache_c)
+    before = attn_ops.LAUNCHES
+    got, _ = model.prefill(card_params, {
+        "tokens": prompt.to(dev), **{k: v.to(dev) for k, v in extra.items()}},
+        cache_g)
+    assert attn_ops.LAUNCHES == before + per_prefill
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    toks = {str(d): serve_step.greedy_decode(
+        model, params, prompt, 4, device=d, extra_batch=extra).cpu()
+        for d, params in (("cpu", cpu_params), (dev, card_params))}
+    assert torch.equal(toks["cpu"], toks[str(dev)])
+    done = {}
+    for d, params in (("cpu", cpu_params), (dev, card_params)):
+        cb = batching.ContinuousBatcher(model, params, n_slots=2, max_len=64,
+                                        device=d)
+        r = np.random.default_rng(3)
+        for rid in range(3):
+            cb.submit(batching.Request(
+                rid=rid, prompt=r.integers(0, cfg.vocab,
+                                           (13 + 7 * rid,)).astype(np.int32),
+                max_new_tokens=4))
+        done[str(d)] = {rid: q.out for rid, q in
+                        cb.run_to_completion(max_ticks=200).items()}
+    assert done["cpu"] == done[str(dev)]

@@ -1,8 +1,9 @@
 """The port's dense-transformer serving path (``repro_torch.models``,
 ``repro_torch.serve``, ``repro_torch.launch.serve``) against the JAX
-reference on the CPU, on the smoke configs of Yi-6B, Phi-4-mini and
-Qwen1.5-4B (QKV bias), with the reference's ``init_params(PRNGKey(0))``
-carried across by ``interop.params_from_reference``.
+reference on the CPU, on the smoke configs of Yi-6B, Phi-4-mini,
+Qwen1.5-4B (QKV bias) and Phi-3-mini (MHA), with the reference's
+``init_params(PRNGKey(0))`` carried across by
+``interop.params_from_reference``.
 
 Tolerances:
 * float32, ``TOL = 1e-4`` (atol and rtol) on logits and caches: the same
@@ -41,7 +42,7 @@ from repro_torch.models import transformer
 from repro_torch.models.registry import Model
 from repro_torch.serve import batching, serve_step
 
-ARCHS = ["yi-6b", "phi4-mini-3.8b", "qwen1.5-4b"]
+ARCHS = ["yi-6b", "phi4-mini-3.8b", "qwen1.5-4b", "phi3-mini-3.8b"]
 TOL = 1e-4
 TOL_BF16 = 0.1
 CPU = "cpu"
@@ -259,23 +260,25 @@ def test_bf16_prefill_and_decode_match_reference():
         _close(pcache["dense"]["k"], rcache["dense"]["k"], TOL_BF16)
 
 
-@pytest.mark.parametrize("arch,item", [("qwen3-moe-30b-a3b", "A8"),
-                                       ("deepseek-v3-671b", "A8"),
-                                       ("llava-next-34b", "A8"),
-                                       ("whisper-small", "A8"),
+@pytest.mark.parametrize("arch,item", [("qwen3-moe-30b-a3b", "A3"),
+                                       ("deepseek-v3-671b", "A3"),
+                                       ("llava-next-34b", "A3"),
+                                       ("whisper-small", "A3"),
                                        ("mamba2-130m", "B8"),
                                        ("zamba2-2.7b", "B8")])
 def test_unported_families_raise(arch, item):
-    """The families still to port (A8) raise naming their ROADMAP item;
-    those of B8 (Mamba2 and the Zamba2 hybrid, ported with the SSD kernel)
-    no longer raise and build their cache."""
+    """No family is left unported: those of B8 (Mamba2 and the Zamba2
+    hybrid, ported with the SSD kernel) and of A3 (MoE, MLA, VLM and
+    enc-dec) build and give their cache; what still raises is training,
+    naming its ROADMAP item (A4)."""
+    model = Model(get_config(arch, smoke=True))
+    assert model.cache_shapes(1, 8)
     if item == "B8":
-        model = Model(get_config(arch, smoke=True))
         assert model.cfg.family in ("ssm", "hybrid")
-        assert model.cache_shapes(1, 8)
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        Model(get_config(arch, smoke=True))
+    else:
+        assert model.cfg.family in ("moe", "vlm", "encdec")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
+        model.loss(None, None)
 
 
 def test_random_init_draws_like_the_reference():

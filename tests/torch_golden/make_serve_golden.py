@@ -9,8 +9,8 @@ Run from the repository root on a machine with JAX (CPU is enough, ~1 min,
         python tests/torch_golden/make_serve_golden.py
 
 Parameters are ``repro_torch.interop.numpy_reference_params(cfg, 0)``: numpy
-``default_rng(0)`` normals times ``fan_in ** -0.5`` and ones for 1-D
-leaves, as ``repro.models.transformer.init_params`` draws its leaves (3.5 GB
+normals (each leaf in blocks, a stream ``default_rng([0, leaf, block])``
+each) times ``fan_in ** -0.5`` and ones for 1-D leaves, as ``repro.models.transformer.init_params`` draws its leaves (3.5 GB
 of float32).  Prompts of 37 and 256 tokens come from ``default_rng(1)``.
 Each prompt is decoded alone (batch 1) through the reference's
 ``serve_step.build_serve_fns`` for ``N_NEW`` greedy steps.  For each step

@@ -10,7 +10,8 @@ Run from the repository root on a machine with JAX (CPU is enough, ~2 min,
         python tests/torch_golden/make_ssm_golden.py
 
 Parameters are ``repro_torch.interop.numpy_reference_params(cfg, 0)``: numpy
-``default_rng(0)`` draws by the SSM init rule of ``repro.models.mamba2``
+draws (each leaf in blocks, a stream ``default_rng([0, leaf, block])``
+each) by the SSM init rule of ``repro.models.mamba2``
 (normals times ``fan_in ** -0.5`` where the last axis exceeds 8, else 0.1;
 ``A_log = 0``, ``dt_bias = -2``; 2.0 GB of float32 for the Zamba2 cut).
 Prompts, steps and records are those of ``make_serve_golden.py``: prompts
