@@ -154,7 +154,9 @@ Phases, each timed on its own line; any failure exits non-zero:
     kernels); then Mamba2-130M at full size the same way with 4 requests
     (24 ``ssd_scan`` launches a prefill);
 17. time each kernel and its plain version on the largest inputs the main
-    paths gave it, beside the bound of the card (and, for flash attention,
+    paths gave it (the attention backward kernel at the training main
+    path's shape, random inputs, in bf16 and float32, beside one SDPA
+    backward), beside the bound of the card (and, for flash attention,
     one ``scaled_dot_product_attention`` call as the library's time; no
     single PyTorch call computes the SSD scan); the float32 attention kernel
     and the float32 SSD route are timed on those inputs in float32, the SSD
@@ -181,8 +183,8 @@ Phases, each timed on its own line; any failure exits non-zero:
     random weights, through phase 13's batcher, ``greedy_decode`` and
     checks (kernel path vs plain path within 0.1, batcher == solo), with
     the flash-attention launch count set to 0 just before and read just
-    after: Qwen3-MoE-30B-A3B at full depth (48 layers, 30.5 B parameters;
-    ``SERVE_LENS``), DeepSeek-V3 cut to its 3 dense layers and 1 MoE layer
+    after: Qwen3-MoE-30B-A3B cut to 24 of its 48 layers (``QWEN_LAYERS``;
+    15.6 B parameters; ``SERVE_LENS``), DeepSeek-V3 cut to its 3 dense layers and 1 MoE layer
     (15.1 B parameters; prompts of 13-511 tokens), LLaVA-NeXT-34B cut to 20
     of its 60 layers (``greedy_decode`` with 2,880 vision embeds before
     100-token prompts, at the token embeddings' scale), Whisper-small whole
@@ -191,10 +193,41 @@ Phases, each timed on its own line; any failure exits non-zero:
     same 20 layers prefilled after 2,880 unit-normal vision embeds through
     the kernel path, the plain path and the plain path in float32 (the
     weights upcast), the kernel path no further from float32 than the plain
-    path plus 0.1.
+    path plus 0.1;
+21. ``attention_grad_vs_plain``: hold the flash-attention backward kernel
+    (``csrc/flash_attn_bwd.cu``, through ``ops.attention``'s autograd
+    route) to its plain version ``ref.mha_vjp`` (bf16 at 2e-2, float32 at
+    1e-4, each of a gradient's largest magnitude: ``ATTN_GRAD_TOL``) at
+    Yi-6B's heads for S = 1-4,096, D = 64, 80, 96, 128 and 256, MLA's
+    192/128 at 128 heads, causal with more queries than keys, ragged keys,
+    Whisper's encoder and cross attention (not causal), float16 and mixed
+    dtypes; each shape twice, the reruns bitwise equal;
+22. ``train_golden``: Yi-6B at full width, 2 layers, float32, numpy
+    weights: two train steps (microbatch 2, a ``batch_for_step`` batch)
+    with AdamW and with Adafactor, held to the CPU JAX golden of
+    ``tests/torch_golden/make_train_golden.py`` (losses, gradient norms and
+    sampled parameters and optimizer state);
+23. ``train_main_path``: Yi-6B at full width cut to 8 of its 32 layers,
+    bf16, 4 sequences of 4,096 tokens a step (one a microbatch), AdamW,
+    remat, through ``build_train_step`` and a ``ResilientLoop`` (a
+    checkpoint every 2 steps under ``build/``) for 3 steps, with the
+    flash-attention forward and backward launch counts set to 0 just before
+    and read just after (8 layers x 4 microbatches x 2 forwards, the pass
+    and its remat, and 8 x 4 backwards a step); step 1's loss and gradient
+    norm held to a plain run (``backend="torch"``) from the same weights;
+    then a crash after step 2's checkpoint: a second ``ResilientLoop``
+    restores it into zeroed state and runs step 3, whose parameters must
+    equal the uninterrupted run's bitwise (deterministic algorithms on).
+    Each step prints its wall ms, tokens per second, the device ms in each
+    attention kernel and the peak memory;
+24. ``train_zoo_smoke``: one train step of each family that trains on the
+    card (dense, MoE, MLA, VLM, enc-dec) at its smoke config, the kernel
+    path against the plain path;
+25. ``train_cli``: ``repro_torch.launch.train.main`` on the card, Yi-6B's
+    smoke config for 4 steps, then restarted to 6: it must resume at 4.
 
-Every main-path run of phases 3, 5, 7-10, 13, 16 and 20 sets the kernels'
-launch counts to 0 just before it and reads them just after.
+Every main-path run of phases 3, 5, 7-10, 13, 16, 20 and 23 sets the
+kernels' launch counts to 0 just before it and reads them just after.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -311,10 +344,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernel_re: str):
+def device_ms(fn, reps: int, kernel_re: str, per_call: int = 0):
     """Mean device milliseconds per call of the CUDA kernels whose names
     match ``kernel_re``, from a ``torch.profiler`` trace of ``reps`` calls
-    after one warm-up call (None when the trace holds no device time)."""
+    after one warm-up call (None when the trace holds no device time, or,
+    with ``per_call``, when it holds other than ``per_call`` x ``reps``
+    launches of them)."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -325,8 +360,10 @@ def device_ms(fn, reps: int, kernel_re: str):
             fn()
         torch.cuda.synchronize()
     pat = re.compile(kernel_re)
-    total_us = sum(getattr(e, "device_time_total", 0.0)
-                   for e in prof.key_averages() if pat.search(e.key))
+    hits = [e for e in prof.key_averages() if pat.search(e.key)]
+    total_us = sum(getattr(e, "device_time_total", 0.0) for e in hits)
+    if per_call and sum(e.count for e in hits) != per_call * reps:
+        return None
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
@@ -1272,6 +1309,10 @@ ZOO_GOLDENS = tuple(ROOT / "tests" / "torch_golden" / n for n in (
     "serve_moe_l2.json", "serve_mla_l1.json", "serve_vlm_l2.json",
     "serve_encdec.json"))
 DEEPSEEK_LAYERS = 4
+# Qwen3-MoE-30B-A3B's serving main path at full width, cut to 24 of its
+# 48 layers to make room for the training phases within the script's time
+# limit.
+QWEN_LAYERS = 24
 DEEPSEEK_LENS = (13, 100, 511, 37)
 LLAVA_LAYERS = 20
 ZOO_LENS = (13, 100, 511, 37)
@@ -1936,7 +1977,7 @@ def zoo_phases(dev):
     lcfg = get_config("llava-next-34b")
     runs = (
         ("zoo_serve_main_path qwen3-moe-30b-a3b", qcfg.name, SERVE_LENS,
-         {"flash_attention": qcfg.n_layers}, None, None),
+         {"flash_attention": QWEN_LAYERS}, {"n_layers": QWEN_LAYERS}, None),
         ("zoo_serve_main_path deepseek-v3-671b", "deepseek-v3-671b",
          DEEPSEEK_LENS, {"flash_attention": DEEPSEEK_LAYERS},
          {"n_layers": DEEPSEEK_LAYERS}, None),
@@ -2561,7 +2602,658 @@ def ssd_timing(rec, errs, launches, f32_launches):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Training: the flash-attention backward kernel and the train step
+# ---------------------------------------------------------------------------
+
+TRAIN_GOLDEN = ROOT / "tests" / "torch_golden" / "train_yi6b_l2.json"
+TRAIN_OUT = ROOT / "build" / "chip_smoke_train"
+# attention_grad_vs_plain, (B, Hq, Hkv, Sq, Sk, Dk, Dv, causal): Yi-6B's
+# heads for S = 1-4,096 (the main path's positions), D = 64, 80 (Zamba2's
+# shared block), 96 (Phi-3-mini), MLA's 192/128 at DeepSeek-V3's 128 heads,
+# causal with more queries than keys (rows that see no key), ragged keys,
+# an odd depth, D = 256, and Whisper's encoder and cross attention (not
+# causal); then float16 and mixed dtypes (HALF_MIXED) at two shapes.
+ATTN_GRAD_SHAPES = (
+    [(1, 32, 4, S, S, 128, 128, True) for S in (1, 13, 100, 1025, 4096)]
+    + [(2, 8, 2, 300, 300, 64, 64, True),
+       (1, 32, 32, 1025, 1025, 80, 80, True),
+       (1, 32, 32, 513, 513, 96, 96, True),
+       (1, 128, 128, 511, 511, 192, 128, True),
+       (1, 2, 1, 160, 128, 16, 16, True),
+       (1, 32, 4, 300, 100, 128, 128, True),
+       (2, 6, 3, 65, 200, 96, 96, True),
+       (1, 8, 2, 100, 130, 36, 36, True),
+       (1, 4, 1, 77, 200, 256, 256, True),
+       (1, 12, 12, 1500, 1500, 64, 64, False),
+       (2, 12, 12, 1, 1500, 64, 64, False),
+       (1, 12, 12, 37, 1500, 64, 64, False)])
+ATTN_GRAD_HALF = ((1, 4, 2, 128, 128, 16, 16, True),
+                  (1, 32, 4, 100, 300, 128, 128, True))
+# Each gradient within atol = TOL x its largest magnitude and rtol = TOL of
+# the plain version's (ref.mha_vjp).  bf16: the forward's 2e-2 (both round
+# float32 sums to 8 bits of mantissa).  float32: 1e-4, five times the
+# forward's 2e-5: the backward sums five products over up to 4,096 keys or
+# queries and a group's heads in another order, and dS = P (dP - D)
+# subtracts D = rowsum(dout * out), taken from the forward kernel's output
+# (itself within 2e-5 of the plain version's).
+ATTN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# train_golden: the port's two train steps of Yi-6B (2 layers, float32) on
+# the card against CPU JAX (tests/torch_golden/make_train_golden.py).  The
+# loss within 1e-4 and the gradient norm within 1e-4 relative (float32
+# sums in another order; the serving golden's logits came within 1.5e-5);
+# the sampled optimizer state within 1e-3 relative to the leaf's largest
+# sampled magnitude (a moment is a gradient, or its square, whose sums over
+# 256 tokens and widths up to 11,008 run in another order); parameters
+# within 1e-6 relative plus 1e-7 absolute (an ulp of float32 at 1.0; a
+# step moves a parameter by up to its step size, 3e-6 and 6e-6 here, so a
+# missing or reversed update fails; the card came within 2e-9).  AdamW's
+# update is lr * m / (sqrt(v) + eps), +-lr wherever g ~ 0 and the two
+# gradients may differ in sign: where the golden's first moment after a
+# step is near zero (below GOLDEN_MU_NEAR0 of its leaf's largest sampled
+# magnitude, and not exactly zero as in an embedding row no token reached),
+# that element may also differ by twice that step's size, for that step and
+# every later one.
+GOLDEN_LOSS_ATOL = 1e-4
+GOLDEN_GNORM_RTOL = 1e-4
+GOLDEN_STATE_RTOL = 1e-3
+GOLDEN_PARAM_ATOL, GOLDEN_PARAM_RTOL = 1e-7, 1e-6
+GOLDEN_MU_NEAR0 = 1e-3
+# train_main_path: Yi-6B at full width cut to TRAIN_LAYERS of its 32 layers
+# (the AdamW state of more does not fit the card beside the activations),
+# bf16, train_4k's 4,096 positions with its global batch cut from 256 to
+# TRAIN_BATCH, the config's 4 microbatches, AdamW and remat (policy
+# "nothing"), TRAIN_STEPS steps through ResilientLoop with a checkpoint
+# every 2 steps.  The batch is cut to 4, one sequence a microbatch (8 ran
+# at 3.8 s a step; PERF.md, PR 23), to keep the script near its time.
+TRAIN_LAYERS = 8
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 4
+TRAIN_STEPS = 3
+# Step 1's loss and gradient norm on the kernel path against the plain
+# path (backend="torch") from the same bf16 weights: both round every
+# activation to bf16 from float32 sums taken in another order (the
+# attention kernels' tiles, the plain version's einsums), through 8 layers
+# and 4 microbatches of 2 x 4,096 tokens.  The card gave a loss gap of
+# 2.4e-5 (of ~11.6) and a relative gradient-norm gap of 3.6e-7: the loss
+# is held within 1e-3 and the gradient norm within 1e-3 relative.
+TRAIN_LOSS_ATOL = 1e-3
+TRAIN_GNORM_RTOL = 1e-3
+# train_zoo_smoke: one train step of each family that trains on the card,
+# at its smoke config (float32), kernel path against plain path: the loss
+# within 1e-5 and the gradient norm within 1e-4, relative.
+TRAIN_ZOO = ("yi-6b", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
+             "llava-next-34b", "whisper-small")
+ZOO_LOSS_RTOL, ZOO_GNORM_RTOL = 1e-5, 1e-4
+
+
+class AttnClock:
+    """While active, times each call of the attention kernels' bindings
+    (``kernel.flash_attention`` and ``kernel.flash_attention_bwd``) with
+    CUDA events on the current stream; ``take()`` returns the device ms of
+    each since the last ``take()``."""
+
+    NAMES = ("flash_attention", "flash_attention_bwd")
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels.flash_attn import kernel
+        self.kernel = kernel
+        self.orig = {n: getattr(kernel, n) for n in self.NAMES}
+        self.events = {n: [] for n in self.NAMES}
+
+        def timed(name, fn):
+            def call(*args, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kw)
+                end.record()
+                self.events[name].append((start, end))
+                return out
+            return call
+        for n, fn in self.orig.items():
+            setattr(kernel, n, timed(n, fn))
+        return self
+
+    def take(self):
+        import torch
+        torch.cuda.synchronize()
+        out = {n: sum(s.elapsed_time(e) for s, e in ev)
+               for n, ev in self.events.items()}
+        counts = {n: len(ev) for n, ev in self.events.items()}
+        self.events = {n: [] for n in self.NAMES}
+        return out, counts
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.kernel, n, fn)
+        return False
+
+
+def attention_grads(q, k, v, dout, causal):
+    """(dq, dk, dv) of ``ops.attention`` through autograd; on CUDA tensors
+    the backward kernel must have run once."""
+    import torch
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    before = attn_ops.BWD_LAUNCHES
+    out = attn_ops.attention(qq, kk, vv, causal=causal)
+    grads = torch.autograd.grad(out, (qq, kk, vv), dout)
+    torch.cuda.synchronize()
+    check(attn_ops.BWD_LAUNCHES == before + 1,
+          "the attention backward did not run on the kernel")
+    return grads
+
+
+def grads_close(got, want, tol) -> bool:
+    return all(g.dtype == w.dtype and g.shape == w.shape and torch_allclose(
+        g, w, tol) for g, w in zip(got, want))
+
+
+def torch_allclose(g, w, tol) -> bool:
+    import torch
+    w = w.float()
+    scale = float(w.abs().max()) if w.numel() else 0.0
+    return bool(torch.isfinite(g).all()) and torch.allclose(
+        g.float(), w, atol=tol * (scale or 1.0), rtol=tol)
+
+
+def attention_grad_phase(dev, errs):
+    """attention_grad_vs_plain: the backward kernel (through
+    ``ops.attention``'s autograd route) against ``ref.mha_vjp`` at
+    ATTN_GRAD_SHAPES in float32 and bf16 and at ATTN_GRAD_HALF in float16
+    and mixed dtypes; each shape run twice, the reruns bitwise equal."""
+    import torch
+    from repro_torch.kernels.flash_attn import ref as attn_ref
+    with Phase("attention_grad_vs_plain"):
+        gen = torch.Generator().manual_seed(1)
+        cases = [(s, (dt,) * 3) for s in ATTN_GRAD_SHAPES
+                 for dt in ("float32", "bfloat16")]
+        cases += [(s, dts) for s in ATTN_GRAD_HALF for dts in HALF_MIXED]
+        for shape, dts in cases:
+            B, Hq, Hkv, Sq, Sk, D, Dv, causal = shape
+            q, k, v = (torch.randn(s, generator=gen).to(dev, getattr(torch,
+                                                                     dt))
+                       for s, dt in zip(((B, Hq, Sq, D), (B, Hkv, Sk, D),
+                                         (B, Hkv, Sk, Dv)), dts))
+            dout = torch.randn((B, Hq, Sq, Dv), generator=gen).to(dev,
+                                                                  q.dtype)
+            got = attention_grads(q, k, v, dout, causal)
+            again = attention_grads(q, k, v, dout, causal)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            want = attn_ref.mha_vjp(q, k, v, dout, causal=causal)
+            torch.cuda.synchronize()
+            tol = (ATTN_GRAD_TOL[dts[0]] if len(set(dts)) == 1
+                   and dts[0] in ATTN_GRAD_TOL else HALF_TOL)
+            err = max(max_abs_err(g.float(), w.float())
+                      for g, w in zip(got, want))
+            if len(set(dts)) == 1 and dts[0] in ATTN_GRAD_TOL:
+                key = ("flash_attention_bwd" if dts[0] == "bfloat16"
+                       else "flash_attention_bwd_f32")
+                errs[key] = max(errs[key], err)
+            check(same, f"flash_attention_bwd {shape} {dts}: two runs differ")
+            check(grads_close(got, want, tol),
+                  f"flash_attention_bwd {shape} {dts}: kernel != plain "
+                  f"(max_abs_err {err})")
+            print(f"flash_attention_bwd {shape} {dts}: dq/dk/dv max_abs_err "
+                  f"{err:.3g} (tolerance atol = {tol} x max|grad|, rtol = "
+                  f"{tol}); rerun bitwise equal; "
+                  f"{max(Sq - Sk, 0) if causal else 0} rows see no key",
+                  flush=True)
+            del q, k, v, dout, got, again, want
+
+
+def sample_state(state, path, idx, dev):
+    """The values of the reference leaf ``path`` of the port's train state
+    at flat indices ``idx`` of its stacked shape."""
+    import torch
+    from repro_torch.train import tree as T
+    leaf = T.get(state, tuple(path.split("/")))
+    t = torch.stack(leaf) if isinstance(leaf, list) else leaf
+    return t.detach().reshape(-1)[torch.tensor(idx, device=t.device)].cpu()
+
+
+def train_golden_check(rec, dev):
+    """Two train steps of each of the golden's runs (AdamW, Adafactor) on
+    ``dev`` from ``numpy_reference_params``, held to the golden record.
+    Returns the attention kernels' (forward, backward) launches."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.interop import (numpy_reference_params,
+                                     params_from_reference)
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.models.registry import Model
+    from repro_torch.train import data as data_mod
+    from repro_torch.train import train_step as ts
+    launches = [attn_ops.LAUNCHES, attn_ops.BWD_LAUNCHES]
+    for run in rec["runs"]:
+        cfg = dc.replace(get_config(rec["arch"]), n_layers=rec["n_layers"],
+                         dtype=rec["dtype"], optimizer=run["optimizer"])
+        model = Model(cfg)
+        params = params_from_reference(
+            cfg, numpy_reference_params(cfg, rec["param_seed"]), dev)
+        tcfg = ts.TrainConfig(microbatch=rec["microbatch"])
+        state = ts.make_train_state(model, params, tcfg)
+        step_fn = ts.build_train_step(model, tcfg)
+        dcfg = data_mod.DataConfig(vocab=cfg.vocab, seq_len=rec["seq_len"],
+                                   global_batch=rec["global_batch"])
+        slack = {}              # params path -> per-element AdamW slack
+        for s, want in enumerate(run["steps"]):
+            batch = {"tokens": torch.from_numpy(
+                data_mod.batch_for_step(dcfg, s)).to(dev)}
+            state, m = step_fn(state, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            check(abs(loss - want["loss"]) <= GOLDEN_LOSS_ATOL
+                  and abs(gnorm - want["grad_norm"])
+                  <= GOLDEN_GNORM_RTOL * want["grad_norm"],
+                  f"train_golden {run['optimizer']} step {s}: loss {loss} "
+                  f"grad_norm {gnorm}, golden {want['loss']} "
+                  f"{want['grad_norm']}")
+            sched = run["learning_rate"] * min(
+                1.0, (s + 1) / run["warmup_steps"])
+            worst, n_slack = {}, 0
+            for path, leaf in want["state"].items():
+                got = sample_state(state, path, leaf["idx"], dev).double()
+                ref = torch.tensor(leaf["values"], dtype=torch.float64)
+                if path.startswith("params/"):
+                    atol = torch.full_like(ref, GOLDEN_PARAM_ATOL)
+                    if run["optimizer"] == "adamw":
+                        mu = want["state"].get(
+                            "opt/mu/" + path[len("params/"):])
+                        check(mu is not None and mu["idx"] == leaf["idx"],
+                              f"train_golden: {path} has no first moment "
+                              f"sampled at its indices")
+                        mu = torch.tensor(mu["values"], dtype=torch.float64)
+                        near0 = (mu != 0) & (
+                            mu.abs() < GOLDEN_MU_NEAR0 * mu.abs().max())
+                        slack[path] = (slack.get(path, 0.0)
+                                       + 2 * sched * near0.double())
+                        atol += slack[path]
+                        n_slack += int((slack[path] > 0).sum())
+                    rtol = GOLDEN_PARAM_RTOL
+                else:
+                    atol = torch.full_like(
+                        ref, GOLDEN_STATE_RTOL * float(ref.abs().max()))
+                    rtol = GOLDEN_STATE_RTOL
+                diff, tol = (got - ref).abs(), atol + rtol * ref.abs()
+                err = float(diff.max())
+                kind = path.split("/")[0] + ("/" + path.split("/")[1]
+                                             if path.startswith("opt") else "")
+                worst[kind] = max(worst.get(kind, 0.0), err)
+                bad = int((diff > tol).sum())
+                check(bad == 0, f"train_golden {run['optimizer']} step {s} "
+                                f"{path}: {bad} sampled values past their "
+                                f"tolerance, max_abs_err {err}")
+            print(f"train_golden {cfg.name} {run['optimizer']} step {s}: "
+                  f"loss {loss:.6f} (golden {want['loss']:.6f}), grad_norm "
+                  f"{gnorm:.6f} (golden {want['grad_norm']:.6f}); sampled "
+                  f"state max_abs_err "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in sorted(
+                      worst.items()))
+                  + f"; {n_slack} sampled parameters near a zero first "
+                    f"moment", flush=True)
+        del state, params, step_fn
+    return (attn_ops.LAUNCHES - launches[0],
+            attn_ops.BWD_LAUNCHES - launches[1])
+
+
+def train_golden_phase(dev):
+    """train_golden: Yi-6B at full width, 2 layers, float32, numpy weights,
+    two train steps on the card (AdamW, then Adafactor) against the CPU JAX
+    golden.  Returns the float32 attention kernels' (forward, backward)
+    launches."""
+    import torch
+    with Phase("train_golden"):
+        out = train_golden_check(json.loads(TRAIN_GOLDEN.read_text()), dev)
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_batches(cfg, seq_len, global_batch, dev):
+    """``batches(step)`` of the synthetic stream (``batch_for_step``) on
+    ``dev``, with the family's frontend input (numpy normals from the step)
+    where it has one."""
+    import numpy as np
+    import torch
+    from repro_torch.train import data as data_mod
+    dcfg = data_mod.DataConfig(vocab=cfg.vocab, seq_len=seq_len,
+                               global_batch=global_batch)
+
+    def batches(step):
+        batch = {"tokens": torch.from_numpy(
+            data_mod.batch_for_step(dcfg, step)).to(dev)}
+        shape = None
+        if cfg.family == "vlm":
+            shape = ("vision_embeds", (global_batch, 8, cfg.frontend_dim))
+        if cfg.family == "encdec":
+            shape = ("frames", (global_batch, cfg.n_frontend_tokens,
+                                cfg.frontend_dim))
+        if shape:
+            x = np.random.default_rng([7, step]).standard_normal(
+                shape[1], dtype=np.float32)
+            batch[shape[0]] = torch.from_numpy(x).to(dev)
+        return batch
+    return batches
+
+
+def train_main_phase(dev):
+    """train_main_path (see TRAIN_LAYERS).  First the plain path's step-1
+    loss and gradient norm from the initial weights (no update); then, with
+    ``torch.use_deterministic_algorithms(True)``, the kernel path through
+    ``build_train_step`` and a ResilientLoop for TRAIN_STEPS steps
+    (checkpoints every 2 steps under build/), with the flash-attention
+    launch counts set to 0 just before and read just after; then a crash
+    after step 2's checkpoint: step 3's checkpoint removed, every state
+    tensor zeroed, and a second ResilientLoop restores step 2 and runs step
+    3, whose parameters must equal the uninterrupted run's bitwise.
+    Returns (bf16 forward launches, bf16 backward launches, per-step
+    records)."""
+    import dataclasses as dc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.models.registry import Model
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.train import fault_tolerance as ft_mod
+    from repro_torch.train import train_step as ts
+    from repro_torch.train import tree as T
+    layers, seq, batch = TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH
+    cfg = dc.replace(get_config("yi-6b"), n_layers=layers)
+    model = Model(cfg)
+    tcfg = ts.TrainConfig()
+    n_micro = ts.micro_count(model, tcfg)
+    batches = train_batches(cfg, seq, batch, dev)
+    with Phase("train_main_path"):
+        t0 = time.perf_counter()
+        params = model.init_params(
+            torch.Generator(device=dev).manual_seed(0), device=dev)
+        n_params = sum(p.numel() for p in params.parameters())
+        print(f"train_main_path: {cfg.name} {cfg.dtype}, n_layers={layers}, "
+              f"{n_params:,} parameters drawn in "
+              f"{time.perf_counter() - t0:.1f} s; {batch} x {seq} tokens a "
+              f"step in {n_micro} microbatches, {cfg.optimizer}, remat="
+              f"{cfg.remat} ({cfg.remat_policy})", flush=True)
+        params.requires_grad_(True)
+        t0 = time.perf_counter()
+        plain_loss, grads = ts.loss_and_grads(
+            Model(cfg, backend="torch"), params, batches(0), n_micro)
+        plain_gnorm = float(ts.global_norm(grads))
+        plain_loss = float(plain_loss)
+        del grads
+        torch.cuda.empty_cache()
+        print(f"train_main_path plain path (backend='torch'), step 1 "
+              f"without update: loss {plain_loss:.6f} grad_norm "
+              f"{plain_gnorm:.6f} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        ckdir = TRAIN_OUT / "ckpt"
+        shutil.rmtree(ckdir, ignore_errors=True)
+        ftc = ft_mod.FTConfig(ckpt_dir=str(ckdir), ckpt_every=2, keep_last=3)
+        records = []
+        clock = AttnClock()
+
+        def metrics_cb(step, m, dt):
+            ms, counts = clock.take()
+            rec = {"step": step + 1, "loss": float(m["loss"]),
+                   "grad_norm": float(m["grad_norm"]), "wall_ms": dt * 1e3,
+                   "tokens_per_s": batch * seq / dt,
+                   "attn_fwd_ms": ms["flash_attention"],
+                   "attn_bwd_ms": ms["flash_attention_bwd"],
+                   "attn_calls": counts,
+                   "max_memory_gb": torch.cuda.max_memory_allocated(dev)
+                   / 1e9}
+            records.append(rec)
+            print(f"train_main_path step {rec['step']}: "
+                  + " ".join(f"{k}={v:.6g}" if isinstance(v, float)
+                             else f"{k}={v}" for k, v in rec.items()
+                             if k != "step"), flush=True)
+
+        torch.use_deterministic_algorithms(True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            state = ts.make_train_state(model, params, tcfg)
+            step_fn = ts.build_train_step(model, tcfg)
+            attn_ops.LAUNCHES = attn_ops.BWD_LAUNCHES = 0
+            t0 = time.perf_counter()
+            with clock:
+                loop = ft_mod.ResilientLoop(step_fn, state, ftc,
+                                            health_cb=print)
+                loop.run(batches, TRAIN_STEPS, metrics_cb)
+            fwd, bwd = attn_ops.LAUNCHES, attn_ops.BWD_LAUNCHES
+            print(f"train_main_path: {TRAIN_STEPS} steps and their "
+                  f"checkpoints in {time.perf_counter() - t0:.1f} s; "
+                  f"flash_attention launches: forward {fwd}, backward {bwd}",
+                  flush=True)
+            per_step = layers * n_micro
+            check(fwd == TRAIN_STEPS * per_step * 2
+                  and bwd == TRAIN_STEPS * per_step,
+                  f"train_main_path: flash_attention launches {fwd} "
+                  f"forward, {bwd} backward; expected "
+                  f"{TRAIN_STEPS * per_step * 2} and {TRAIN_STEPS * per_step}"
+                  f" (a forward and its remat, and a backward, a layer a "
+                  f"microbatch)")
+            check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                      for r in records), "train_main_path: a loss or "
+                  "gradient norm is not finite")
+            first = records[0]
+            check(abs(first["loss"] - plain_loss) <= TRAIN_LOSS_ATOL
+                  and abs(first["grad_norm"] - plain_gnorm)
+                  <= TRAIN_GNORM_RTOL * plain_gnorm,
+                  f"train_main_path step 1: kernel path loss "
+                  f"{first['loss']} grad_norm {first['grad_norm']}, plain "
+                  f"path {plain_loss} {plain_gnorm}")
+            print(f"train_main_path step 1, kernel vs plain: loss "
+                  f"{first['loss']:.6f} vs {plain_loss:.6f} (|diff| "
+                  f"{abs(first['loss'] - plain_loss):.3g} <= "
+                  f"{TRAIN_LOSS_ATOL}), grad_norm {first['grad_norm']:.6f} "
+                  f"vs {plain_gnorm:.6f} (rel diff "
+                  f"{abs(first['grad_norm'] - plain_gnorm) / plain_gnorm:.3g}"
+                  f" <= {TRAIN_GNORM_RTOL})", flush=True)
+            final = [t.detach().clone() for t in params.parameters()]
+
+            # a crash after step 2's checkpoint committed
+            shutil.rmtree(ckdir / f"step_{TRAIN_STEPS:08d}")
+            check(ckpt_mod.latest_step(str(ckdir)) == 2,
+                  "train_main_path: step 2's checkpoint is missing")
+            with torch.no_grad():
+                for _, leaf in T.items(state):
+                    for t in T.layers(leaf):
+                        t.zero_()
+            t0 = time.perf_counter()
+            loop2 = ft_mod.ResilientLoop(step_fn, state, ftc,
+                                         health_cb=print)
+            restore_s = time.perf_counter() - t0
+            check(loop2.start_step == 2, "train_main_path: the restart did "
+                  f"not resume at step 2 ({loop2.start_step})")
+            n_before = len(records)
+            with clock:
+                loop2.run(batches, TRAIN_STEPS, metrics_cb)
+            after = list(params.parameters())
+            same = all(torch.equal(a, b) for a, b in zip(final, after))
+            check(same and records[-1]["loss"] == records[n_before - 1][
+                      "loss"],
+                  "train_main_path: the restarted step 3 differs from the "
+                  "uninterrupted run's")
+            print(f"train_main_path restart: restored step 2 in "
+                  f"{restore_s:.1f} s; step 3's parameters bitwise equal to "
+                  f"the uninterrupted run's ({len(after)} tensors, "
+                  f"deterministic algorithms on)", flush=True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        del state, params, final, loop, loop2, step_fn
+        shutil.rmtree(ckdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return fwd, bwd, records
+
+
+def train_zoo_phase(dev):
+    """train_zoo_smoke: one train step of each family in TRAIN_ZOO at its
+    smoke config (float32) through the kernels and through the plain path
+    from the same weights; loss and gradient norm within ZOO_*_RTOL, and
+    the forward and backward kernels launched.  Returns the float32
+    attention kernels' (forward, backward) launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.models.registry import Model
+    from repro_torch.train import train_step as ts
+    total = [0, 0]
+    with Phase("train_zoo_smoke"):
+        for arch in TRAIN_ZOO:
+            cfg = get_config(arch, smoke=True)
+            batches = train_batches(cfg, 64, 4, dev)
+            out = {}
+            for backend in ("auto", "torch"):
+                model = Model(cfg, backend=backend)
+                params = model.init_params(0, device=dev)
+                tcfg = ts.TrainConfig()
+                state = ts.make_train_state(model, params, tcfg)
+                before = (attn_ops.LAUNCHES, attn_ops.BWD_LAUNCHES)
+                _, m = ts.build_train_step(model, tcfg)(state, batches(0))
+                out[backend] = (float(m["loss"]), float(m["grad_norm"]),
+                                attn_ops.LAUNCHES - before[0],
+                                attn_ops.BWD_LAUNCHES - before[1])
+            (lk, gk, fk, bk), (lp, gp, fp, bp) = out["auto"], out["torch"]
+            total[0] += fk
+            total[1] += bk
+            check(fk > 0 and bk > 0 and fp == 0 and bp == 0,
+                  f"train_zoo_smoke {arch}: kernel launches {fk}/{bk}, "
+                  f"plain {fp}/{bp}")
+            check(abs(lk - lp) <= ZOO_LOSS_RTOL * abs(lp)
+                  and abs(gk - gp) <= ZOO_GNORM_RTOL * gp,
+                  f"train_zoo_smoke {arch}: kernel loss {lk} grad_norm {gk}, "
+                  f"plain {lp} {gp}")
+            print(f"train_zoo_smoke {cfg.name} ({cfg.family}): loss {lk:.6f} "
+                  f"vs plain {lp:.6f}, grad_norm {gk:.6f} vs {gp:.6f}; "
+                  f"flash_attention forward {fk}, backward {bk} launches",
+                  flush=True)
+    return tuple(total)
+
+
+def train_cli_phase():
+    """train_cli: ``repro_torch.launch.train.main`` on the card (its
+    default device), Yi-6B's smoke config for 4 steps with a checkpoint
+    every 2, then again to 6 steps: it must resume at step 4."""
+    import shutil
+    import numpy as np
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import checkpoint as ckpt_mod
+    with Phase("train_cli"):
+        d = TRAIN_OUT / "cli"
+        shutil.rmtree(d, ignore_errors=True)
+        argv = ["--arch", "yi-6b", "--smoke", "--steps", "4", "--ckpt-dir",
+                str(d), "--ckpt-every", "2", "--log-every", "1"]
+        losses = launch_train.main(argv)
+        check(len(losses) == 4 and all(np.isfinite(losses))
+              and ckpt_mod.latest_step(str(d)) == 4,
+              f"train_cli: losses {losses}")
+        again = launch_train.main(argv[:4] + ["6"] + argv[5:])
+        check(len(again) == 2 and all(np.isfinite(again))
+              and ckpt_mod.latest_step(str(d)) == 6,
+              f"train_cli: the restart ran {len(again)} steps")
+        print(f"train_cli: 4 steps, losses {[round(x, 4) for x in losses]}; "
+              f"the restart resumed at step 4 and ran 2 more "
+              f"({[round(x, 4) for x in again]})", flush=True)
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def attention_bwd_timing(errs, n_micro):
+    """The backward kernel's rows of the ``kernels`` line, at the main
+    path's shape (random inputs): the wrapper's ms (CUDA events), the
+    device ms of its three launches (profiler; None unless the trace holds
+    all of them), the plain version
+    (``ref.mha_vjp``), the backward of one SDPA call (the library's time),
+    and the bound: the backward's five products (2.5 x the forward's
+    operations) at the card's rate for the type, or its bytes (q, k, v,
+    out and dout read once, dq, dk, dv written once) at 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import kernel as attn_kernel
+    from repro_torch.kernels.flash_attn import ref as attn_ref
+    B, Hq, Hkv, S, D = TRAIN_BATCH // n_micro, 32, 4, TRAIN_SEQ, 128
+    gen = torch.Generator().manual_seed(2)
+    rows = []
+    base = [torch.randn(s, generator=gen) for s in (
+        (B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D), (B, Hq, S, D))]
+    for name, dtype in (("flash_attention_bwd", torch.bfloat16),
+                        ("flash_attention_bwd_f32", torch.float32)):
+        q, k, v, dout = (t.to("cuda", dtype) for t in base)
+        out = attn_kernel.flash_attention(q, k, v, causal=True)
+        got = attn_kernel.flash_attention_bwd(q, k, v, out, dout)
+        want = attn_ref.mha_vjp(q, k, v, dout)
+        tol = ATTN_GRAD_TOL[str(dtype).split(".")[-1]]
+        err = max(errs[name], max(max_abs_err(g.float(), w.float())
+                                  for g, w in zip(got, want)))
+        check(grads_close(got, want, tol),
+              f"{name}: kernel != plain at the main path's shape")
+        del got, want
+
+        def call():
+            return attn_kernel.flash_attention_bwd(q, k, v, out, dout)
+        ms = cuda_ms(call, 5)
+        # three launches a call: the row statistics, dQ, dK/dV
+        dev_ms = device_ms(call, 5, r"attn_bwd_", per_call=3)
+        plain_ms = cuda_ms(lambda: attn_ref.mha_vjp(q, k, v, dout), 2)
+        qc, kc, vc = (t.detach().clone().requires_grad_(True) for t in (
+            q, k.repeat_interleave(Hq // Hkv, dim=1),
+            v.repeat_interleave(Hq // Hkv, dim=1)))
+        lib_out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (qc, kc, vc), dout, retain_graph=True), 5)
+        del lib_out, qc, kc, vc
+        pairs = B * Hq * S * (S + 1) // 2
+        flops = 2.5 * 4 * D * pairs
+        nbytes = q.element_size() * (3 * q.numel() + 2 * k.numel()
+                                     + 2 * v.numel() + out.numel())
+        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/flash_attn_bwd.cu",
+            replaces="none: the port's gradient of src/repro/kernels/"
+                     "flash_attn/kernel.py:72, which JAX cannot "
+                     "differentiate",
+            launches=0, max_abs_err=err, ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=library_ms, n=int(B * Hq * S),
+            shape=[B, Hq, Hkv, S, S, D]))
+        print(f"kernel {name}: shape={rows[-1]['shape']} "
+              f"ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f} "
+              f"bound_ms={rows[-1]['bound_ms']:.4f} ({rows[-1]['bound_by']}) "
+              f"library_ms={library_ms:.4f} (one SDPA backward)", flush=True)
+        del q, k, v, dout, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def training_phases(dev, errs):
+    """The training phases, in order; returns the attention kernels'
+    launches on their main-path runs: {kernel row name: launches} (bf16:
+    the training main path; float32: the golden and the zoo smoke steps)."""
+    import torch
+    attention_grad_phase(dev, errs)
+    torch.cuda.empty_cache()
+    g_fwd, g_bwd = train_golden_phase(dev)
+    fwd, bwd, _ = train_main_phase(dev)
+    z_fwd, z_bwd = train_zoo_phase(dev)
+    train_cli_phase()
+    torch.cuda.empty_cache()
+    return {"flash_attention": fwd, "flash_attention_f32": g_fwd + z_fwd,
+            "flash_attention_bwd": bwd,
+            "flash_attention_bwd_f32": g_bwd + z_bwd}
+
+
 def main() -> int:
+    import os
+    # train_main_path runs with deterministic algorithms, which need cuBLAS
+    # set up so before its first use
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2570,7 +3262,7 @@ def main() -> int:
             and LOOP_GOLDEN.is_file() and SFP_GOLDEN.is_file()
             and SERVE_GOLDEN.is_file() and SSM_GOLDEN.is_file()
             and all(p.is_file() for p in ZOO_GOLDENS)
-            and SWEEP_GOLDEN.is_file()):
+            and SWEEP_GOLDEN.is_file() and TRAIN_GOLDEN.is_file()):
         print("chip_smoke: run from the root of a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -2595,7 +3287,8 @@ def main() -> int:
     prop_slots = 0.5e-6 / (4178 * 8 / 800e9)
     check(prop_slots == golden["prop_slots"], "prop_slots differs from golden")
     errs = {"segmented_cummax": 0.0, "jsq_scan": 0.0, "flash_attention": 0.0,
-            "flash_attention_f32": 0.0, "ssd_scan": 0.0, "ssd_scan_f32": 0.0}
+            "flash_attention_f32": 0.0, "ssd_scan": 0.0, "ssd_scan_f32": 0.0,
+            "flash_attention_bwd": 0.0, "flash_attention_bwd_f32": 0.0}
 
     with Phase("build"):
         for name, log in _build.build_all().items():
@@ -2876,9 +3569,13 @@ def main() -> int:
         floor_ms = cuda_ms(lambda: one.add_(1.0), 50)
         print(f"launch floor: a 1-element add_ device_ms={floor_dev} "
               f"ms={floor_ms:.4f}", flush=True)
-        # The zoo's attention shapes (random inputs), here: profiler traces
-        # taken after serve_profile's came back short of kernel events.
+        # The zoo's attention shapes and the attention backward at the
+        # training main path's (random inputs), here: profiler traces taken
+        # after serve_profile's came back short of kernel events.
         attention_zoo_timing()
+        kernels += attention_bwd_timing(errs,
+                                        get_config("yi-6b").microbatch)
+        torch.cuda.empty_cache()
 
     with Phase("serve_profile"):
         yi_profile()
@@ -2886,13 +3583,21 @@ def main() -> int:
         m_profile()
     del yi_profile, z_profile, m_profile, yi_recs, z_recs, m_recs, ssd_rec
     zoo_f32, zoo_bf16 = zoo_phases(dev)
+    train = training_phases(dev, errs)
     for k in kernels:
         if k["name"] == "flash_attention":
             k["launches"] += zoo_bf16
         elif k["name"] == "flash_attention_f32":
             k["launches"] += zoo_f32
-    print(f"flash_attention launches with the zoo's: bf16 {zoo_bf16} more, "
-          f"float32 {zoo_f32} more", flush=True)
+        if k["name"] in train:
+            k["launches"] += train[k["name"]]
+        if k["name"] in ("flash_attention_bwd", "flash_attention_bwd_f32"):
+            k["max_abs_err"] = max(k["max_abs_err"], errs[k["name"]])
+    print(f"flash_attention launches with the zoo's and training's: bf16 "
+          f"{zoo_bf16} + {train['flash_attention']} more, float32 {zoo_f32} "
+          f"+ {train['flash_attention_f32']} more; backward bf16 "
+          f"{train['flash_attention_bwd']}, float32 "
+          f"{train['flash_attention_bwd_f32']}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,10 @@ For the model zoo (every family), :func:`params_from_reference` carries a
 the config's family, :func:`cache_from_reference` a ``repro`` cache, and
 :func:`numpy_reference_params` draws a reference-shaped tree from a numpy
 seed by the family's init rule (the inputs both packages share when no JAX
-is at hand).
+is at hand).  :func:`train_state_from_reference` carries a ``repro`` train
+state (``{"params", "opt", "step"}``, numpy) into the port's, and
+:func:`train_state_to_reference` carries the port's back, as numpy with
+stacked leaves.
 """
 from __future__ import annotations
 
@@ -148,3 +151,46 @@ def numpy_reference_params(cfg, seed: int) -> dict:
     ``dt_bias = -2``."""
     mod = family_module(cfg)
     return _params.numpy_tree(mod.param_shapes(cfg), mod.init_rule, seed)
+
+
+def train_state_from_reference(cfg, state,
+                               device: Optional[Union[str, torch.device]]
+                               = None) -> dict:
+    """The port's train state (``repro_torch.train.train_step``) of a
+    ``repro`` train state (nested dicts of numpy arrays: ``params``,
+    ``opt`` -- ``mu``/``nu`` or ``acc`` -- and ``step``), on ``device``
+    (``None``: CUDA).  The parameters take gradients; the optimizer leaves
+    keep their stacked reference shapes (float32), the step counters are
+    0-d int32 CPU tensors."""
+    dev = resolve_device(device)
+    params = params_from_reference(cfg, state["params"], dev)
+    params.requires_grad_(True)
+
+    def leaf(path, a):
+        if path[-1] == "step":
+            return torch.tensor(int(np.asarray(a)), dtype=torch.int32)
+        return _tensor(a, None, dev)
+    from .train import tree as T
+    opt = T.unflatten([(p, leaf(p, a)) for p, a in T.items(state["opt"])])
+    return {"params": params, "opt": opt,
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32)}
+
+
+def train_state_to_reference(state) -> dict:
+    """The reference's train state tree of the port's (as numpy; a stacked
+    leaf stacked, bf16 as ``ml_dtypes`` bfloat16 when that package is at
+    hand, else float32)."""
+    from .train import tree as T
+
+    def host(leaf):
+        ts = [t.detach().cpu() for t in T.layers(leaf)]
+        t = torch.stack(ts) if isinstance(leaf, (list, tuple)) else ts[0]
+        if t.dtype == torch.bfloat16:
+            try:
+                import ml_dtypes
+            except ImportError:
+                return t.float().numpy()
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+    return T.map_leaves(host, state)

@@ -5,8 +5,9 @@ compiled on its own into ``build/repro_torch_kernels/<name>-<hash>.so`` at
 the root of the checkout, where ``<hash>`` covers the source text and the
 compiler flags.  The fabric and SSD kernels are built with
 ``--fmad=false``, so that no multiply-add is contracted and their results
-stay bitwise those of their plain versions; the attention kernels, held to
-a tolerance, let the compiler contract (:func:`flags`).  A library that is already there is loaded as it is, so
+stay bitwise those of their plain versions; the attention kernels (forward
+and backward), held to a tolerance, let the compiler contract
+(:func:`flags`).  A library that is already there is loaded as it is, so
 only the first use after a change pays for ``nvcc``.  :func:`build_all`
 starts one ``nvcc`` per source at once; :func:`load` builds one source if
 needed and returns its ``ctypes.CDLL``.  ``BUILDS`` counts the ``nvcc``
@@ -29,7 +30,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-CONTRACTED = ("flash_attn",)    # sources built without --fmad=false
+CONTRACTED = ("flash_attn", "flash_attn_bwd")   # built without --fmad=false
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILDS = 0

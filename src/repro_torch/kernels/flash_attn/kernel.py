@@ -20,6 +20,11 @@ must be contiguous, the other strides multiples of 8 elements (TMA needs
 :func:`ready_copy` makes such a copy of any tensor).  The output has q's
 layout (``torch.empty_like``) when v's width is q's depth, else a new
 contiguous tensor.
+
+:func:`flash_attention_bwd` binds the backward kernels of
+``csrc/flash_attn_bwd.cu`` (float32 CUDA cores), the gradient of the
+forward.  They replace no TPU kernel: JAX cannot differentiate the Pallas
+one, and the port's training path needs this gradient.
 """
 from __future__ import annotations
 
@@ -39,6 +44,11 @@ _SHAPE_ARGS = [_VP, _VP, _VP, _VP, *[ctypes.c_int] * 7,
                ctypes.c_int, _VP]
 
 
+_BWD_ARGS = [ctypes.c_int, *[_VP] * 10, *[ctypes.c_int] * 7,
+             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
+             _VP]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attn")
     if not getattr(lib, "_typed", False):
@@ -47,6 +57,15 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_cuda_cores_fwd.restype = ctypes.c_int
         lib.flash_attention_wgmma_fwd.argtypes = _SHAPE_ARGS
         lib.flash_attention_wgmma_fwd.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attn_bwd")
+    if not getattr(lib, "_typed", False):
+        lib.flash_attention_bwd.argtypes = _BWD_ARGS
+        lib.flash_attention_bwd.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -147,3 +166,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention launch failed ({route(q.dtype, D)}"
                            f" route): cudaError {err}")
     return out if out.dtype == out_dtype else out.to(out_dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, scale: Optional[float] = None):
+    """The gradients (dq, dk, dv) of :func:`flash_attention` (of
+    ``ref.mha``) at q, k, v, given its output ``out`` and the output's
+    gradient ``dout`` (both (B, Hq, Sq, Dv)), from the backward kernels of
+    ``csrc/flash_attn_bwd.cu``.  Every operand is read in float32 (bf16 as
+    it is when all five are bf16, any other dtype cast to float32 first);
+    each gradient is returned in its input's dtype and layout
+    (``torch.empty_like``)."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    Dv = v.shape[-1]
+    if out.shape != (B, Hq, Sq, Dv) or dout.shape != out.shape:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and "
+                         f"dout {tuple(dout.shape)} must be {(B, Hq, Sq, Dv)}")
+    dtypes = (q.dtype, k.dtype, v.dtype)
+    cd = compute_dtype(q, k, v, out, dout)
+    ops = [t if t.dtype == cd and kernel_ready(t) else ready_copy(t.to(cd))
+           for t in (q, k, v, out, dout)]
+    dev = q.device
+    for t in ops:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError("flash_attention_bwd: the operands must share "
+                             "one CUDA device")
+    grads = [torch.empty_like(t) for t in ops[:3]]
+    if out.numel() == 0 or q.numel() == 0:
+        for g in grads:
+            g.zero_()
+    else:
+        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+        dlt = torch.empty_like(lse)
+        strides = (ctypes.c_longlong * 24)(
+            *(s for t in (*ops, *grads) for s in t.stride()[:3]))
+        if scale is None:
+            scale = 1.0 / math.sqrt(D)
+        lib = _bwd_lib()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.flash_attention_bwd(
+                _DTYPES[cd], *(t.data_ptr() for t in (*ops, *grads)),
+                lse.data_ptr(), dlt.data_ptr(), B, Hq, Hkv, Sq, Sk, D, Dv,
+                strides, float(scale), int(bool(causal)), stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attention_bwd launch failed: "
+                               f"cudaError {err}")
+    return tuple(g if g.dtype == dt else g.to(dt)
+                 for g, dt in zip(grads, dtypes))

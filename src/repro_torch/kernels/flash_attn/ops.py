@@ -14,6 +14,14 @@ them.  ``Dv != Dk`` (MLA, off the dense path) takes the reference's own route to
 and the kernels on CUDA tensors, which take any Dv.  ``LAUNCHES`` counts the
 kernel launches made through this wrapper, and ``ROUTE_LAUNCHES`` the same
 launches by kernel (``kernel.route``: ``wgmma`` or ``cuda_cores``).
+
+Gradients: CUDA tensors of which one needs a gradient (with grad mode on)
+go through :class:`FlashAttention`, a ``torch.autograd.Function`` whose
+forward is the same kernel and whose backward is the backward kernel
+(``kernel.flash_attention_bwd``, ``csrc/flash_attn_bwd.cu``);
+``BWD_LAUNCHES`` counts its calls.  CPU tensors and ``backend="torch"``
+differentiate the plain route under ordinary autograd, as the reference's
+CPU route does.  A forward that needs no gradient is unchanged.
 """
 from __future__ import annotations
 
@@ -27,6 +35,29 @@ from .._common import resolve_backend
 
 LAUNCHES = 0
 ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}
+BWD_LAUNCHES = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out = _kernel.flash_attention(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        global BWD_LAUNCHES
+        q, k, v, out = ctx.saved_tensors
+        grads = _kernel.flash_attention_bwd(q, k, v, out, dout,
+                                            causal=ctx.causal,
+                                            scale=ctx.scale)
+        if out.numel():
+            BWD_LAUNCHES += 1
+        return (*grads, None, None)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -45,7 +76,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"attention: unsupported device {q.device}")
     q, k, v = (t if _kernel.kernel_ready(t) else _kernel.ready_copy(t)
                for t in (q, k, v))
-    out = _kernel.flash_attention(q, k, v, causal=causal, scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out = FlashAttention.apply(q, k, v, causal, scale)
+    else:
+        out = _kernel.flash_attention(q, k, v, causal=causal, scale=scale)
     if out.numel():
         LAUNCHES += 1
         ROUTE_LAUNCHES[_kernel.route(_kernel.compute_dtype(q, k, v),

@@ -9,6 +9,9 @@ Both do their math in float32 and return q's dtype.  Masked logits are
 (finite) answer in both packages.  Queries are the last ``Sq`` positions of
 the ``Sk``-long context: query ``i`` sees key ``t`` iff
 ``t <= i + (Sk - Sq)``.
+
+``mha_vjp`` is the plain version of the backward kernel: the
+vector-Jacobian product of ``mha`` by ``torch.autograd.grad`` (any Dv).
 """
 from __future__ import annotations
 
@@ -89,3 +92,14 @@ def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, Hq, Sq, Dv).to(q.dtype)
+
+
+def mha_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            dout: torch.Tensor, *, causal: bool = True,
+            scale: Optional[float] = None):
+    """(dq, dk, dv): the gradients of :func:`mha` at (q, k, v) along
+    ``dout`` (B, Hq, Sq, Dv), each in its input's dtype."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = mha(qq, kk, vv, causal=causal, scale=scale)
+        return torch.autograd.grad(out, (qq, kk, vv), dout.to(out.dtype))

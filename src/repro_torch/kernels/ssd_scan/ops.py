@@ -15,6 +15,10 @@ which prefill hands to decode.
 ``LAUNCHES`` counts the kernel calls made through this wrapper, and
 ``ROUTE_LAUNCHES`` each route's share (``kernel.route``: the bf16
 tensor-core walk, one launch; the CUDA-core route, three launches).
+The kernel has no backward yet: a CUDA call with grad mode on and an input
+that needs a gradient raises ``NotImplementedError`` (``ROADMAP.md`` A4b),
+never taking the plain version instead.  On CPU tensors the plain version
+differentiates under ordinary autograd.
 """
 from __future__ import annotations
 
@@ -44,6 +48,12 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return y, _ref.ssd_final_state(x, dt, A, B_mat, C, chunk=chunk)
     if not x.is_cuda:
         raise ValueError(f"ssd: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B_mat, C)):
+        raise NotImplementedError(
+            "ssd: the SSD scan kernel has no backward kernel yet, so Mamba2 "
+            "and Zamba2 do not train on the card (ROADMAP.md A4b); the plain "
+            "version (backend='torch' or CPU tensors) differentiates")
     x, B_mat, C = (t if t.stride(-1) == 1 else t.contiguous()
                    for t in (x, B_mat, C))
     out = _kernel.ssd_scan(x, dt.float(), A.float().contiguous(), B_mat, C,

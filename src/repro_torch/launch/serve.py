@@ -27,6 +27,7 @@ from ..models.registry import Model
 from ..serve import batching
 
 
+@torch.no_grad()
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)

@@ -104,7 +104,35 @@ def numpy_tree(shapes: Dict, rule: Rule, seed: int) -> dict:
     return tree
 
 
+def tree(params: torch.nn.Module, shapes: Dict,
+         stacked: Tuple[str, ...]) -> dict:
+    """The reference's tree of ``params``: nested dicts of its keys, each
+    leaf the port's tensor, or for a stacked section's leaf the list of
+    its layers' tensors (:func:`tensors`)."""
+    out: dict = {}
+    for key, _ in leaves(shapes):
+        ts = tensors(params, key, stacked)
+        node = out
+        for k in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1]] = ts if key[0] in stacked else ts[0]
+    return out
+
+
+class Params(torch.nn.Module):
+    """Base of a family's parameter module: :meth:`tree` gives it as the
+    reference's tree (checkpoints and optimizer state follow that tree)."""
+
+    def __init__(self, shapes: Dict, stacked: Tuple[str, ...]):
+        super().__init__()
+        self._ref = (shapes, stacked)
+
+    def tree(self) -> dict:
+        return tree(self, *self._ref)
+
+
 def param(shape, dtype, device) -> torch.nn.Parameter:
-    """An uninitialised parameter that takes no gradient (serving only)."""
+    """An uninitialised parameter that takes no gradient until a trainer
+    turns it on (``requires_grad_``)."""
     return torch.nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                               requires_grad=False)

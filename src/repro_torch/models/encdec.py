@@ -26,6 +26,7 @@ A call without frames attends to the cache's ``cross_k``/``cross_v``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -92,11 +93,11 @@ class Layer(nn.Module):
             setattr(self, name, P.param(shape, dt, device))
 
 
-class EncDec(nn.Module):
+class EncDec(P.Params):
     """The model's parameters (module doc).  Created uninitialised."""
 
     def __init__(self, cfg, device=None):
-        super().__init__()
+        super().__init__(param_shapes(cfg), STACKED)
         for name, leaf in param_shapes(cfg).items():
             if name not in STACKED:
                 setattr(self, name, P.param(leaf[0], leaf[1], device))
@@ -122,7 +123,6 @@ def _heads(x, w, n_heads, hd):
     return (x @ w).reshape(B, S, n_heads, hd)
 
 
-@torch.no_grad()
 def encode(cfg, params: EncDec, frames: torch.Tensor,
            backend: str = "auto") -> torch.Tensor:
     """frames (B, T, frontend_dim) -> (B, T, D)."""
@@ -163,7 +163,6 @@ def _dec_layer(cfg, lp: Layer, x, positions, self_cache, cross_kv,
     return x + L.swiglu(h, lp.w_gate, lp.w_up, lp.w_down)
 
 
-@torch.no_grad()
 def forward(cfg, params: EncDec, tokens: torch.Tensor, *,
             frames: Optional[torch.Tensor] = None,
             enc_out: Optional[torch.Tensor] = None, mode: str = "train",
@@ -171,7 +170,9 @@ def forward(cfg, params: EncDec, tokens: torch.Tensor, *,
             backend: str = "auto"):
     """Decoder forward: tokens (B, S) -> float32 logits (B, S, vocab), or
     (logits, cache) when a cache is given.  ``frames`` run the encoder (or
-    give ``enc_out``); without either, the cross K/V come from the cache."""
+    give ``enc_out``); without either, the cross K/V come from the cache.
+    In training each decoder layer (not the encoder's, as in the reference)
+    is rematerialised as ``cfg.remat`` says."""
     if enc_out is None and frames is not None:
         enc_out = encode(cfg, params, frames, backend)
     if enc_out is not None:
@@ -188,8 +189,9 @@ def forward(cfg, params: EncDec, tokens: torch.Tensor, *,
         sc = None
         if cache is not None:
             sc = {"k": cache["self"]["k"][l], "v": cache["self"]["v"][l]}
-        x = _dec_layer(cfg, lp, x, positions, sc, (xk[l], xv[l]),
-                       cache_index, mode, backend)
+        x = L.remat(cfg, mode, functools.partial(_dec_layer, cfg, lp),
+                    x, positions, sc, (xk[l], xv[l]), cache_index, mode,
+                    backend)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = L.unembed(x, params.lm_head)
     return (logits, cache) if cache is not None else logits

@@ -15,6 +15,7 @@ the flash-attention kernel on the card (head dim 80 for Zamba2-2.7B).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -66,13 +67,13 @@ class SharedBlock(nn.Module):
             setattr(self, name, P.param(shape, dt, device))
 
 
-class Hybrid(nn.Module):
+class Hybrid(P.Params):
     """The model's parameters: ``embed``, ``final_norm``, ``lm_head``
     (unless tied), ``layers`` (a list of :class:`~.mamba2.MambaLayer`) and
     ``shared`` (:class:`SharedBlock`).  Created uninitialised."""
 
     def __init__(self, cfg, device=None):
-        super().__init__()
+        super().__init__(param_shapes(cfg), STACKED)
         m2.add_embed_params(self, cfg, device)
         self.layers = nn.ModuleList(m2.MambaLayer(cfg, device)
                                     for _ in range(cfg.n_layers))
@@ -100,12 +101,13 @@ def _shared_block(cfg, p: SharedBlock, x, positions, cache, cache_index,
     return x + L.swiglu(h, p.w_gate, p.w_up, p.w_down)
 
 
-@torch.no_grad()
 def forward(cfg, params: Hybrid, tokens: torch.Tensor, *,
             mode: str = "train", cache: Optional[dict] = None,
             cache_index: int = 0, backend: str = "auto"):
     """tokens (B, S) -> float32 logits (B, S, vocab), or (logits, cache)
-    when a cache is given (written in place and returned)."""
+    when a cache is given (written in place and returned).  In training
+    each Mamba layer and each application of the shared block is
+    rematerialised as ``cfg.remat`` says."""
     x = L.embed(tokens, params.embed)
     S = x.shape[1]
     positions = cache_index + torch.arange(S, device=x.device)[None, :]
@@ -116,12 +118,15 @@ def forward(cfg, params: Hybrid, tokens: torch.Tensor, *,
             if cache is not None:
                 mc = cache["mamba"]
                 lc = {"conv": mc["conv"][g, i], "ssm": mc["ssm"][g, i]}
-            x = m2.layer(cfg, params.layers[g * k + i], x, lc, mode, backend)
+            x = L.remat(cfg, mode, functools.partial(
+                m2.layer, cfg, params.layers[g * k + i]), x, lc, mode,
+                backend)
         sc = None
         if cache is not None:
             sc = {"k": cache["shared"]["k"][g], "v": cache["shared"]["v"][g]}
-        x = _shared_block(cfg, params.shared, x, positions, sc, cache_index,
-                          mode, backend)
+        x = L.remat(cfg, mode, functools.partial(
+            _shared_block, cfg, params.shared), x, positions, sc,
+            cache_index, mode, backend)
     logits = m2.head(cfg, params, x)
     return (logits, cache) if cache is not None else logits
 

@@ -17,13 +17,21 @@ through ``repro_torch.kernels.flash_attn.ops.attention`` (the CUDA kernel
 on the card, the plain version on the CPU); decode attention over the
 cache is plain PyTorch, as it is plain jnp in the reference.  The reference's
 sharding constraints, no-ops without a mesh, are dropped.
+
+:func:`remat` is the reference's ``jax.checkpoint(body,
+policy=remat_policy_of(cfg))`` around a layer body in training:
+``torch.utils.checkpoint`` (non-reentrant), recomputing everything under
+policy ``"nothing"``, keeping the matrix products' outputs under
+``"dots"``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from ..kernels.flash_attn import ops as attn_ops
 
@@ -32,6 +40,26 @@ NEG_INF = -1.0e30
 
 def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+# The operators whose outputs the "dots" policy keeps (the reference's
+# ``checkpoint_dots``: every dot_general).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def remat(cfg, mode: str, body, *args):
+    """``body(*args)``, recomputed in the backward pass when rematerialising
+    applies: ``cfg.remat``, ``mode == "train"`` and grad mode on.
+    ``cfg.remat_policy`` ``"dots"`` keeps the outputs of the matrix
+    products; ``"nothing"`` keeps none."""
+    if not (cfg.remat and mode == "train" and torch.is_grad_enabled()):
+        return body(*args)
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, list(_DOTS))
+    return _ckpt.checkpoint(body, *args, use_reentrant=False, **kw)
 
 
 # ---------------------------------------------------------------------------

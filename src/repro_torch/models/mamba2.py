@@ -22,6 +22,7 @@ the gate's silu in float32 before the gated RMSNorm.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -98,14 +99,14 @@ def add_embed_params(module: nn.Module, cfg, device) -> None:
         module.lm_head = P.param((cfg.d_model, cfg.vocab), d, device)
 
 
-class Mamba2(nn.Module):
+class Mamba2(P.Params):
     """The model's parameters: ``embed``, ``final_norm``, ``lm_head``
     (unless tied) and ``layers``, a list of :class:`MambaLayer`.  Created
     uninitialised; :func:`init_params` or
     ``repro_torch.interop.params_from_reference`` fill it."""
 
     def __init__(self, cfg, device=None):
-        super().__init__()
+        super().__init__(param_shapes(cfg), STACKED)
         add_embed_params(self, cfg, device)
         self.layers = nn.ModuleList(MambaLayer(cfg, device)
                                     for _ in range(cfg.n_layers))
@@ -227,19 +228,20 @@ def head(cfg, params, x):
     return L.unembed(x, table)
 
 
-@torch.no_grad()
 def forward(cfg, params: Mamba2, tokens: torch.Tensor, *,
             mode: str = "train", cache: Optional[dict] = None,
             cache_index: int = 0, backend: str = "auto"):
     """tokens (B, S) -> float32 logits (B, S, vocab), or (logits, cache)
     when a cache is given (written in place and returned).  ``cache_index``
-    is unused: the state carries the position."""
+    is unused: the state carries the position.  In training each layer is
+    rematerialised as ``cfg.remat`` says."""
     x = L.embed(tokens, params.embed)
     for l, lp in enumerate(params.layers):
         lc = None
         if cache is not None:
             lc = {"conv": cache["conv"][l], "ssm": cache["ssm"][l]}
-        x = layer(cfg, lp, x, lc, mode, backend)
+        x = L.remat(cfg, mode, functools.partial(layer, cfg, lp), x,
+                    lc, mode, backend)
     logits = head(cfg, params, x)
     return (logits, cache) if cache is not None else logits
 

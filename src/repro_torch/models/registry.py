@@ -5,6 +5,7 @@
 ``Model`` wraps a config with family-dispatched functions:
 
   param_shapes / init_params(seed, device)
+  loss(params, batch)                        -> scalar LM loss
   prefill(params, batch, cache)              -> (logits, cache)
   decode_step(params, tokens, cache, index)  -> (logits, cache)
   cache_shapes(batch, max_len) / cache_batch_axes()
@@ -17,8 +18,13 @@ frontend_dim) for the encoder).  Caches are written in place.
 (flash attention in prefill and in the enc-dec's encoder and cross
 attention, the SSD scan in a Mamba2 layer's prefill) on CUDA tensors and
 runs their plain versions on CPU tensors; ``torch`` runs the plain versions
-on any device.  Training (``loss``) is not ported yet (``ROADMAP.md``
-A4).
+on any device.  ``loss`` is next-token cross-entropy over the tokens
+(frontend positions excluded), differentiable through every family: the
+trainer turns gradients on for the parameters (created without; their
+module's ``tree()`` gives them as the reference's tree), the
+attention kernel's gradient is its backward kernel on the card, and the
+SSD kernel has none yet (``ROADMAP.md`` A4b).  ``prefill`` and
+``decode_step`` run without autograd, whatever the parameters.
 """
 from __future__ import annotations
 
@@ -35,6 +41,15 @@ from ..kernels._common import resolve_backend, resolve_device
 
 _FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
              "ssm": mamba2, "hybrid": hybrid, "encdec": encdec}
+
+
+def xent(logits: torch.Tensor, labels: torch.Tensor,
+         mask: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy over the mask, on float32 log-softmax
+    (``repro.models.registry._xent``)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def family_module(cfg: ModelConfig) -> ModuleType:
@@ -94,14 +109,23 @@ class Model:
                                  backend=self.backend, **kw)
 
     def loss(self, params, batch):
-        raise NotImplementedError(
-            f"{self.cfg.name}: training (Model.loss) is not ported yet "
-            f"(ROADMAP.md A4)")
+        logits = self._fwd(params, batch, mode="train")
+        tokens = batch["tokens"]
+        S = tokens.shape[1]
+        # frontend positions (vision/audio) are excluded from the loss: the
+        # logits tail [-S:] aligns with the token stream.
+        logits = logits[:, -S:]
+        labels = tokens[:, 1:]
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+        return xent(logits[:, :-1], labels, mask)
 
+    @torch.no_grad()
     def prefill(self, params, batch, cache):
         return self._fwd(params, batch, mode="prefill", cache=cache,
                          cache_index=0)
 
+    @torch.no_grad()
     def decode_step(self, params, tokens, cache, index: int):
         return self._fwd(params, {"tokens": tokens}, mode="decode",
                          cache=cache, cache_index=index)

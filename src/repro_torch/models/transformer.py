@@ -23,6 +23,7 @@ layer writes its slice IN PLACE.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -107,7 +108,7 @@ class Layer(nn.Module):
             setattr(self, name, P.param(shape, dt, device))
 
 
-class Transformer(nn.Module):
+class Transformer(P.Params):
     """The model's parameters: ``embed``, ``final_norm``, ``lm_head``
     (unless tied), ``vision_proj`` (VLM), and ``dense`` and ``moe``, lists
     of :class:`Layer` (empty when the config has no such layers).  Created
@@ -115,7 +116,7 @@ class Transformer(nn.Module):
     ``repro_torch.interop.params_from_reference`` fill it."""
 
     def __init__(self, cfg, device=None):
-        super().__init__()
+        super().__init__(param_shapes(cfg), STACKED)
         d = L.dtype_of(cfg)
         self.embed = P.param((cfg.vocab, cfg.d_model), d, device)
         self.final_norm = P.param((cfg.d_model,), d, device)
@@ -179,7 +180,6 @@ def _layer(cfg, use_moe: bool, p: Layer, x, positions, lc, cache_index,
     return x + L.swiglu(h, p.w_gate, p.w_up, p.w_down)
 
 
-@torch.no_grad()
 def forward(cfg, params: Transformer, tokens: torch.Tensor, *,
             mode: str = "train", cache: Optional[dict] = None,
             cache_index: int = 0, vision_embeds: Optional[torch.Tensor] = None,
@@ -187,7 +187,8 @@ def forward(cfg, params: Transformer, tokens: torch.Tensor, *,
     """tokens (B, S) -> float32 logits (B, n_front + S, vocab), or (logits,
     cache) when a cache is given (written in place and returned).
     ``vision_embeds`` (B, n_front, frontend_dim), VLM only, are projected
-    and put before the tokens."""
+    and put before the tokens.  In training each layer is rematerialised
+    as ``cfg.remat`` says (:func:`layers.remat`)."""
     x = L.embed(tokens, params.embed)
     if vision_embeds is not None:
         v = vision_embeds.to(x.dtype) @ params.vision_proj
@@ -199,8 +200,9 @@ def forward(cfg, params: Transformer, tokens: torch.Tensor, *,
             else None
         for l, lp in enumerate(getattr(params, section)):
             lc = None if sc is None else {n: t[l] for n, t in sc.items()}
-            x = _layer(cfg, section == "moe", lp, x, positions, lc,
-                       cache_index, mode, backend)
+            x = L.remat(cfg, mode, functools.partial(
+                _layer, cfg, section == "moe", lp), x, positions, lc,
+                cache_index, mode, backend)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     head = params.lm_head if not cfg.tie_embeddings else params.embed.T
     logits = L.unembed(x, head)

@@ -60,6 +60,7 @@ class ContinuousBatcher:
     def submit(self, req: Request):
         self.queue.append(req)
 
+    @torch.no_grad()
     def _admit(self):
         for s in range(self.n_slots):
             if self.slot_req[s] is None and self.queue:
@@ -81,6 +82,7 @@ class ContinuousBatcher:
                 self.slot_tok[s, 0] = tok
 
     # -- decode tick -----------------------------------------------------------
+    @torch.no_grad()
     def step(self):
         self._admit()
         active = [s for s in range(self.n_slots)

@@ -63,6 +63,7 @@ def build_serve_fns(model: Model):
     return prefill, decode
 
 
+@torch.no_grad()
 def greedy_decode(model: Model, params, prompt_tokens, n_new: int,
                   device: Device = None, extra_batch=None) -> torch.Tensor:
     """Greedy decoding of ``n_new`` tokens after each prompt row: (B, S)

@@ -180,3 +180,24 @@ def to_torch(tree):
     return {k: (to_torch(v) if isinstance(v, dict)
                 else torch.from_numpy(np.asarray(v))) for k, v in tree.items()}
 
+
+
+def train_batches(cfg, B=2, S=16, seed=0):
+    """(reference batch, port batch) of a training step: tokens drawn from
+    numpy, and the family's frontend input (8 vision embeds, or the
+    config's audio frames) as standard normals."""
+    import jax.numpy as jnp
+    r = np.random.default_rng(seed)
+    toks = r.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    ref = {"tokens": jnp.asarray(toks)}
+    port = {"tokens": torch.from_numpy(toks)}
+    extra = None
+    if cfg.family == "vlm":
+        extra = ("vision_embeds", (B, 8, cfg.frontend_dim))
+    if cfg.family == "encdec":
+        extra = ("frames", (B, cfg.n_frontend_tokens, cfg.frontend_dim))
+    if extra:
+        a = r.standard_normal(extra[1]).astype(np.float32)
+        ref[extra[0]] = jnp.asarray(a)
+        port[extra[0]] = torch.from_numpy(a)
+    return ref, port

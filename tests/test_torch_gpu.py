@@ -1031,3 +1031,100 @@ def test_zoo_serving_on_card_matches_cpu(arch):
         done[str(d)] = {rid: q.out for rid, q in
                         cb.run_to_completion(max_ticks=200).items()}
     assert done["cpu"] == done[str(dev)]
+
+
+# ---------------------------------------------------------------------------
+# Training: the attention backward kernel, SSD's missing backward, a step
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, Sq, Sk, Dk, Dv, causal); each gradient within atol = tol x
+# its largest magnitude and rtol = tol of ref.mha_vjp's: bf16 2e-2 (the
+# forward's), float32 1e-4 (chip_smoke.py's ATTN_GRAD_TOL states why).
+GRAD_SHAPES = [(1, 4, 2, 64, 64, 32, 32, True),
+               (2, 8, 2, 100, 130, 64, 64, True),
+               (1, 2, 1, 160, 128, 16, 16, True),
+               (1, 16, 16, 300, 300, 192, 128, True),
+               (2, 12, 12, 1, 300, 64, 64, False),
+               (1, 4, 1, 77, 200, 256, 256, True),
+               (1, 32, 4, 1025, 1025, 128, 128, True)]
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _grads(q, k, v, dout, causal):
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    before = attn_ops.BWD_LAUNCHES
+    out = attn_ops.attention(qq, kk, vv, causal=causal)
+    grads = torch.autograd.grad(out, (qq, kk, vv), dout)
+    torch.cuda.synchronize()
+    assert attn_ops.BWD_LAUNCHES == before + 1
+    return grads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("shape", GRAD_SHAPES, ids=str)
+def test_flash_attention_backward_kernel_matches_plain(shape, dtype):
+    from repro_torch.kernels.flash_attn import ref as attn_ref
+    dev = cuda_or_skip()
+    B, Hq, Hkv, Sq, Sk, D, Dv, causal = shape
+    rng = np.random.default_rng(0)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                     .to(dev, dtype) for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D),
+                                               (B, Hkv, Sk, Dv),
+                                               (B, Hq, Sq, Dv)))
+    got = _grads(q, k, v, dout, causal)
+    again = _grads(q, k, v, dout, causal)
+    want = attn_ref.mha_vjp(q, k, v, dout, causal=causal)
+    tol = GRAD_TOL[dtype]
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)                  # bitwise reruns
+        assert g.dtype == w.dtype and g.shape == w.shape
+        scale = float(w.float().abs().max()) or 1.0
+        torch.testing.assert_close(g.float(), w.float(), atol=tol * scale,
+                                   rtol=tol)
+
+
+def test_ssd_gradient_on_the_card_raises():
+    dev = cuda_or_skip()
+    B, L, H, P, G, N = 1, 64, 2, 16, 1, 16
+    x = torch.randn(B, L, H, P, device=dev, requires_grad=True)
+    dt = torch.rand(B, L, H, device=dev) * 0.2 + 0.01
+    A = -torch.rand(H, device=dev) - 0.5
+    Bm, C = (torch.randn(B, L, G, N, device=dev) for _ in range(2))
+    with pytest.raises(NotImplementedError, match="A4b"):
+        ssd_ops.ssd(x, dt, A, Bm, C)
+    with torch.no_grad():                        # no gradient: the kernel
+        ssd_ops.ssd(x, dt, A, Bm, C)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-30b-a3b",
+                                  "deepseek-v3-671b", "llava-next-34b",
+                                  "whisper-small"])
+def test_train_step_on_card_matches_plain(arch):
+    """One train step of the smoke config (float32) through the kernels and
+    through the plain versions on the card: loss within 1e-5 and gradient
+    norm within 1e-4, relative."""
+    from repro_torch.train import train_step as ts
+    dev = cuda_or_skip()
+    cfg = get_config(arch, smoke=True)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (4, 32)).astype(np.int32)).to(dev)}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.randn(4, 8, cfg.frontend_dim,
+                                             device=dev)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(4, cfg.n_frontend_tokens,
+                                      cfg.frontend_dim, device=dev)
+    out = {}
+    for backend in ("auto", "torch"):
+        model = Model(cfg, backend=backend)
+        state = ts.make_train_state(model, model.init_params(0, device=dev),
+                                    ts.TrainConfig())
+        before = attn_ops.BWD_LAUNCHES
+        _, m = ts.build_train_step(model, ts.TrainConfig())(state, batch)
+        out[backend] = (float(m["loss"]), float(m["grad_norm"]),
+                        attn_ops.BWD_LAUNCHES - before)
+    assert out["auto"][2] > 0 and out["torch"][2] == 0
+    assert abs(out["auto"][0] - out["torch"][0]) <= 1e-5 * out["torch"][0]
+    assert abs(out["auto"][1] - out["torch"][1]) <= 1e-4 * out["torch"][1]

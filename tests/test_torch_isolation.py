@@ -16,6 +16,7 @@ from repro_torch.net import workloads
 from repro_torch.core import lb_schemes as lbs
 from repro_torch.configs import get_config
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models.registry import Model
 from repro_torch.serve import batching, serve_step
 
@@ -26,6 +27,7 @@ def test_port_imports_without_jax_or_reference():
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None          # any import of jax now fails
+        sys.modules["msgpack"] = None      # nor of msgpack
         import repro_torch
         names = [m.name for m in pkgutil.walk_packages(
             repro_torch.__path__, "repro_torch.")]
@@ -33,7 +35,8 @@ def test_port_imports_without_jax_or_reference():
             importlib.import_module(name)
         leaked = sorted(m for m in sys.modules
                         if m == "repro" or m.startswith("repro.")
-                        or (m.startswith("jax") and sys.modules[m] is not None))
+                        or (m.startswith(("jax", "msgpack"))
+                            and sys.modules[m] is not None))
         assert not leaked, leaked
         assert "repro_torch.net.fastsim" in names, names
         assert "repro_torch.kernels.jsq_scan.ops" in names, names
@@ -77,7 +80,15 @@ def test_port_imports_without_jax_or_reference():
                      "repro_torch.sweep.results",
                      "repro_torch.sweep.compile_cache",
                      "repro_torch.sweep.runner",
-                     "repro_torch.sweep.__main__"):
+                     "repro_torch.sweep.__main__",
+                     "repro_torch.train.optimizer",
+                     "repro_torch.train.train_step",
+                     "repro_torch.train.data",
+                     "repro_torch.train.checkpoint",
+                     "repro_torch.train.msgpack_codec",
+                     "repro_torch.train.fault_tolerance",
+                     "repro_torch.train.tree",
+                     "repro_torch.launch.train"):
             assert name in names, name
         print(len(names))
     """)
@@ -85,7 +96,39 @@ def test_port_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 84
+    assert int(out.stdout.strip()) >= 92
+
+
+def test_checkpoint_round_trip_without_msgpack(tmp_path):
+    """A port checkpoint of a train state is written and restored with the
+    ``msgpack`` package blocked (the card's machine has none)."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["msgpack"] = None
+        sys.modules["jax"] = None
+        import torch
+        from repro_torch.configs import get_config
+        from repro_torch.models.registry import Model
+        from repro_torch.train import checkpoint, train_step as ts, tree
+        model = Model(get_config("yi-6b", smoke=True))
+        state = ts.make_train_state(
+            model, model.init_params(0, device="cpu"), ts.TrainConfig())
+        checkpoint.save(state, {str(tmp_path)!r}, step=1,
+                        extra={{"global_step": 1}})
+        other = ts.make_train_state(
+            model, model.init_params(1, device="cpu"), ts.TrainConfig())
+        _, extra = checkpoint.restore({str(tmp_path)!r}, other)
+        assert extra == {{"global_step": 1}}, extra
+        for (p, a), (_, b) in zip(tree.items(state), tree.items(other)):
+            for x, y in zip(tree.layers(a), tree.layers(b)):
+                assert torch.equal(x, y), p
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_entry_points_raise_without_a_card():
@@ -127,6 +170,8 @@ def test_serving_entry_points_raise_without_a_card():
         batching.ContinuousBatcher(model, params, n_slots=2, max_len=16)
     with pytest.raises(RuntimeError, match="CUDA"):
         launch_serve.main(["--arch", "yi-6b", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--arch", "yi-6b", "--smoke"])
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])

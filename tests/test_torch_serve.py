@@ -269,16 +269,32 @@ def test_bf16_prefill_and_decode_match_reference():
 def test_unported_families_raise(arch, item):
     """No family is left unported: those of B8 (Mamba2 and the Zamba2
     hybrid, ported with the SSD kernel) and of A3 (MoE, MLA, VLM and
-    enc-dec) build and give their cache; what still raises is training,
-    naming its ROADMAP item (A4)."""
+    enc-dec) build, give their cache and, since A4, train on the CPU (a
+    finite, differentiable ``Model.loss``); what still raises is
+    multi-card training (gradient compression across pods), naming its
+    ROADMAP item (A5)."""
+    from repro_torch.train import train_step
     model = Model(get_config(arch, smoke=True))
     assert model.cache_shapes(1, 8)
     if item == "B8":
         assert model.cfg.family in ("ssm", "hybrid")
     else:
         assert model.cfg.family in ("moe", "vlm", "encdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        model.loss(None, None)
+    cfg = model.cfg
+    params = model.init_params(0, device="cpu").requires_grad_(True)
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.zeros((1, 4, cfg.frontend_dim))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((1, cfg.n_frontend_tokens,
+                                       cfg.frontend_dim))
+    loss = model.loss(params, batch)
+    loss.backward()
+    assert bool(torch.isfinite(loss))
+    assert all(p.grad is not None for p in params.parameters())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
+        train_step.build_train_step(
+            model, train_step.TrainConfig(compress_dcn="bf16"))
 
 
 def test_random_init_draws_like_the_reference():
