@@ -347,24 +347,37 @@ def cuda_ms(fn, reps: int) -> float:
 def device_ms(fn, reps: int, kernel_re: str, per_call: int = 0):
     """Mean device milliseconds per call of the CUDA kernels whose names
     match ``kernel_re``, from a ``torch.profiler`` trace of ``reps`` calls
-    after one warm-up call (None when the trace holds no device time, or,
-    with ``per_call``, when it holds other than ``per_call`` x ``reps``
-    launches of them)."""
+    after one warm-up call (None when the trace holds no device time).
+    With ``per_call``, each trace follows a warm-up trace of one call, and
+    one that holds other than ``per_call`` x ``reps`` launches of them is
+    printed with its counts and taken again, up to three traces; None if
+    none holds them all."""
+    tries = 3
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     pat = re.compile(kernel_re)
-    hits = [e for e in prof.key_averages() if pat.search(e.key)]
-    total_us = sum(getattr(e, "device_time_total", 0.0) for e in hits)
-    if per_call and sum(e.count for e in hits) != per_call * reps:
-        return None
-    return total_us / reps / 1e3 if total_us > 0 else None
+    for attempt in range(tries if per_call else 1):
+        if per_call:
+            with profile(activities=[ProfilerActivity.CUDA]):
+                fn()
+                torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if pat.search(e.key)]
+        total_us = sum(getattr(e, "device_time_total", 0.0) for e in hits)
+        n = sum(e.count for e in hits)
+        if not per_call or n == per_call * reps:
+            return total_us / reps / 1e3 if total_us > 0 else None
+        print(f"device_ms: trace {attempt + 1} of {tries} held {n} of the "
+              f"{per_call * reps} launches matching {kernel_re!r}: "
+              + ", ".join(f"{e.key[:70]} x{e.count}" for e in hits),
+              flush=True)
+    return None
 
 
 def cuda_once(fn):
@@ -452,6 +465,8 @@ class HostTimer:
 # The tensor-core kernels: (library, kernel name); every instance of each
 # must hold HGMMA.
 TC_KERNELS = (("flash_attn", "flash_attention_wgmma_kernel"),
+              ("flash_attn_bwd", "attn_bwd_dkv_wgmma_kernel"),
+              ("flash_attn_bwd", "attn_bwd_dq_wgmma_kernel"),
               ("ssd_scan", "ssd_wgmma_kernel"))
 
 
@@ -2612,8 +2627,10 @@ TRAIN_OUT = ROOT / "build" / "chip_smoke_train"
 # heads for S = 1-4,096 (the main path's positions), D = 64, 80 (Zamba2's
 # shared block), 96 (Phi-3-mini), MLA's 192/128 at DeepSeek-V3's 128 heads,
 # causal with more queries than keys (rows that see no key), ragged keys,
-# an odd depth, D = 256, and Whisper's encoder and cross attention (not
-# causal); then float16 and mixed dtypes (HALF_MIXED) at two shapes.
+# an odd depth, D = 256, Whisper's encoder and cross attention (not
+# causal) and Dv != D without the mask; then float16 and mixed dtypes
+# (HALF_MIXED) at two shapes.  bf16 with D, Dv <= 128 takes the backward's
+# tensor-core route, the rest its CUDA-core route (kernel.route_bwd).
 ATTN_GRAD_SHAPES = (
     [(1, 32, 4, S, S, 128, 128, True) for S in (1, 13, 100, 1025, 4096)]
     + [(2, 8, 2, 300, 300, 64, 64, True),
@@ -2627,7 +2644,8 @@ ATTN_GRAD_SHAPES = (
        (1, 4, 1, 77, 200, 256, 256, True),
        (1, 12, 12, 1500, 1500, 64, 64, False),
        (2, 12, 12, 1, 1500, 64, 64, False),
-       (1, 12, 12, 37, 1500, 64, 64, False)])
+       (1, 12, 12, 37, 1500, 64, 64, False),
+       (1, 8, 2, 200, 300, 96, 64, False)])
 ATTN_GRAD_HALF = ((1, 4, 2, 128, 128, 16, 16, True),
                   (1, 32, 4, 100, 300, 128, 128, True))
 # Each gradient within atol = TOL x its largest magnitude and rtol = TOL of
@@ -2731,18 +2749,19 @@ class AttnClock:
         return False
 
 
-def attention_grads(q, k, v, dout, causal):
+def attention_grads(q, k, v, dout, causal, route):
     """(dq, dk, dv) of ``ops.attention`` through autograd; on CUDA tensors
-    the backward kernel must have run once."""
+    the backward kernel must have run once, on ``route``."""
     import torch
     from repro_torch.kernels.flash_attn import ops as attn_ops
     qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
-    before = attn_ops.BWD_LAUNCHES
+    before = attn_ops.BWD_LAUNCHES, attn_ops.BWD_ROUTE_LAUNCHES[route]
     out = attn_ops.attention(qq, kk, vv, causal=causal)
     grads = torch.autograd.grad(out, (qq, kk, vv), dout)
     torch.cuda.synchronize()
-    check(attn_ops.BWD_LAUNCHES == before + 1,
-          "the attention backward did not run on the kernel")
+    check(attn_ops.BWD_LAUNCHES == before[0] + 1
+          and attn_ops.BWD_ROUTE_LAUNCHES[route] == before[1] + 1,
+          f"the attention backward did not run on the {route} kernels")
     return grads
 
 
@@ -2765,6 +2784,7 @@ def attention_grad_phase(dev, errs):
     ATTN_GRAD_SHAPES in float32 and bf16 and at ATTN_GRAD_HALF in float16
     and mixed dtypes; each shape run twice, the reruns bitwise equal."""
     import torch
+    from repro_torch.kernels.flash_attn import kernel as attn_kernel
     from repro_torch.kernels.flash_attn import ref as attn_ref
     with Phase("attention_grad_vs_plain"):
         gen = torch.Generator().manual_seed(1)
@@ -2779,8 +2799,14 @@ def attention_grad_phase(dev, errs):
                                          (B, Hkv, Sk, Dv)), dts))
             dout = torch.randn((B, Hq, Sq, Dv), generator=gen).to(dev,
                                                                   q.dtype)
-            got = attention_grads(q, k, v, dout, causal)
-            again = attention_grads(q, k, v, dout, causal)
+            route = ("wgmma" if dts == ("bfloat16",) * 3 and max(D, Dv) <= 128
+                     else "cuda_cores")
+            check(attn_kernel.route_bwd(attn_kernel.compute_dtype(q, k, v),
+                                        D, Dv) == route,
+                  f"flash_attention_bwd {shape} {dts}: route_bwd is not "
+                  f"{route}")
+            got = attention_grads(q, k, v, dout, causal, route)
+            again = attention_grads(q, k, v, dout, causal, route)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             want = attn_ref.mha_vjp(q, k, v, dout, causal=causal)
             torch.cuda.synchronize()
@@ -2796,7 +2822,8 @@ def attention_grad_phase(dev, errs):
             check(grads_close(got, want, tol),
                   f"flash_attention_bwd {shape} {dts}: kernel != plain "
                   f"(max_abs_err {err})")
-            print(f"flash_attention_bwd {shape} {dts}: dq/dk/dv max_abs_err "
+            print(f"flash_attention_bwd {shape} {dts} ({route} route): "
+                  f"dq/dk/dv max_abs_err "
                   f"{err:.3g} (tolerance atol = {tol} x max|grad|, rtol = "
                   f"{tol}); rerun bitwise equal; "
                   f"{max(Sq - Sk, 0) if causal else 0} rows see no key",
@@ -3019,16 +3046,22 @@ def train_main_phase(dev):
             state = ts.make_train_state(model, params, tcfg)
             step_fn = ts.build_train_step(model, tcfg)
             attn_ops.LAUNCHES = attn_ops.BWD_LAUNCHES = 0
+            attn_ops.BWD_ROUTE_LAUNCHES.update(wgmma=0, cuda_cores=0)
             t0 = time.perf_counter()
             with clock:
                 loop = ft_mod.ResilientLoop(step_fn, state, ftc,
                                             health_cb=print)
                 loop.run(batches, TRAIN_STEPS, metrics_cb)
             fwd, bwd = attn_ops.LAUNCHES, attn_ops.BWD_LAUNCHES
+            bwd_routes = dict(attn_ops.BWD_ROUTE_LAUNCHES)
             print(f"train_main_path: {TRAIN_STEPS} steps and their "
                   f"checkpoints in {time.perf_counter() - t0:.1f} s; "
-                  f"flash_attention launches: forward {fwd}, backward {bwd}",
-                  flush=True)
+                  f"flash_attention launches: forward {fwd}, backward {bwd} "
+                  f"(by route {bwd_routes})", flush=True)
+            check(bwd_routes == {"wgmma": bwd, "cuda_cores": 0},
+                  f"train_main_path: the backward's launches by route "
+                  f"{bwd_routes}; every one of the {bwd} must take the "
+                  f"wgmma route")
             per_step = layers * n_micro
             check(fwd == TRAIN_STEPS * per_step * 2
                   and bwd == TRAIN_STEPS * per_step,
@@ -3164,9 +3197,10 @@ def train_cli_phase():
 
 def attention_bwd_timing(errs, n_micro):
     """The backward kernel's rows of the ``kernels`` line, at the main
-    path's shape (random inputs): the wrapper's ms (CUDA events), the
-    device ms of its three launches (profiler; None unless the trace holds
-    all of them), the plain version
+    path's shape (random inputs), given the forward's log-sum-exp as
+    autograd gives it: the wrapper's ms (CUDA events), the device ms of its
+    launches (four on the tensor-core route, three on the CUDA-core route;
+    profiler, None unless a trace holds all of them), the plain version
     (``ref.mha_vjp``), the backward of one SDPA call (the library's time),
     and the bound: the backward's five products (2.5 x the forward's
     operations) at the card's rate for the type, or its bytes (q, k, v,
@@ -3183,8 +3217,10 @@ def attention_bwd_timing(errs, n_micro):
     for name, dtype in (("flash_attention_bwd", torch.bfloat16),
                         ("flash_attention_bwd_f32", torch.float32)):
         q, k, v, dout = (t.to("cuda", dtype) for t in base)
-        out = attn_kernel.flash_attention(q, k, v, causal=True)
-        got = attn_kernel.flash_attention_bwd(q, k, v, out, dout)
+        route = attn_kernel.route_bwd(dtype, D, D)
+        out, lse = attn_kernel.flash_attention(q, k, v, causal=True,
+                                               return_lse=True)
+        got = attn_kernel.flash_attention_bwd(q, k, v, out, dout, lse)
         want = attn_ref.mha_vjp(q, k, v, dout)
         tol = ATTN_GRAD_TOL[str(dtype).split(".")[-1]]
         err = max(errs[name], max(max_abs_err(g.float(), w.float())
@@ -3194,10 +3230,12 @@ def attention_bwd_timing(errs, n_micro):
         del got, want
 
         def call():
-            return attn_kernel.flash_attention_bwd(q, k, v, out, dout)
+            return attn_kernel.flash_attention_bwd(q, k, v, out, dout, lse)
         ms = cuda_ms(call, 5)
-        # three launches a call: the row statistics, dQ, dK/dV
-        dev_ms = device_ms(call, 5, r"attn_bwd_", per_call=3)
+        # launches a call: delta, dK/dV, dQ and the group's sum of dK/dV
+        # (wgmma); the row statistics, dQ, dK/dV (CUDA cores)
+        dev_ms = device_ms(call, 5, r"attn_bwd_",
+                           per_call=4 if route == "wgmma" else 3)
         plain_ms = cuda_ms(lambda: attn_ref.mha_vjp(q, k, v, dout), 2)
         qc, kc, vc = (t.detach().clone().requires_grad_(True) for t in (
             q, k.repeat_interleave(Hq // Hkv, dim=1),
@@ -3223,11 +3261,11 @@ def attention_bwd_timing(errs, n_micro):
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=library_ms, n=int(B * Hq * S),
             shape=[B, Hq, Hkv, S, S, D]))
-        print(f"kernel {name}: shape={rows[-1]['shape']} "
+        print(f"kernel {name} ({route} route): shape={rows[-1]['shape']} "
               f"ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f} "
               f"bound_ms={rows[-1]['bound_ms']:.4f} ({rows[-1]['bound_by']}) "
               f"library_ms={library_ms:.4f} (one SDPA backward)", flush=True)
-        del q, k, v, dout, out
+        del q, k, v, dout, out, lse
         torch.cuda.empty_cache()
     return rows
 

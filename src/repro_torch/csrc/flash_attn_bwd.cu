@@ -1,7 +1,9 @@
-// Backward pass of causal GQA flash attention for the H100 (sm_90a), on the
-// float32 CUDA cores: dQ, dK and dV of
-// repro_torch/kernels/flash_attn/ref.py:mha, for every input the forward
-// kernels (csrc/flash_attn.cu) take.
+// Backward pass of causal GQA flash attention for the H100 (sm_90a): dQ, dK
+// and dV of repro_torch/kernels/flash_attn/ref.py:mha, for every input the
+// forward kernels (csrc/flash_attn.cu) take, on two routes
+// (kernels/flash_attn/kernel.py:route_bwd): bf16 with D and Dv <= 128 on
+// the tensor cores (wgmma + TMA), everything else (float32, wider heads) on
+// the float32 CUDA cores.
 //
 // It replaces no TPU kernel.  The reference's training step reaches the
 // Pallas kernel repro/kernels/flash_attn/kernel.py:flash_attention (def at
@@ -21,14 +23,80 @@
 // (Sq > Sk) sees no key: in the reference every logit of its row is -1e30,
 // so P is 1/Sk on every key and its output the mean of v.  Such a row sends
 // dO / Sk to every dV row and, the mask's gradient being zero, nothing to
-// dQ or dK.
+// dQ or dK.  Both routes find these rows by their index, never by their
+// log-sum-exp (in float32 -1e30 absorbs log2(Sk), and P computed from it
+// would read 1).  Every gradient element is written by exactly one block,
+// each sum runs in a fixed order and no atomics are used, so reruns are
+// bitwise equal (the training restart check depends on it).  Inputs are
+// read through (batch, head, position) element strides with a contiguous
+// last axis, strides multiples of 8 elements and 16-byte aligned data, as
+// the forward takes them; dq, dk and dv are written through their own
+// strides (their inputs' layouts).
 //
-// Three launches, each a grid of blocks of 256 threads (a 16 x 16 grid; a
-// thread holds a 4 x 4 patch of a 64 x 64 tile of logits):
+// Bound on the H100 SXM: at Yi-6B's training shape (B, Hq, Hkv, S, D) = (1,
+// 32, 4, 4096, 128), causal, bf16, the five products of the backward (S
+// again, dP, dV, dQ, dK) are 2.5 times the forward's 2 x 2 x B x Hq x
+// S (S + 1) / 2 x D = 137 GFLOP, 344 GFLOP: 0.35 ms at 989 TFLOP/s on the
+// tensor cores; its bytes (q, k, v, out, dout read once, dq, dk, dv written
+// once: 151 MB) take 0.045 ms.  Operations bound it.
+//
+// bf16 route (D, Dv <= 128: Yi-6B, Qwen3-MoE, Phi-3, Zamba2, Whisper), four
+// launches, FlashAttention-2's deterministic split:
+//   1. attn_bwd_delta_kernel: delta = rowsum(dO * O) in float32, a warp a
+//      row.  The rows' log-sum-exp comes from the forward, which writes it
+//      when autograd asks (ops.FlashAttention; log2 domain).
+//   2. attn_bwd_dkv_wgmma_kernel, a CTA per (key tile of 128, query head,
+//      batch), key tiles heaviest first: K and V stay in shared memory; a
+//      producer warpgroup (one warp of it works) streams, by TMA into a
+//      two-stage ring, the Q and dO tiles of 64 queries that reach the key
+//      tile (and writes their lse and delta beside them); two consumer
+//      warpgroups of 64 keys each run
+//        S^T = K Q^T (wgmma, both from shared memory),
+//        P^T = exp2(S^T scale log2(e) - lse) (bf16 in registers),
+//        dV += P^T dO (wgmma, P^T from registers),
+//        dP^T = V dO^T (wgmma),  dS^T = P^T (dP^T - delta) (bf16),
+//        dK += dS^T Q (wgmma, dS^T from registers),
+//      and write dK (times scale) and dV as float32 partials of the head.
+//   3. attn_bwd_dq_wgmma_kernel, a CTA per (query tile of 128, query head,
+//      batch), the tiles that see most keys first: Q and dO stay in shared
+//      memory; the producer streams K and V tiles of 64 keys; each consumer
+//      warpgroup (64 rows) runs S = Q K^T and dP = dO V^T (wgmma), dS in
+//      registers, dQ += dS K (wgmma), and stores dQ times scale in bf16.
+//   4. attn_bwd_dkv_reduce_kernel: dK and dV, each the sum of its group's
+//      float32 partials in head order, stored in bf16.
+// Seven products where the bound counts five (S and dP twice), and no
+// atomics.  GQA: a CTA per (key tile, KV head) would give Yi-6B's
+// microbatch 128 CTAs for 132 SMs, and under the causal mask the first key
+// tile's CTA walks 32 times the query tiles of the last one's; a CTA per
+// (key tile, query head) gives 1,024 CTAs whose work the heaviest-first
+// order spreads evenly, at the price of the float32 partials (2 x 67 MB
+// written and read at that shape, ~0.08 ms).  Tiles wholly above the
+// diagonal are skipped; the masks run only on tiles that cross it, hold
+// rows that see no key, or end past Sk or Sq (TMA fills rows past Sk or Sq
+// and columns past D or Dv with zeros; rows past Sq get lse = +inf, so P =
+// 0 there).  Head dims round up to 64-column chunks (DPC = ceil(D / 64),
+// NVC = ceil(Dv / 64)).  Shared memory at D = Dv = 128: 130 KB (dK/dV),
+// 129 KB (dQ).  Each dK/dV consumer thread holds 64 + 64 float32
+// accumulators of dK and dV beside 32 of S^T or dP^T (one at a time) and 16
+// registers of P^T or dS^T in bf16 (dS takes P from its bf16 copy, the
+// operand dV took): more than the 168 registers a thread of a 288- or
+// 384-thread CTA gets (a sub-partition's 16,384 over its warps), which
+// spilled ~1 KB a thread and serialized the wgmmas (ptxas C7512).  So the
+// dK/dV CTA has 384 threads and the producer warpgroup hands its
+// registers to the consumers (setmaxnreg: 40 and 232 a thread), as FA3
+// does; the dQ kernel (64 accumulators) keeps 288 threads and 168.
+// Not yet done: overlapping the products with the softmax (ping-pong
+// consumers, the next tile's S^T issued before this one's dS^T), dQ in the
+// same pass (FA3's semaphore-ordered dQ accumulation), a persistent grid,
+// heads past 128 (DeepSeek-V3's MLA, Dk 192 / Dv 128) on this route.
+//
+// CUDA-core route (float32, where TF32 would miss the goldens' tolerance,
+// and bf16 heads past 128), three launches, each a grid of blocks of 256
+// threads (a 16 x 16 grid; a thread holds a 4 x 4 patch of a 64 x 64 tile
+// of logits):
 //   1. attn_bwd_stats_kernel, a block per (query tile of 64, query head,
 //      batch): rowsum(dO * O), and each row's log-sum-exp (log2 domain)
-//      recomputed by the online softmax over the visible key tiles.  The
-//      forward kernels do not emit it and stay as they are.
+//      recomputed by the online softmax over the visible key tiles.
 //   2. attn_bwd_dq_kernel, a block per (query tile, column tile of 128 of
 //      dQ, query head, batch): for each visible key tile, S = Q K^T and
 //      dP = dO V^T (depth in chunks of 128 staged transposed in shared
@@ -38,31 +106,15 @@
 //      each query tile that sees a key of the tile, S^T, P^T (and dP^T and
 //      dS^T for dK), then dV += P^T dO or dK += dS^T Q.  Key tiles are
 //      scheduled first-to-last, the heaviest first under the causal mask.
-// Every gradient element is written by exactly one block, each sum runs in a
-// fixed order and no atomics are used, so reruns are bitwise equal.  S is
-// computed in the same order in all three launches, so P is the same number
-// in each.  Everything is read and accumulated in float32 (bf16 inputs are
-// widened on load) and each gradient is stored in the inputs' type.
-//
-// Bound on the H100 SXM: at Yi-6B's training shape (B, Hq, Hkv, S, D) = (1,
-// 32, 4, 4096, 128), causal, bf16, the five products of the backward (S
-// again, dP, dV, dQ, dK) are 2.5 times the forward's 2 x 2 x B x Hq x
-// S (S + 1) / 2 x D = 137 GFLOP, 344 GFLOP: 0.35 ms at 989 TFLOP/s on the
-// tensor cores, 5.1 ms at 67 TFLOP/s on the float32 CUDA cores this kernel
-// runs on; its bytes (q, k, v, out, dout read once, dq, dk, dv written
-// once: 151 MB) take 0.045 ms.  Operations bound it.  This design
-// recomputes S three times and dP twice (nine products, not five) and stays
-// off the tensor cores: it is the simple, right version, and a fast one
-// (wgmma, TMA, the forward emitting its log-sum-exp) is later work.
-//
-// Inputs are read through (batch, head, position) element strides with a
-// contiguous last axis, strides multiples of 8 elements and 16-byte aligned
-// data, as the forward takes them.
+// S is computed in the same order in all three launches, so P is the same
+// number in each.  Everything is read and accumulated in float32 (bf16
+// inputs are widened on load) and each gradient is stored in the inputs'
+// type.  It recomputes S three times and dP twice (nine products) on the
+// float32 CUDA cores (67 TFLOP/s): 5.1 ms of bound at the shape above.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"   // mbarriers, TMA, wgmma (shared with the forward)
 
 namespace {
 
@@ -594,6 +646,641 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 tensor-core route (wgmma + TMA), D and Dv <= 128
+// ---------------------------------------------------------------------------
+
+constexpr int WG_THREADS = 288;   // two consumer warpgroups + a producer warp
+// dK/dV: two consumer warpgroups + a producer warpgroup, whose registers go
+// to the consumers (setmaxnreg): 384 threads start at 168 registers each
+// (a sub-partition's 16,384 over its three warps), the producer's drop to
+// 40 and the consumers' rise to 232, room for dK, dV, S^T or dP^T and P^T.
+constexpr int KV_THREADS = 384;
+constexpr int KV_PRODUCER_REGS = 40;
+constexpr int KV_CONSUMER_REGS = 232;
+constexpr int WG_STAGES = 2;
+constexpr int KV_ROWS = 128;      // dK/dV: keys a CTA, 64 a warpgroup
+constexpr int KV_QT = 64;         // dK/dV: queries a streamed tile
+constexpr int DQ_ROWS = 128;      // dQ: queries a CTA, 64 a warpgroup
+constexpr int DQ_KT = 64;         // dQ: keys a streamed tile
+
+struct WgArgs {
+  const float* lse;   // (B, Hq, Sq), log2 domain, from the forward
+  const float* dlt;   // (B, Hq, Sq): rowsum(dO * O)
+  float* wk;          // (B, Hq, Sk, 64 DPC) float32: scale dS^T Q of a head
+  float* wv;          // (B, Hq, Sk, 64 NVC) float32: P^T dO of a head
+  __nv_bfloat16* dq;
+  long long dqsb, dqsh, dqss;
+  int Hq, group, Sq, Sk, D;
+  float scale_log2, scale;
+  int causal;
+  int pair;           // even D and dq strides, 4-byte aligned dq: bf16x2 stores
+};
+
+template <int DPC, int NVC>
+struct DkvShape {
+  static constexpr int K_BYTES = DPC * KV_ROWS * BOX_BYTES_PER_ROW;
+  static constexpr int V_BYTES = NVC * KV_ROWS * BOX_BYTES_PER_ROW;
+  static constexpr int Q_BYTES = DPC * KV_QT * BOX_BYTES_PER_ROW;
+  static constexpr int O_BYTES = NVC * KV_QT * BOX_BYTES_PER_ROW;  // dO
+  static constexpr int STAGE = Q_BYTES + O_BYTES;
+  static constexpr int ROW_OFF = K_BYTES + V_BYTES + WG_STAGES * STAGE;
+  // each stage's lse and delta: 2 x KV_QT floats
+  static constexpr int BAR_OFF = ROW_OFF + WG_STAGES * 2 * KV_QT * 4;
+  static constexpr int SMEM = BAR_OFF + 64 + 1024;   // + barriers, alignment
+};
+
+template <int DPC, int NVC>
+struct DqShape {
+  static constexpr int Q_BYTES = DPC * DQ_ROWS * BOX_BYTES_PER_ROW;
+  static constexpr int O_BYTES = NVC * DQ_ROWS * BOX_BYTES_PER_ROW;
+  static constexpr int K_BYTES = DPC * DQ_KT * BOX_BYTES_PER_ROW;
+  static constexpr int V_BYTES = NVC * DQ_KT * BOX_BYTES_PER_ROW;
+  static constexpr int STAGE = K_BYTES + V_BYTES;
+  static constexpr int BAR_OFF = Q_BYTES + O_BYTES + WG_STAGES * STAGE;
+  static constexpr int SMEM = BAR_OFF + 64 + 1024;
+};
+
+template <int N>
+__device__ __forceinline__ void regs_up() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_down() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// rowsum(dO * O) in float32, a warp a row (lanes over the columns, then a
+// fixed shuffle tree: bitwise reruns).
+__global__ void __launch_bounds__(256)
+attn_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
+                      const __nv_bfloat16* __restrict__ dout,
+                      float* __restrict__ dlt, int Hq, int Sq, int Dv,
+                      Strides st, long long rows) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const int i = (int)(row % Sq);
+  const long long bh = row / Sq;
+  const int h = (int)(bh % Hq), b = (int)(bh / Hq);
+  const __nv_bfloat16* orow =
+      o + b * st.s[SO] + h * st.s[SO + 1] + (long long)i * st.s[SO + 2];
+  const __nv_bfloat16* drow = dout + b * st.s[SDO] + h * st.s[SDO + 1] +
+                              (long long)i * st.s[SDO + 2];
+  float acc = 0.f;
+  for (int c = lane; c < Dv; c += 32)
+    acc = fmaf(__bfloat162float(drow[c]), __bfloat162float(orow[c]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) dlt[row] = acc;
+}
+
+// dK and dV of one query head's contribution to a key tile of 128 (a CTA
+// per (key tile, query head, batch); key tiles heaviest first).  The keys'
+// K and V stay in shared memory; the producer streams the (Q, dO) tiles of
+// the query rows that reach the tile, with their lse and delta, through a
+// two-stage ring.  Each consumer warpgroup owns 64 keys.
+template <int DPC, int NVC>
+__global__ void __launch_bounds__(KV_THREADS, 1)
+attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const WgArgs a) {
+  using S = DkvShape<DPC, NVC>;
+  constexpr int DK = DPC * 64, DV = NVC * 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base_ptr =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(base_ptr);
+  const uint32_t sK = base, sV = base + S::K_BYTES;
+  const uint32_t sQ = sV + S::V_BYTES;     // stage s: + s STAGE; dO + Q_BYTES
+  float* rows = reinterpret_cast<float*>(base_ptr + S::ROW_OFF);
+  const uint32_t bar = base + S::BAR_OFF;
+  // kv_full = bar; full[s] = bar + 8 (1 + s); empty[s] = bar + 8 (3 + s)
+
+  const int per = gridDim.x / ((a.Sk + KV_ROWS - 1) / KV_ROWS);   // Hq x B
+  const int kt = blockIdx.x / per;
+  const int h = (blockIdx.x % per) % a.Hq, b = (blockIdx.x % per) / a.Hq;
+  const int hk = h / a.group;
+  const int k0 = kt * KV_ROWS;
+  const int off = a.Sk - a.Sq;            // query i sits at position i + off
+  const int n_qt = (a.Sq + KV_QT - 1) / KV_QT;
+  // The query tiles that reach the tile: [0, blind_qt) hold the rows that
+  // see no key (causal Sq > Sk; they weigh every key in dV), [lo, n_qt) the
+  // rows whose last visible key is at or past k0.
+  const int blind_qt = a.causal ? (max(0, -off) + KV_QT - 1) / KV_QT : 0;
+  const int lo = a.causal ? max(blind_qt, min(n_qt, max(0, k0 - off) / KV_QT))
+                          : 0;
+  const int n_it = blind_qt + n_qt - lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(bar + 8 * (1 + s), 32);   // the producer's lanes
+      mbar_init(bar + 8 * (3 + s), 8);    // the consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= 256) {
+    // Producer warpgroup: it hands its registers over, and its first warp
+    // works: lane 0 issues the TMA loads; every lane writes two rows' lse
+    // and delta of the stage (lse +inf and delta 0 past Sq, so that P = 0
+    // there), then arrives.
+    regs_down<KV_PRODUCER_REGS>();
+    if (threadIdx.x >= 288) return;
+    if (lane == 0) {
+      mbar_expect_tx(bar, S::K_BYTES + S::V_BYTES);
+      for (int c = 0; c < DPC; ++c)
+        tma_load(sK + c * KV_ROWS * BOX_BYTES_PER_ROW, &tk, bar, c * 64, k0,
+                 hk, b);
+      for (int c = 0; c < NVC; ++c)
+        tma_load(sV + c * KV_ROWS * BOX_BYTES_PER_ROW, &tv, bar, c * 64, k0,
+                 hk, b);
+    }
+    const long long row0 = ((long long)b * a.Hq + h) * a.Sq;
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % WG_STAGES, round = it / WG_STAGES;
+      if (round > 0) mbar_wait(bar + 8 * (3 + s), (round - 1) & 1);
+      const int q0 = (it < blind_qt ? it : lo + it - blind_qt) * KV_QT;
+      float* rl = rows + s * 2 * KV_QT;
+      for (int j = lane; j < KV_QT; j += 32) {
+        const bool ok = q0 + j < a.Sq;
+        rl[j] = ok ? a.lse[row0 + q0 + j] : INFINITY;
+        rl[KV_QT + j] = ok ? a.dlt[row0 + q0 + j] : 0.f;
+      }
+      const uint32_t full = bar + 8 * (1 + s);
+      if (lane == 0) {
+        const uint32_t st = sQ + s * S::STAGE;
+        mbar_expect_tx(full, S::STAGE);
+        for (int c = 0; c < DPC; ++c)
+          tma_load(st + c * KV_QT * BOX_BYTES_PER_ROW, &tq, full, c * 64, q0,
+                   h, b);
+        for (int c = 0; c < NVC; ++c)
+          tma_load(st + S::Q_BYTES + c * KV_QT * BOX_BYTES_PER_ROW, &tdo,
+                   full, c * 64, q0, h, b);
+      } else {
+        mbar_arrive(full);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns keys [k0 + 64 wg, k0 + 64 wg + 64); a
+  // thread holds the rows (keys) key_lo and key_lo + 8 of its warp's 16,
+  // and columns (queries) 8 n + 2 q4 + j of each tile.
+  regs_up<KV_CONSUMER_REGS>();
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int kw0 = k0 + wg * 64;
+  const int key_lo = kw0 + warp * 16 + g;
+  const float inv_sk = 1.f / (float)a.Sk;
+  float dk[DK / 2], dv[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DK / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
+
+  mbar_wait(bar, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % WG_STAGES, phase = (it / WG_STAGES) & 1;
+    const int q0 = (it < blind_qt ? it : lo + it - blind_qt) * KV_QT;
+    const uint32_t stQ = sQ + s * S::STAGE, stO = stQ + S::Q_BYTES;
+    const float* rl = rows + s * 2 * KV_QT;
+    mbar_wait(bar + 8 * (1 + s), phase);
+
+    // S^T = K Q^T (64 keys x KV_QT queries)
+    float sc[KV_QT / 2];
+    fence_regs(sc);
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < DPC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<KV_QT>(
+            sc,
+            sw128_desc(sK + (c * KV_ROWS + wg * 64) * BOX_BYTES_PER_ROW +
+                           kk * 32, 16, 1024),
+            sw128_desc(stQ + c * KV_QT * BOX_BYTES_PER_ROW + kk * 32, 16,
+                       1024),
+            (c | kk) ? 1 : 0);
+    wg_commit();
+    wg_wait0();
+    fence_regs(sc);
+
+    // P^T = exp2(S^T scale log2(e) - lse), in bf16: sc[4 n + 2 i + j] is
+    // key key_lo + 8 i, query q0 + 8 n + 2 q4 + j.  The masks only where
+    // the tile crosses the diagonal, holds rows that see no key (P = 1/Sk
+    // on every key: the gradient of the reference's mean of v) or ends
+    // past Sk.
+    const bool edge =
+        kw0 + 64 > a.Sk || (a.causal && kw0 + 63 > q0 + off);
+#pragma unroll
+    for (int n = 0; n < KV_QT / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = 8 * n + 2 * q4 + j;
+          float p = exp2f(sc[4 * n + 2 * i + j] * a.scale_log2 - rl[col]);
+          if (edge) {
+            const int key = key_lo + 8 * i, qpos = q0 + col + off;
+            if (a.causal && qpos < 0)
+              p = key < a.Sk ? inv_sk : 0.f;
+            else if (key >= a.Sk || (a.causal && key > qpos))
+              p = 0.f;
+          }
+          sc[4 * n + 2 * i + j] = p;
+        }
+    uint32_t pb[KV_QT / 16][4];
+#pragma unroll
+    for (int kb = 0; kb < KV_QT / 16; ++kb)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pb[kb][r] = pack_bf16(sc[8 * kb + 2 * r], sc[8 * kb + 2 * r + 1]);
+
+    // dV += P^T dO (P^T from registers, dO N-major) and dP^T = V dO^T
+    float dp[KV_QT / 2];
+    fence_regs(dv);
+    fence_regs(dp);
+    wg_fence();
+#pragma unroll
+    for (int kb = 0; kb < KV_QT / 16; ++kb)
+      wgmma_rs<DV>(dv, pb[kb],
+                   sw128_desc(stO + kb * 2048, KV_QT * BOX_BYTES_PER_ROW,
+                              1024));
+#pragma unroll
+    for (int c = 0; c < NVC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<KV_QT>(
+            dp,
+            sw128_desc(sV + (c * KV_ROWS + wg * 64) * BOX_BYTES_PER_ROW +
+                           kk * 32, 16, 1024),
+            sw128_desc(stO + c * KV_QT * BOX_BYTES_PER_ROW + kk * 32, 16,
+                       1024),
+            (c | kk) ? 1 : 0);
+    wg_commit();
+    wg_wait0();
+    fence_regs(dv);
+    fence_regs(dp);
+
+    // dS^T = P^T (dP^T - delta), from the bf16 P^T (the operand dV took);
+    // zero on the rows that see no key.  Element e = 8 kb + 2 r of the
+    // fragment is query column 8 (2 kb + r / 2) + 2 q4.
+#pragma unroll
+    for (int kb = 0; kb < KV_QT / 16; ++kb)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int e = 8 * kb + 2 * r;
+        const int col = 16 * kb + 8 * (r >> 1) + 2 * q4;
+        const float2 p = unpack_bf16(pb[kb][r]);
+        float d0 = p.x * (dp[e] - rl[KV_QT + col]);
+        float d1 = p.y * (dp[e + 1] - rl[KV_QT + col + 1]);
+        if (edge && a.causal) {
+          if (q0 + col + off < 0) d0 = 0.f;
+          if (q0 + col + 1 + off < 0) d1 = 0.f;
+        }
+        pb[kb][r] = pack_bf16(d0, d1);
+      }
+
+    // dK += dS^T Q (Q N-major)
+    fence_regs(dk);
+    wg_fence();
+#pragma unroll
+    for (int kb = 0; kb < KV_QT / 16; ++kb)
+      wgmma_rs<DK>(dk, pb[kb],
+                   sw128_desc(stQ + kb * 2048, KV_QT * BOX_BYTES_PER_ROW,
+                              1024));
+    wg_commit();
+    wg_wait0();
+    fence_regs(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar + 8 * (3 + s));
+  }
+
+  // This head's float32 partials, all 64 DPC (64 NVC) columns.
+  const long long prow = ((long long)b * a.Hq + h) * a.Sk;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key_lo + 8 * i;
+    if (key >= a.Sk) continue;
+    float* wkr = a.wk + (prow + key) * DK;
+    float* wvr = a.wv + (prow + key) * DV;
+#pragma unroll
+    for (int n = 0; n < DK / 8; ++n)
+      *reinterpret_cast<float2*>(wkr + 8 * n + 2 * q4) = make_float2(
+          dk[4 * n + 2 * i] * a.scale, dk[4 * n + 2 * i + 1] * a.scale);
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n)
+      *reinterpret_cast<float2*>(wvr + 8 * n + 2 * q4) =
+          make_float2(dv[4 * n + 2 * i], dv[4 * n + 2 * i + 1]);
+  }
+}
+
+// dK and dV: the sum of the group's query heads' partials in head order.
+__global__ void __launch_bounds__(256)
+attn_bwd_dkv_reduce_kernel(const float* __restrict__ wk,
+                           const float* __restrict__ wv,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int Hkv,
+                           int group, int Sk, int D, int Dv, int dkp,
+                           int dvp, Strides st, long long total) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int W = D + Dv;
+  const int c = (int)(idx % W);
+  const long long rest = idx / W;
+  const int t = (int)(rest % Sk);
+  const long long bh = rest / Sk;
+  const int hk = (int)(bh % Hkv), b = (int)(bh / Hkv);
+  const bool is_k = c < D;
+  const int col = is_k ? c : c - D, wp = is_k ? dkp : dvp;
+  const float* w = (is_k ? wk : wv) +
+                   (((long long)b * Hkv + hk) * group * Sk + t) * wp + col;
+  float acc = 0.f;
+  for (int gi = 0; gi < group; ++gi) acc += w[(long long)gi * Sk * wp];
+  const int so = is_k ? SDK : SDV;
+  __nv_bfloat16* out = (is_k ? dk : dv) + b * st.s[so] + hk * st.s[so + 1] +
+                       (long long)t * st.s[so + 2] + col;
+  *out = __float2bfloat16_rn(acc);
+}
+
+// dQ of a query tile of 128 rows of one head (a CTA per (query tile, query
+// head, batch); the last tiles, which see the most keys, first).  Q and dO
+// stay in shared memory; the producer streams K and V tiles of 64 keys.
+// Each consumer warpgroup owns 64 query rows.
+template <int DPC, int NVC>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const WgArgs a) {
+  using S = DqShape<DPC, NVC>;
+  constexpr int DK = DPC * 64;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sO = base + S::Q_BYTES;
+  const uint32_t sK = sO + S::O_BYTES;     // stage s: + s STAGE; V + K_BYTES
+  const uint32_t bar = base + S::BAR_OFF;
+  // qo_full = bar; full[s] = bar + 8 (1 + s); empty[s] = bar + 8 (3 + s)
+
+  const int n_qt = (a.Sq + DQ_ROWS - 1) / DQ_ROWS;
+  const int per = gridDim.x / n_qt;         // Hq x B
+  const int qt = n_qt - 1 - blockIdx.x / per;
+  const int h = (blockIdx.x % per) % a.Hq, b = (blockIdx.x % per) / a.Hq;
+  const int hk = h / a.group;
+  const int q0 = qt * DQ_ROWS;
+  const int off = a.Sk - a.Sq;
+  int n_kt = (a.Sk + DQ_KT - 1) / DQ_KT;
+  if (a.causal) {   // up to the last key a row of the tile sees
+    const int q_last = off + min(q0 + DQ_ROWS, a.Sq) - 1;
+    n_kt = q_last < 0 ? 0 : min(n_kt, q_last / DQ_KT + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(bar + 8 * (1 + s), 1);
+      mbar_init(bar + 8 * (3 + s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    if (threadIdx.x != 256) return;
+    mbar_expect_tx(bar, S::Q_BYTES + S::O_BYTES);
+    for (int c = 0; c < DPC; ++c)
+      tma_load(sQ + c * DQ_ROWS * BOX_BYTES_PER_ROW, &tq, bar, c * 64, q0, h,
+               b);
+    for (int c = 0; c < NVC; ++c)
+      tma_load(sO + c * DQ_ROWS * BOX_BYTES_PER_ROW, &tdo, bar, c * 64, q0,
+               h, b);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % WG_STAGES, round = kt / WG_STAGES;
+      if (round > 0) mbar_wait(bar + 8 * (3 + s), (round - 1) & 1);
+      const uint32_t full = bar + 8 * (1 + s), st = sK + s * S::STAGE;
+      mbar_expect_tx(full, S::STAGE);
+      for (int c = 0; c < DPC; ++c)
+        tma_load(st + c * DQ_KT * BOX_BYTES_PER_ROW, &tk, full, c * 64,
+                 kt * DQ_KT, hk, b);
+      for (int c = 0; c < NVC; ++c)
+        tma_load(st + S::K_BYTES + c * DQ_KT * BOX_BYTES_PER_ROW, &tv, full,
+                 c * 64, kt * DQ_KT, hk, b);
+    }
+    return;
+  }
+
+  // Consumers: a thread holds rows r_lo and r_lo + 8 and, of each key
+  // tile, keys k0 + 8 n + 2 q4 + j.
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q4 = lane & 3;
+  const int r_lo = q0 + wg * 64 + warp * 16 + g;
+  const int wg_first = off + q0 + wg * 64;   // position of its first row
+  const long long row0 = ((long long)b * a.Hq + h) * a.Sq;
+  float lse[2], dl[2];
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_lo + 8 * i;
+    lse[i] = r < a.Sq ? a.lse[row0 + r] : INFINITY;
+    dl[i] = r < a.Sq ? a.dlt[row0 + r] : 0.f;
+    qpos[i] = r + off;
+  }
+  float dq[DK / 2];
+#pragma unroll
+  for (int i = 0; i < DK / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(bar, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % WG_STAGES, phase = (kt / WG_STAGES) & 1;
+    const int k0 = kt * DQ_KT;
+    const uint32_t stK = sK + s * S::STAGE, stV = stK + S::K_BYTES;
+    mbar_wait(bar + 8 * (1 + s), phase);
+
+    // S = Q K^T and dP = dO V^T (64 rows x 64 keys each)
+    float sc[DQ_KT / 2], dp[DQ_KT / 2];
+    fence_regs(sc);
+    fence_regs(dp);
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < DPC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<DQ_KT>(
+            sc,
+            sw128_desc(sQ + (c * DQ_ROWS + wg * 64) * BOX_BYTES_PER_ROW +
+                           kk * 32, 16, 1024),
+            sw128_desc(stK + c * DQ_KT * BOX_BYTES_PER_ROW + kk * 32, 16,
+                       1024),
+            (c | kk) ? 1 : 0);
+#pragma unroll
+    for (int c = 0; c < NVC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<DQ_KT>(
+            dp,
+            sw128_desc(sO + (c * DQ_ROWS + wg * 64) * BOX_BYTES_PER_ROW +
+                           kk * 32, 16, 1024),
+            sw128_desc(stV + c * DQ_KT * BOX_BYTES_PER_ROW + kk * 32, 16,
+                       1024),
+            (c | kk) ? 1 : 0);
+    wg_commit();
+    wg_wait0();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // dS = P (dP - delta), P = exp2(S scale log2(e) - lse); masked keys
+    // (past the diagonal, past Sk, and every key of a row that sees none)
+    // give 0.
+    const bool edge =
+        k0 + DQ_KT > a.Sk || (a.causal && k0 + DQ_KT - 1 > wg_first);
+#pragma unroll
+    for (int n = 0; n < DQ_KT / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 4 * n + 2 * i + j;
+          float p = exp2f(sc[e] * a.scale_log2 - lse[i]);
+          if (edge) {
+            const int key = k0 + 8 * n + 2 * q4 + j;
+            if (key >= a.Sk || (a.causal && key > qpos[i])) p = 0.f;
+          }
+          sc[e] = p * (dp[e] - dl[i]);
+        }
+    uint32_t ds[DQ_KT / 16][4];
+#pragma unroll
+    for (int kb = 0; kb < DQ_KT / 16; ++kb)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        ds[kb][r] = pack_bf16(sc[8 * kb + 2 * r], sc[8 * kb + 2 * r + 1]);
+
+    // dQ += dS K (K N-major)
+    fence_regs(dq);
+    wg_fence();
+#pragma unroll
+    for (int kb = 0; kb < DQ_KT / 16; ++kb)
+      wgmma_rs<DK>(dq, ds[kb],
+                   sw128_desc(stK + kb * 2048, DQ_KT * BOX_BYTES_PER_ROW,
+                              1024));
+    wg_commit();
+    wg_wait0();
+    fence_regs(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar + 8 * (3 + s));
+  }
+
+  __nv_bfloat16* ob = a.dq + b * a.dqsb + h * a.dqsh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_lo + 8 * i;
+    if (r >= a.Sq) continue;
+    __nv_bfloat16* orow = ob + (long long)r * a.dqss;
+#pragma unroll
+    for (int n = 0; n < DK / 8; ++n) {
+      const int col = 8 * n + 2 * q4;
+      const float x0 = dq[4 * n + 2 * i] * a.scale;
+      const float x1 = dq[4 * n + 2 * i + 1] * a.scale;
+      if (a.pair && col < a.D) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(x0, x1);
+      } else {
+        if (col < a.D) orow[col] = __float2bfloat16_rn(x0);
+        if (col + 1 < a.D) orow[col + 1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
+}
+
+template <int DPC, int NVC>
+int launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     void* dq, void* dk, void* dv, float* dlt, float* wk,
+                     float* wv, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                     int Dv, const long long* strides, float scale,
+                     int causal, cudaStream_t stream) {
+  using SK = DkvShape<DPC, NVC>;
+  using SQ_ = DqShape<DPC, NVC>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        attn_bwd_dkv_wgmma_kernel<DPC, NVC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SK::SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(attn_bwd_dq_wgmma_kernel<DPC, NVC>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SQ_::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  Strides st;
+  for (int i = 0; i < 24; ++i) st.s[i] = strides[i];
+  // Tensor maps: the dK/dV kernel's K and V boxes of 128 rows and Q and dO
+  // boxes of 64, the dQ kernel's the other way round.
+  CUtensorMap kq, kk, kv, kdo, qq, qk, qv, qdo;
+  if (!encode(&kq, q, B, Hq, Sq, D, strides + SQ, KV_QT) ||
+      !encode(&kk, k, B, Hkv, Sk, D, strides + SKK, KV_ROWS) ||
+      !encode(&kv, v, B, Hkv, Sk, Dv, strides + SV, KV_ROWS) ||
+      !encode(&kdo, dout, B, Hq, Sq, Dv, strides + SDO, KV_QT) ||
+      !encode(&qq, q, B, Hq, Sq, D, strides + SQ, DQ_ROWS) ||
+      !encode(&qk, k, B, Hkv, Sk, D, strides + SKK, DQ_KT) ||
+      !encode(&qv, v, B, Hkv, Sk, Dv, strides + SV, DQ_KT) ||
+      !encode(&qdo, dout, B, Hq, Sq, Dv, strides + SDO, DQ_ROWS))
+    return (int)cudaErrorInvalidValue;
+  WgArgs a;
+  a.lse = lse;
+  a.dlt = dlt;
+  a.wk = wk;
+  a.wv = wv;
+  a.dq = static_cast<__nv_bfloat16*>(dq);
+  a.dqsb = strides[SDQ]; a.dqsh = strides[SDQ + 1]; a.dqss = strides[SDQ + 2];
+  a.Hq = Hq; a.group = Hq / Hkv; a.Sq = Sq; a.Sk = Sk; a.D = D;
+  a.scale_log2 = scale * LOG2E;
+  a.scale = scale;
+  a.causal = causal;
+  a.pair = D % 2 == 0 && strides[SDQ] % 2 == 0 &&
+           strides[SDQ + 1] % 2 == 0 && strides[SDQ + 2] % 2 == 0 &&
+           reinterpret_cast<uintptr_t>(dq) % 4 == 0;
+
+  const long long rows = (long long)B * Hq * Sq;
+  attn_bwd_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), dlt, Hq, Sq, Dv, st, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int n_kt = (Sk + KV_ROWS - 1) / KV_ROWS;
+  attn_bwd_dkv_wgmma_kernel<DPC, NVC>
+      <<<n_kt * Hq * B, KV_THREADS, SK::SMEM, stream>>>(kq, kk, kv, kdo, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int n_qt = (Sq + DQ_ROWS - 1) / DQ_ROWS;
+  attn_bwd_dq_wgmma_kernel<DPC, NVC>
+      <<<n_qt * Hq * B, WG_THREADS, SQ_::SMEM, stream>>>(qq, qk, qv, qdo, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const long long total = (long long)B * Hkv * Sk * (D + Dv);
+  attn_bwd_dkv_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
+                               stream>>>(
+      wk, wv, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), Hkv, Hq / Hkv, Sk, D, Dv, DPC * 64,
+      NVC * 64, st, total);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q (B, Hq, Sq, D), k (B, Hkv, Sk, D), v (B, Hkv, Sk, Dv), o and dout (B,
@@ -621,5 +1308,33 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
     return launch_bwd<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse, dlt,
                                      B, Hq, Hkv, Sq, Sk, D, Dv, strides,
                                      scale, causal, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 route: q (B, Hq, Sq, D), k (B, Hkv, Sk, D), v (B, Hkv, Sk, Dv),
+// o and dout (B, Hq, Sq, Dv), dq, dk, dv of q's, k's and v's shapes, all
+// bfloat16, D and Dv in [1, 128]; strides as above; lse the forward's
+// (B, Hq, Sq) float32 log-sum-exp (log2 domain); dlt a float32 workspace of
+// B * Hq * Sq elements, wk and wv float32 workspaces of B * Hq * Sk * 64 *
+// ceil(D / 64) and 64 * ceil(Dv / 64) elements.  Returns
+// cudaGetLastError() after the launches (0 on success).
+extern "C" int flash_attention_bwd_wgmma(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, void* dq, void* dk, void* dv,
+    float* dlt, float* wk, float* wv, int B, int Hq, int Hkv, int Sq, int Sk,
+    int D, int Dv, const long long* strides, float scale, int causal,
+    void* stream) {
+  if (!(B > 0 && D > 0 && Dv > 0 && Hkv > 0 && Hq % Hkv == 0 && Sq > 0 &&
+        Sk > 0 && D <= 128 && Dv <= 128))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int dpc = (D + 63) / 64, nvc = (Dv + 63) / 64;
+#define FA_BWD_WGMMA(DPC_, NVC_)                                            \
+  if (dpc == DPC_ && nvc == NVC_)                                           \
+    return launch_bwd_wgmma<DPC_, NVC_>(q, k, v, o, dout, lse, dq, dk, dv,  \
+                                        dlt, wk, wv, B, Hq, Hkv, Sq, Sk, D, \
+                                        Dv, strides, scale, causal, s);
+  FA_BWD_WGMMA(1, 1) FA_BWD_WGMMA(1, 2) FA_BWD_WGMMA(2, 1) FA_BWD_WGMMA(2, 2)
+#undef FA_BWD_WGMMA
   return (int)cudaErrorInvalidValue;
 }

@@ -2,8 +2,9 @@
 
 Each ``repro_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled on its own into ``build/repro_torch_kernels/<name>-<hash>.so`` at
-the root of the checkout, where ``<hash>`` covers the source text and the
-compiler flags.  The fabric and SSD kernels are built with
+the root of the checkout, where ``<hash>`` covers the source text, the text
+of the ``csrc`` headers it includes (``#include "<header>.cuh"``, such as
+the attention kernels' shared ``hopper.cuh``) and the compiler flags.  The fabric and SSD kernels are built with
 ``--fmad=false``, so that no multiply-add is contracted and their results
 stay bitwise those of their plain versions; the attention kernels (forward
 and backward), held to a tolerance, let the compiler contract
@@ -21,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -58,7 +60,10 @@ def flags(name: str) -> List[str]:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()[:16]
+    headers = b"".join((CSRC / h.decode()).read_bytes() for h in
+                       re.findall(rb'^#include "([^"]+)"', src, re.M))
+    key = hashlib.sha256(src + headers + " ".join(flags(name)).encode()
+                         ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
 

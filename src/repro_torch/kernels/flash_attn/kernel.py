@@ -22,9 +22,13 @@ layout (``torch.empty_like``) when v's width is q's depth, else a new
 contiguous tensor.
 
 :func:`flash_attention_bwd` binds the backward kernels of
-``csrc/flash_attn_bwd.cu`` (float32 CUDA cores), the gradient of the
-forward.  They replace no TPU kernel: JAX cannot differentiate the Pallas
-one, and the port's training path needs this gradient.
+``csrc/flash_attn_bwd.cu``, the gradient of the forward, on two routes
+(:func:`route_bwd`): bf16 with both head dims up to 128 runs the
+tensor-core kernels (``wgmma`` + TMA), which read each row's log-sum-exp
+from the forward (``flash_attention(..., return_lse=True)``); float32, and
+bf16 with a wider head, the CUDA-core kernels, which recompute it.  They
+replace no TPU kernel: JAX cannot differentiate the Pallas one, and the
+port's training path needs this gradient.
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ from .. import _build
 _VP = ctypes.c_void_p
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 WGMMA_MAX_HEAD_DIM = 256    # Q resident in shared memory, 64-column boxes
+# the backward's tensor-core route: dK and dV accumulators in registers
+WGMMA_BWD_MAX_HEAD_DIM = 128
 _SHAPE_ARGS = [_VP, _VP, _VP, _VP, *[ctypes.c_int] * 7,
                ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                ctypes.c_int, _VP]
@@ -47,6 +53,9 @@ _SHAPE_ARGS = [_VP, _VP, _VP, _VP, *[ctypes.c_int] * 7,
 _BWD_ARGS = [ctypes.c_int, *[_VP] * 10, *[ctypes.c_int] * 7,
              ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
              _VP]
+_BWD_WGMMA_ARGS = [*[_VP] * 12, *[ctypes.c_int] * 7,
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                   ctypes.c_int, _VP]
 
 
 def _lib() -> ctypes.CDLL:
@@ -55,7 +64,8 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_cuda_cores_fwd.argtypes = [ctypes.c_int,
                                                        *_SHAPE_ARGS]
         lib.flash_attention_cuda_cores_fwd.restype = ctypes.c_int
-        lib.flash_attention_wgmma_fwd.argtypes = _SHAPE_ARGS
+        lib.flash_attention_wgmma_fwd.argtypes = [*_SHAPE_ARGS[:-1], _VP,
+                                                  _VP]
         lib.flash_attention_wgmma_fwd.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -66,6 +76,8 @@ def _bwd_lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.flash_attention_bwd.argtypes = _BWD_ARGS
         lib.flash_attention_bwd.restype = ctypes.c_int
+        lib.flash_attention_bwd_wgmma.argtypes = _BWD_WGMMA_ARGS
+        lib.flash_attention_bwd_wgmma.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -81,6 +93,16 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that takes (dtype, head_dim): ``"wgmma"`` (bf16 tensor
     cores) or ``"cuda_cores"`` (float32 CUDA cores)."""
     if dtype == torch.bfloat16 and head_dim <= WGMMA_MAX_HEAD_DIM:
+        return "wgmma"
+    return "cuda_cores"
+
+
+def route_bwd(dtype: torch.dtype, head_dim: int, value_dim: int) -> str:
+    """The backward kernels that take (dtype, head_dim, value_dim):
+    ``"wgmma"`` (bf16 tensor cores, both dims up to 128) or
+    ``"cuda_cores"`` (float32 CUDA cores)."""
+    if (dtype == torch.bfloat16 and head_dim <= WGMMA_BWD_MAX_HEAD_DIM
+            and value_dim <= WGMMA_BWD_MAX_HEAD_DIM):
         return "wgmma"
     return "cuda_cores"
 
@@ -104,15 +126,19 @@ def ready_copy(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    return_lse: bool = False):
     """q (B, Hq, Sq, D); k (B, Hkv, Sk, D); v (B, Hkv, Sk, Dv), floating
     point on one CUDA device, ``Hq % Hkv == 0``, ``D, Dv >= 1``, ``Sk >= 1``.
     All bf16 or all float32 run as they are; other and mixed dtypes in
     float32 (:func:`compute_dtype`).  Causal queries are the last Sq
     positions of the Sk-long context; with ``Sq > Sk`` the first ``Sq - Sk``
     see no key and give the mean of v.  Returns (B, Hq, Sq, Dv) in q's
-    dtype."""
+    dtype; with ``return_lse``, ``(out, lse)``: on the tensor-core route lse
+    is each row's log-sum-exp of the scaled logits in the log2 domain,
+    float32 (B, Hq, Sq) (``ref.mha_lse``; a row that sees no key holds
+    about -1e30), on the CUDA-core route None (its backward recomputes
+    it)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
             or v.shape[:3] != k.shape[:3]:
         raise ValueError("flash_attention kernel: q (B, Hq, Sq, D), k (B, "
@@ -146,8 +172,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # q's strides (or contiguous if q overlaps) when the widths agree
     out = (torch.empty_like(q) if Dv == D
            else q.new_empty((B, Hq, Sq, Dv)))
+    which = route(q.dtype, D)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+           if return_lse and which == "wgmma" else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     if scale is None:
@@ -157,26 +186,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if route(q.dtype, D) == "wgmma":
-            err = lib.flash_attention_wgmma_fwd(*args, stream)
+        if which == "wgmma":
+            err = lib.flash_attention_wgmma_fwd(
+                *args, None if lse is None else lse.data_ptr(), stream)
         else:
             err = lib.flash_attention_cuda_cores_fwd(_DTYPES[q.dtype], *args,
                                                      stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed ({route(q.dtype, D)}"
+        raise RuntimeError(f"flash_attention launch failed ({which}"
                            f" route): cudaError {err}")
-    return out if out.dtype == out_dtype else out.to(out_dtype)
+    out = out if out.dtype == out_dtype else out.to(out_dtype)
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor, dout: torch.Tensor, *,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: Optional[torch.Tensor] = None, *,
                         causal: bool = True, scale: Optional[float] = None):
     """The gradients (dq, dk, dv) of :func:`flash_attention` (of
     ``ref.mha``) at q, k, v, given its output ``out`` and the output's
     gradient ``dout`` (both (B, Hq, Sq, Dv)), from the backward kernels of
-    ``csrc/flash_attn_bwd.cu``.  Every operand is read in float32 (bf16 as
-    it is when all five are bf16, any other dtype cast to float32 first);
-    each gradient is returned in its input's dtype and layout
+    ``csrc/flash_attn_bwd.cu``, on the route :func:`route_bwd` names:
+
+    * ``"wgmma"`` (all five bf16, D and Dv <= 128): the tensor-core
+      kernels, which need ``lse``, the forward's log-sum-exp
+      (``flash_attention(..., return_lse=True)``, float32 (B, Hq, Sq));
+    * ``"cuda_cores"`` (anything else): the float32 CUDA-core kernels,
+      which recompute the log-sum-exp and ignore ``lse``; they read bf16 as
+      it is when all five are bf16 and cast any other dtype to float32.
+
+    Each gradient is returned in its input's dtype and layout
     (``torch.empty_like``)."""
     B, Hq, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
@@ -186,10 +225,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"dout {tuple(dout.shape)} must be {(B, Hq, Sq, Dv)}")
     dtypes = (q.dtype, k.dtype, v.dtype)
     cd = compute_dtype(q, k, v, out, dout)
+    which = route_bwd(cd, D, Dv)
+    if which == "wgmma" and (lse is None or lse.shape != (B, Hq, Sq)
+                             or lse.dtype != torch.float32
+                             or not lse.is_contiguous()):
+        raise ValueError("flash_attention_bwd: the wgmma route needs the "
+                         "forward's log-sum-exp, a contiguous float32 (B, "
+                         "Hq, Sq) tensor (flash_attention(..., "
+                         "return_lse=True))")
     ops = [t if t.dtype == cd and kernel_ready(t) else ready_copy(t.to(cd))
            for t in (q, k, v, out, dout)]
     dev = q.device
-    for t in ops:
+    for t in ops + ([lse] if which == "wgmma" else []):
         if not t.is_cuda or t.device != dev:
             raise ValueError("flash_attention_bwd: the operands must share "
                              "one CUDA device")
@@ -198,21 +245,32 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for g in grads:
             g.zero_()
     else:
-        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
-        dlt = torch.empty_like(lse)
+        dlt = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
         strides = (ctypes.c_longlong * 24)(
             *(s for t in (*ops, *grads) for s in t.stride()[:3]))
         if scale is None:
             scale = 1.0 / math.sqrt(D)
+        shape = (B, Hq, Hkv, Sq, Sk, D, Dv, strides, float(scale),
+                 int(bool(causal)))
         lib = _bwd_lib()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.flash_attention_bwd(
-                _DTYPES[cd], *(t.data_ptr() for t in (*ops, *grads)),
-                lse.data_ptr(), dlt.data_ptr(), B, Hq, Hkv, Sq, Sk, D, Dv,
-                strides, float(scale), int(bool(causal)), stream)
+            if which == "wgmma":
+                # float32 partials of dK and dV, a query head each, in
+                # 64-column chunks
+                wk, wv = (torch.empty((B, Hq, Sk, -(-w // 64) * 64),
+                                      dtype=torch.float32, device=dev)
+                          for w in (D, Dv))
+                err = lib.flash_attention_bwd_wgmma(
+                    *(t.data_ptr() for t in (*ops, lse, *grads, dlt, wk, wv)),
+                    *shape, stream)
+            else:
+                lse = torch.empty_like(dlt)
+                err = lib.flash_attention_bwd(
+                    _DTYPES[cd], *(t.data_ptr() for t in (*ops, *grads)),
+                    lse.data_ptr(), dlt.data_ptr(), *shape, stream)
         if err != 0:
-            raise RuntimeError(f"flash_attention_bwd launch failed: "
-                               f"cudaError {err}")
+            raise RuntimeError(f"flash_attention_bwd launch failed ({which} "
+                               f"route): cudaError {err}")
     return tuple(g if g.dtype == dt else g.to(dt)
                  for g, dt in zip(grads, dtypes))

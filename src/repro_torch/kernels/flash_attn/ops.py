@@ -19,7 +19,10 @@ Gradients: CUDA tensors of which one needs a gradient (with grad mode on)
 go through :class:`FlashAttention`, a ``torch.autograd.Function`` whose
 forward is the same kernel and whose backward is the backward kernel
 (``kernel.flash_attention_bwd``, ``csrc/flash_attn_bwd.cu``);
-``BWD_LAUNCHES`` counts its calls.  CPU tensors and ``backend="torch"``
+``BWD_LAUNCHES`` counts its calls and ``BWD_ROUTE_LAUNCHES`` the same calls
+by route (``kernel.route_bwd``).  Its forward also writes each row's
+log-sum-exp (on the bf16 tensor-core forward), which the backward's
+``wgmma`` route (bf16, head dims up to 128) reads.  CPU tensors and ``backend="torch"``
 differentiate the plain route under ordinary autograd, as the reference's
 CPU route does.  A forward that needs no gradient is unchanged.
 """
@@ -36,6 +39,7 @@ from .._common import resolve_backend
 LAUNCHES = 0
 ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}
 BWD_LAUNCHES = 0
+BWD_ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}
 
 
 class FlashAttention(torch.autograd.Function):
@@ -43,20 +47,25 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out = _kernel.flash_attention(q, k, v, causal=causal, scale=scale)
-        ctx.save_for_backward(q, k, v, out)
+        # lse: None on the CUDA-core forward (its backward recomputes it)
+        out, lse = _kernel.flash_attention(q, k, v, causal=causal,
+                                           scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
         global BWD_LAUNCHES
-        q, k, v, out = ctx.saved_tensors
-        grads = _kernel.flash_attention_bwd(q, k, v, out, dout,
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = _kernel.flash_attention_bwd(q, k, v, out, dout, lse,
                                             causal=ctx.causal,
                                             scale=ctx.scale)
         if out.numel():
             BWD_LAUNCHES += 1
+            BWD_ROUTE_LAUNCHES[_kernel.route_bwd(
+                _kernel.compute_dtype(q, k, v, out, dout), q.shape[-1],
+                v.shape[-1])] += 1
         return (*grads, None, None)
 
 

@@ -10,8 +10,12 @@ Both do their math in float32 and return q's dtype.  Masked logits are
 the ``Sk``-long context: query ``i`` sees key ``t`` iff
 ``t <= i + (Sk - Sq)``.
 
-``mha_vjp`` is the plain version of the backward kernel: the
-vector-Jacobian product of ``mha`` by ``torch.autograd.grad`` (any Dv).
+``mha_lse`` is the plain version of the forward kernel asked for its
+log-sum-exp (``kernel.flash_attention(..., return_lse=True)``): ``mha``'s
+output and each row's log-sum-exp of its masked, scaled logits in the log2
+domain, the backward kernels' input.  ``mha_vjp`` is the plain version of
+the backward kernel: the vector-Jacobian product of ``mha`` by
+``torch.autograd.grad`` (any Dv).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1.0e30
+LOG2E = 1.4426950408889634
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -49,6 +54,28 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = probs / probs.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, vf)
     return out.to(q.dtype)
+
+
+def mha_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool = True, scale: Optional[float] = None):
+    """(out, lse): :func:`mha`'s output and, float32 (B, Hq, Sq), each
+    row's ``log2(sum_t exp(l_t))`` over its logits ``l`` (scaled, masked to
+    ``-1e30`` as :func:`mha` masks them), which is ``log2(e)`` times their
+    natural log-sum-exp.  A row that sees no key gets about ``-1.44e30``
+    (the kernel's ``-1e30``: both are read by no backward)."""
+    B, Hq, Sq, D = q.shape
+    group = Hq // k.shape[1]
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    kf = k.float().repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    if causal:
+        Sk = k.shape[2]
+        qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        logits = logits.masked_fill(~(kpos <= qpos)[None, None], NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1) * LOG2E
+    return mha(q, k, v, causal=causal, scale=scale), lse
 
 
 def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1046,7 +1046,9 @@ GRAD_SHAPES = [(1, 4, 2, 64, 64, 32, 32, True),
                (1, 16, 16, 300, 300, 192, 128, True),
                (2, 12, 12, 1, 300, 64, 64, False),
                (1, 4, 1, 77, 200, 256, 256, True),
-               (1, 32, 4, 1025, 1025, 128, 128, True)]
+               (1, 32, 4, 1025, 1025, 128, 128, True),
+               (1, 8, 8, 257, 257, 80, 80, True),
+               (1, 8, 2, 200, 300, 96, 64, False)]
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -1064,16 +1066,24 @@ def _grads(q, k, v, dout, causal):
                          ids=str)
 @pytest.mark.parametrize("shape", GRAD_SHAPES, ids=str)
 def test_flash_attention_backward_kernel_matches_plain(shape, dtype):
+    """Both routes against the plain version, reruns bitwise; bf16 with
+    both head dims up to 128 takes the tensor-core route."""
+    from repro_torch.kernels.flash_attn import kernel as attn_kernel
     from repro_torch.kernels.flash_attn import ref as attn_ref
     dev = cuda_or_skip()
     B, Hq, Hkv, Sq, Sk, D, Dv, causal = shape
+    route = attn_kernel.route_bwd(dtype, D, Dv)
+    assert route == ("wgmma" if dtype == torch.bfloat16 and max(D, Dv) <= 128
+                     else "cuda_cores")
     rng = np.random.default_rng(0)
     q, k, v, dout = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
                      .to(dev, dtype) for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D),
                                                (B, Hkv, Sk, Dv),
                                                (B, Hq, Sq, Dv)))
+    before = attn_ops.BWD_ROUTE_LAUNCHES[route]
     got = _grads(q, k, v, dout, causal)
     again = _grads(q, k, v, dout, causal)
+    assert attn_ops.BWD_ROUTE_LAUNCHES[route] == before + 2
     want = attn_ref.mha_vjp(q, k, v, dout, causal=causal)
     tol = GRAD_TOL[dtype]
     for g, a, w in zip(got, again, want):
@@ -1082,6 +1092,78 @@ def test_flash_attention_backward_kernel_matches_plain(shape, dtype):
         scale = float(w.float().abs().max()) or 1.0
         torch.testing.assert_close(g.float(), w.float(), atol=tol * scale,
                                    rtol=tol)
+
+
+def test_flash_attention_backward_strided_views():
+    """The tensor-core backward on (B, H, S, D) views of (B, S, H, D)
+    projections, as the model passes them: each gradient in its input's
+    layout, within the bf16 tolerance of the plain version."""
+    from repro_torch.kernels.flash_attn import ref as attn_ref
+    dev = cuda_or_skip()
+    B, Hq, Hkv, S, D = 2, 8, 2, 200, 128
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, D),
+                                                    dtype=np.float32))
+               .to(dev, torch.bfloat16).transpose(1, 2)
+               for h in (Hq, Hkv, Hkv))
+    dout = torch.randn(B, Hq, S, D, device=dev).to(torch.bfloat16)
+    before = attn_ops.BWD_ROUTE_LAUNCHES["wgmma"]
+    got = _grads(q, k, v, dout, True)
+    assert attn_ops.BWD_ROUTE_LAUNCHES["wgmma"] == before + 1
+    want = attn_ref.mha_vjp(q, k, v, dout)
+    for t, g, w in zip((q, k, v), got, want):
+        assert g.stride() == t.stride()
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2 * scale,
+                                   rtol=2e-2)
+
+
+# (B, Hq, Hkv, Sq, Sk, Dk, Dv, causal): GQA, rows that see no key, Yi-6B's
+# heads, Dv != D without the mask, D = 256 (the forward's widest).
+LSE_SHAPES = [(1, 4, 2, 100, 130, 64, 64, True),
+              (1, 2, 1, 160, 128, 16, 16, True),
+              (1, 32, 4, 1025, 1025, 128, 128, True),
+              (1, 4, 2, 77, 200, 96, 64, False),
+              (1, 4, 1, 77, 200, 256, 256, True)]
+
+
+@pytest.mark.parametrize("shape", LSE_SHAPES, ids=str)
+def test_flash_attention_lse_matches_plain(shape):
+    """The bf16 forward's log-sum-exp (log2 domain) against ``ref.mha_lse``
+    within 1e-3 (log2 units; both sum the same bf16 products in float32, in
+    another order) on the rows that see a key; the rows that see none are
+    below -1e29 in both.  Its output is bitwise the output without it."""
+    from repro_torch.kernels.flash_attn import kernel as attn_kernel
+    from repro_torch.kernels.flash_attn import ref as attn_ref
+    dev = cuda_or_skip()
+    B, Hq, Hkv, Sq, Sk, D, Dv, causal = shape
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               .to(dev, torch.bfloat16) for s in ((B, Hq, Sq, D),
+                                                  (B, Hkv, Sk, D),
+                                                  (B, Hkv, Sk, Dv)))
+    plain = attn_kernel.flash_attention(q, k, v, causal=causal)
+    out, lse = attn_kernel.flash_attention(q, k, v, causal=causal,
+                                           return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    _, want = attn_ref.mha_lse(q, k, v, causal=causal)
+    assert lse.dtype == torch.float32 and lse.shape == (B, Hq, Sq)
+    seen = (torch.arange(Sq, device=dev) + (Sk - Sq) >= 0) if causal else \
+        torch.ones(Sq, dtype=torch.bool, device=dev)
+    torch.testing.assert_close(lse[..., seen], want[..., seen], rtol=0,
+                               atol=1e-3)
+    assert bool((lse[..., ~seen] < -1e29).all())
+    assert bool((want[..., ~seen] < -1e29).all())
+
+
+def test_flash_attention_lse_only_on_the_tensor_core_route():
+    """float32 takes the CUDA-core forward, which returns no lse."""
+    from repro_torch.kernels.flash_attn import kernel as attn_kernel
+    dev = cuda_or_skip()
+    q = torch.randn(1, 2, 16, 32, device=dev)
+    out, lse = attn_kernel.flash_attention(q, q, q, return_lse=True)
+    assert lse is None and out.shape == q.shape
 
 
 def test_ssd_gradient_on_the_card_raises():
