@@ -8,9 +8,11 @@ Phases, each timed on its own line; any failure exits non-zero:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all at once), and read the SASS of the attention and SSD
-   libraries with ``cuobjdump``: every instance of the bf16 attention
-   kernel and of the bf16 SSD walk must hold ``HGMMA`` (Hopper's warpgroup
-   tensor-core instruction);
+   libraries with ``cuobjdump``: every instance of the attention kernels on
+   the tensor cores (the bf16 forward and backward, and the float32 forward
+   and backward, which reach float32 accuracy on the bf16 tensor cores by
+   a three-way bf16 split) and of the bf16 SSD walk must hold ``HGMMA``
+   (Hopper's warpgroup tensor-core instruction);
 2. hold each fabric kernel bitwise against its plain PyTorch version on the
    card: ``segmented_cummax`` on random inputs at the engine's sizes and
    flag densities, and with NaNs (which hold to their segment's end, as
@@ -99,23 +101,27 @@ Phases, each timed on its own line; any failure exits non-zero:
     the same ``--out`` must keep the bytes and re-run nothing; ``report``
     must render.  Each campaign's wall seconds and dispatch seconds are
     printed;
-11. ``attention_vs_plain``: hold both flash-attention kernels to their plain
+11. ``attention_vs_plain``: hold the flash-attention kernels to their plain
     version (bf16: the tensor-core kernel at atol = rtol = 2e-2; float32:
-    the CUDA-core kernel at 2e-5; the reference's own tolerances) at Yi-6B's
+    the float32 tensor-core kernel with both head dims up to 128, the
+    CUDA-core kernel past them, at 2e-5; the reference's own tolerances) at Yi-6B's
     heads (32 query heads, 4 KV heads, D = 128) for S = 1-2,048, two query
     tails, D = 32, 64, 96, Zamba2-2.7B's shared block (32 query and 32 KV
     heads of D = 80), D = 36, 136 and 256, v of another width than q
     and k (MLA's 192/128 among them), causal with more queries than keys
     (the first Sq - Sk rows see no key and give the mean of v) on both
-    kernels, float16 and mixed dtypes (read in float32, the CUDA-core
-    kernel, at 2e-2), and the zoo's shapes (``ATTN_ZOO``): MLA's prefill
+    types, float16 and mixed dtypes (read in float32, a float32 route, at
+    2e-2), and the zoo's shapes (``ATTN_ZOO``): MLA's prefill
     (128 heads, Dk 192, Dv 128), Whisper's encoder (1,500 ragged keys, not
     causal) and cross attention (1 and 37 queries against 1,500 keys, not
     causal), LLaVA-NeXT-34B's 2,980-position prefill, Qwen3-MoE's
     2,048-token prefill and Phi-3-mini's D = 96;
 12. ``serve_golden``: Yi-6B at full width, 2 layers, float32 (the float32
-    attention kernel's path: its launch count is set to 0 just before this
-    phase and phase 15 and read just after), with the
+    attention kernels' path: their launch counts by route,
+    ``ops.ROUTE_LAUNCHES``, are set to 0 just before this phase, phase 15
+    and each model of phase 19 and read just after; where every head is
+    up to 128 wide only the float32 tensor-core route may have launched,
+    in MLA's golden (Dk 192) only the CUDA-core one), with the
     numpy-drawn weights of ``tests/torch_golden/serve_yi6b_l2.json``; two
     prompts (37 and 256 tokens) decoded 4 greedy steps on the card must give
     the golden's tokens and its logits within 1e-3 (CPU JAX made it);
@@ -158,8 +164,14 @@ Phases, each timed on its own line; any failure exits non-zero:
     path's shape, random inputs, in bf16 and float32, beside one SDPA
     backward), beside the bound of the card (and, for flash attention,
     one ``scaled_dot_product_attention`` call as the library's time; no
-    single PyTorch call computes the SSD scan); the float32 attention kernel
-    and the float32 SSD route are timed on those inputs in float32, the SSD
+    single PyTorch call computes the SSD scan); the float32 SSD route is
+    timed on those inputs in float32, the float32 attention's tensor-core
+    kernel at that shape on random float32 inputs, each float32 attention
+    row beside its and its plain version's largest distance from float64
+    (``f64_err``, ``plain_f64_err``), the float32 attention's CUDA-core
+    kernels (forward and backward) at MLA's
+    prefill (128 heads, Dk 192, Dv 128, 511 positions: the widest shape
+    that reaches them on the main paths), the SSD
     walk with 32 and with 64 P columns a CTA, and ``jsq_scan`` through both
     walks, beside its longest walked prefix and the device time a walked
     step; the launch floor, one 1-element ``add_`` timed the same way; and
@@ -254,6 +266,13 @@ CAMPAIGN_OUT = ROOT / "build" / "chip_smoke_campaign"
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor fp32.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# Float32-accurate products on the tensor cores: each float32 operand as
+# three bf16 parts, a product as six bf16 partial products (the float32
+# routes of csrc/flash_attn.cu and flash_attn_bwd.cu), so one float32
+# operation costs six at the bf16 dense rate: 989 / 6 = 165 TFLOP/s, 2.5x
+# the CUDA cores' 67.  The bound of a float32 kernel whose work is matrix
+# products (attention, the SSD scan) is its operations at this rate.
+FP32_SPLIT_FLOP_PER_S = 989e12 / 6
 
 SCHEME_GROUPS = (("flow_ecmp", "host_pkt", "host_dr"), ("switch_pkt",),
                  ("switch_pkt_ar",), ("ofan",))
@@ -400,6 +419,36 @@ def max_abs_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def mha64(q, k, v, dout=None, *, causal=True, scale=None):
+    """Attention as ``ref.mha`` defines it, computed in float64 one KV
+    head's query group at a time: the output, or with ``dout`` the
+    gradients (dq, dk, dv) along it.  The yardstick of the float32 rows'
+    ``f64_err``."""
+    import torch
+    g = q.shape[1] // k.shape[1]
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    Sq, Sk = q.shape[2], k.shape[2]
+    hidden = (torch.arange(Sk, device=q.device)[None, :]
+              > torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq))
+    parts = []
+    for h in range(k.shape[1]):
+        qs = slice(h * g, (h + 1) * g)
+        with torch.enable_grad():
+            qh, kh, vh = (t.detach().double().requires_grad_(dout is not None)
+                          for t in (q[:, qs], k[:, h:h + 1], v[:, h:h + 1]))
+            s = torch.einsum("bhqd,bhkd->bhqk", qh,
+                             kh.expand(-1, g, -1, -1)) * scale
+            if causal:
+                s = s.masked_fill(hidden, -1e300)
+            o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1),
+                             vh.expand(-1, g, -1, -1))
+            parts.append(o.detach() if dout is None else torch.autograd.grad(
+                o, (qh, kh, vh), dout[:, qs].double()))
+    if dout is None:
+        return torch.cat(parts, 1)
+    return tuple(torch.cat(x, 1) for x in zip(*parts))
+
+
 class Recorder:
     """Wraps a kernel wrapper to keep the largest call's arguments, and with
     ``keep_every=k`` every k-th call's (the wrapped call and its launch
@@ -465,8 +514,11 @@ class HostTimer:
 # The tensor-core kernels: (library, kernel name); every instance of each
 # must hold HGMMA.
 TC_KERNELS = (("flash_attn", "flash_attention_wgmma_kernel"),
+              ("flash_attn_f32", "flash_attention_f32_kernel"),
               ("flash_attn_bwd", "attn_bwd_dkv_wgmma_kernel"),
               ("flash_attn_bwd", "attn_bwd_dq_wgmma_kernel"),
+              ("flash_attn_bwd_f32", "attn_bwd_dkv_f32_kernel"),
+              ("flash_attn_bwd_f32", "attn_bwd_dq_f32_kernel"),
               ("ssd_scan", "ssd_wgmma_kernel"))
 
 
@@ -475,10 +527,20 @@ def sass_check(build):
     hold HGMMA (wgmma, Hopper's warpgroup tensor-core instruction)."""
     import re
     tool = Path(build._nvcc()).parent / "cuobjdump"
+    # one dump a library into a file beside it, all started together
+    libs = list(dict.fromkeys(lib for lib, _ in TC_KERNELS))
+    dumps = {lib: build.BUILD_DIR / f"{lib}.sass" for lib in libs}
+    procs = {}
+    for lib in libs:
+        with open(dumps[lib], "w") as out:
+            procs[lib] = subprocess.Popen(
+                [str(tool), "-sass", str(build.lib_path(lib))], stdout=out)
+    sasses = {}
+    for lib, proc in procs.items():
+        check(proc.wait(timeout=300) == 0, f"cuobjdump failed on {lib}")
+        sasses[lib] = dumps[lib].read_text()
     for lib, kernel in TC_KERNELS:
-        sass = subprocess.run([str(tool), "-sass", str(build.lib_path(lib))],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout
+        sass = sasses[lib]
         funcs = re.split(r"\n\s*Function : ", sass)[1:]
         wg = [f for f in funcs if kernel in f.split("\n", 1)[0]]
         counts = [f.count("HGMMA") for f in wg]
@@ -488,6 +550,33 @@ def sass_check(build):
               f"HGMMA ({min(counts)}-{max(counts)} instructions): it runs on "
               f"wgmma; HMMA in the library: {sass.count('HMMA')}",
               flush=True)
+
+
+def reset_attn_routes():
+    """Set the attention wrappers' launch counts by route (forward and
+    backward, ``ops.ROUTE_LAUNCHES`` and ``ops.BWD_ROUTE_LAUNCHES``) to 0."""
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    for counts in (attn_ops.ROUTE_LAUNCHES, attn_ops.BWD_ROUTE_LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def f32_routes(tag, wide, bwd=False):
+    """The attention launches by route since ``reset_attn_routes`` (the
+    forward's, or with ``bwd`` (forward, backward)) of a float32 phase
+    whose attention heads are all wider than 128 (``wide``, MLA's Dk of
+    192) or none; fails unless they all took the CUDA-core route or all
+    the float32 tensor-core route."""
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    got = [dict(attn_ops.ROUTE_LAUNCHES)]
+    if bwd:
+        got.append(dict(attn_ops.BWD_ROUTE_LAUNCHES))
+    on, off = ("cuda_cores", "wgmma_f32") if wide else ("wgmma_f32",
+                                                          "cuda_cores")
+    check(all(r[on] > 0 and r[off] == 0 and r["wgmma"] == 0 for r in got),
+          f"{tag}: float32 attention launches by route {got}, every head "
+          f"wider than 128: {wide}")
+    print(f"{tag}: float32 attention launches by route {got}", flush=True)
+    return tuple(got) if bwd else got[0]
 
 
 def cummax_nan_inputs(case, gen, dev):
@@ -1282,7 +1371,8 @@ ATTN_MIXED = ((1, 16, 16, 300, 300, 192, 128), (2, 4, 2, 37, 37, 48, 32),
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # The domain past the models' path: causal with more queries than keys
 # (B, Hq, Hkv, Sq, Sk, D) on both kernels, and float16 and mixed dtypes of
-# (q, k, v) at 2e-2 (read in float32, the CUDA-core kernel).
+# (q, k, v) at 2e-2 (read in float32: at these heads, up to 128, the
+# float32 tensor-core kernels).
 ATTN_BLIND = ((1, 2, 1, 160, 128, 16), (1, 32, 4, 300, 100, 128),
               (1, 8, 2, 1000, 999, 80))
 HALF_MIXED = (("float16",) * 3, ("bfloat16", "float32", "float32"),
@@ -1739,6 +1829,11 @@ def campaign_phase():
     return launches
 
 
+# The kernels line's row (and errs key) of each forward route.
+ERR_KEY = {"wgmma": "flash_attention", "wgmma_f32": "flash_attention_f32",
+           "cuda_cores": "flash_attention_f32_cuda_cores"}
+
+
 def attention_phase(dev, errs):
     """attention_vs_plain: the kernel against its plain version on the
     card at ATTN_SHAPES, in float32 and bf16, causal (the path) and, at one
@@ -1764,8 +1859,7 @@ def attention_phase(dev, errs):
                                       backend="torch")
             torch.cuda.synchronize()
             err = max_abs_err(got.float(), want.float())
-            key = ("flash_attention" if dt == "bfloat16"
-                   else "flash_attention_f32")
+            key = ERR_KEY[attn_kernel.route(q.dtype, D, Dv)]
             errs[key] = max(errs[key], err)
             tol = ATTN_TOL[dt]
             check(got.dtype == q.dtype and got.shape == (B, Hq, Sq, Dv)
@@ -1774,7 +1868,7 @@ def attention_phase(dev, errs):
                   f"flash_attention {shape} {dt} causal={causal}: kernel != "
                   f"plain (max_abs_err {err})")
             print(f"flash_attention {shape} {dt} causal={causal} "
-                  f"({attn_kernel.route(q.dtype, D)}): max_abs_err "
+                  f"({attn_kernel.route(q.dtype, D, Dv)}): max_abs_err "
                   f"{err:.3g} (tolerance atol=rtol={tol})", flush=True)
         for label, shape, causal in ATTN_ZOO:
             for dt in ("float32", "bfloat16"):
@@ -1787,8 +1881,7 @@ def attention_phase(dev, errs):
                                           backend="torch")
                 torch.cuda.synchronize()
                 err = max_abs_err(got.float(), want.float())
-                key = ("flash_attention" if dt == "bfloat16"
-                       else "flash_attention_f32")
+                key = ERR_KEY[attn_kernel.route(q.dtype, D, Dv)]
                 errs[key] = max(errs[key], err)
                 tol = ATTN_TOL[dt]
                 check(got.dtype == q.dtype and got.shape == (B, Hq, Sq, Dv)
@@ -1797,7 +1890,7 @@ def attention_phase(dev, errs):
                       f"flash_attention {label} {shape} {dt} causal="
                       f"{causal}: kernel != plain (max_abs_err {err})")
                 print(f"flash_attention {label} {shape} {dt} causal={causal} "
-                      f"({attn_kernel.route(q.dtype, D)}): max_abs_err "
+                      f"({attn_kernel.route(q.dtype, D, Dv)}): max_abs_err "
                       f"{err:.3g} (tolerance atol=rtol={tol})", flush=True)
                 del q, k, v, got, want
         cases = [(s, (dt,) * 3) for s in ATTN_BLIND
@@ -1911,18 +2004,14 @@ def serve_golden_phase(dev):
     """serve_golden: Yi-6B at full width, 2 layers, float32, the weights
     of ``numpy_reference_params(cfg, 0)`` carried to the card, held to the
     CPU JAX golden (tokens equal, logits within GOLDEN_ATOL).  Returns the
-    float32 attention kernel's launches, counted from 0."""
+    float32 attention launches by route, counted from 0."""
     import torch
-    from repro_torch.kernels.flash_attn import ops as attn_ops
     golden = json.loads(SERVE_GOLDEN.read_text())
     with Phase("serve_golden"):
         model, params = golden_model(golden, dev)
-        attn_ops.ROUTE_LAUNCHES["cuda_cores"] = 0
+        reset_attn_routes()
         golden_runs("serve_golden", golden, model, params, dev)
-        n = attn_ops.ROUTE_LAUNCHES["cuda_cores"]
-        check(n > 0, "serve_golden: the float32 attention kernel never ran")
-        print(f"serve_golden: float32 attention kernel launched {n} times",
-              flush=True)
+        n = f32_routes("serve_golden", wide=False)
         del params
         torch.cuda.empty_cache()
     return n
@@ -1932,25 +2021,25 @@ def ssm_golden_phase(dev):
     """ssm_serve_golden: Mamba2-130M at full size and Zamba2-2.7B at full
     width cut to 6 layers, float32, numpy weights, held to the CPU JAX
     golden ``serve_ssm.json`` as serve_golden holds Yi-6B.  Returns the
-    float32 attention and SSD kernels' launches, counted from 0."""
+    float32 attention launches by route and the float32 SSD route's
+    launches, counted from 0."""
     import torch
-    from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     golden = json.loads(SSM_GOLDEN.read_text())
     with Phase("ssm_serve_golden"):
-        attn_ops.ROUTE_LAUNCHES["cuda_cores"] = 0
         ssd_ops.ROUTE_LAUNCHES["cuda_cores"] = 0
+        reset_attn_routes()
         for rec in golden["models"]:
             model, params = golden_model(rec, dev)
             golden_runs(f"ssm_serve_golden {rec['arch']}", rec, model,
                         params, dev)
             del params
             torch.cuda.empty_cache()
-        n = attn_ops.ROUTE_LAUNCHES["cuda_cores"]
+        n = f32_routes("ssm_serve_golden", wide=False)
         n_ssd = ssd_ops.ROUTE_LAUNCHES["cuda_cores"]
         check(n_ssd > 0, "ssm_serve_golden: the float32 SSD route never ran")
-        print(f"ssm_serve_golden: float32 attention kernel launched {n} "
-              f"times, the float32 SSD route {n_ssd} times", flush=True)
+        print(f"ssm_serve_golden: the float32 SSD route launched {n_ssd} "
+              f"times", flush=True)
     return n, n_ssd
 
 
@@ -1960,31 +2049,30 @@ def zoo_golden_phase(dev):
     layer with the dense MLP, LLaVA-NeXT-34B at 2 layers with 2,880 vision
     embeds, Whisper-small whole with 1,500 frames; full width, float32,
     numpy weights), held to CPU JAX as serve_golden holds Yi-6B.  Returns
-    the float32 attention kernel's launches, counted from 0."""
+    the float32 attention launches by route, counted from 0 for each model
+    (MLA's Dk of 192 takes the CUDA-core kernel, the rest the tensor-core
+    one)."""
     import torch
-    from repro_torch.kernels.flash_attn import ops as attn_ops
+    n = {}
     with Phase("zoo_serve_golden"):
-        attn_ops.ROUTE_LAUNCHES["cuda_cores"] = 0
         for path in ZOO_GOLDENS:
             rec = json.loads(path.read_text())
             model, params = golden_model(rec, dev)
-            golden_runs(f"zoo_serve_golden {rec['arch']} {rec['cut']}", rec,
-                        model, params, dev)
+            tag = f"zoo_serve_golden {rec['arch']} {rec['cut']}"
+            reset_attn_routes()
+            golden_runs(tag, rec, model, params, dev)
+            for route, count in f32_routes(tag, model.cfg.mla).items():
+                n[route] = n.get(route, 0) + count
             del params
             torch.cuda.empty_cache()
-        n = attn_ops.ROUTE_LAUNCHES["cuda_cores"]
-        check(n > 0, "zoo_serve_golden: the float32 attention kernel never "
-              "ran")
-        print(f"zoo_serve_golden: float32 attention kernel launched {n} "
-              f"times", flush=True)
     return n
 
 
 def zoo_phases(dev):
     """The rest of the zoo on the card: the float32 goldens, then each
     family's bf16 main path at full width (serve_main_phase).  Returns
-    (float32 attention launches of the goldens, bf16 attention launches of
-    the main paths)."""
+    (float32 attention launches of the goldens by route, bf16 attention
+    launches of the main paths)."""
     import torch
     from repro_torch.configs import get_config
     n_f32 = zoo_golden_phase(dev)
@@ -2362,29 +2450,48 @@ def serve_main_phase(dev, phase, arch, lens, greedy_batch, kernels,
     return launches, recs, profile
 
 
+# The widest shape that reaches the float32 attention's CUDA-core kernels
+# on the main paths (B, Hq, Hkv, Sq, Sk, Dk, Dv): MLA's prefill in the zoo's
+# float32 golden and its gradient (Dk 192 > 128).
+MLA_F32_SHAPE = (1, 128, 128, 511, 511, 192, 128)
+
+
 def attention_timing(rec, errs, launches, f32_launches):
-    """The flash-attention rows of the ``kernels`` line, at the largest
-    input the serving main paths gave the kernel: the bf16 tensor-core
-    kernel on it, and the float32 CUDA-core kernel on the same input in
-    float32, each beside its plain version and one SDPA call."""
+    """The flash-attention rows of the ``kernels`` line: at the largest
+    input the serving main paths gave the kernel, the bf16 tensor-core
+    kernel on it and the float32 tensor-core kernel at the same shape on
+    random float32 inputs (bf16 values would leave the lower two of the
+    three bf16 parts it splits each operand into zero); the float32
+    CUDA-core kernel at MLA_F32_SHAPE (random inputs); each beside its
+    plain version and one SDPA call.  ``f32_launches``: the float32
+    main-path launches by route."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import ops as attn_ops
-    (q, k, v), kw = rec.largest
+    (q0, k0, v0), kw = rec.largest
     kw = {key: val for key, val in kw.items() if key != "backend"}
-    B, Hq, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    gen = torch.Generator().manual_seed(3)
+    B, Hq, Hkv, Sq, Sk, D, Dv = MLA_F32_SHAPE
+    mla = [torch.randn(sh, generator=gen).to(q0.device) for sh in (
+        (B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, Dv))]
+    f32 = [torch.randn(t.shape, generator=gen).to(t.device)
+           for t in (q0, k0, v0)]
     rows = []
-    for name, kernel_re, dtype, err, n in (
+    for name, kernel_re, dtype, n, qkv in (
             ("flash_attention", r"flash_attention_wgmma_kernel",
-             torch.bfloat16, errs["flash_attention"], launches),
-            ("flash_attention_f32", r"\bflash_attention_kernel<float>",
-             torch.float32, errs["flash_attention_f32"], f32_launches)):
-        q, k, v = (t.to(dtype) for t in (q, k, v))
+             torch.bfloat16, launches, (q0, k0, v0)),
+            ("flash_attention_f32", r"flash_attention_f32_kernel",
+             torch.float32, f32_launches["wgmma_f32"], f32),
+            ("flash_attention_f32_cuda_cores",
+             r"\bflash_attention_kernel<float>", torch.float32,
+             f32_launches["cuda_cores"], mla)):
+        q, k, v = (t.to(dtype) for t in qkv)
+        B, Hq, Sq, D = q.shape
+        Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
         got = attn_ops.attention(q, k, v, **kw)
         want = attn_ops.attention(q, k, v, backend="torch", **kw)
         tol = ATTN_TOL[str(dtype).split(".")[-1]]
-        err = max(err, max_abs_err(got.float(), want.float()))
+        err = max(errs[name], max_abs_err(got.float(), want.float()))
         check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
               f"{name}: kernel != plain on the main path's largest input")
         ms = cuda_ms(lambda: attn_ops.attention(q, k, v, **kw), 20)
@@ -2410,23 +2517,39 @@ def attention_timing(rec, errs, launches, f32_launches):
                   "version")
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qc, kc, vc, is_causal=Sq > 1), 20)
+            del qc, kc, vc, lib
+        # float32: the kernel's and the plain version's distance from the
+        # same function in float64
+        f64 = {}
+        if dtype == torch.float32:
+            exact = mha64(q, k, v, **kw)
+            f64 = dict(f64_err=max_abs_err(got, exact),
+                       plain_f64_err=max_abs_err(want, exact))
+            del exact
         esize = q.element_size()
-        nbytes = esize * (2 * B * Hq * Sq * D + 2 * B * Hkv * Sk * D)
-        # Visible (query, key) pairs of the causal mask, two products of D
-        # multiply-adds each.
+        nbytes = esize * B * (Hq * Sq * (D + Dv) + Hkv * Sk * (D + Dv))
+        # Visible (query, key) pairs of the causal mask, a multiply-add of
+        # D (S) and of Dv (P V) each; float32 at the tensor cores'
+        # float32-accurate rate (FP32_SPLIT_FLOP_PER_S).
         pairs = sum(min(Sk, Sk - Sq + i + 1) for i in range(Sq))
-        flops = 4 * B * Hq * D * pairs
-        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        flops = 2 * B * Hq * pairs * (D + Dv)
+        peak = (BF16_FLOP_PER_S if dtype == torch.bfloat16
+                else FP32_SPLIT_FLOP_PER_S)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
         rows.append(dict(
             name=name, route="cuda",
-            source="src/repro_torch/csrc/flash_attn.cu",
+            source="src/repro_torch/csrc/" + (
+                "flash_attn_f32.cu" if name == "flash_attention_f32"
+                else "flash_attn.cu"),
             replaces="src/repro/kernels/flash_attn/kernel.py:72",
             launches=n, max_abs_err=err, ms=ms, device_ms=dev_ms,
             plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=library_ms, n=int(B * Hq * Sq),
-            shape=[B, Hq, Hkv, Sq, Sk, D]))
+            shape=[B, Hq, Hkv, Sq, Sk, D] + ([Dv] if Dv != D else []),
+            **f64))
+        del q, k, v, got, want
+    del mla, f32
     return rows
 
 
@@ -2595,7 +2718,10 @@ def ssd_timing(rec, errs, launches, f32_launches):
             pairs = r * (r + 1) // 2
             flops += 2 * (pairs * (N + P) + r * N * P * (2 if c0 else 1))
         flops *= Bsz * H
-        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        # float32 at the tensor cores' float32-accurate rate (the bound of
+        # a float32 scan made of matrix products: FP32_SPLIT_FLOP_PER_S)
+        peak = (BF16_FLOP_PER_S if dtype == torch.bfloat16
+                else FP32_SPLIT_FLOP_PER_S)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
         row = dict(
             name=name, route="cuda",
@@ -2799,8 +2925,9 @@ def attention_grad_phase(dev, errs):
                                          (B, Hkv, Sk, Dv)), dts))
             dout = torch.randn((B, Hq, Sq, Dv), generator=gen).to(dev,
                                                                   q.dtype)
-            route = ("wgmma" if dts == ("bfloat16",) * 3 and max(D, Dv) <= 128
-                     else "cuda_cores")
+            route = ("cuda_cores" if max(D, Dv) > 128
+                     else "wgmma" if dts == ("bfloat16",) * 3
+                     else "wgmma_f32")
             check(attn_kernel.route_bwd(attn_kernel.compute_dtype(q, k, v),
                                         D, Dv) == route,
                   f"flash_attention_bwd {shape} {dts}: route_bwd is not "
@@ -2815,8 +2942,10 @@ def attention_grad_phase(dev, errs):
             err = max(max_abs_err(g.float(), w.float())
                       for g, w in zip(got, want))
             if len(set(dts)) == 1 and dts[0] in ATTN_GRAD_TOL:
-                key = ("flash_attention_bwd" if dts[0] == "bfloat16"
-                       else "flash_attention_bwd_f32")
+                key = {"wgmma": "flash_attention_bwd",
+                       "wgmma_f32": "flash_attention_bwd_f32",
+                       "cuda_cores": "flash_attention_bwd_f32_cuda_cores"}[
+                           route]
                 errs[key] = max(errs[key], err)
             check(same, f"flash_attention_bwd {shape} {dts}: two runs differ")
             check(grads_close(got, want, tol),
@@ -3046,7 +3175,8 @@ def train_main_phase(dev):
             state = ts.make_train_state(model, params, tcfg)
             step_fn = ts.build_train_step(model, tcfg)
             attn_ops.LAUNCHES = attn_ops.BWD_LAUNCHES = 0
-            attn_ops.BWD_ROUTE_LAUNCHES.update(wgmma=0, cuda_cores=0)
+            attn_ops.BWD_ROUTE_LAUNCHES.update(wgmma=0, wgmma_f32=0,
+                                               cuda_cores=0)
             t0 = time.perf_counter()
             with clock:
                 loop = ft_mod.ResilientLoop(step_fn, state, ftc,
@@ -3058,7 +3188,8 @@ def train_main_phase(dev):
                   f"checkpoints in {time.perf_counter() - t0:.1f} s; "
                   f"flash_attention launches: forward {fwd}, backward {bwd} "
                   f"(by route {bwd_routes})", flush=True)
-            check(bwd_routes == {"wgmma": bwd, "cuda_cores": 0},
+            check(bwd_routes == {"wgmma": bwd, "wgmma_f32": 0,
+                                 "cuda_cores": 0},
                   f"train_main_path: the backward's launches by route "
                   f"{bwd_routes}; every one of the {bwd} must take the "
                   f"wgmma route")
@@ -3196,15 +3327,17 @@ def train_cli_phase():
 
 
 def attention_bwd_timing(errs, n_micro):
-    """The backward kernel's rows of the ``kernels`` line, at the main
-    path's shape (random inputs), given the forward's log-sum-exp as
-    autograd gives it: the wrapper's ms (CUDA events), the device ms of its
-    launches (four on the tensor-core route, three on the CUDA-core route;
-    profiler, None unless a trace holds all of them), the plain version
-    (``ref.mha_vjp``), the backward of one SDPA call (the library's time),
-    and the bound: the backward's five products (2.5 x the forward's
-    operations) at the card's rate for the type, or its bytes (q, k, v,
-    out and dout read once, dq, dk, dv written once) at 3.35 TB/s."""
+    """The backward kernel's rows of the ``kernels`` line, given the
+    forward's log-sum-exp as autograd gives it: the bf16 and float32
+    tensor-core routes at the training main path's shape and the float32
+    CUDA-core route at MLA_F32_SHAPE (random inputs): the wrapper's ms
+    (CUDA events), the device ms of its launches (four on the tensor-core
+    routes, three on the CUDA-core route; profiler, None unless a trace
+    holds all of them), the plain version (``ref.mha_vjp``), the backward
+    of one SDPA call (the library's time), and the bound: the backward's
+    five products (S and dP again, dV, dQ, dK) at the card's rate for the
+    type (float32: FP32_SPLIT_FLOP_PER_S), or its bytes (q, k, v, out and
+    dout read once, dq, dk, dv written once) at 3.35 TB/s."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import kernel as attn_kernel
@@ -3212,12 +3345,20 @@ def attention_bwd_timing(errs, n_micro):
     B, Hq, Hkv, S, D = TRAIN_BATCH // n_micro, 32, 4, TRAIN_SEQ, 128
     gen = torch.Generator().manual_seed(2)
     rows = []
-    base = [torch.randn(s, generator=gen) for s in (
+    train = [torch.randn(s, generator=gen) for s in (
         (B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D), (B, Hq, S, D))]
-    for name, dtype in (("flash_attention_bwd", torch.bfloat16),
-                        ("flash_attention_bwd_f32", torch.float32)):
+    B_, Hq_, Hkv_, S_, _, D_, Dv_ = MLA_F32_SHAPE
+    mla = [torch.randn(s, generator=gen) for s in (
+        (B_, Hq_, S_, D_), (B_, Hkv_, S_, D_), (B_, Hkv_, S_, Dv_),
+        (B_, Hq_, S_, Dv_))]
+    for name, dtype, base in (
+            ("flash_attention_bwd", torch.bfloat16, train),
+            ("flash_attention_bwd_f32", torch.float32, train),
+            ("flash_attention_bwd_f32_cuda_cores", torch.float32, mla)):
         q, k, v, dout = (t.to("cuda", dtype) for t in base)
-        route = attn_kernel.route_bwd(dtype, D, D)
+        B, Hq, S, D = q.shape
+        Hkv, Dv = k.shape[1], v.shape[-1]
+        route = attn_kernel.route_bwd(dtype, D, Dv)
         out, lse = attn_kernel.flash_attention(q, k, v, causal=True,
                                                return_lse=True)
         got = attn_kernel.flash_attention_bwd(q, k, v, out, dout, lse)
@@ -3227,15 +3368,21 @@ def attention_bwd_timing(errs, n_micro):
                                   for g, w in zip(got, want)))
         check(grads_close(got, want, tol),
               f"{name}: kernel != plain at the main path's shape")
+        f64 = {}
+        if dtype == torch.float32:
+            exact = mha64(q, k, v, dout)
+            f64 = dict(f64_err=max(map(max_abs_err, got, exact)),
+                       plain_f64_err=max(map(max_abs_err, want, exact)))
+            del exact
         del got, want
 
         def call():
             return attn_kernel.flash_attention_bwd(q, k, v, out, dout, lse)
         ms = cuda_ms(call, 5)
         # launches a call: delta, dK/dV, dQ and the group's sum of dK/dV
-        # (wgmma); the row statistics, dQ, dK/dV (CUDA cores)
+        # (tensor-core routes); the row statistics, dQ, dK/dV (CUDA cores)
         dev_ms = device_ms(call, 5, r"attn_bwd_",
-                           per_call=4 if route == "wgmma" else 3)
+                           per_call=3 if route == "cuda_cores" else 4)
         plain_ms = cuda_ms(lambda: attn_ref.mha_vjp(q, k, v, dout), 2)
         qc, kc, vc = (t.detach().clone().requires_grad_(True) for t in (
             q, k.repeat_interleave(Hq // Hkv, dim=1),
@@ -3245,14 +3392,17 @@ def attention_bwd_timing(errs, n_micro):
             lib_out, (qc, kc, vc), dout, retain_graph=True), 5)
         del lib_out, qc, kc, vc
         pairs = B * Hq * S * (S + 1) // 2
-        flops = 2.5 * 4 * D * pairs
-        nbytes = q.element_size() * (3 * q.numel() + 2 * k.numel()
-                                     + 2 * v.numel() + out.numel())
-        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        flops = 2 * pairs * (3 * D + 2 * Dv)
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel()
+                                     + 2 * v.numel() + 2 * out.numel())
+        peak = (BF16_FLOP_PER_S if dtype == torch.bfloat16
+                else FP32_SPLIT_FLOP_PER_S)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
         rows.append(dict(
             name=name, route="cuda",
-            source="src/repro_torch/csrc/flash_attn_bwd.cu",
+            source="src/repro_torch/csrc/" + (
+                "flash_attn_bwd_f32.cu" if route == "wgmma_f32"
+                else "flash_attn_bwd.cu"),
             replaces="none: the port's gradient of src/repro/kernels/"
                      "flash_attn/kernel.py:72, which JAX cannot "
                      "differentiate",
@@ -3260,11 +3410,13 @@ def attention_bwd_timing(errs, n_micro):
             plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=library_ms, n=int(B * Hq * S),
-            shape=[B, Hq, Hkv, S, S, D]))
+            shape=[B, Hq, Hkv, S, S, D] + ([Dv] if Dv != D else []),
+            **f64))
         print(f"kernel {name} ({route} route): shape={rows[-1]['shape']} "
               f"ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f} "
               f"bound_ms={rows[-1]['bound_ms']:.4f} ({rows[-1]['bound_by']}) "
-              f"library_ms={library_ms:.4f} (one SDPA backward)", flush=True)
+              f"library_ms={library_ms:.4f} (one SDPA backward) {f64}",
+              flush=True)
         del q, k, v, dout, out, lse
         torch.cuda.empty_cache()
     return rows
@@ -3273,18 +3425,29 @@ def attention_bwd_timing(errs, n_micro):
 def training_phases(dev, errs):
     """The training phases, in order; returns the attention kernels'
     launches on their main-path runs: {kernel row name: launches} (bf16:
-    the training main path; float32: the golden and the zoo smoke steps)."""
+    the training main path; float32, by route: the golden and the zoo
+    smoke steps, whose heads are all up to 128 and so all take the float32
+    tensor-core route)."""
     import torch
     attention_grad_phase(dev, errs)
     torch.cuda.empty_cache()
-    g_fwd, g_bwd = train_golden_phase(dev)
+    reset_attn_routes()
+    train_golden_phase(dev)
+    f32 = [f32_routes("train_golden", wide=False, bwd=True)]
     fwd, bwd, _ = train_main_phase(dev)
-    z_fwd, z_bwd = train_zoo_phase(dev)
+    reset_attn_routes()
+    train_zoo_phase(dev)
+    f32.append(f32_routes("train_zoo_smoke", wide=False, bwd=True))
     train_cli_phase()
     torch.cuda.empty_cache()
-    return {"flash_attention": fwd, "flash_attention_f32": g_fwd + z_fwd,
-            "flash_attention_bwd": bwd,
-            "flash_attention_bwd_f32": g_bwd + z_bwd}
+    out = {"flash_attention": fwd, "flash_attention_bwd": bwd}
+    for routes in f32:
+        for row, counts in zip(("flash_attention", "flash_attention_bwd"),
+                               routes):
+            for route, suffix in (("wgmma_f32", "_f32"),
+                                  ("cuda_cores", "_f32_cuda_cores")):
+                out[row + suffix] = out.get(row + suffix, 0) + counts[route]
+    return out
 
 
 def main() -> int:
@@ -3315,7 +3478,10 @@ def main() -> int:
     from repro_torch.core import lb_schemes
 
     dev = torch.device("cuda", 0)
-    # Float32 results are compared on the card: no TF32 anywhere.
+    # Float32 results are compared on the card: no TF32 in PyTorch's own
+    # products (the plain versions); the float32 attention kernels reach
+    # float32 accuracy on the bf16 tensor cores (three bf16 parts, six
+    # products), not through TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3325,8 +3491,11 @@ def main() -> int:
     prop_slots = 0.5e-6 / (4178 * 8 / 800e9)
     check(prop_slots == golden["prop_slots"], "prop_slots differs from golden")
     errs = {"segmented_cummax": 0.0, "jsq_scan": 0.0, "flash_attention": 0.0,
-            "flash_attention_f32": 0.0, "ssd_scan": 0.0, "ssd_scan_f32": 0.0,
-            "flash_attention_bwd": 0.0, "flash_attention_bwd_f32": 0.0}
+            "flash_attention_f32": 0.0,
+            "flash_attention_f32_cuda_cores": 0.0, "ssd_scan": 0.0,
+            "ssd_scan_f32": 0.0, "flash_attention_bwd": 0.0,
+            "flash_attention_bwd_f32": 0.0,
+            "flash_attention_bwd_f32_cuda_cores": 0.0}
 
     with Phase("build"):
         for name, log in _build.build_all().items():
@@ -3486,7 +3655,7 @@ def main() -> int:
         {"flash_attention": get_config("yi-6b").n_layers})
     ssd_phase(dev, errs)
     n_attn, ssd_f32_launches = ssm_golden_phase(dev)
-    f32_launches += n_attn
+    f32_launches = {r: f32_launches[r] + n_attn[r] for r in f32_launches}
     zcfg, mcfg = get_config("zamba2-2.7b"), get_config("mamba2-130m")
     z_launches, z_recs, z_profile = serve_main_phase(
         dev, "ssm_serve_main_path zamba2-2.7b", zcfg.name, SERVE_LENS,
@@ -3596,7 +3765,8 @@ def main() -> int:
                   f"library_ms={k['library_ms']}"
                   + "".join(f" {x}={k[x]}" for x in (
                       "device_ms_by_ptile", "walked", "ms_no_tail",
-                      "walk_ns_per_cell", "campaign_launches") if x in k),
+                      "walk_ns_per_cell", "campaign_launches", "f64_err",
+                      "plain_f64_err") if x in k),
                   flush=True)
         # The launch floor: one trivial PyTorch launch (a 1-element add_),
         # timed as the kernels are; a launch-bound kernel's device ms cannot
@@ -3622,20 +3792,26 @@ def main() -> int:
     del yi_profile, z_profile, m_profile, yi_recs, z_recs, m_recs, ssd_rec
     zoo_f32, zoo_bf16 = zoo_phases(dev)
     train = training_phases(dev, errs)
+    zoo = {"flash_attention": zoo_bf16,
+           "flash_attention_f32": zoo_f32["wgmma_f32"],
+           "flash_attention_f32_cuda_cores": zoo_f32["cuda_cores"]}
     for k in kernels:
-        if k["name"] == "flash_attention":
-            k["launches"] += zoo_bf16
-        elif k["name"] == "flash_attention_f32":
-            k["launches"] += zoo_f32
-        if k["name"] in train:
-            k["launches"] += train[k["name"]]
-        if k["name"] in ("flash_attention_bwd", "flash_attention_bwd_f32"):
+        k["launches"] += zoo.get(k["name"], 0) + train.get(k["name"], 0)
+        if k["name"].startswith("flash_attention_bwd"):
             k["max_abs_err"] = max(k["max_abs_err"], errs[k["name"]])
-    print(f"flash_attention launches with the zoo's and training's: bf16 "
-          f"{zoo_bf16} + {train['flash_attention']} more, float32 {zoo_f32} "
-          f"+ {train['flash_attention_f32']} more; backward bf16 "
-          f"{train['flash_attention_bwd']}, float32 "
-          f"{train['flash_attention_bwd_f32']}", flush=True)
+    print(f"flash_attention launches with the zoo's and training's: zoo "
+          f"{zoo}, training {train}", flush=True)
+    # The float32 tensor-core kernels ran on the main paths (the goldens
+    # and the float32 train steps), and so did the CUDA-core forward
+    # (MLA's golden, Dk 192); no main path reaches the CUDA-core backward
+    # (the float32 train steps' heads are up to 128), whose row is timed
+    # at MLA_F32_SHAPE all the same.
+    launched = {k["name"]: k["launches"] for k in kernels}
+    check(all(launched[n] > 0 for n in (
+              "flash_attention_f32", "flash_attention_bwd_f32",
+              "flash_attention_f32_cuda_cores")),
+          f"a float32 attention kernel never launched on a main path: "
+          f"{launched}")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 // Causal GQA flash attention (forward) for the H100 (sm_90a): a bf16
-// tensor-core kernel (wgmma + TMA) and a CUDA-core kernel for float32.
+// tensor-core kernel (wgmma + TMA) and a CUDA-core kernel for float32 past
+// the head dims of the float32 tensor-core kernel (flash_attn_f32.cu).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attn/kernel.py:
 // flash_attention (def at :72, pallas_call at :103, body _attn_kernel at
@@ -65,9 +66,13 @@
 // and ping-pong barriers between the two consumer warpgroups), a
 // persistent grid, and fp8.
 //
-// flash_attention_kernel: float32 (the goldens' type, where TF32 would miss
-// the 2e-5 tolerance) and bf16 with D > 256, on the float32 CUDA cores (67
-// TFLOP/s peak).  One block of 256 threads per (query tile of 64, column
+// flash_attention_f32_kernel (csrc/flash_attn_f32.cu, a library of its own
+// so that it compiles beside this one): float32 with D, Dv <= 128 on the
+// bf16 tensor cores at float32 accuracy.
+//
+// flash_attention_kernel: float32 with D or Dv past 128 and bf16 with D >
+// 256, on the float32 CUDA cores (67 TFLOP/s peak).  One block of 256
+// threads per (query tile of 64, column
 // tile of 128, query head, batch).  The logits are summed over D in chunks
 // of 128 columns: the query chunk lives in shared memory as float,
 // transposed (loaded once when D <= 128, else per key tile), K is staged
@@ -81,8 +86,9 @@
 // Asked for it (a pointer that is not null), the tensor-core kernel also
 // writes each row's log-sum-exp of the scaled logits, float32 (B, Hq, Sq),
 // in the log2 domain (m + log2 l of its online softmax; the CTAs of the
-// first output-column tile write it): the bf16 backward's input
-// (flash_attn_bwd.cu).  Serving passes null and writes nothing more.
+// first output-column tile write it): the input of the tensor-core
+// backward routes (flash_attn_bwd.cu).  Serving passes null and writes
+// nothing more.
 //
 // Both kernels take element strides for (batch, head, position) of q, k, v
 // and out (the last axis contiguous, strides multiples of 8 elements, base

@@ -1,9 +1,10 @@
 // Backward pass of causal GQA flash attention for the H100 (sm_90a): dQ, dK
 // and dV of repro_torch/kernels/flash_attn/ref.py:mha, for every input the
-// forward kernels (csrc/flash_attn.cu) take, on two routes
-// (kernels/flash_attn/kernel.py:route_bwd): bf16 with D and Dv <= 128 on
-// the tensor cores (wgmma + TMA), everything else (float32, wider heads) on
-// the float32 CUDA cores.
+// forward kernels (csrc/flash_attn.cu) take, on three routes
+// (kernels/flash_attn/kernel.py:route_bwd): with D and Dv <= 128, bf16 on
+// the tensor cores (wgmma + TMA) and float32 on the tensor cores at float32
+// accuracy (three bf16 parts of each operand, six products); wider heads
+// on the float32 CUDA cores.
 //
 // It replaces no TPU kernel.  The reference's training step reaches the
 // Pallas kernel repro/kernels/flash_attn/kernel.py:flash_attention (def at
@@ -38,7 +39,9 @@
 // again, dP, dV, dQ, dK) are 2.5 times the forward's 2 x 2 x B x Hq x
 // S (S + 1) / 2 x D = 137 GFLOP, 344 GFLOP: 0.35 ms at 989 TFLOP/s on the
 // tensor cores; its bytes (q, k, v, out, dout read once, dq, dk, dv written
-// once: 151 MB) take 0.045 ms.  Operations bound it.
+// once: 151 MB) take 0.045 ms.  Operations bound it.  In float32 the same
+// 344 GFLOP take 5.13 ms on the CUDA cores (67 TFLOP/s) and 2.09 ms at the
+// float32-accurate tensor-core rate (989 / 6 = 165 TFLOP/s); bytes 0.090.
 //
 // bf16 route (D, Dv <= 128: Yi-6B, Qwen3-MoE, Phi-3, Zamba2, Whisper), four
 // launches, FlashAttention-2's deterministic split:
@@ -90,10 +93,14 @@
 // same pass (FA3's semaphore-ordered dQ accumulation), a persistent grid,
 // heads past 128 (DeepSeek-V3's MLA, Dk 192 / Dv 128) on this route.
 //
-// CUDA-core route (float32, where TF32 would miss the goldens' tolerance,
-// and bf16 heads past 128), three launches, each a grid of blocks of 256
-// threads (a 16 x 16 grid; a thread holds a 4 x 4 patch of a 64 x 64 tile
-// of logits):
+// float32 route (D, Dv <= 128): csrc/flash_attn_bwd_f32.cu, a library of
+// its own (so that nvcc builds it beside this one) with the same four
+// launches on the float32 tensor-core arithmetic; it shares delta and the
+// group's sum with this file (attn_bwd.cuh).
+//
+// CUDA-core route (float32 and bf16 heads past 128), three launches, each
+// a grid of blocks of 256 threads (a 16 x 16 grid; a thread holds a 4 x 4
+// patch of a 64 x 64 tile of logits):
 //   1. attn_bwd_stats_kernel, a block per (query tile of 64, query head,
 //      batch): rowsum(dO * O), and each row's log-sum-exp (log2 domain)
 //      recomputed by the online softmax over the visible key tiles.
@@ -110,11 +117,13 @@
 // number in each.  Everything is read and accumulated in float32 (bf16
 // inputs are widened on load) and each gradient is stored in the inputs'
 // type.  It recomputes S three times and dP twice (nine products) on the
-// float32 CUDA cores (67 TFLOP/s): 5.1 ms of bound at the shape above.
+// float32 CUDA cores (67 TFLOP/s).
 
 #include <math.h>
 
 #include "hopper.cuh"   // mbarriers, TMA, wgmma (shared with the forward)
+#include "attn_bwd.cuh" // strides, delta, the group's sum (shared with the
+                        // float32 route)
 
 namespace {
 
@@ -147,11 +156,6 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* x) {
   }
 }
 
-__device__ __forceinline__ float load1(const float* p) { return *p; }
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
 // The n elements at p (n may be <= 0), zeros after them up to 8; a full
 // chunk is one 16-byte-aligned load.
 template <typename T>
@@ -162,11 +166,6 @@ __device__ __forceinline__ void load_upto8(const T* p, int n, float* x) {
   }
 #pragma unroll
   for (int e = 0; e < 8; ++e) x[e] = e < n ? load1(p + e) : 0.f;
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
 }
 
 __host__ __device__ __forceinline__ int pad8(int n) { return (n + 7) & ~7; }
@@ -270,14 +269,6 @@ __device__ __forceinline__ void tile_acc(const float* Pt, const float* R,
     }
   }
 }
-
-// The strides of the eight tensors, (batch, head, position) each, in the
-// order q, k, v, o, dout, dq, dk, dv.
-struct Strides {
-  long long s[24];
-};
-enum { SQ = 0, SKK = 3, SV = 6, SO = 9, SDO = 12, SDQ = 15, SDK = 18,
-       SDV = 21 };
 
 // S = Q K^T of the query tile at q0 and the key tile at k0 (q rows on tr,
 // keys on tc), depth in chunks of DC through A and Bt.
@@ -701,43 +692,8 @@ struct DqShape {
   static constexpr int SMEM = BAR_OFF + 64 + 1024;
 };
 
-template <int N>
-__device__ __forceinline__ void regs_up() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void regs_down() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-
-// rowsum(dO * O) in float32, a warp a row (lanes over the columns, then a
-// fixed shuffle tree: bitwise reruns).
-__global__ void __launch_bounds__(256)
-attn_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
-                      const __nv_bfloat16* __restrict__ dout,
-                      float* __restrict__ dlt, int Hq, int Sq, int Dv,
-                      Strides st, long long rows) {
-  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const int i = (int)(row % Sq);
-  const long long bh = row / Sq;
-  const int h = (int)(bh % Hq), b = (int)(bh / Hq);
-  const __nv_bfloat16* orow =
-      o + b * st.s[SO] + h * st.s[SO + 1] + (long long)i * st.s[SO + 2];
-  const __nv_bfloat16* drow = dout + b * st.s[SDO] + h * st.s[SDO + 1] +
-                              (long long)i * st.s[SDO + 2];
-  float acc = 0.f;
-  for (int c = lane; c < Dv; c += 32)
-    acc = fmaf(__bfloat162float(drow[c]), __bfloat162float(orow[c]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) dlt[row] = acc;
 }
 
 // dK and dV of one query head's contribution to a key tile of 128 (a CTA
@@ -986,34 +942,6 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// dK and dV: the sum of the group's query heads' partials in head order.
-__global__ void __launch_bounds__(256)
-attn_bwd_dkv_reduce_kernel(const float* __restrict__ wk,
-                           const float* __restrict__ wv,
-                           __nv_bfloat16* __restrict__ dk,
-                           __nv_bfloat16* __restrict__ dv, int Hkv,
-                           int group, int Sk, int D, int Dv, int dkp,
-                           int dvp, Strides st, long long total) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int W = D + Dv;
-  const int c = (int)(idx % W);
-  const long long rest = idx / W;
-  const int t = (int)(rest % Sk);
-  const long long bh = rest / Sk;
-  const int hk = (int)(bh % Hkv), b = (int)(bh / Hkv);
-  const bool is_k = c < D;
-  const int col = is_k ? c : c - D, wp = is_k ? dkp : dvp;
-  const float* w = (is_k ? wk : wv) +
-                   (((long long)b * Hkv + hk) * group * Sk + t) * wp + col;
-  float acc = 0.f;
-  for (int gi = 0; gi < group; ++gi) acc += w[(long long)gi * Sk * wp];
-  const int so = is_k ? SDK : SDV;
-  __nv_bfloat16* out = (is_k ? dk : dv) + b * st.s[so] + hk * st.s[so + 1] +
-                       (long long)t * st.s[so + 2] + col;
-  *out = __float2bfloat16_rn(acc);
-}
-
 // dQ of a query tile of 128 rows of one head (a CTA per (query tile, query
 // head, batch); the last tiles, which see the most keys, first).  Q and dO
 // stay in shared memory; the producer streams K and V tiles of 64 keys.
@@ -1254,7 +1182,8 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
            reinterpret_cast<uintptr_t>(dq) % 4 == 0;
 
   const long long rows = (long long)B * Hq * Sq;
-  attn_bwd_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+  attn_bwd_delta_kernel<__nv_bfloat16>
+      <<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), dlt, Hq, Sq, Dv, st, rows);
   cudaError_t err = cudaGetLastError();
@@ -1273,8 +1202,8 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
 
   const long long total = (long long)B * Hkv * Sk * (D + Dv);
-  attn_bwd_dkv_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
-                               stream>>>(
+  attn_bwd_dkv_reduce_kernel<__nv_bfloat16>
+      <<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
       wk, wv, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), Hkv, Hq / Hkv, Sk, D, Dv, DPC * 64,
       NVC * 64, st, total);
@@ -1338,3 +1267,4 @@ extern "C" int flash_attention_bwd_wgmma(
 #undef FA_BWD_WGMMA
   return (int)cudaErrorInvalidValue;
 }
+

@@ -1,7 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels
 // (flash_attn.cu, flash_attn_bwd.cu): mbarriers, TMA tile loads and their
-// tensor maps, 128-byte-swizzle wgmma descriptors and the wgmma
-// instructions (float32 += bf16 x bf16) the kernels issue.  Each library
+// tensor maps, 128-byte-swizzle wgmma descriptors, the wgmma instructions
+// (float32 += bf16 x bf16) the kernels issue, register hand-over between
+// warpgroups (setmaxnreg), and the three-way bf16 split of the float32
+// routes (split_tile: a float32 tile into three swizzled bf16 planes in
+// shared memory; split3_pair: two float32 values into three register
+// planes).  Each library
 // that includes this header is its own translation unit;
 // kernels/_build.py hashes the header into the key of every library that
 // includes it, so a change here rebuilds them.
@@ -94,6 +98,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // wgmma.mma_async m64nNk16, float32 += bf16 x bf16: _ss reads A and B from
 // shared memory (both K-major; acc = 0 overwrites D), _rs reads A from
 // registers and B N-major (transposed) from shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int acc) {
   asm volatile(
@@ -213,7 +230,8 @@ __device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int acc) {
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, acc);
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, acc);
+  else if constexpr (N == 64) wgmma_ss_n64(d, da, db, acc);
   else wgmma_ss_n128(d, da, db, acc);
 }
 
@@ -223,6 +241,112 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
   else wgmma_rs_n192(d, a, db);
+}
+
+// setmaxnreg: a producer warpgroup hands registers to the consumers.
+template <int N>
+__device__ __forceinline__ void regs_up() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_down() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Makes this thread's shared-memory stores visible to the async proxy
+// (wgmma reads its shared-memory operands through it); then arrive.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The three-way bf16 split of the float32 routes
+// ---------------------------------------------------------------------------
+// x = hi + mid + lo, each part bf16_rn of what the parts before it leave
+// (x - hi and its remainder are exact in float32): 3 x 8 bits that carry a
+// float32 value to about its last bit.  A product a b is then the six
+// partial products with a_i b_j, i + j <= 2, each exact in the tensor
+// cores (bf16 x bf16 into float32); the three dropped ones are below
+// 2^-24 relative.  The float32 routes issue the small products first.
+// ref.py:split3_bf16 is its plain version.
+__device__ __forceinline__ void split3_pair(float a, float b, uint32_t& hi,
+                                            uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const float ra = __fsub_rn(a, hf.x), rb = __fsub_rn(b, hf.y);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(__fsub_rn(ra, mf.x), __fsub_rn(rb, mf.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The planes (0 hi, 1 mid, 2 lo) of a and of b in the i-th of the six
+// partial products, small first: (1, 1), (0, 2), (2, 0), (0, 1), (1, 0),
+// (0, 0).
+__host__ __device__ constexpr int split_a(int i) {
+  return i == 0 || i == 4 ? 1 : i == 2 ? 2 : 0;
+}
+__host__ __device__ constexpr int split_b(int i) {
+  return i == 0 || i == 3 ? 1 : i == 1 ? 2 : 0;
+}
+
+// Rows [r0, r0 + ROWS) and columns [0, 64 NCH) of a float32 matrix (row
+// stride rs elements; rows past n_rows and columns past n_cols read as
+// zeros) into three bf16 planes at dst, dst + plane, dst + 2 plane, each in
+// the layout a TMA load of 64-column boxes with the 128-byte swizzle gives
+// (box c at c ROWS 128 bytes; the 16-byte chunk j of row r at r 128 +
+// 16 (j ^ (r % 8))), the layout sw128_desc describes.  The NT threads of a
+// warpgroup call it with t = 0..NT-1; neighbouring threads load
+// neighbouring 32-byte chunks of a row (two 16-byte loads each; the rows
+// are 16-byte aligned).  The caller fences (fence_async_smem) and arrives.
+template <int ROWS, int NCH, int NT>
+__device__ __forceinline__ void split_tile(uint8_t* dst, int plane,
+                                           const float* __restrict__ src,
+                                           long long rs, int r0, int n_rows,
+                                           int n_cols, int t) {
+  constexpr int PER_ROW = NCH * 8;              // 8-float chunks a row
+  constexpr int CHUNKS = ROWS * PER_ROW;
+  constexpr int BATCH = 2;
+  static_assert(CHUNKS % (NT * BATCH) == 0, "whole batches");
+#pragma unroll 1
+  for (int base = t; base < CHUNKS; base += NT * BATCH) {
+    float x[BATCH][8];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int idx = base + u * NT;
+      const int r = idx / PER_ROW, c0 = (idx % PER_ROW) * 8;
+      const float* p = src + (long long)(r0 + r) * rs + c0;
+      if (r0 + r < n_rows && c0 + 8 <= n_cols) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+        const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+        x[u][0] = a.x; x[u][1] = a.y; x[u][2] = a.z; x[u][3] = a.w;
+        x[u][4] = b.x; x[u][5] = b.y; x[u][6] = b.z; x[u][7] = b.w;
+      } else {
+        const bool row_ok = r0 + r < n_rows;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          x[u][e] = row_ok && c0 + e < n_cols ? p[e] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int idx = base + u * NT;
+      const int r = idx / PER_ROW, ch = idx % PER_ROW;
+      uint4 h, m, l;
+      split3_pair(x[u][0], x[u][1], h.x, m.x, l.x);
+      split3_pair(x[u][2], x[u][3], h.y, m.y, l.y);
+      split3_pair(x[u][4], x[u][5], h.z, m.z, l.z);
+      split3_pair(x[u][6], x[u][7], h.w, m.w, l.w);
+      uint8_t* d = dst + (ch >> 3) * ROWS * 128 + r * 128 +
+                   (((ch & 7) ^ (r & 7)) << 4);
+      *reinterpret_cast<uint4*>(d) = h;
+      *reinterpret_cast<uint4*>(d + plane) = m;
+      *reinterpret_cast<uint4*>(d + 2 * plane) = l;
+    }
+  }
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,

@@ -32,7 +32,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-CONTRACTED = ("flash_attn", "flash_attn_bwd")   # built without --fmad=false
+CONTRACTED = ("flash_attn", "flash_attn_f32", "flash_attn_bwd",
+              "flash_attn_bwd_f32")            # built without --fmad=false
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILDS = 0

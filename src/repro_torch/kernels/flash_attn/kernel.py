@@ -1,17 +1,29 @@
-"""ctypes binding of the CUDA flash-attention kernels (``csrc/flash_attn.cu``).
+"""ctypes binding of the CUDA flash-attention kernels (``csrc/flash_attn.cu``
+and ``csrc/flash_attn_f32.cu``, forward; ``csrc/flash_attn_bwd.cu`` and
+``csrc/flash_attn_bwd_f32.cu``, backward; one library each, built side by
+side).
 
-The CUDA source replaces the Pallas TPU kernel
-``repro/kernels/flash_attn/kernel.py:flash_attention``; its header states
-the design and the bound.  :func:`flash_attention` launches one of its two
+The forward sources replace the Pallas TPU kernel
+``repro/kernels/flash_attn/kernel.py:flash_attention``; their headers state
+the design and the bound.  :func:`flash_attention` launches one of three
 kernels on CUDA tensors on the current stream and raises if the launch
-fails.  :func:`route` names the kernel: bf16 with a head dim up to 256 (every
-model of the repo) runs the tensor-core kernel (``wgmma`` + TMA); float32,
-and bf16 with a wider head, the CUDA-core kernel.  Float32 stays off the
-tensor cores on purpose: TF32 would miss the 2e-5 tolerance of the goldens.
+fails.  :func:`route` names the kernel:
+
+* ``"wgmma"``: bf16 with a head dim up to 256 (every model of the repo),
+  the bf16 tensor-core kernel (``wgmma`` + TMA);
+* ``"wgmma_f32"``: float32 with both head dims (q's and v's) up to 128,
+  the float32 tensor-core kernel, which splits each float32 operand into
+  three bf16 planes and sums six partial products of each matrix product
+  (float32 accuracy on the bf16 tensor cores: no TF32, which would miss
+  the 2e-5 tolerance of the goldens);
+* ``"cuda_cores"``: float32 with a wider head, and bf16 past 256, the
+  float32 CUDA-core kernel.
+
 Any other floating dtype, and operands of mixed dtypes, are cast to float32
 (exact for float16 and bf16), as the reference's ``mha`` casts them, and
-take the CUDA-core kernel; the output is cast back to q's dtype
-(:func:`compute_dtype`).  A float32 operand is never rounded to bf16.
+take a float32 route; the output is cast back to q's dtype
+(:func:`compute_dtype`).  A float32 operand is never rounded to bf16 as a
+whole: the tensor-core route carries all its bits in its three planes.
 
 The kernels read q, k and v through their (batch, head, position) strides,
 so a (B, H, S, D) view of a (B, S, H, D) tensor needs no copy; the last axis
@@ -21,14 +33,15 @@ must be contiguous, the other strides multiples of 8 elements (TMA needs
 layout (``torch.empty_like``) when v's width is q's depth, else a new
 contiguous tensor.
 
-:func:`flash_attention_bwd` binds the backward kernels of
-``csrc/flash_attn_bwd.cu``, the gradient of the forward, on two routes
-(:func:`route_bwd`): bf16 with both head dims up to 128 runs the
-tensor-core kernels (``wgmma`` + TMA), which read each row's log-sum-exp
-from the forward (``flash_attention(..., return_lse=True)``); float32, and
-bf16 with a wider head, the CUDA-core kernels, which recompute it.  They
-replace no TPU kernel: JAX cannot differentiate the Pallas one, and the
-port's training path needs this gradient.
+:func:`flash_attention_bwd` binds the backward kernels, the gradient of
+the forward, on three routes (:func:`route_bwd`): bf16 with both head dims
+up to 128 runs the bf16 tensor-core kernels, float32 with both up to 128
+the float32 tensor-core kernels (the three-way split), both of which read
+each row's log-sum-exp from the forward (``flash_attention(...,
+return_lse=True)``); wider heads the CUDA-core kernels, which recompute
+it.  They replace no TPU kernel:
+JAX cannot differentiate the Pallas one, and the port's training path
+needs this gradient.
 """
 from __future__ import annotations
 
@@ -45,6 +58,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 WGMMA_MAX_HEAD_DIM = 256    # Q resident in shared memory, 64-column boxes
 # the backward's tensor-core route: dK and dV accumulators in registers
 WGMMA_BWD_MAX_HEAD_DIM = 128
+# the float32 tensor-core routes, both directions: three bf16 planes of Q
+# (or K and V) resident in shared memory beside a tile of the others'
+WGMMA_F32_MAX_HEAD_DIM = 128
+TENSOR_CORE_ROUTES = ("wgmma", "wgmma_f32")
 _SHAPE_ARGS = [_VP, _VP, _VP, _VP, *[ctypes.c_int] * 7,
                ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                ctypes.c_int, _VP]
@@ -56,28 +73,26 @@ _BWD_ARGS = [ctypes.c_int, *[_VP] * 10, *[ctypes.c_int] * 7,
 _BWD_WGMMA_ARGS = [*[_VP] * 12, *[ctypes.c_int] * 7,
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                    ctypes.c_int, _VP]
+_LSE_ARGS = [*_SHAPE_ARGS[:-1], _VP, _VP]        # ..., lse, stream
+# Each library (csrc/<name>.cu) and the argument types of its entry points.
+_ENTRY_POINTS = {
+    "flash_attn": {"flash_attention_cuda_cores_fwd": [ctypes.c_int,
+                                                      *_SHAPE_ARGS],
+                   "flash_attention_wgmma_fwd": _LSE_ARGS},
+    "flash_attn_f32": {"flash_attention_f32_fwd": _LSE_ARGS},
+    "flash_attn_bwd": {"flash_attention_bwd": _BWD_ARGS,
+                       "flash_attention_bwd_wgmma": _BWD_WGMMA_ARGS},
+    "flash_attn_bwd_f32": {"flash_attention_bwd_f32": _BWD_WGMMA_ARGS},
+}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attn")
+def _lib(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, its entry points typed."""
+    lib = _build.load(name)
     if not getattr(lib, "_typed", False):
-        lib.flash_attention_cuda_cores_fwd.argtypes = [ctypes.c_int,
-                                                       *_SHAPE_ARGS]
-        lib.flash_attention_cuda_cores_fwd.restype = ctypes.c_int
-        lib.flash_attention_wgmma_fwd.argtypes = [*_SHAPE_ARGS[:-1], _VP,
-                                                  _VP]
-        lib.flash_attention_wgmma_fwd.restype = ctypes.c_int
-        lib._typed = True
-    return lib
-
-
-def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attn_bwd")
-    if not getattr(lib, "_typed", False):
-        lib.flash_attention_bwd.argtypes = _BWD_ARGS
-        lib.flash_attention_bwd.restype = ctypes.c_int
-        lib.flash_attention_bwd_wgmma.argtypes = _BWD_WGMMA_ARGS
-        lib.flash_attention_bwd_wgmma.restype = ctypes.c_int
+        for fn, args in _ENTRY_POINTS[name].items():
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -89,21 +104,31 @@ def compute_dtype(*tensors: torch.Tensor) -> torch.dtype:
             else torch.float32)
 
 
-def route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that takes (dtype, head_dim): ``"wgmma"`` (bf16 tensor
-    cores) or ``"cuda_cores"`` (float32 CUDA cores)."""
+def route(dtype: torch.dtype, head_dim: int,
+          value_dim: Optional[int] = None) -> str:
+    """The forward kernel that takes (compute dtype, q's head dim, v's
+    width, which defaults to the head dim): ``"wgmma"`` (bf16 tensor
+    cores, head dim up to 256), ``"wgmma_f32"`` (float32 on the tensor
+    cores, both dims up to 128) or ``"cuda_cores"`` (float32 CUDA cores)."""
+    value_dim = head_dim if value_dim is None else value_dim
     if dtype == torch.bfloat16 and head_dim <= WGMMA_MAX_HEAD_DIM:
         return "wgmma"
+    if dtype == torch.float32 and max(head_dim,
+                                      value_dim) <= WGMMA_F32_MAX_HEAD_DIM:
+        return "wgmma_f32"
     return "cuda_cores"
 
 
 def route_bwd(dtype: torch.dtype, head_dim: int, value_dim: int) -> str:
     """The backward kernels that take (dtype, head_dim, value_dim):
-    ``"wgmma"`` (bf16 tensor cores, both dims up to 128) or
-    ``"cuda_cores"`` (float32 CUDA cores)."""
-    if (dtype == torch.bfloat16 and head_dim <= WGMMA_BWD_MAX_HEAD_DIM
-            and value_dim <= WGMMA_BWD_MAX_HEAD_DIM):
+    ``"wgmma"`` (bf16 tensor cores, both dims up to 128), ``"wgmma_f32"``
+    (float32 on the tensor cores, both dims up to 128) or ``"cuda_cores"``
+    (float32 CUDA cores)."""
+    widest = max(head_dim, value_dim)
+    if dtype == torch.bfloat16 and widest <= WGMMA_BWD_MAX_HEAD_DIM:
         return "wgmma"
+    if dtype == torch.float32 and widest <= WGMMA_F32_MAX_HEAD_DIM:
+        return "wgmma_f32"
     return "cuda_cores"
 
 
@@ -134,8 +159,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     float32 (:func:`compute_dtype`).  Causal queries are the last Sq
     positions of the Sk-long context; with ``Sq > Sk`` the first ``Sq - Sk``
     see no key and give the mean of v.  Returns (B, Hq, Sq, Dv) in q's
-    dtype; with ``return_lse``, ``(out, lse)``: on the tensor-core route lse
-    is each row's log-sum-exp of the scaled logits in the log2 domain,
+    dtype; with ``return_lse``, ``(out, lse)``: on the tensor-core routes
+    lse is each row's log-sum-exp of the scaled logits in the log2 domain,
     float32 (B, Hq, Sq) (``ref.mha_lse``; a row that sees no key holds
     about -1e30), on the CUDA-core route None (its backward recomputes
     it)."""
@@ -172,9 +197,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # q's strides (or contiguous if q overlaps) when the widths agree
     out = (torch.empty_like(q) if Dv == D
            else q.new_empty((B, Hq, Sq, Dv)))
-    which = route(q.dtype, D)
+    which = route(q.dtype, D, Dv)
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
-           if return_lse and which == "wgmma" else None)
+           if return_lse and which in TENSOR_CORE_ROUTES else None)
     if out.numel() == 0:
         return (out, lse) if return_lse else out
     strides = (ctypes.c_longlong * 12)(
@@ -183,15 +208,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale = 1.0 / math.sqrt(D)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
             Hkv, Sq, Sk, D, Dv, strides, float(scale), int(bool(causal)))
-    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if which == "wgmma":
-            err = lib.flash_attention_wgmma_fwd(
+            err = _lib("flash_attn").flash_attention_wgmma_fwd(
+                *args, None if lse is None else lse.data_ptr(), stream)
+        elif which == "wgmma_f32":
+            err = _lib("flash_attn_f32").flash_attention_f32_fwd(
                 *args, None if lse is None else lse.data_ptr(), stream)
         else:
-            err = lib.flash_attention_cuda_cores_fwd(_DTYPES[q.dtype], *args,
-                                                     stream)
+            err = _lib("flash_attn").flash_attention_cuda_cores_fwd(
+                _DTYPES[q.dtype], *args, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed ({which}"
                            f" route): cudaError {err}")
@@ -206,12 +233,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients (dq, dk, dv) of :func:`flash_attention` (of
     ``ref.mha``) at q, k, v, given its output ``out`` and the output's
     gradient ``dout`` (both (B, Hq, Sq, Dv)), from the backward kernels of
-    ``csrc/flash_attn_bwd.cu``, on the route :func:`route_bwd` names:
+    ``csrc/flash_attn_bwd.cu`` and ``csrc/flash_attn_bwd_f32.cu``, on the
+    route :func:`route_bwd` names:
 
-    * ``"wgmma"`` (all five bf16, D and Dv <= 128): the tensor-core
+    * ``"wgmma"`` (all five bf16, D and Dv <= 128): the bf16 tensor-core
       kernels, which need ``lse``, the forward's log-sum-exp
       (``flash_attention(..., return_lse=True)``, float32 (B, Hq, Sq));
-    * ``"cuda_cores"`` (anything else): the float32 CUDA-core kernels,
+    * ``"wgmma_f32"`` (any other dtypes, read in float32, D and Dv <=
+      128): the float32 tensor-core kernels (three bf16 planes of each
+      operand, six products), which need ``lse`` too;
+    * ``"cuda_cores"`` (wider heads): the float32 CUDA-core kernels,
       which recompute the log-sum-exp and ignore ``lse``; they read bf16 as
       it is when all five are bf16 and cast any other dtype to float32.
 
@@ -226,17 +257,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtypes = (q.dtype, k.dtype, v.dtype)
     cd = compute_dtype(q, k, v, out, dout)
     which = route_bwd(cd, D, Dv)
-    if which == "wgmma" and (lse is None or lse.shape != (B, Hq, Sq)
-                             or lse.dtype != torch.float32
-                             or not lse.is_contiguous()):
-        raise ValueError("flash_attention_bwd: the wgmma route needs the "
+    tensor_cores = which in TENSOR_CORE_ROUTES
+    if tensor_cores and (lse is None or lse.shape != (B, Hq, Sq)
+                         or lse.dtype != torch.float32
+                         or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: the {which} route needs the "
                          "forward's log-sum-exp, a contiguous float32 (B, "
                          "Hq, Sq) tensor (flash_attention(..., "
                          "return_lse=True))")
     ops = [t if t.dtype == cd and kernel_ready(t) else ready_copy(t.to(cd))
            for t in (q, k, v, out, dout)]
     dev = q.device
-    for t in ops + ([lse] if which == "wgmma" else []):
+    for t in ops + ([lse] if tensor_cores else []):
         if not t.is_cuda or t.device != dev:
             raise ValueError("flash_attention_bwd: the operands must share "
                              "one CUDA device")
@@ -252,21 +284,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scale = 1.0 / math.sqrt(D)
         shape = (B, Hq, Hkv, Sq, Sk, D, Dv, strides, float(scale),
                  int(bool(causal)))
-        lib = _bwd_lib()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            if which == "wgmma":
+            if tensor_cores:
                 # float32 partials of dK and dV, a query head each, in
                 # 64-column chunks
                 wk, wv = (torch.empty((B, Hq, Sk, -(-w // 64) * 64),
                                       dtype=torch.float32, device=dev)
                           for w in (D, Dv))
-                err = lib.flash_attention_bwd_wgmma(
+                fn = (_lib("flash_attn_bwd").flash_attention_bwd_wgmma
+                      if which == "wgmma" else
+                      _lib("flash_attn_bwd_f32").flash_attention_bwd_f32)
+                err = fn(
                     *(t.data_ptr() for t in (*ops, lse, *grads, dlt, wk, wv)),
                     *shape, stream)
             else:
                 lse = torch.empty_like(dlt)
-                err = lib.flash_attention_bwd(
+                err = _lib("flash_attn_bwd").flash_attention_bwd(
                     _DTYPES[cd], *(t.data_ptr() for t in (*ops, *grads)),
                     lse.data_ptr(), dlt.data_ptr(), *shape, stream)
         if err != 0:

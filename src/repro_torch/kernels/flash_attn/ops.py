@@ -3,17 +3,21 @@
 Dispatches on the device of ``q``: a CPU tensor takes the plain version on
 the reference's CPU route (``ref.mha`` up to 1,024 keys, else
 ``ref.mha_chunked`` with ``block_k = min(512, Sk)``), a CUDA tensor
-launches a CUDA kernel (``kernel.py``: the tensor-core kernel in bf16, the
-CUDA-core kernel in float32).  ``backend="torch"`` takes the plain
-version's route on any device.  A tensor the kernels cannot read as it
-lies (``kernel.kernel_ready``) is copied first (``kernel.ready_copy``).
-float16 and mixed dtypes run in float32 on the CUDA-core kernel, returning
-q's dtype (``kernel.compute_dtype``), as the reference's ``mha`` computes
+launches a CUDA kernel (``kernel.py``: the bf16 tensor-core kernel in
+bf16; in float32 with both head dims up to 128 the float32 tensor-core
+kernel, which reaches float32 accuracy on the bf16 tensor cores by a
+three-way bf16 split of its operands; the float32 CUDA-core kernel for
+wider heads).  ``backend="torch"`` takes the plain version's route on any
+device.  A tensor the kernels cannot read as it lies
+(``kernel.kernel_ready``) is copied first (``kernel.ready_copy``).
+float16 and mixed dtypes run in float32 on a float32 route, returning q's
+dtype (``kernel.compute_dtype``), as the reference's ``mha`` computes
 them.  ``Dv != Dk`` (MLA, off the dense path) takes the reference's own route to
 ``mha_chunked`` on the plain path (``repro/kernels/flash_attn/ops.py:30-31``)
 and the kernels on CUDA tensors, which take any Dv.  ``LAUNCHES`` counts the
 kernel launches made through this wrapper, and ``ROUTE_LAUNCHES`` the same
-launches by kernel (``kernel.route``: ``wgmma`` or ``cuda_cores``).
+launches by kernel (``kernel.route``: ``wgmma``, ``wgmma_f32`` or
+``cuda_cores``).
 
 Gradients: CUDA tensors of which one needs a gradient (with grad mode on)
 go through :class:`FlashAttention`, a ``torch.autograd.Function`` whose
@@ -21,8 +25,9 @@ forward is the same kernel and whose backward is the backward kernel
 (``kernel.flash_attention_bwd``, ``csrc/flash_attn_bwd.cu``);
 ``BWD_LAUNCHES`` counts its calls and ``BWD_ROUTE_LAUNCHES`` the same calls
 by route (``kernel.route_bwd``).  Its forward also writes each row's
-log-sum-exp (on the bf16 tensor-core forward), which the backward's
-``wgmma`` route (bf16, head dims up to 128) reads.  CPU tensors and ``backend="torch"``
+log-sum-exp (on the tensor-core forwards), which the backward's
+tensor-core routes (``wgmma`` in bf16, ``wgmma_f32`` in float32, head dims
+up to 128) read.  CPU tensors and ``backend="torch"``
 differentiate the plain route under ordinary autograd, as the reference's
 CPU route does.  A forward that needs no gradient is unchanged.
 """
@@ -37,9 +42,9 @@ from . import ref as _ref
 from .._common import resolve_backend
 
 LAUNCHES = 0
-ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}
+ROUTE_LAUNCHES = {"wgmma": 0, "wgmma_f32": 0, "cuda_cores": 0}
 BWD_LAUNCHES = 0
-BWD_ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}
+BWD_ROUTE_LAUNCHES = {"wgmma": 0, "wgmma_f32": 0, "cuda_cores": 0}
 
 
 class FlashAttention(torch.autograd.Function):
@@ -93,5 +98,5 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel():
         LAUNCHES += 1
         ROUTE_LAUNCHES[_kernel.route(_kernel.compute_dtype(q, k, v),
-                                     q.shape[-1])] += 1
+                                     q.shape[-1], v.shape[-1])] += 1
     return out

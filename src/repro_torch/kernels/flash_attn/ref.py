@@ -16,6 +16,12 @@ output and each row's log-sum-exp of its masked, scaled logits in the log2
 domain, the backward kernels' input.  ``mha_vjp`` is the plain version of
 the backward kernel: the vector-Jacobian product of ``mha`` by
 ``torch.autograd.grad`` (any Dv).
+
+``split3_bf16`` is the plain version of the float32 tensor-core routes'
+three-way split (``csrc/hopper.cuh``: ``split3_pair``, ``split_tile``):
+three bf16 parts that sum back to a float32 value to within 2^-24 of it;
+a product is then the six partial products ``SPLIT_PAIRS`` names.  Only
+the tests use it: the plain versions above compute in float32.
 """
 from __future__ import annotations
 
@@ -26,6 +32,9 @@ import torch.nn.functional as F
 
 NEG_INF = -1.0e30
 LOG2E = 1.4426950408889634
+# The (a, b) parts of the six partial products a_i b_j, i + j <= 2, in the
+# order the kernels issue them: the small ones first.
+SPLIT_PAIRS = ((1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0))
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -130,3 +139,16 @@ def mha_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
         out = mha(qq, kk, vv, causal=causal, scale=scale)
         return torch.autograd.grad(out, (qq, kk, vv), dout.to(out.dtype))
+
+
+def split3_bf16(x: torch.Tensor):
+    """(hi, mid, lo), bf16 tensors of x's shape: hi = bf16_rn(x), mid =
+    bf16_rn(x - hi), lo = bf16_rn(x - hi - mid) (each difference exact in
+    float32), so that hi + mid + lo is x to within 2^-24 |x| (bf16 keeps 8
+    bits of x's significand, each part 8 more of what is left)."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo

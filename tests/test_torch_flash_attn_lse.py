@@ -10,8 +10,8 @@ CPU, against the JAX package:
   see no key found by their index, the ragged key tail padded with zero
   keys and masked, dK and dV summed over the group in head order) against
   ``jax.vjp`` of ``mha``;
-* ``kernel.route_bwd`` and the wrapper's refusal of the ``wgmma`` route
-  without a log-sum-exp.
+* ``kernel.route_bwd`` and the wrapper's refusal of the tensor-core
+  routes (``wgmma``, ``wgmma_f32``) without a log-sum-exp.
 
 Shapes cover GQA, causal with Sq > Sk (rows that see no key), ragged keys
 and queries, D = 80 and 96, and Dv != D without the mask.  Tolerances:
@@ -180,9 +180,10 @@ def test_route_bwd_names_the_tensor_core_route():
     for d, dv in ((128, 128), (96, 96), (80, 80), (64, 64), (16, 16),
                   (96, 64), (1, 128)):
         assert pk.route_bwd(bf16, d, dv) == "wgmma"
-        assert pk.route_bwd(f32, d, dv) == "cuda_cores"
+        assert pk.route_bwd(f32, d, dv) == "wgmma_f32"
     for d, dv in ((192, 128), (256, 256), (128, 129)):
         assert pk.route_bwd(bf16, d, dv) == "cuda_cores"
+        assert pk.route_bwd(f32, d, dv) == "cuda_cores"
 
 
 def test_wgmma_route_needs_the_forward_lse():
@@ -195,3 +196,14 @@ def test_wgmma_route_needs_the_forward_lse():
     with pytest.raises(ValueError, match="log-sum-exp"):
         pk.flash_attention_bwd(q, k, v, out, dout,
                                torch.zeros(B, Hq, S, dtype=torch.bfloat16))
+
+
+def test_f32_tensor_core_route_needs_the_forward_lse():
+    B, Hq, Hkv, S, D = 1, 4, 2, 16, 32
+    q, out, dout = (torch.zeros(B, Hq, S, D) for _ in range(3))
+    k, v = (torch.zeros(B, Hkv, S, D) for _ in range(2))
+    assert pk.route_bwd(torch.float32, D, D) == "wgmma_f32"
+    with pytest.raises(ValueError, match="wgmma_f32 route needs"):
+        pk.flash_attention_bwd(q, k, v, out, dout)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        pk.flash_attention_bwd(q, k, v, out, dout, torch.zeros(B, Hq, S + 1))

@@ -511,16 +511,18 @@ def test_flash_attention_kernel_matches_plain(shape, dtype):
 @pytest.mark.parametrize("Sq", [1, 13, 2048])
 @pytest.mark.parametrize("D", [36, 80, 96, 128, 136, 256])
 def test_flash_attention_kernel_head_dims_match_plain(D, Sq, dtype):
-    """Both routes (bf16: tensor cores; float32: CUDA cores) at head dims
-    that are not a multiple of 8 or 64, or span two column tiles, for a
-    decode row, a short prompt and a long one (causal, Sq == Sk; a single
-    query sees 2,048 keys).  D = 36 arrives contiguous, so the wrapper
-    copies it into rows padded to 40 elements first."""
+    """Every route (bf16: tensor cores; float32: tensor cores up to D =
+    128, CUDA cores past it) at head dims that are not a multiple of 8 or
+    64, or span two column tiles, for a decode row, a short prompt and a
+    long one (causal, Sq == Sk; a single query sees 2,048 keys).  D = 36
+    arrives contiguous, so the wrapper copies it into rows padded to 40
+    elements first."""
     dev = cuda_or_skip()
     torch.backends.cuda.matmul.allow_tf32 = False
     Sk = 2048 if Sq == 1 else Sq
     q, k, v = _attn_inputs((1, 8, 2, Sq, Sk, D), dtype, dev, D + Sq)
-    route = "wgmma" if dtype == torch.bfloat16 else "cuda_cores"
+    route = ("wgmma" if dtype == torch.bfloat16
+             else "wgmma_f32" if D <= 128 else "cuda_cores")
     before = attn_ops.ROUTE_LAUNCHES[route]
     got = attn_ops.attention(q, k, v)
     want = attn_ops.attention(q, k, v, backend="torch")
@@ -885,11 +887,11 @@ def test_segmented_cummax_kernel_nan_and_int64_flags_match_plain(case):
                                    (1, 8, 2, 1000, 999, 80)], ids=str)
 def test_flash_attention_kernel_causal_more_queries_than_keys(shape, dtype):
     """Causal with Sq > Sk: rows at negative positions see no key and give
-    the mean of v, on both routes."""
+    the mean of v, on both tensor-core routes."""
     dev = cuda_or_skip()
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = _attn_inputs(shape, dtype, dev, sum(shape))
-    route = "wgmma" if dtype == torch.bfloat16 else "cuda_cores"
+    route = "wgmma" if dtype == torch.bfloat16 else "wgmma_f32"
     before = attn_ops.ROUTE_LAUNCHES[route]
     got = attn_ops.attention(q, k, v)
     want = attn_ops.attention(q, k, v, backend="torch")
@@ -916,16 +918,17 @@ HALF_MIXED = [(torch.float16,) * 3,
 @pytest.mark.parametrize("shape", [(1, 4, 2, 128, 128, 16),
                                    (1, 32, 4, 100, 300, 128)], ids=str)
 def test_flash_attention_kernel_half_and_mixed_dtypes(shape, dtypes):
-    """Read in float32 (exact), the CUDA-core kernel, q's dtype out."""
+    """Read in float32 (exact), the float32 tensor-core kernel (head dims
+    up to 128), q's dtype out."""
     dev = cuda_or_skip()
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = (t.to(d) for t, d in zip(
         _attn_inputs(shape, torch.float32, dev, sum(shape)), dtypes))
-    before = attn_ops.ROUTE_LAUNCHES["cuda_cores"]
+    before = attn_ops.ROUTE_LAUNCHES["wgmma_f32"]
     got = attn_ops.attention(q, k, v)
     want = attn_ops.attention(q, k, v, backend="torch")
     torch.cuda.synchronize()
-    assert attn_ops.ROUTE_LAUNCHES["cuda_cores"] == before + 1
+    assert attn_ops.ROUTE_LAUNCHES["wgmma_f32"] == before + 1
     assert got.dtype == dtypes[0] and want.dtype == dtypes[0]
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
@@ -1066,15 +1069,17 @@ def _grads(q, k, v, dout, causal):
                          ids=str)
 @pytest.mark.parametrize("shape", GRAD_SHAPES, ids=str)
 def test_flash_attention_backward_kernel_matches_plain(shape, dtype):
-    """Both routes against the plain version, reruns bitwise; bf16 with
-    both head dims up to 128 takes the tensor-core route."""
+    """Every route against the plain version, reruns bitwise; both head
+    dims up to 128 take the tensor-core routes (bf16, or float32 by the
+    three-way split), wider heads the CUDA-core route."""
     from repro_torch.kernels.flash_attn import kernel as attn_kernel
     from repro_torch.kernels.flash_attn import ref as attn_ref
     dev = cuda_or_skip()
     B, Hq, Hkv, Sq, Sk, D, Dv, causal = shape
     route = attn_kernel.route_bwd(dtype, D, Dv)
-    assert route == ("wgmma" if dtype == torch.bfloat16 and max(D, Dv) <= 128
-                     else "cuda_cores")
+    assert route == ("cuda_cores" if max(D, Dv) > 128
+                     else "wgmma" if dtype == torch.bfloat16
+                     else "wgmma_f32")
     rng = np.random.default_rng(0)
     q, k, v, dout = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
                      .to(dev, dtype) for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D),
@@ -1158,10 +1163,11 @@ def test_flash_attention_lse_matches_plain(shape):
 
 
 def test_flash_attention_lse_only_on_the_tensor_core_route():
-    """float32 takes the CUDA-core forward, which returns no lse."""
+    """float32 with a head past 128 takes the CUDA-core forward, which
+    returns no lse."""
     from repro_torch.kernels.flash_attn import kernel as attn_kernel
     dev = cuda_or_skip()
-    q = torch.randn(1, 2, 16, 32, device=dev)
+    q = torch.randn(1, 2, 16, 136, device=dev)
     out, lse = attn_kernel.flash_attention(q, q, q, return_lse=True)
     assert lse is None and out.shape == q.shape
 
@@ -1210,3 +1216,121 @@ def test_train_step_on_card_matches_plain(arch):
     assert out["auto"][2] > 0 and out["torch"][2] == 0
     assert abs(out["auto"][0] - out["torch"][0]) <= 1e-5 * out["torch"][0]
     assert abs(out["auto"][1] - out["torch"][1]) <= 1e-4 * out["torch"][1]
+
+
+# ---- the float32 routes on the tensor cores (three bf16 parts, six
+# products): forward, log-sum-exp, backward ------------------------------
+
+# (B, Hq, Hkv, Sq, Sk, D, Dv, causal): GQA, ragged keys, rows that see no
+# key (Sq > Sk), not causal, D = 16, 36, 64, 96, 128, Dv != D.
+F32_TC_SHAPES = [(1, 8, 2, 100, 130, 16, 16, True),
+                 (2, 4, 2, 37, 53, 36, 36, True),
+                 (1, 8, 2, 300, 100, 64, 64, True),
+                 (1, 6, 3, 65, 200, 96, 96, False),
+                 (1, 32, 4, 1025, 1025, 128, 128, True),
+                 (1, 4, 1, 77, 200, 128, 64, True),
+                 (2, 4, 4, 129, 1, 32, 32, True)]
+
+
+def _f32_inputs(shape, seed, dtypes=(torch.float32,) * 4):
+    B, Hq, Hkv, Sq, Sk, D, Dv, _ = shape
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+            .to("cuda", d) for s, d in zip(
+                ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, Dv),
+                 (B, Hq, Sq, Dv)), dtypes)]
+
+
+@pytest.mark.parametrize("shape", F32_TC_SHAPES, ids=str)
+def test_flash_attention_f32_tensor_core_route_matches_plain(shape):
+    """The float32 forward on the tensor cores within the reference's 2e-5
+    of the plain version, its launch counted on ``wgmma_f32``; rows that
+    see no key give the mean of v."""
+    cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Hq, Hkv, Sq, Sk, D, Dv, causal = shape
+    q, k, v, _ = _f32_inputs(shape, 5)
+    before = dict(attn_ops.ROUTE_LAUNCHES)
+    got = attn_ops.attention(q, k, v, causal=causal)
+    want = attn_ops.attention(q, k, v, causal=causal, backend="torch")
+    torch.cuda.synchronize()
+    assert attn_ops.ROUTE_LAUNCHES == {**before, "wgmma_f32":
+                                       before["wgmma_f32"] + 1}
+    assert got.dtype == torch.float32 and got.shape == (B, Hq, Sq, Dv)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    blind = max(Sq - Sk, 0) if causal else 0
+    mean_v = v.mean(dim=2, keepdim=True).repeat_interleave(Hq // Hkv, dim=1)
+    torch.testing.assert_close(got[:, :, :blind],
+                               mean_v.expand(-1, -1, blind, -1), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("shape", F32_TC_SHAPES, ids=str)
+def test_flash_attention_f32_lse_matches_plain(shape):
+    """The float32 tensor-core forward's log-sum-exp (log2 domain) within
+    2e-5 of ``ref.mha_lse`` on the rows that see a key (below -1e29 on
+    those that see none); its output is bitwise the output without it."""
+    from repro_torch.kernels.flash_attn import kernel as attn_kernel
+    from repro_torch.kernels.flash_attn import ref as attn_ref
+    cuda_or_skip()
+    B, Hq, Hkv, Sq, Sk, D, Dv, causal = shape
+    q, k, v = (t if attn_kernel.kernel_ready(t) else attn_kernel.ready_copy(t)
+               for t in _f32_inputs(shape, 6)[:3])
+    plain = attn_kernel.flash_attention(q, k, v, causal=causal)
+    out, lse = attn_kernel.flash_attention(q, k, v, causal=causal,
+                                           return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    _, want = attn_ref.mha_lse(q, k, v, causal=causal)
+    assert lse.dtype == torch.float32 and lse.shape == (B, Hq, Sq)
+    seen = (torch.arange(Sq, device=q.device) + (Sk - Sq) >= 0) if causal \
+        else torch.ones(Sq, dtype=torch.bool, device=q.device)
+    torch.testing.assert_close(lse[..., seen], want[..., seen], rtol=0,
+                               atol=2e-5)
+    assert bool((lse[..., ~seen] < -1e29).all())
+
+
+@pytest.mark.parametrize("dtypes", HALF_MIXED, ids=["float16", "bf16_q",
+                                                    "mixed3"])
+@pytest.mark.parametrize("shape", F32_TC_SHAPES[:2], ids=str)
+def test_flash_attention_f32_route_half_and_mixed_backward(shape, dtypes):
+    """float16 and mixed dtypes read in float32 take both float32
+    tensor-core routes (forward and backward), q's dtype out, each
+    gradient in its input's dtype, within 2e-2 of ``ref.mha_vjp``."""
+    from repro_torch.kernels.flash_attn import ref as attn_ref
+    cuda_or_skip()
+    causal = shape[-1]
+    q, k, v = _f32_inputs(shape, 7, dtypes + (torch.float32,))[:3]
+    dout = _f32_inputs(shape, 8)[3].to(q.dtype)
+    before = (dict(attn_ops.ROUTE_LAUNCHES), dict(attn_ops.BWD_ROUTE_LAUNCHES))
+    got = _grads(q, k, v, dout, causal)
+    assert attn_ops.ROUTE_LAUNCHES["wgmma_f32"] == before[0]["wgmma_f32"] + 1
+    assert (attn_ops.BWD_ROUTE_LAUNCHES["wgmma_f32"]
+            == before[1]["wgmma_f32"] + 1)
+    want = attn_ref.mha_vjp(q, k, v, dout, causal=causal)
+    for t, g, w in zip((q, k, v), got, want):
+        assert g.dtype == t.dtype
+        scale = float(w.float().abs().max()) or 1.0
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2 * scale,
+                                   rtol=2e-2)
+
+
+@pytest.mark.parametrize("shape", F32_TC_SHAPES, ids=str)
+def test_flash_attention_f32_backward_matches_plain_and_reruns_bitwise(shape):
+    """The float32 tensor-core backward within 1e-4 (of each gradient's
+    largest magnitude) of ``ref.mha_vjp``, counted on ``wgmma_f32``, three
+    runs bitwise equal (no atomics, fixed-order sums)."""
+    from repro_torch.kernels.flash_attn import ref as attn_ref
+    cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    causal = shape[-1]
+    q, k, v, dout = _f32_inputs(shape, 9)
+    before = dict(attn_ops.BWD_ROUTE_LAUNCHES)
+    runs = [_grads(q, k, v, dout, causal) for _ in range(3)]
+    assert attn_ops.BWD_ROUTE_LAUNCHES == {**before, "wgmma_f32":
+                                           before["wgmma_f32"] + 3}
+    want = attn_ref.mha_vjp(q, k, v, dout, causal=causal)
+    for i, (g, w) in enumerate(zip(runs[0], want)):
+        assert all(torch.equal(g, r[i]) for r in runs[1:])
+        scale = float(w.abs().max()) or 1.0
+        torch.testing.assert_close(g, w, atol=1e-4 * scale, rtol=1e-4)
