@@ -102,12 +102,13 @@ Phases, each timed on its own line; any failure exits non-zero:
     must render.  Each campaign's wall seconds and dispatch seconds are
     printed;
 11. ``attention_vs_plain``: hold the flash-attention kernels to their plain
-    version (bf16: the tensor-core kernel at atol = rtol = 2e-2; float32:
-    the float32 tensor-core kernel with both head dims up to 128, the
-    CUDA-core kernel past them, at 2e-5; the reference's own tolerances) at Yi-6B's
+    version (bf16: the tensor-core kernel at atol = rtol = 2e-2, the
+    CUDA-core kernel past D = 256; float32: the float32 tensor-core kernel
+    with q's head dim up to 192 and v's width up to 128, the CUDA-core
+    kernel past them, at 2e-5; the reference's own tolerances) at Yi-6B's
     heads (32 query heads, 4 KV heads, D = 128) for S = 1-2,048, two query
     tails, D = 32, 64, 96, Zamba2-2.7B's shared block (32 query and 32 KV
-    heads of D = 80), D = 36, 136 and 256, v of another width than q
+    heads of D = 80), D = 36, 136, 256 and 288, v of another width than q
     and k (MLA's 192/128 among them), causal with more queries than keys
     (the first Sq - Sk rows see no key and give the mean of v) on both
     types, float16 and mixed dtypes (read in float32, a float32 route, at
@@ -119,9 +120,9 @@ Phases, each timed on its own line; any failure exits non-zero:
 12. ``serve_golden``: Yi-6B at full width, 2 layers, float32 (the float32
     attention kernels' path: their launch counts by route,
     ``ops.ROUTE_LAUNCHES``, are set to 0 just before this phase, phase 15
-    and each model of phase 19 and read just after; where every head is
-    up to 128 wide only the float32 tensor-core route may have launched,
-    in MLA's golden (Dk 192) only the CUDA-core one), with the
+    and each model of phase 19 and read just after: only the float32
+    tensor-core route may have launched, MLA's golden (Dk 192) included),
+    with the
     numpy-drawn weights of ``tests/torch_golden/serve_yi6b_l2.json``; two
     prompts (37 and 256 tokens) decoded 4 greedy steps on the card must give
     the golden's tokens and its logits within 1e-3 (CPU JAX made it);
@@ -168,10 +169,12 @@ Phases, each timed on its own line; any failure exits non-zero:
     timed on those inputs in float32, the float32 attention's tensor-core
     kernel at that shape on random float32 inputs, each float32 attention
     row beside its and its plain version's largest distance from float64
-    (``f64_err``, ``plain_f64_err``), the float32 attention's CUDA-core
-    kernels (forward and backward) at MLA's
-    prefill (128 heads, Dk 192, Dv 128, 511 positions: the widest shape
-    that reaches them on the main paths), the SSD
+    (``f64_err``, ``plain_f64_err``), the float32 tensor-core kernels
+    (forward and backward) and the bf16 backward at MLA's prefill (128
+    heads, Dk 192, Dv 128, 511 positions: the widest heads of the main
+    paths; the ``_wide`` rows), the CUDA-core kernels (forward and
+    backward, float32) at ``CUDA_CORE_SHAPE`` (D = 256, past the
+    tensor-core routes of float32 and of the backward), the SSD
     walk with 32 and with 64 P columns a CTA, and ``jsq_scan`` through both
     walks, beside its longest walked prefix and the device time a walked
     step; the launch floor, one 1-element ``add_`` timed the same way; and
@@ -210,8 +213,10 @@ Phases, each timed on its own line; any failure exits non-zero:
     (``csrc/flash_attn_bwd.cu``, through ``ops.attention``'s autograd
     route) to its plain version ``ref.mha_vjp`` (bf16 at 2e-2, float32 at
     1e-4, each of a gradient's largest magnitude: ``ATTN_GRAD_TOL``) at
-    Yi-6B's heads for S = 1-4,096, D = 64, 80, 96, 128 and 256, MLA's
-    192/128 at 128 heads, causal with more queries than keys, ragged keys,
+    Yi-6B's heads for S = 1-4,096, D = 64, 80, 96, 128, 256 and 288 (the
+    last two on the CUDA-core route), MLA's 192/128 at 128 heads and with
+    rows that see no key, D = 160 with Dv = 64, causal with more queries
+    than keys, ragged keys,
     Whisper's encoder and cross attention (not causal), float16 and mixed
     dtypes; each shape twice, the reruns bitwise equal;
 22. ``train_golden``: Yi-6B at full width, 2 layers, float32, numpy
@@ -234,7 +239,11 @@ Phases, each timed on its own line; any failure exits non-zero:
     attention kernel and the peak memory;
 24. ``train_zoo_smoke``: one train step of each family that trains on the
     card (dense, MoE, MLA, VLM, enc-dec) at its smoke config, the kernel
-    path against the plain path;
+    path against the plain path; then DeepSeek-V3's smoke config at its own
+    head widths (rope 64 + nope 128 = Dk 192, Dv 128), one float32 and one
+    bf16 step, each kernel path against the plain path, the attention's
+    forward and backward launches counted by route (all on the tensor
+    cores);
 25. ``train_cli``: ``repro_torch.launch.train.main`` on the card, Yi-6B's
     smoke config for 4 steps, then restarted to 6: it must resume at 4.
 
@@ -560,23 +569,23 @@ def reset_attn_routes():
         counts.update(dict.fromkeys(counts, 0))
 
 
-def f32_routes(tag, wide, bwd=False):
-    """The attention launches by route since ``reset_attn_routes`` (the
-    forward's, or with ``bwd`` (forward, backward)) of a float32 phase
-    whose attention heads are all wider than 128 (``wide``, MLA's Dk of
-    192) or none; fails unless they all took the CUDA-core route or all
-    the float32 tensor-core route."""
+def f32_routes(tag, bwd=False):
+    """The float32 attention launches since ``reset_attn_routes`` (the
+    forward's, or with ``bwd`` (forward, backward)) of a float32 phase,
+    every head of which is within the float32 tensor-core route's limits
+    (MLA's Dk 192 / Dv 128 among them); fails unless they all took that
+    route."""
     from repro_torch.kernels.flash_attn import ops as attn_ops
     got = [dict(attn_ops.ROUTE_LAUNCHES)]
     if bwd:
         got.append(dict(attn_ops.BWD_ROUTE_LAUNCHES))
-    on, off = ("cuda_cores", "wgmma_f32") if wide else ("wgmma_f32",
-                                                          "cuda_cores")
-    check(all(r[on] > 0 and r[off] == 0 and r["wgmma"] == 0 for r in got),
-          f"{tag}: float32 attention launches by route {got}, every head "
-          f"wider than 128: {wide}")
+    check(all(r["wgmma_f32"] > 0 and r["cuda_cores"] == 0 and r["wgmma"] == 0
+              for r in got),
+          f"{tag}: float32 attention launches by route {got}: all must take "
+          f"the float32 tensor-core route")
     print(f"{tag}: float32 attention launches by route {got}", flush=True)
-    return tuple(got) if bwd else got[0]
+    n = [r["wgmma_f32"] for r in got]
+    return tuple(n) if bwd else n[0]
 
 
 def cummax_nan_inputs(case, gen, dev):
@@ -1351,8 +1360,11 @@ def dynamic_phases(tree, dev, errs, launches, slot_launches, golden,
 # ---------------------------------------------------------------------------
 
 # attention_vs_plain shapes (B, Hq, Hkv, Sq, Sk, D): Yi-6B's heads at the
-# prefill lengths of the main path, two query tails, smaller head dims, and
-# Zamba2-2.7B's shared block (32 query and 32 KV heads of D = 80).
+# prefill lengths of the main path, two query tails, smaller head dims,
+# Zamba2-2.7B's shared block (32 query and 32 KV heads of D = 80), and
+# heads past the tensor-core routes (float32 past 192 / 128, bf16 past
+# 256: D = 136, 256 and 288 keep the CUDA-core kernel held to the plain
+# version).
 ATTN_SHAPES = ([(1, 32, 4, S, S, 128)
                 for S in (1, 13, 64, 100, 128, 511, 1000, 1025, 2048)]
                + [(1, 32, 4, 1, 2048, 128), (2, 32, 4, 64, 1000, 128),
@@ -1362,7 +1374,8 @@ ATTN_SHAPES = ([(1, 32, 4, S, S, 128)
                + [(1, 32, 32, 1, 2048, 80)]
                + [(1, 8, 2, 100, 100, 36), (2, 8, 2, 37, 37, 36),
                   (1, 8, 2, 300, 300, 136), (1, 8, 2, 1, 2048, 136),
-                  (1, 8, 2, 2048, 2048, 256), (1, 4, 1, 77, 200, 256)])
+                  (1, 8, 2, 2048, 2048, 256), (1, 4, 1, 77, 200, 256),
+                  (1, 4, 1, 77, 200, 288)])
 # v of another width than q and k, (B, Hq, Hkv, Sq, Sk, D, Dv): MLA's
 # 192/128, a narrower and two wider v (the last past one output tile).
 ATTN_MIXED = ((1, 16, 16, 300, 300, 192, 128), (2, 4, 2, 37, 37, 48, 32),
@@ -1829,9 +1842,34 @@ def campaign_phase():
     return launches
 
 
-# The kernels line's row (and errs key) of each forward route.
-ERR_KEY = {"wgmma": "flash_attention", "wgmma_f32": "flash_attention_f32",
-           "cuda_cores": "flash_attention_f32_cuda_cores"}
+def fwd_row(dtype, D, Dv):
+    """The kernels line's row (and errs key) of the forward that takes
+    (compute dtype, D, Dv): its route, and for the float32 tensor-core
+    route the ``_wide`` row past D = 128 (MLA's Dk of 192).  The CUDA-core
+    kernel's bf16 instance (past D = 256) has an errs key and no row."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as attn_kernel
+    which = attn_kernel.route(dtype, D, Dv)
+    if which == "wgmma":
+        return "flash_attention"
+    if which == "wgmma_f32":
+        return "flash_attention_f32" + ("_wide" if D > 128 else "")
+    return ("flash_attention_f32_cuda_cores" if dtype == torch.float32
+            else "flash_attention_bf16_cuda_cores")
+
+
+def bwd_row(route, D, dtype):
+    """The kernels line's row (and errs key) of a backward on ``route``
+    with q's head dim D in (compute) ``dtype``: the ``_wide`` rows of the
+    tensor-core routes past D = 128.  The CUDA-core kernels' bf16 instance
+    has an errs key and no row."""
+    import torch
+    wide = "_wide" if D > 128 else ""
+    if route == "cuda_cores":
+        return ("flash_attention_bwd_f32_cuda_cores" if dtype == torch.float32
+                else "flash_attention_bwd_bf16_cuda_cores")
+    return {"wgmma": "flash_attention_bwd" + wide,
+            "wgmma_f32": "flash_attention_bwd_f32" + wide}[route]
 
 
 def attention_phase(dev, errs):
@@ -1859,7 +1897,7 @@ def attention_phase(dev, errs):
                                       backend="torch")
             torch.cuda.synchronize()
             err = max_abs_err(got.float(), want.float())
-            key = ERR_KEY[attn_kernel.route(q.dtype, D, Dv)]
+            key = fwd_row(q.dtype, D, Dv)
             errs[key] = max(errs[key], err)
             tol = ATTN_TOL[dt]
             check(got.dtype == q.dtype and got.shape == (B, Hq, Sq, Dv)
@@ -1881,7 +1919,7 @@ def attention_phase(dev, errs):
                                           backend="torch")
                 torch.cuda.synchronize()
                 err = max_abs_err(got.float(), want.float())
-                key = ERR_KEY[attn_kernel.route(q.dtype, D, Dv)]
+                key = fwd_row(q.dtype, D, Dv)
                 errs[key] = max(errs[key], err)
                 tol = ATTN_TOL[dt]
                 check(got.dtype == q.dtype and got.shape == (B, Hq, Sq, Dv)
@@ -2011,7 +2049,7 @@ def serve_golden_phase(dev):
         model, params = golden_model(golden, dev)
         reset_attn_routes()
         golden_runs("serve_golden", golden, model, params, dev)
-        n = f32_routes("serve_golden", wide=False)
+        n = f32_routes("serve_golden")
         del params
         torch.cuda.empty_cache()
     return n
@@ -2035,7 +2073,7 @@ def ssm_golden_phase(dev):
                         params, dev)
             del params
             torch.cuda.empty_cache()
-        n = f32_routes("ssm_serve_golden", wide=False)
+        n = f32_routes("ssm_serve_golden")
         n_ssd = ssd_ops.ROUTE_LAUNCHES["cuda_cores"]
         check(n_ssd > 0, "ssm_serve_golden: the float32 SSD route never ran")
         print(f"ssm_serve_golden: the float32 SSD route launched {n_ssd} "
@@ -2049,11 +2087,11 @@ def zoo_golden_phase(dev):
     layer with the dense MLP, LLaVA-NeXT-34B at 2 layers with 2,880 vision
     embeds, Whisper-small whole with 1,500 frames; full width, float32,
     numpy weights), held to CPU JAX as serve_golden holds Yi-6B.  Returns
-    the float32 attention launches by route, counted from 0 for each model
-    (MLA's Dk of 192 takes the CUDA-core kernel, the rest the tensor-core
-    one)."""
+    the float32 attention launches by row of the ``kernels`` line, counted
+    from 0 for each model, all on the float32 tensor-core route (MLA's Dk
+    of 192 on its ``_wide`` row)."""
     import torch
-    n = {}
+    n = {"flash_attention_f32": 0, "flash_attention_f32_wide": 0}
     with Phase("zoo_serve_golden"):
         for path in ZOO_GOLDENS:
             rec = json.loads(path.read_text())
@@ -2061,8 +2099,8 @@ def zoo_golden_phase(dev):
             tag = f"zoo_serve_golden {rec['arch']} {rec['cut']}"
             reset_attn_routes()
             golden_runs(tag, rec, model, params, dev)
-            for route, count in f32_routes(tag, model.cfg.mla).items():
-                n[route] = n.get(route, 0) + count
+            n["flash_attention_f32" + ("_wide" if model.cfg.mla else "")] \
+                += f32_routes(tag)
             del params
             torch.cuda.empty_cache()
     return n
@@ -2071,7 +2109,7 @@ def zoo_golden_phase(dev):
 def zoo_phases(dev):
     """The rest of the zoo on the card: the float32 goldens, then each
     family's bf16 main path at full width (serve_main_phase).  Returns
-    (float32 attention launches of the goldens by route, bf16 attention
+    (float32 attention launches of the goldens by row, bf16 attention
     launches of the main paths)."""
     import torch
     from repro_torch.configs import get_config
@@ -2450,10 +2488,15 @@ def serve_main_phase(dev, phase, arch, lens, greedy_batch, kernels,
     return launches, recs, profile
 
 
-# The widest shape that reaches the float32 attention's CUDA-core kernels
-# on the main paths (B, Hq, Hkv, Sq, Sk, Dk, Dv): MLA's prefill in the zoo's
-# float32 golden and its gradient (Dk 192 > 128).
+# The widest heads of the main paths (B, Hq, Hkv, Sq, Sk, Dk, Dv): MLA's
+# prefill, which its float32 golden, its train steps at Dk 192 and their
+# gradients give the tensor-core kernels' wide instances (the ``_wide``
+# rows).
 MLA_F32_SHAPE = (1, 128, 128, 511, 511, 192, 128)
+# The CUDA-core kernels' rows: D = Dv = 256 at MLA's prefill length, past
+# the float32 routes' and the backward's tensor-core limits (192 / 128);
+# no main path reaches them.
+CUDA_CORE_SHAPE = (1, 16, 16, 511, 511, 256, 256)
 
 
 def attention_timing(rec, errs, launches, f32_launches):
@@ -2462,32 +2505,40 @@ def attention_timing(rec, errs, launches, f32_launches):
     kernel on it and the float32 tensor-core kernel at the same shape on
     random float32 inputs (bf16 values would leave the lower two of the
     three bf16 parts it splits each operand into zero); the float32
-    CUDA-core kernel at MLA_F32_SHAPE (random inputs); each beside its
+    tensor-core kernel at MLA_F32_SHAPE (``_wide``) and the float32
+    CUDA-core kernel at CUDA_CORE_SHAPE (random inputs); each beside its
     plain version and one SDPA call.  ``f32_launches``: the float32
-    main-path launches by route."""
+    tensor-core launches of the serving goldens (head dims up to 128; the
+    other rows' launches are added after the zoo and training phases)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import ops as attn_ops
     (q0, k0, v0), kw = rec.largest
     kw = {key: val for key, val in kw.items() if key != "backend"}
     gen = torch.Generator().manual_seed(3)
-    B, Hq, Hkv, Sq, Sk, D, Dv = MLA_F32_SHAPE
-    mla = [torch.randn(sh, generator=gen).to(q0.device) for sh in (
-        (B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, Dv))]
+    def draw(B, Hq, Hkv, Sq, Sk, D, Dv):
+        return [torch.randn(sh, generator=gen).to(q0.device) for sh in (
+            (B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, Dv))]
+    mla = draw(*MLA_F32_SHAPE)
     f32 = [torch.randn(t.shape, generator=gen).to(t.device)
            for t in (q0, k0, v0)]
+    cc = draw(*CUDA_CORE_SHAPE)
     rows = []
     for name, kernel_re, dtype, n, qkv in (
             ("flash_attention", r"flash_attention_wgmma_kernel",
              torch.bfloat16, launches, (q0, k0, v0)),
             ("flash_attention_f32", r"flash_attention_f32_kernel",
-             torch.float32, f32_launches["wgmma_f32"], f32),
+             torch.float32, f32_launches, f32),
+            ("flash_attention_f32_wide", r"flash_attention_f32_kernel",
+             torch.float32, 0, mla),
             ("flash_attention_f32_cuda_cores",
-             r"\bflash_attention_kernel<float>", torch.float32,
-             f32_launches["cuda_cores"], mla)):
+             r"\bflash_attention_kernel<float>", torch.float32, 0, cc)):
         q, k, v = (t.to(dtype) for t in qkv)
         B, Hq, Sq, D = q.shape
         Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
+        check(fwd_row(dtype, D, Dv) == name,
+              f"{name}: {tuple(q.shape)} takes the {fwd_row(dtype, D, Dv)} "
+              f"row's kernel")
         got = attn_ops.attention(q, k, v, **kw)
         want = attn_ops.attention(q, k, v, backend="torch", **kw)
         tol = ATTN_TOL[str(dtype).split(".")[-1]]
@@ -2539,8 +2590,9 @@ def attention_timing(rec, errs, launches, f32_launches):
         rows.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/" + (
-                "flash_attn_f32.cu" if name == "flash_attention_f32"
-                else "flash_attn.cu"),
+                "flash_attn.cu" if name in ("flash_attention",
+                                            "flash_attention_f32_cuda_cores")
+                else "flash_attn_f32.cu"),
             replaces="src/repro/kernels/flash_attn/kernel.py:72",
             launches=n, max_abs_err=err, ms=ms, device_ms=dev_ms,
             plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
@@ -2549,7 +2601,7 @@ def attention_timing(rec, errs, launches, f32_launches):
             shape=[B, Hq, Hkv, Sq, Sk, D] + ([Dv] if Dv != D else []),
             **f64))
         del q, k, v, got, want
-    del mla, f32
+    del mla, cc, f32
     return rows
 
 
@@ -2754,9 +2806,11 @@ TRAIN_OUT = ROOT / "build" / "chip_smoke_train"
 # shared block), 96 (Phi-3-mini), MLA's 192/128 at DeepSeek-V3's 128 heads,
 # causal with more queries than keys (rows that see no key), ragged keys,
 # an odd depth, D = 256, Whisper's encoder and cross attention (not
-# causal) and Dv != D without the mask; then float16 and mixed dtypes
-# (HALF_MIXED) at two shapes.  bf16 with D, Dv <= 128 takes the backward's
-# tensor-core route, the rest its CUDA-core route (kernel.route_bwd).
+# causal) and Dv != D without the mask, MLA's heads with rows that see no
+# key, D = 160 with Dv = 64, and D = 288 (past the tensor-core routes, as
+# D = 256 is); then float16 and mixed dtypes (HALF_MIXED) at two shapes.
+# Both types with D <= 192 and Dv <= 128 take the backward's tensor-core
+# routes, the rest its CUDA-core route (kernel.route_bwd).
 ATTN_GRAD_SHAPES = (
     [(1, 32, 4, S, S, 128, 128, True) for S in (1, 13, 100, 1025, 4096)]
     + [(2, 8, 2, 300, 300, 64, 64, True),
@@ -2771,7 +2825,10 @@ ATTN_GRAD_SHAPES = (
        (1, 12, 12, 1500, 1500, 64, 64, False),
        (2, 12, 12, 1, 1500, 64, 64, False),
        (1, 12, 12, 37, 1500, 64, 64, False),
-       (1, 8, 2, 200, 300, 96, 64, False)])
+       (1, 8, 2, 200, 300, 96, 64, False),
+       (1, 2, 1, 160, 128, 192, 128, True),
+       (1, 4, 2, 77, 200, 160, 64, False),
+       (1, 4, 1, 64, 64, 288, 128, True)])
 ATTN_GRAD_HALF = ((1, 4, 2, 128, 128, 16, 16, True),
                   (1, 32, 4, 100, 300, 128, 128, True))
 # Each gradient within atol = TOL x its largest magnitude and rtol = TOL of
@@ -2829,6 +2886,11 @@ TRAIN_GNORM_RTOL = 1e-3
 TRAIN_ZOO = ("yi-6b", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
              "llava-next-34b", "whisper-small")
 ZOO_LOSS_RTOL, ZOO_GNORM_RTOL = 1e-5, 1e-4
+# DeepSeek-V3's own attention heads (configs/deepseek_v3_671b.py: rope 64 +
+# nope 128 = Dk 192, Dv 128) on its smoke config, whose heads are cut to
+# 16 + 32 / 32: the MLA train steps of train_zoo_smoke at the widths that
+# take the wide tensor-core instances.
+ZOO_WIDE_HEADS = dict(rope_head_dim=64, nope_head_dim=128, v_head_dim=128)
 
 
 class AttnClock:
@@ -2925,13 +2987,8 @@ def attention_grad_phase(dev, errs):
                                          (B, Hkv, Sk, Dv)), dts))
             dout = torch.randn((B, Hq, Sq, Dv), generator=gen).to(dev,
                                                                   q.dtype)
-            route = ("cuda_cores" if max(D, Dv) > 128
-                     else "wgmma" if dts == ("bfloat16",) * 3
-                     else "wgmma_f32")
-            check(attn_kernel.route_bwd(attn_kernel.compute_dtype(q, k, v),
-                                        D, Dv) == route,
-                  f"flash_attention_bwd {shape} {dts}: route_bwd is not "
-                  f"{route}")
+            route = attn_kernel.route_bwd(attn_kernel.compute_dtype(q, k, v),
+                                          D, Dv)
             got = attention_grads(q, k, v, dout, causal, route)
             again = attention_grads(q, k, v, dout, causal, route)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -2942,10 +2999,7 @@ def attention_grad_phase(dev, errs):
             err = max(max_abs_err(g.float(), w.float())
                       for g, w in zip(got, want))
             if len(set(dts)) == 1 and dts[0] in ATTN_GRAD_TOL:
-                key = {"wgmma": "flash_attention_bwd",
-                       "wgmma_f32": "flash_attention_bwd_f32",
-                       "cuda_cores": "flash_attention_bwd_f32_cuda_cores"}[
-                           route]
+                key = bwd_row(route, D, q.dtype)
                 errs[key] = max(errs[key], err)
             check(same, f"flash_attention_bwd {shape} {dts}: two runs differ")
             check(grads_close(got, want, tol),
@@ -3255,36 +3309,49 @@ def train_main_phase(dev):
     return fwd, bwd, records
 
 
+def zoo_step(cfg, dev):
+    """One train step of ``cfg`` (4 sequences of 64 tokens, the same
+    weights) through the kernels and through the plain path: {backend:
+    (loss, gradient norm, forward launches, backward launches)}."""
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.models.registry import Model
+    from repro_torch.train import train_step as ts
+    batches = train_batches(cfg, 64, 4, dev)
+    out = {}
+    for backend in ("auto", "torch"):
+        model = Model(cfg, backend=backend)
+        params = model.init_params(0, device=dev)
+        tcfg = ts.TrainConfig()
+        state = ts.make_train_state(model, params, tcfg)
+        before = (attn_ops.LAUNCHES, attn_ops.BWD_LAUNCHES)
+        _, m = ts.build_train_step(model, tcfg)(state, batches(0))
+        out[backend] = (float(m["loss"]), float(m["grad_norm"]),
+                        attn_ops.LAUNCHES - before[0],
+                        attn_ops.BWD_LAUNCHES - before[1])
+    return out
+
+
 def train_zoo_phase(dev):
     """train_zoo_smoke: one train step of each family in TRAIN_ZOO at its
     smoke config (float32) through the kernels and through the plain path
     from the same weights; loss and gradient norm within ZOO_*_RTOL, and
-    the forward and backward kernels launched.  Returns the float32
-    attention kernels' (forward, backward) launches."""
+    the forward and backward kernels launched, all on the float32
+    tensor-core route.  Then DeepSeek-V3's smoke config at its own head
+    widths (ZOO_WIDE_HEADS: Dk 192, Dv 128), one step in float32 (within
+    ZOO_*_RTOL) and one in bf16 (within TRAIN_LOSS_ATOL and
+    TRAIN_GNORM_RTOL, the bf16 main path's), each with its attention
+    launches by route counted from 0: all on the tensor-core routes.
+    Returns the attention launches by row of the ``kernels`` line."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attn import ops as attn_ops
-    from repro_torch.models.registry import Model
-    from repro_torch.train import train_step as ts
-    total = [0, 0]
+    rows = {}
     with Phase("train_zoo_smoke"):
+        reset_attn_routes()
         for arch in TRAIN_ZOO:
             cfg = get_config(arch, smoke=True)
-            batches = train_batches(cfg, 64, 4, dev)
-            out = {}
-            for backend in ("auto", "torch"):
-                model = Model(cfg, backend=backend)
-                params = model.init_params(0, device=dev)
-                tcfg = ts.TrainConfig()
-                state = ts.make_train_state(model, params, tcfg)
-                before = (attn_ops.LAUNCHES, attn_ops.BWD_LAUNCHES)
-                _, m = ts.build_train_step(model, tcfg)(state, batches(0))
-                out[backend] = (float(m["loss"]), float(m["grad_norm"]),
-                                attn_ops.LAUNCHES - before[0],
-                                attn_ops.BWD_LAUNCHES - before[1])
+            out = zoo_step(cfg, dev)
             (lk, gk, fk, bk), (lp, gp, fp, bp) = out["auto"], out["torch"]
-            total[0] += fk
-            total[1] += bk
             check(fk > 0 and bk > 0 and fp == 0 and bp == 0,
                   f"train_zoo_smoke {arch}: kernel launches {fk}/{bk}, "
                   f"plain {fp}/{bp}")
@@ -3296,7 +3363,44 @@ def train_zoo_phase(dev):
                   f"vs plain {lp:.6f}, grad_norm {gk:.6f} vs {gp:.6f}; "
                   f"flash_attention forward {fk}, backward {bk} launches",
                   flush=True)
-    return tuple(total)
+        rows["flash_attention_f32"], rows["flash_attention_bwd_f32"] = \
+            f32_routes("train_zoo_smoke", bwd=True)
+        t0 = time.perf_counter()
+        wide = dataclasses.replace(get_config("deepseek-v3-671b", smoke=True),
+                                   **ZOO_WIDE_HEADS)
+        for dtype, route, ltol, grtol in (
+                ("float32", "wgmma_f32", None, ZOO_GNORM_RTOL),
+                ("bfloat16", "wgmma", TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL)):
+            cfg = dataclasses.replace(wide, dtype=dtype)
+            reset_attn_routes()
+            out = zoo_step(cfg, dev)
+            (lk, gk, fk, bk), (lp, gp, fp, bp) = out["auto"], out["torch"]
+            got = (dict(attn_ops.ROUTE_LAUNCHES),
+                   dict(attn_ops.BWD_ROUTE_LAUNCHES))
+            check(all(r[route] > 0 and sum(r.values()) == r[route]
+                      for r in got) and got[0][route] == fk
+                  and got[1][route] == bk and fp == 0 and bp == 0,
+                  f"train_zoo_smoke {cfg.name} Dk 192 {dtype}: attention "
+                  f"launches by route {got} (kernel {fk}/{bk}, plain "
+                  f"{fp}/{bp}); all must take the {route} route")
+            loss_ok = (abs(lk - lp) <= ZOO_LOSS_RTOL * abs(lp)
+                       if ltol is None else abs(lk - lp) <= ltol)
+            check(loss_ok and abs(gk - gp) <= grtol * gp,
+                  f"train_zoo_smoke {cfg.name} Dk 192 {dtype}: kernel loss "
+                  f"{lk} grad_norm {gk}, plain {lp} {gp}")
+            print(f"train_zoo_smoke {cfg.name} at Dk 192 / Dv 128, {dtype}: "
+                  f"loss {lk:.6f} vs plain {lp:.6f}, grad_norm {gk:.6f} vs "
+                  f"{gp:.6f}; flash_attention launches by route (forward, "
+                  f"backward) {got}", flush=True)
+            if dtype == "float32":
+                rows["flash_attention_f32_wide"] = fk
+                rows["flash_attention_bwd_f32_wide"] = bk
+            else:
+                rows["flash_attention"] = fk
+                rows["flash_attention_bwd_wide"] = bk
+        print(f"train_zoo_smoke: the two steps at Dk 192 in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
 
 
 def train_cli_phase():
@@ -3329,15 +3433,17 @@ def train_cli_phase():
 def attention_bwd_timing(errs, n_micro):
     """The backward kernel's rows of the ``kernels`` line, given the
     forward's log-sum-exp as autograd gives it: the bf16 and float32
-    tensor-core routes at the training main path's shape and the float32
-    CUDA-core route at MLA_F32_SHAPE (random inputs): the wrapper's ms
-    (CUDA events), the device ms of its launches (four on the tensor-core
-    routes, three on the CUDA-core route; profiler, None unless a trace
-    holds all of them), the plain version (``ref.mha_vjp``), the backward
-    of one SDPA call (the library's time), and the bound: the backward's
-    five products (S and dP again, dV, dQ, dK) at the card's rate for the
-    type (float32: FP32_SPLIT_FLOP_PER_S), or its bytes (q, k, v, out and
-    dout read once, dq, dk, dv written once) at 3.35 TB/s."""
+    tensor-core routes at the training main path's shape and at
+    MLA_F32_SHAPE (the ``_wide`` rows), and the float32 CUDA-core route at
+    CUDA_CORE_SHAPE (random inputs): the wrapper's ms (CUDA events), the
+    device ms of its launches (four on the tensor-core routes, three at D
+    > 128 with a group of one head, as at MLA's, and on the CUDA-core route;
+    profiler, None unless a trace holds all of them), the plain version
+    (``ref.mha_vjp``), the backward of one SDPA call (the library's time),
+    and the bound: the backward's five products (S and dP again, dV, dQ,
+    dK) at the card's rate for the type (float32: FP32_SPLIT_FLOP_PER_S),
+    or its bytes (q, k, v, out and dout read once, dq, dk, dv written once)
+    at 3.35 TB/s."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import kernel as attn_kernel
@@ -3347,18 +3453,24 @@ def attention_bwd_timing(errs, n_micro):
     rows = []
     train = [torch.randn(s, generator=gen) for s in (
         (B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D), (B, Hq, S, D))]
-    B_, Hq_, Hkv_, S_, _, D_, Dv_ = MLA_F32_SHAPE
-    mla = [torch.randn(s, generator=gen) for s in (
-        (B_, Hq_, S_, D_), (B_, Hkv_, S_, D_), (B_, Hkv_, S_, Dv_),
-        (B_, Hq_, S_, Dv_))]
+    def draw(B_, Hq_, Hkv_, S_, _, D_, Dv_):
+        return [torch.randn(s, generator=gen) for s in (
+            (B_, Hq_, S_, D_), (B_, Hkv_, S_, D_), (B_, Hkv_, S_, Dv_),
+            (B_, Hq_, S_, Dv_))]
+    mla = draw(*MLA_F32_SHAPE)
+    cc = draw(*CUDA_CORE_SHAPE)
     for name, dtype, base in (
             ("flash_attention_bwd", torch.bfloat16, train),
             ("flash_attention_bwd_f32", torch.float32, train),
-            ("flash_attention_bwd_f32_cuda_cores", torch.float32, mla)):
+            ("flash_attention_bwd_wide", torch.bfloat16, mla),
+            ("flash_attention_bwd_f32_wide", torch.float32, mla),
+            ("flash_attention_bwd_f32_cuda_cores", torch.float32, cc)):
         q, k, v, dout = (t.to("cuda", dtype) for t in base)
         B, Hq, S, D = q.shape
         Hkv, Dv = k.shape[1], v.shape[-1]
         route = attn_kernel.route_bwd(dtype, D, Dv)
+        check(bwd_row(route, D, dtype) == name,
+              f"{name}: {tuple(q.shape)} takes the {route} route")
         out, lse = attn_kernel.flash_attention(q, k, v, causal=True,
                                                return_lse=True)
         got = attn_kernel.flash_attention_bwd(q, k, v, out, dout, lse)
@@ -3380,9 +3492,11 @@ def attention_bwd_timing(errs, n_micro):
             return attn_kernel.flash_attention_bwd(q, k, v, out, dout, lse)
         ms = cuda_ms(call, 5)
         # launches a call: delta, dK/dV, dQ and the group's sum of dK/dV
-        # (tensor-core routes); the row statistics, dQ, dK/dV (CUDA cores)
+        # (tensor-core routes; no sum at D > 128 with a group of one query
+        # head, MLA's); the row statistics, dQ, dK/dV (CUDA cores)
         dev_ms = device_ms(call, 5, r"attn_bwd_",
-                           per_call=3 if route == "cuda_cores" else 4)
+                           per_call=3 if route == "cuda_cores"
+                           or (D > 128 and Hq == Hkv) else 4)
         plain_ms = cuda_ms(lambda: attn_ref.mha_vjp(q, k, v, dout), 2)
         qc, kc, vc = (t.detach().clone().requires_grad_(True) for t in (
             q, k.repeat_interleave(Hq // Hkv, dim=1),
@@ -3425,28 +3539,23 @@ def attention_bwd_timing(errs, n_micro):
 def training_phases(dev, errs):
     """The training phases, in order; returns the attention kernels'
     launches on their main-path runs: {kernel row name: launches} (bf16:
-    the training main path; float32, by route: the golden and the zoo
-    smoke steps, whose heads are all up to 128 and so all take the float32
-    tensor-core route)."""
+    the training main path and the wide bf16 zoo step; float32: the golden
+    and the zoo smoke steps, all on the float32 tensor-core route, the
+    ``_wide`` rows at Dk 192)."""
     import torch
     attention_grad_phase(dev, errs)
     torch.cuda.empty_cache()
     reset_attn_routes()
     train_golden_phase(dev)
-    f32 = [f32_routes("train_golden", wide=False, bwd=True)]
+    out = dict(zip(("flash_attention_f32", "flash_attention_bwd_f32"),
+                   f32_routes("train_golden", bwd=True)))
     fwd, bwd, _ = train_main_phase(dev)
-    reset_attn_routes()
-    train_zoo_phase(dev)
-    f32.append(f32_routes("train_zoo_smoke", wide=False, bwd=True))
+    out["flash_attention"] = fwd
+    out["flash_attention_bwd"] = bwd
+    for row, n in train_zoo_phase(dev).items():
+        out[row] = out.get(row, 0) + n
     train_cli_phase()
     torch.cuda.empty_cache()
-    out = {"flash_attention": fwd, "flash_attention_bwd": bwd}
-    for routes in f32:
-        for row, counts in zip(("flash_attention", "flash_attention_bwd"),
-                               routes):
-            for route, suffix in (("wgmma_f32", "_f32"),
-                                  ("cuda_cores", "_f32_cuda_cores")):
-                out[row + suffix] = out.get(row + suffix, 0) + counts[route]
     return out
 
 
@@ -3491,11 +3600,14 @@ def main() -> int:
     prop_slots = 0.5e-6 / (4178 * 8 / 800e9)
     check(prop_slots == golden["prop_slots"], "prop_slots differs from golden")
     errs = {"segmented_cummax": 0.0, "jsq_scan": 0.0, "flash_attention": 0.0,
-            "flash_attention_f32": 0.0,
-            "flash_attention_f32_cuda_cores": 0.0, "ssd_scan": 0.0,
+            "flash_attention_f32": 0.0, "flash_attention_f32_wide": 0.0,
+            "flash_attention_f32_cuda_cores": 0.0,
+            "flash_attention_bf16_cuda_cores": 0.0, "ssd_scan": 0.0,
             "ssd_scan_f32": 0.0, "flash_attention_bwd": 0.0,
-            "flash_attention_bwd_f32": 0.0,
-            "flash_attention_bwd_f32_cuda_cores": 0.0}
+            "flash_attention_bwd_f32": 0.0, "flash_attention_bwd_wide": 0.0,
+            "flash_attention_bwd_f32_wide": 0.0,
+            "flash_attention_bwd_f32_cuda_cores": 0.0,
+            "flash_attention_bwd_bf16_cuda_cores": 0.0}
 
     with Phase("build"):
         for name, log in _build.build_all().items():
@@ -3655,7 +3767,7 @@ def main() -> int:
         {"flash_attention": get_config("yi-6b").n_layers})
     ssd_phase(dev, errs)
     n_attn, ssd_f32_launches = ssm_golden_phase(dev)
-    f32_launches = {r: f32_launches[r] + n_attn[r] for r in f32_launches}
+    f32_launches += n_attn
     zcfg, mcfg = get_config("zamba2-2.7b"), get_config("mamba2-130m")
     z_launches, z_recs, z_profile = serve_main_phase(
         dev, "ssm_serve_main_path zamba2-2.7b", zcfg.name, SERVE_LENS,
@@ -3792,9 +3904,7 @@ def main() -> int:
     del yi_profile, z_profile, m_profile, yi_recs, z_recs, m_recs, ssd_rec
     zoo_f32, zoo_bf16 = zoo_phases(dev)
     train = training_phases(dev, errs)
-    zoo = {"flash_attention": zoo_bf16,
-           "flash_attention_f32": zoo_f32["wgmma_f32"],
-           "flash_attention_f32_cuda_cores": zoo_f32["cuda_cores"]}
+    zoo = {"flash_attention": zoo_bf16, **zoo_f32}
     for k in kernels:
         k["launches"] += zoo.get(k["name"], 0) + train.get(k["name"], 0)
         if k["name"].startswith("flash_attention_bwd"):
@@ -3802,16 +3912,17 @@ def main() -> int:
     print(f"flash_attention launches with the zoo's and training's: zoo "
           f"{zoo}, training {train}", flush=True)
     # The float32 tensor-core kernels ran on the main paths (the goldens
-    # and the float32 train steps), and so did the CUDA-core forward
-    # (MLA's golden, Dk 192); no main path reaches the CUDA-core backward
-    # (the float32 train steps' heads are up to 128), whose row is timed
-    # at MLA_F32_SHAPE all the same.
+    # and the float32 train steps), their wide instances too (MLA's golden
+    # and the train steps at Dk 192), and the bf16 backward's wide instance
+    # (the bf16 step at Dk 192); no main path reaches the CUDA-core kernels
+    # (every head of the zoo is within the tensor-core routes), whose rows
+    # are timed at CUDA_CORE_SHAPE all the same.
     launched = {k["name"]: k["launches"] for k in kernels}
     check(all(launched[n] > 0 for n in (
               "flash_attention_f32", "flash_attention_bwd_f32",
-              "flash_attention_f32_cuda_cores")),
-          f"a float32 attention kernel never launched on a main path: "
-          f"{launched}")
+              "flash_attention_f32_wide", "flash_attention_bwd_f32_wide",
+              "flash_attention_bwd_wide")),
+          f"an attention kernel never launched on a main path: {launched}")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,35 @@ __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
+__device__ __forceinline__ void store2(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+
+// Row i (0: the thread's row g, 1: g + 8) of a wgmma accumulator fragment
+// of W columns (acc[4 n + 2 i + j] is column 8 n + 2 q4 + j), times mul,
+// into row[0, n_cols); pair: the columns two at a time (n_cols even, the
+// row aligned to two elements).
+template <int W, typename T>
+__device__ __forceinline__ void store_frag_row(T* row,
+                                               const float (&acc)[W / 2],
+                                               int i, int q4, int n_cols,
+                                               float mul, int pair) {
+#pragma unroll
+  for (int n = 0; n < W / 8; ++n) {
+    const int col = 8 * n + 2 * q4;
+    const float x0 = acc[4 * n + 2 * i] * mul;
+    const float x1 = acc[4 * n + 2 * i + 1] * mul;
+    if (pair && col < n_cols) {
+      store2(row + col, x0, x1);
+    } else {
+      if (col < n_cols) store1(row + col, x0);
+      if (col + 1 < n_cols) store1(row + col + 1, x1);
+    }
+  }
+}
 
 // The strides of the eight tensors, (batch, head, position) each, in the
 // order q, k, v, o, dout, dq, dk, dv.
@@ -57,7 +86,8 @@ attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 // dK and dV: the sum of the group's query heads' partials in head order,
-// stored as T (bf16 or float).
+// stored as T (bf16 or float).  Not launched at D = 192 for a group of one
+// head (MLA): the dK/dV kernels store dK and dV themselves.
 template <typename T>
 __global__ void __launch_bounds__(256)
 attn_bwd_dkv_reduce_kernel(const float* __restrict__ wk,

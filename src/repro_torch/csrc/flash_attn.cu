@@ -1,6 +1,7 @@
 // Causal GQA flash attention (forward) for the H100 (sm_90a): a bf16
 // tensor-core kernel (wgmma + TMA) and a CUDA-core kernel for float32 past
-// the head dims of the float32 tensor-core kernel (flash_attn_f32.cu).
+// the head dims of the float32 tensor-core kernel (flash_attn_f32.cu: D <=
+// 192, Dv <= 128) and bf16 past D = 256.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attn/kernel.py:
 // flash_attention (def at :72, pallas_call at :103, body _attn_kernel at
@@ -67,11 +68,12 @@
 // persistent grid, and fp8.
 //
 // flash_attention_f32_kernel (csrc/flash_attn_f32.cu, a library of its own
-// so that it compiles beside this one): float32 with D, Dv <= 128 on the
-// bf16 tensor cores at float32 accuracy.
+// so that it compiles beside this one): float32 with D <= 192 and Dv <= 128
+// (MLA's Dk of 192 among them) on the bf16 tensor cores at float32
+// accuracy.
 //
-// flash_attention_kernel: float32 with D or Dv past 128 and bf16 with D >
-// 256, on the float32 CUDA cores (67 TFLOP/s peak).  One block of 256
+// flash_attention_kernel: float32 with D past 192 or Dv past 128 and bf16
+// with D > 256, on the float32 CUDA cores (67 TFLOP/s peak).  One block of 256
 // threads per (query tile of 64, column
 // tile of 128, query head, batch).  The logits are summed over D in chunks
 // of 128 columns: the query chunk lives in shared memory as float,

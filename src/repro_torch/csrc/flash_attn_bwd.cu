@@ -1,10 +1,11 @@
 // Backward pass of causal GQA flash attention for the H100 (sm_90a): dQ, dK
 // and dV of repro_torch/kernels/flash_attn/ref.py:mha, for every input the
 // forward kernels (csrc/flash_attn.cu) take, on three routes
-// (kernels/flash_attn/kernel.py:route_bwd): with D and Dv <= 128, bf16 on
-// the tensor cores (wgmma + TMA) and float32 on the tensor cores at float32
-// accuracy (three bf16 parts of each operand, six products); wider heads
-// on the float32 CUDA cores.
+// (kernels/flash_attn/kernel.py:route_bwd): with D <= 192 and Dv <= 128
+// (every head of the repo's models, DeepSeek-V3's MLA at Dk 192 / Dv 128
+// among them), bf16 on the tensor cores (wgmma + TMA) and float32 on the
+// tensor cores at float32 accuracy (three bf16 parts of each operand, six
+// products); wider heads on the float32 CUDA cores.
 //
 // It replaces no TPU kernel.  The reference's training step reaches the
 // Pallas kernel repro/kernels/flash_attn/kernel.py:flash_attention (def at
@@ -43,16 +44,18 @@
 // 344 GFLOP take 5.13 ms on the CUDA cores (67 TFLOP/s) and 2.09 ms at the
 // float32-accurate tensor-core rate (989 / 6 = 165 TFLOP/s); bytes 0.090.
 //
-// bf16 route (D, Dv <= 128: Yi-6B, Qwen3-MoE, Phi-3, Zamba2, Whisper), four
-// launches, FlashAttention-2's deterministic split:
+// bf16 route (D <= 192, Dv <= 128: Yi-6B, Qwen3-MoE, Phi-3, Zamba2,
+// Whisper, DeepSeek-V3's MLA), four launches, FlashAttention-2's
+// deterministic split:
 //   1. attn_bwd_delta_kernel: delta = rowsum(dO * O) in float32, a warp a
 //      row.  The rows' log-sum-exp comes from the forward, which writes it
 //      when autograd asks (ops.FlashAttention; log2 domain).
 //   2. attn_bwd_dkv_wgmma_kernel, a CTA per (key tile of 128, query head,
 //      batch), key tiles heaviest first: K and V stay in shared memory; a
 //      producer warpgroup (one warp of it works) streams, by TMA into a
-//      two-stage ring, the Q and dO tiles of 64 queries that reach the key
-//      tile (and writes their lse and delta beside them); two consumer
+//      two-stage ring, the Q and dO tiles of 64 queries (32 at D = 192)
+//      that reach the key tile (and writes their lse and delta beside
+//      them); two consumer
 //      warpgroups of 64 keys each run
 //        S^T = K Q^T (wgmma, both from shared memory),
 //        P^T = exp2(S^T scale log2(e) - lse) (bf16 in registers),
@@ -62,11 +65,16 @@
 //      and write dK (times scale) and dV as float32 partials of the head.
 //   3. attn_bwd_dq_wgmma_kernel, a CTA per (query tile of 128, query head,
 //      batch), the tiles that see most keys first: Q and dO stay in shared
-//      memory; the producer streams K and V tiles of 64 keys; each consumer
-//      warpgroup (64 rows) runs S = Q K^T and dP = dO V^T (wgmma), dS in
-//      registers, dQ += dS K (wgmma), and stores dQ times scale in bf16.
+//      memory; the producer streams K and V tiles of 64 keys (32 at D =
+//      192); each consumer warpgroup (64 rows) runs S = Q K^T and dP = dO
+//      V^T (wgmma), dS in registers, dQ += dS K (wgmma), and stores dQ
+//      times scale in bf16.
 //   4. attn_bwd_dkv_reduce_kernel: dK and dV, each the sum of its group's
-//      float32 partials in head order, stored in bf16.
+//      float32 partials in head order, stored in bf16.  At D = 192 a group
+//      of one query head (MLA) has no sum to take: the dK/dV kernel stores
+//      dK and dV itself and this launch, and the partials' float32 round
+//      trip through device memory, are left out (three launches).  The
+//      instances up to D = 128 keep the sum (their design is unchanged).
 // Seven products where the bound counts five (S and dP twice), and no
 // atomics.  GQA: a CTA per (key tile, KV head) would give Yi-6B's
 // microbatch 128 CTAs for 132 SMs, and under the causal mask the first key
@@ -88,19 +96,31 @@
 // dK/dV CTA has 384 threads and the producer warpgroup hands its
 // registers to the consumers (setmaxnreg: 40 and 232 a thread), as FA3
 // does; the dQ kernel (64 accumulators) keeps 288 threads and 168.
+// At DeepSeek-V3's MLA heads (Dk 192, Dv 128; DPC = 3) a dK/dV consumer
+// thread holds 96 + 64 accumulators of dK and dV: beside them, a 64-query
+// tile's S^T or dP^T (32 registers) and P^T (16) would need 208 of the
+// 232, and the dQ kernel's 96 accumulators beside S, dP (32 each) and dS
+// (16) 176 of its 168.  So at DPC = 3 both kernels stream tiles of 32
+// rows (stream_rows): S^T and dP^T are m64n32 products, 16 registers each,
+// and dV's and dK's products two k-steps of 16 queries a tile (dK an
+// m64n192 product from registers).  Shared memory at (192, 128): 121 KB
+// (dK/dV), 121 KB (dQ).  At its prefill shape, (1, 128, 128, 511, 511),
+// causal, the backward's five products are 27.9 GFLOP (0.028 ms at 989
+// TFLOP/s) and its bytes 167 MB (0.050 ms): bytes bound it.  Heads past
+// (192, 128) (D = 256: dK and dV alone would take 256 registers) take the
+// CUDA-core route.
 // Not yet done: overlapping the products with the softmax (ping-pong
 // consumers, the next tile's S^T issued before this one's dS^T), dQ in the
-// same pass (FA3's semaphore-ordered dQ accumulation), a persistent grid,
-// heads past 128 (DeepSeek-V3's MLA, Dk 192 / Dv 128) on this route.
+// same pass (FA3's semaphore-ordered dQ accumulation), a persistent grid.
 //
-// float32 route (D, Dv <= 128): csrc/flash_attn_bwd_f32.cu, a library of
-// its own (so that nvcc builds it beside this one) with the same four
+// float32 route (D <= 192, Dv <= 128): csrc/flash_attn_bwd_f32.cu, a
+// library of its own (so that nvcc builds it beside this one) with the four
 // launches on the float32 tensor-core arithmetic; it shares delta and the
 // group's sum with this file (attn_bwd.cuh).
 //
-// CUDA-core route (float32 and bf16 heads past 128), three launches, each
-// a grid of blocks of 256 threads (a 16 x 16 grid; a thread holds a 4 x 4
-// patch of a 64 x 64 tile of logits):
+// CUDA-core route (heads past D = 192 or Dv = 128, float32 and bf16),
+// three launches, each a grid of blocks of 256 threads (a 16 x 16 grid; a
+// thread holds a 4 x 4 patch of a 64 x 64 tile of logits):
 //   1. attn_bwd_stats_kernel, a block per (query tile of 64, query head,
 //      batch): rowsum(dO * O), and each row's log-sum-exp (log2 domain)
 //      recomputed by the online softmax over the visible key tiles.
@@ -651,9 +671,14 @@ constexpr int KV_PRODUCER_REGS = 40;
 constexpr int KV_CONSUMER_REGS = 232;
 constexpr int WG_STAGES = 2;
 constexpr int KV_ROWS = 128;      // dK/dV: keys a CTA, 64 a warpgroup
-constexpr int KV_QT = 64;         // dK/dV: queries a streamed tile
 constexpr int DQ_ROWS = 128;      // dQ: queries a CTA, 64 a warpgroup
-constexpr int DQ_KT = 64;         // dQ: keys a streamed tile
+// Rows of the streamed tiles (queries of the dK/dV kernel, keys of the dQ
+// kernel): 64 up to D = 128, 32 at D = 192 (DPC = 3), where the
+// accumulators of dK (96 registers a thread) and dQ (96) leave room only
+// for half the tile's S and dP fragments.
+__host__ __device__ constexpr int stream_rows(int dpc) {
+  return dpc <= 2 ? 64 : 32;
+}
 
 struct WgArgs {
   const float* lse;   // (B, Hq, Sq), log2 domain, from the forward
@@ -661,32 +686,38 @@ struct WgArgs {
   float* wk;          // (B, Hq, Sk, 64 DPC) float32: scale dS^T Q of a head
   float* wv;          // (B, Hq, Sk, 64 NVC) float32: P^T dO of a head
   __nv_bfloat16* dq;
-  long long dqsb, dqsh, dqss;
-  int Hq, group, Sq, Sk, D;
+  __nv_bfloat16* dk;  // written here at DPC = 3 with group == 1, else by
+                      // the sum
+  __nv_bfloat16* dv;
+  long long dqsb, dqsh, dqss, dksb, dksh, dkss, dvsb, dvsh, dvss;
+  int Hq, group, Sq, Sk, D, Dv;
   float scale_log2, scale;
   int causal;
   int pair;           // even D and dq strides, 4-byte aligned dq: bf16x2 stores
+  int pair_kv;        // the same of dk and dv (and an even Dv)
 };
 
 template <int DPC, int NVC>
 struct DkvShape {
+  static constexpr int QT = stream_rows(DPC);   // queries a streamed tile
   static constexpr int K_BYTES = DPC * KV_ROWS * BOX_BYTES_PER_ROW;
   static constexpr int V_BYTES = NVC * KV_ROWS * BOX_BYTES_PER_ROW;
-  static constexpr int Q_BYTES = DPC * KV_QT * BOX_BYTES_PER_ROW;
-  static constexpr int O_BYTES = NVC * KV_QT * BOX_BYTES_PER_ROW;  // dO
+  static constexpr int Q_BYTES = DPC * QT * BOX_BYTES_PER_ROW;
+  static constexpr int O_BYTES = NVC * QT * BOX_BYTES_PER_ROW;  // dO
   static constexpr int STAGE = Q_BYTES + O_BYTES;
   static constexpr int ROW_OFF = K_BYTES + V_BYTES + WG_STAGES * STAGE;
-  // each stage's lse and delta: 2 x KV_QT floats
-  static constexpr int BAR_OFF = ROW_OFF + WG_STAGES * 2 * KV_QT * 4;
+  // each stage's lse and delta: 2 x QT floats
+  static constexpr int BAR_OFF = ROW_OFF + WG_STAGES * 2 * QT * 4;
   static constexpr int SMEM = BAR_OFF + 64 + 1024;   // + barriers, alignment
 };
 
 template <int DPC, int NVC>
 struct DqShape {
+  static constexpr int KT = stream_rows(DPC);   // keys a streamed tile
   static constexpr int Q_BYTES = DPC * DQ_ROWS * BOX_BYTES_PER_ROW;
   static constexpr int O_BYTES = NVC * DQ_ROWS * BOX_BYTES_PER_ROW;
-  static constexpr int K_BYTES = DPC * DQ_KT * BOX_BYTES_PER_ROW;
-  static constexpr int V_BYTES = NVC * DQ_KT * BOX_BYTES_PER_ROW;
+  static constexpr int K_BYTES = DPC * KT * BOX_BYTES_PER_ROW;
+  static constexpr int V_BYTES = NVC * KT * BOX_BYTES_PER_ROW;
   static constexpr int STAGE = K_BYTES + V_BYTES;
   static constexpr int BAR_OFF = Q_BYTES + O_BYTES + WG_STAGES * STAGE;
   static constexpr int SMEM = BAR_OFF + 64 + 1024;
@@ -709,7 +740,7 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
                           const WgArgs a) {
   using S = DkvShape<DPC, NVC>;
-  constexpr int DK = DPC * 64, DV = NVC * 64;
+  constexpr int DK = DPC * 64, DV = NVC * 64, KV_QT = S::QT;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base_ptr =
       smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -923,6 +954,22 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(bar + 8 * (3 + s));
   }
 
+  if constexpr (DPC == 3) {
+    if (a.group == 1) {
+      // A group of one query head (MLA): dK and dV themselves, in bf16,
+      // where the group's sum would add this head's partial to zero.
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int key = key_lo + 8 * i;
+        if (key >= a.Sk) continue;
+        store_frag_row<DK>(a.dk + b * a.dksb + h * a.dksh + key * a.dkss,
+                           dk, i, q4, a.D, a.scale, a.pair_kv);
+        store_frag_row<DV>(a.dv + b * a.dvsb + h * a.dvsh + key * a.dvss,
+                           dv, i, q4, a.Dv, 1.f, a.pair_kv);
+      }
+      return;
+    }
+  }
   // This head's float32 partials, all 64 DPC (64 NVC) columns.
   const long long prow = ((long long)b * a.Hq + h) * a.Sk;
 #pragma unroll
@@ -942,6 +989,33 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// dS = P (dP - delta) of a tile of the dQ kernel in place of S (sc), P =
+// exp2(S scale log2(e) - lse); with EDGE, keys past Sk or, causal, past a
+// row's position give 0.  sc[4 n + 2 i + j] is row i's key k0 + 8 n + 2 q4
+// + j.
+template <bool EDGE, int KT>
+__device__ __forceinline__ void dq_ds(float (&sc)[KT / 2],
+                                      const float (&dp)[KT / 2],
+                                      const float (&lse)[2],
+                                      const float (&dl)[2],
+                                      const int (&qpos)[2], int k0, int q4,
+                                      float scale_log2, int Sk, int causal) {
+#pragma unroll
+  for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = 4 * n + 2 * i + j;
+        float p = exp2f(sc[e] * scale_log2 - lse[i]);
+        if constexpr (EDGE) {
+          const int key = k0 + 8 * n + 2 * q4 + j;
+          if (key >= Sk || (causal && key > qpos[i])) p = 0.f;
+        }
+        sc[e] = p * (dp[e] - dl[i]);
+      }
+}
+
 // dQ of a query tile of 128 rows of one head (a CTA per (query tile, query
 // head, batch); the last tiles, which see the most keys, first).  Q and dO
 // stay in shared memory; the producer streams K and V tiles of 64 keys.
@@ -954,7 +1028,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tdo,
                          const WgArgs a) {
   using S = DqShape<DPC, NVC>;
-  constexpr int DK = DPC * 64;
+  constexpr int DK = DPC * 64, DQ_KT = S::KT;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base, sO = base + S::Q_BYTES;
@@ -1070,23 +1144,16 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
     // dS = P (dP - delta), P = exp2(S scale log2(e) - lse); masked keys
     // (past the diagonal, past Sk, and every key of a row that sees none)
-    // give 0.
-    const bool edge =
-        k0 + DQ_KT > a.Sk || (a.causal && k0 + DQ_KT - 1 > wg_first);
-#pragma unroll
-    for (int n = 0; n < DQ_KT / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int e = 4 * n + 2 * i + j;
-          float p = exp2f(sc[e] * a.scale_log2 - lse[i]);
-          if (edge) {
-            const int key = k0 + 8 * n + 2 * q4 + j;
-            if (key >= a.Sk || (a.causal && key > qpos[i])) p = 0.f;
-          }
-          sc[e] = p * (dp[e] - dl[i]);
-        }
+    // give 0.  The masked and the unmasked loop are written out apart, so
+    // that the unmasked one carries no test whatever the compiler decides
+    // (left to it, a build kept the tests in the loop, and the D = 128
+    // instance's dQ kernel ran slower on the card).
+    if (k0 + DQ_KT > a.Sk || (a.causal && k0 + DQ_KT - 1 > wg_first))
+      dq_ds<true, DQ_KT>(sc, dp, lse, dl, qpos, k0, q4, a.scale_log2, a.Sk,
+                         a.causal);
+    else
+      dq_ds<false, DQ_KT>(sc, dp, lse, dl, qpos, k0, q4, a.scale_log2, a.Sk,
+                          a.causal);
     uint32_t ds[DQ_KT / 16][4];
 #pragma unroll
     for (int kb = 0; kb < DQ_KT / 16; ++kb)
@@ -1157,13 +1224,13 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   // Tensor maps: the dK/dV kernel's K and V boxes of 128 rows and Q and dO
   // boxes of 64, the dQ kernel's the other way round.
   CUtensorMap kq, kk, kv, kdo, qq, qk, qv, qdo;
-  if (!encode(&kq, q, B, Hq, Sq, D, strides + SQ, KV_QT) ||
+  if (!encode(&kq, q, B, Hq, Sq, D, strides + SQ, SK::QT) ||
       !encode(&kk, k, B, Hkv, Sk, D, strides + SKK, KV_ROWS) ||
       !encode(&kv, v, B, Hkv, Sk, Dv, strides + SV, KV_ROWS) ||
-      !encode(&kdo, dout, B, Hq, Sq, Dv, strides + SDO, KV_QT) ||
+      !encode(&kdo, dout, B, Hq, Sq, Dv, strides + SDO, SK::QT) ||
       !encode(&qq, q, B, Hq, Sq, D, strides + SQ, DQ_ROWS) ||
-      !encode(&qk, k, B, Hkv, Sk, D, strides + SKK, DQ_KT) ||
-      !encode(&qv, v, B, Hkv, Sk, Dv, strides + SV, DQ_KT) ||
+      !encode(&qk, k, B, Hkv, Sk, D, strides + SKK, SQ_::KT) ||
+      !encode(&qv, v, B, Hkv, Sk, Dv, strides + SV, SQ_::KT) ||
       !encode(&qdo, dout, B, Hq, Sq, Dv, strides + SDO, DQ_ROWS))
     return (int)cudaErrorInvalidValue;
   WgArgs a;
@@ -1172,14 +1239,22 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   a.wk = wk;
   a.wv = wv;
   a.dq = static_cast<__nv_bfloat16*>(dq);
+  a.dk = static_cast<__nv_bfloat16*>(dk);
+  a.dv = static_cast<__nv_bfloat16*>(dv);
   a.dqsb = strides[SDQ]; a.dqsh = strides[SDQ + 1]; a.dqss = strides[SDQ + 2];
-  a.Hq = Hq; a.group = Hq / Hkv; a.Sq = Sq; a.Sk = Sk; a.D = D;
+  a.dksb = strides[SDK]; a.dksh = strides[SDK + 1]; a.dkss = strides[SDK + 2];
+  a.dvsb = strides[SDV]; a.dvsh = strides[SDV + 1]; a.dvss = strides[SDV + 2];
+  a.Hq = Hq; a.group = Hq / Hkv; a.Sq = Sq; a.Sk = Sk; a.D = D; a.Dv = Dv;
   a.scale_log2 = scale * LOG2E;
   a.scale = scale;
   a.causal = causal;
   a.pair = D % 2 == 0 && strides[SDQ] % 2 == 0 &&
            strides[SDQ + 1] % 2 == 0 && strides[SDQ + 2] % 2 == 0 &&
            reinterpret_cast<uintptr_t>(dq) % 4 == 0;
+  a.pair_kv = D % 2 == 0 && Dv % 2 == 0 &&
+              reinterpret_cast<uintptr_t>(dk) % 4 == 0 &&
+              reinterpret_cast<uintptr_t>(dv) % 4 == 0;
+  for (int i = SDK; i < SDV + 3; ++i) a.pair_kv &= strides[i] % 2 == 0;
 
   const long long rows = (long long)B * Hq * Sq;
   attn_bwd_delta_kernel<__nv_bfloat16>
@@ -1199,7 +1274,7 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   attn_bwd_dq_wgmma_kernel<DPC, NVC>
       <<<n_qt * Hq * B, WG_THREADS, SQ_::SMEM, stream>>>(qq, qk, qv, qdo, a);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || (DPC == 3 && Hq == Hkv)) return (int)err;
 
   const long long total = (long long)B * Hkv * Sk * (D + Dv);
   attn_bwd_dkv_reduce_kernel<__nv_bfloat16>
@@ -1242,11 +1317,12 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
 
 // The bf16 route: q (B, Hq, Sq, D), k (B, Hkv, Sk, D), v (B, Hkv, Sk, Dv),
 // o and dout (B, Hq, Sq, Dv), dq, dk, dv of q's, k's and v's shapes, all
-// bfloat16, D and Dv in [1, 128]; strides as above; lse the forward's
-// (B, Hq, Sq) float32 log-sum-exp (log2 domain); dlt a float32 workspace of
-// B * Hq * Sq elements, wk and wv float32 workspaces of B * Hq * Sk * 64 *
-// ceil(D / 64) and 64 * ceil(Dv / 64) elements.  Returns
-// cudaGetLastError() after the launches (0 on success).
+// bfloat16, D in [1, 192] and Dv in [1, 128]; strides as above; lse the
+// forward's (B, Hq, Sq) float32 log-sum-exp (log2 domain); dlt a float32
+// workspace of B * Hq * Sq elements, wk and wv float32 workspaces of B *
+// Hq * Sk * 64 * ceil(D / 64) and 64 * ceil(Dv / 64) elements (unread when
+// D > 128 and Hq == Hkv).  Returns cudaGetLastError() after the launches
+// (0 on success).
 extern "C" int flash_attention_bwd_wgmma(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, void* dq, void* dk, void* dv,
@@ -1254,7 +1330,7 @@ extern "C" int flash_attention_bwd_wgmma(
     int D, int Dv, const long long* strides, float scale, int causal,
     void* stream) {
   if (!(B > 0 && D > 0 && Dv > 0 && Hkv > 0 && Hq % Hkv == 0 && Sq > 0 &&
-        Sk > 0 && D <= 128 && Dv <= 128))
+        Sk > 0 && D <= 192 && Dv <= 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int dpc = (D + 63) / 64, nvc = (Dv + 63) / 64;
@@ -1264,6 +1340,7 @@ extern "C" int flash_attention_bwd_wgmma(
                                         dlt, wk, wv, B, Hq, Hkv, Sq, Sk, D, \
                                         Dv, strides, scale, causal, s);
   FA_BWD_WGMMA(1, 1) FA_BWD_WGMMA(1, 2) FA_BWD_WGMMA(2, 1) FA_BWD_WGMMA(2, 2)
+  FA_BWD_WGMMA(3, 1) FA_BWD_WGMMA(3, 2)
 #undef FA_BWD_WGMMA
   return (int)cudaErrorInvalidValue;
 }

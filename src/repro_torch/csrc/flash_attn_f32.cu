@@ -1,10 +1,10 @@
 // Causal GQA flash attention (forward) in float32 for the H100 (sm_90a), on
 // the bf16 tensor cores at float32 accuracy: the float32 route of
-// repro_torch/kernels/flash_attn/kernel.py:route (float32 with D, Dv <=
-// 128; float16 and mixed dtypes are read in float32).  It computes what
-// flash_attn.cu's kernels compute (repro_torch/kernels/flash_attn/ref.py:
-// mha: the same masks, rows that see no key, log2-domain online softmax
-// and log-sum-exp), and with them replaces the Pallas TPU kernel
+// repro_torch/kernels/flash_attn/kernel.py:route (float32 with D <= 192 and
+// Dv <= 128; float16 and mixed dtypes are read in float32).  It computes
+// what flash_attn.cu's kernels compute (repro_torch/kernels/flash_attn/
+// ref.py:mha: the same masks, rows that see no key, log2-domain online
+// softmax and log-sum-exp), and with them replaces the Pallas TPU kernel
 // repro/kernels/flash_attn/kernel.py:flash_attention (def at :72,
 // pallas_call at :103).  A library of its own, so that nvcc builds it
 // beside flash_attn.cu.
@@ -13,41 +13,48 @@
 // causal: 75.5 MB of float32 inputs and output (0.023 ms at 3.35 TB/s) and
 // 34.4 GFLOP, 0.513 ms on the CUDA cores' 67 TFLOP/s and 0.209 ms at the
 // float32-accurate tensor-core rate (six bf16 products for one float32
-// product: 989 / 6 = 165 TFLOP/s).  Operations bound it.
+// product: 989 / 6 = 165 TFLOP/s).  Operations bound it.  At DeepSeek-V3's
+// MLA prefill, (1, 128, 128, 511, 511), Dk 192, Dv 128: 10.7 GFLOP, 0.065
+// ms at 165 TFLOP/s, against 0.050 ms for its 167 MB.
 //
-// flash_attention_f32_kernel: float32 with D, Dv <= 128 (every float32
-// path of the repo but MLA's Dk of 192).  TF32 (10 bits of mantissa) would
-// miss the goldens' 2e-5, and TF32 wgmma takes only K-major operands;
-// instead each float32 operand is
-// split into three bf16 parts (hopper.cuh: split_tile, split3_pair), x =
-// hi + mid + lo, which carry its 24 bits, and each product is the six
-// partial products hi hi, hi mid, mid hi, hi lo, mid mid, lo hi (the
-// dropped three are below 2^-24 relative), issued small first, each exact
-// in the float32 accumulator.  The bf16 layouts and descriptors of
-// flash_attn.cu's tensor-core kernel carry over: S's accumulator layout is
-// P's register A-operand layout (P splits into three register planes), V's
-// planes are read N-major.  The tensor cores' float32 accumulation drops
-// low bits (on the card, a draft that summed every key tile into O itself
-// drifted from a float64 reference as the keys grew), so P V of each tile
-// goes into a fresh accumulator that is added to O in float32; S sums one
-// tile's six products and is not carried.  tools/attn_f32_errors.py
-// measures this kernel's error against float64 beside the CUDA-core
-// kernel's.
+// flash_attention_f32_kernel: float32 with D <= 192 and Dv <= 128 (every
+// float32 path of the repo, MLA's Dk of 192 among them).  TF32 (10 bits
+// of mantissa) would miss the goldens' 2e-5, and TF32 wgmma takes only
+// K-major operands; instead each float32 operand is split into three bf16
+// parts (hopper.cuh: split_tile, split3_pair), x = hi + mid + lo, which
+// carry its 24 bits, and each product is the six partial products hi hi,
+// hi mid, mid hi, hi lo, mid mid, lo hi (the dropped three are below
+// 2^-24 relative), issued small first, each exact in the float32
+// accumulator.  The bf16 layouts and descriptors of flash_attn.cu's
+// tensor-core kernel carry over: S's accumulator layout is P's register
+// A-operand layout (P splits into three register planes), V's planes are
+// read N-major.  The tensor cores' float32 accumulation drops low bits (on
+// the card, a draft that summed every key tile into O itself drifted from
+// a float64 reference as the keys grew), so P V of each tile goes into a
+// fresh accumulator that is added to O in float32; S sums one tile's six
+// products and is not carried.  chip_smoke.py's timing rows measure this
+// kernel's distance from float64 beside the plain version's (f64_err).
 //   * One CTA per (query tile of 128, query head, batch), heaviest first:
 //     a producer warpgroup and two consumer warpgroups of 64 query rows
 //     (384 threads; setmaxnreg gives the consumers 224 registers and the
 //     producer 56).  The producer loads float32 rows with 16-byte loads,
 //     splits them in registers and stores the three planes in TMA's
 //     128-byte-swizzled layout (no landing buffer): Q once, then K and V
-//     of each tile of 64 keys into one buffer each, K of the next tile
+//     of each tile of KB keys into one buffer each, K of the next tile
 //     while the consumers run the softmax and P V, V while they run S.
-//   * Shared memory: three planes of Q (128 rows) 96 KB, of K and of V (64
-//     keys) 48 KB each at D = Dv = 128: 193 KB.  (BK = 64 keeps S = Q K^T
-//     an m64n64 product; two stages of K and V would pass 227 KB.)
-//   * Per tile a consumer warpgroup issues 48 wgmma for S (6 products x 8
-//     k-steps) and 24 for P V.  The same 34.4 GFLOP are 206 GFLOP of bf16
-//     products: 0.209 ms at the bf16 peak.
-// D > 128 or Dv > 128 in float32 takes flash_attn.cu's CUDA-core kernel.
+//   * Shared memory: three planes of Q (128 rows), of K and of V (KB keys).
+//     Up to D = Dv = 128, KB = 64 (S = Q K^T an m64n64 product): 96 + 48 +
+//     48 = 193 KB (two stages of K and V would pass 227 KB).  At D = 192
+//     (DPC = 3) Q's planes alone take 144 KB, and 64-key tiles of K (72 KB)
+//     and V (48 KB) would make 264 KB: KB = 32 keys, 144 + 36 + 24 = 205
+//     KB, S an m64n32 product, P V two k-steps a tile.  The 128-row CTA
+//     keeps two consumer warpgroups, which overlap one's softmax with the
+//     other's products (64 rows and one warpgroup would fit 64-key tiles,
+//     but leave the tensor cores idle during each softmax).
+//   * Per 64-key tile a consumer warpgroup issues 48 wgmma for S (6
+//     products x 8 k-steps) and 24 for P V at D = 128.  The same 34.4
+//     GFLOP are 206 GFLOP of bf16 products: 0.209 ms at the bf16 peak.
+// D > 192 or Dv > 128 in float32 takes flash_attn.cu's CUDA-core kernel.
 //
 // The kernel takes element strides for (batch, head, position) of q, k, v
 // and out (the last axis contiguous, strides multiples of 8 elements, base
@@ -63,7 +70,6 @@ constexpr float NEG = -1.0e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 constexpr int F3_QROWS = 128;     // query rows of a CTA, 64 a consumer warpgroup
-constexpr int F3_KB = 64;         // keys a tile
 constexpr int F3_THREADS = 384;   // two consumer warpgroups + a producer warpgroup
 constexpr int F3_PRODUCER_REGS = 56;
 constexpr int F3_CONSUMER_REGS = 224;
@@ -81,18 +87,20 @@ struct F3Args {
   int pair;            // even Dv and strides, 8-byte aligned out: float2 stores
 };
 
-// DPC, NVC: 64-column chunks of the depth and of the output (<= 2 each).
-// Shared memory: the three planes of the CTA's Q (128 rows), of one K tile
-// and of one V tile (64 keys), each plane in TMA's 128-byte-swizzled boxes.
-template <int DPC, int NVC>
+// DPC, NVC: 64-column chunks of the depth (<= 3) and of the output (<= 2);
+// KB: keys a tile (64, or 32 at DPC = 3).  Shared memory: the three planes
+// of the CTA's Q (128 rows), of one K tile and of one V tile, each plane in
+// TMA's 128-byte-swizzled boxes.
+template <int DPC, int NVC, int KB>
 struct F3Shape {
   static constexpr int Q_PLANE = DPC * F3_QROWS * BOX_BYTES_PER_ROW;
-  static constexpr int K_PLANE = DPC * F3_KB * BOX_BYTES_PER_ROW;
-  static constexpr int V_PLANE = NVC * F3_KB * BOX_BYTES_PER_ROW;
+  static constexpr int K_PLANE = DPC * KB * BOX_BYTES_PER_ROW;
+  static constexpr int V_PLANE = NVC * KB * BOX_BYTES_PER_ROW;
   static constexpr int K_OFF = 3 * Q_PLANE;
   static constexpr int V_OFF = K_OFF + 3 * K_PLANE;
   static constexpr int BAR_OFF = V_OFF + 3 * V_PLANE;
   static constexpr int SMEM = BAR_OFF + 64 + 1024;   // + barriers, alignment
+  static_assert(SMEM <= 232448, "a CTA's shared memory");
 };
 
 // O = softmax(scale Q K^T) V in float32 on the bf16 tensor cores.  A CTA
@@ -109,10 +117,10 @@ struct F3Shape {
 // float32 accumulator, which is added to O (rescaled by alpha) in float32,
 // so that the tensor cores' accumulation only ever sums one tile's
 // products.
-template <int DPC, int NVC>
+template <int DPC, int NVC, int KB>
 __global__ void __launch_bounds__(F3_THREADS, 1)
 flash_attention_f32_kernel(const F3Args a) {
-  using S = F3Shape<DPC, NVC>;
+  using S = F3Shape<DPC, NVC, KB>;
   constexpr int DV = NVC * 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base_ptr =
@@ -129,10 +137,10 @@ flash_attention_f32_kernel(const F3Args a) {
   const int hk = h / a.group;
   const int q0 = qt * F3_QROWS;
   const int q_offset = a.Sk - a.Sq;
-  int n_kt = (a.Sk + F3_KB - 1) / F3_KB;
+  int n_kt = (a.Sk + KB - 1) / KB;
   if (a.causal && q_offset + q0 >= 0) {   // else a row sees no key: walk all
     const int q_last = q_offset + min(q0 + F3_QROWS, a.Sq) - 1;
-    n_kt = min(n_kt, q_last / F3_KB + 1);
+    n_kt = min(n_kt, q_last / KB + 1);
   }
 
   if (threadIdx.x == 0) {
@@ -157,13 +165,13 @@ flash_attention_f32_kernel(const F3Args a) {
     const float* vb = a.v + b * a.vsb + hk * a.vsh;
     for (int kt = 0; kt < n_kt; ++kt) {
       if (kt > 0) mbar_wait(bar + 24, (kt - 1) & 1);
-      split_tile<F3_KB, DPC, 128>(base_ptr + S::K_OFF, S::K_PLANE, kb, a.kss,
-                                  kt * F3_KB, a.Sk, a.D, t);
+      split_tile<KB, DPC, 128>(base_ptr + S::K_OFF, S::K_PLANE, kb, a.kss,
+                               kt * KB, a.Sk, a.D, t);
       fence_async_smem();
       mbar_arrive(bar + 8);
       if (kt > 0) mbar_wait(bar + 32, (kt - 1) & 1);
-      split_tile<F3_KB, NVC, 128>(base_ptr + S::V_OFF, S::V_PLANE, vb, a.vss,
-                                  kt * F3_KB, a.Sk, a.Dv, t);
+      split_tile<KB, NVC, 128>(base_ptr + S::V_OFF, S::V_PLANE, vb, a.vss,
+                               kt * KB, a.Sk, a.Dv, t);
       fence_async_smem();
       mbar_arrive(bar + 16);
     }
@@ -189,12 +197,12 @@ flash_attention_f32_kernel(const F3Args a) {
   mbar_wait(bar, 0);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int phase = kt & 1;
-    const int k0 = kt * F3_KB;
+    const int k0 = kt * KB;
     // A warpgroup above its diagonal skips the tile but still waits for
     // each buffer before it releases it: its arrivals never run ahead of
     // the producer.
     const bool skip = a.causal && wg_first >= 0 && k0 > wg_last;
-    float sc[F3_KB / 2];
+    float sc[KB / 2];
     mbar_wait(bar + 8, phase);
     if (!skip) {
       fence_regs(sc);
@@ -205,13 +213,13 @@ flash_attention_f32_kernel(const F3Args a) {
         for (int c = 0; c < DPC; ++c)
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            wgmma_ss<F3_KB>(
+            wgmma_ss<KB>(
                 sc,
                 sw128_desc(sQ + split_a(pr) * S::Q_PLANE +
                                (c * F3_QROWS + wg * 64) * BOX_BYTES_PER_ROW +
                                kk * 32, 16, 1024),
                 sw128_desc(sK + split_b(pr) * S::K_PLANE +
-                               c * F3_KB * BOX_BYTES_PER_ROW + kk * 32, 16,
+                               c * KB * BOX_BYTES_PER_ROW + kk * 32, 16,
                            1024),
                 (pr | c | kk) ? 1 : 0);
       wg_commit();
@@ -221,16 +229,16 @@ flash_attention_f32_kernel(const F3Args a) {
     __syncwarp();
     if (lane == 0) mbar_arrive(bar + 24);
 
-    uint32_t pa[3][F3_KB / 16][4];
+    uint32_t pa[3][KB / 16][4];
     float al_lo = 1.f, al_hi = 1.f;
     if (!skip) {
       // Scale to the log2 domain and mask: sc[4n + 2i + j] is row
       // r_lo + 8i, key k0 + 8n + 2 q4 + j.
       const bool edge =
-          (k0 + F3_KB > a.Sk) || (a.causal && k0 + F3_KB - 1 > wg_first);
+          (k0 + KB > a.Sk) || (a.causal && k0 + KB - 1 > wg_first);
       float mx_lo = NEG, mx_hi = NEG;
 #pragma unroll
-      for (int n = 0; n < F3_KB / 8; ++n)
+      for (int n = 0; n < KB / 8; ++n)
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -259,7 +267,7 @@ flash_attention_f32_kernel(const F3Args a) {
       m_hi = mn_hi;
       float rs_lo = 0.f, rs_hi = 0.f;
 #pragma unroll
-      for (int n = 0; n < F3_KB / 8; ++n) {
+      for (int n = 0; n < KB / 8; ++n) {
         sc[4 * n + 0] = exp2f(sc[4 * n + 0] - mn_lo);
         sc[4 * n + 1] = exp2f(sc[4 * n + 1] - mn_lo);
         sc[4 * n + 2] = exp2f(sc[4 * n + 2] - mn_hi);
@@ -272,7 +280,7 @@ flash_attention_f32_kernel(const F3Args a) {
       // P's three planes: the accumulator fragment of keys [16 kb, 16 kb +
       // 16) is the A fragment of the k-step kb.
 #pragma unroll
-      for (int kb = 0; kb < F3_KB / 16; ++kb)
+      for (int kb = 0; kb < KB / 16; ++kb)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           split3_pair(sc[8 * kb + 2 * r], sc[8 * kb + 2 * r + 1],
@@ -281,7 +289,7 @@ flash_attention_f32_kernel(const F3Args a) {
 
     mbar_wait(bar + 16, phase);
     if (!skip) {
-      // V: 8-key groups 1,024 bytes apart (SBO), 64-column chunks F3_KB x
+      // V: 8-key groups 1,024 bytes apart (SBO), 64-column chunks KB x
       // 128 bytes apart (LBO); a k-step is 16 keys.
       {
         float t[DV / 2];
@@ -292,10 +300,10 @@ flash_attention_f32_kernel(const F3Args a) {
 #pragma unroll
         for (int pr = 0; pr < 6; ++pr)
 #pragma unroll
-          for (int kb = 0; kb < F3_KB / 16; ++kb)
+          for (int kb = 0; kb < KB / 16; ++kb)
             wgmma_rs<DV>(t, pa[split_a(pr)][kb],
                          sw128_desc(sV + split_b(pr) * S::V_PLANE + kb * 2048,
-                                    F3_KB * BOX_BYTES_PER_ROW, 1024));
+                                    KB * BOX_BYTES_PER_ROW, 1024));
         wg_commit();
         wg_wait0();
         fence_regs(t);
@@ -345,16 +353,16 @@ flash_attention_f32_kernel(const F3Args a) {
   }
 }
 
-template <int DPC, int NVC>
+template <int DPC, int NVC, int KB>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
                int Dv, const long long* st, float scale, int causal,
                cudaStream_t stream) {
-  using S = F3Shape<DPC, NVC>;
+  using S = F3Shape<DPC, NVC, KB>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_f32_kernel<DPC, NVC>,
+        flash_attention_f32_kernel<DPC, NVC, KB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
     if (err != cudaSuccess) return (int)err;
     configured = true;
@@ -375,7 +383,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   a.pair = Dv % 2 == 0 && st[9] % 2 == 0 && st[10] % 2 == 0 &&
            st[11] % 2 == 0 && reinterpret_cast<uintptr_t>(o) % 8 == 0;
   const dim3 grid((Sq + F3_QROWS - 1) / F3_QROWS, Hq, B);
-  flash_attention_f32_kernel<DPC, NVC>
+  flash_attention_f32_kernel<DPC, NVC, KB>
       <<<grid, F3_THREADS, S::SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -383,8 +391,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q (B, Hq, Sq, D), k (B, Hkv, Sk, D), v (B, Hkv, Sk, Dv), out (B, Hq, Sq,
-// Dv), all float32, 1 <= D, Dv <= 128 (the instance: DPC = ceil(D / 64),
-// NVC = ceil(Dv / 64)); strides are 12 element strides, (batch, head,
+// Dv), all float32, 1 <= D <= 192 and 1 <= Dv <= 128 (the instance: DPC =
+// ceil(D / 64), NVC = ceil(Dv / 64); 64-key tiles up to DPC = 2, 32-key
+// tiles at DPC = 3); strides are 12 element strides, (batch, head,
 // position) of q, k, v and out; lse null, or B * Hq * Sq floats that
 // receive each row's log-sum-exp of the scaled logits in the log2 domain
 // (the backward's input).  Returns cudaGetLastError() after the launch (0
@@ -395,15 +404,16 @@ extern "C" int flash_attention_f32_fwd(
     int Hkv, int Sq, int Sk, int D, int Dv, const long long* strides,
     float scale, int causal, float* lse, void* stream) {
   if (!(B > 0 && D > 0 && Dv > 0 && Hkv > 0 && Hq % Hkv == 0 && Sq > 0 &&
-        Sk > 0 && D <= 128 && Dv <= 128))
+        Sk > 0 && D <= 192 && Dv <= 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int dpc = (D + 63) / 64, nvc = (Dv + 63) / 64;
-#define FA_F32(DPC_, NVC_)                                                  \
+#define FA_F32(DPC_, NVC_, KB_)                                             \
   if (dpc == DPC_ && nvc == NVC_)                                           \
-    return launch_f32<DPC_, NVC_>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D,  \
-                                  Dv, strides, scale, causal, s);
-  FA_F32(1, 1) FA_F32(1, 2) FA_F32(2, 1) FA_F32(2, 2)
+    return launch_f32<DPC_, NVC_, KB_>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, \
+                                       D, Dv, strides, scale, causal, s);
+  FA_F32(1, 1, 64) FA_F32(1, 2, 64) FA_F32(2, 1, 64) FA_F32(2, 2, 64)
+  FA_F32(3, 1, 32) FA_F32(3, 2, 32)
 #undef FA_F32
   return (int)cudaErrorInvalidValue;
 }

@@ -11,13 +11,14 @@ fails.  :func:`route` names the kernel:
 
 * ``"wgmma"``: bf16 with a head dim up to 256 (every model of the repo),
   the bf16 tensor-core kernel (``wgmma`` + TMA);
-* ``"wgmma_f32"``: float32 with both head dims (q's and v's) up to 128,
-  the float32 tensor-core kernel, which splits each float32 operand into
-  three bf16 planes and sums six partial products of each matrix product
-  (float32 accuracy on the bf16 tensor cores: no TF32, which would miss
-  the 2e-5 tolerance of the goldens);
-* ``"cuda_cores"``: float32 with a wider head, and bf16 past 256, the
-  float32 CUDA-core kernel.
+* ``"wgmma_f32"``: float32 with q's head dim up to 192 and v's width up
+  to 128 (``WGMMA_F32_MAX_DIMS``: every float32 path of the repo, MLA's
+  Dk 192 / Dv 128 among them), the float32 tensor-core kernel, which
+  splits each float32 operand into three bf16 planes and sums six partial
+  products of each matrix product (float32 accuracy on the bf16 tensor
+  cores: no TF32, which would miss the 2e-5 tolerance of the goldens);
+* ``"cuda_cores"``: float32 with a wider head or value, and bf16 past
+  256, the float32 CUDA-core kernel.
 
 Any other floating dtype, and operands of mixed dtypes, are cast to float32
 (exact for float16 and bf16), as the reference's ``mha`` casts them, and
@@ -34,12 +35,12 @@ layout (``torch.empty_like``) when v's width is q's depth, else a new
 contiguous tensor.
 
 :func:`flash_attention_bwd` binds the backward kernels, the gradient of
-the forward, on three routes (:func:`route_bwd`): bf16 with both head dims
-up to 128 runs the bf16 tensor-core kernels, float32 with both up to 128
-the float32 tensor-core kernels (the three-way split), both of which read
-each row's log-sum-exp from the forward (``flash_attention(...,
-return_lse=True)``); wider heads the CUDA-core kernels, which recompute
-it.  They replace no TPU kernel:
+the forward, on three routes (:func:`route_bwd`): with q's head dim up to
+192 and v's width up to 128 (``WGMMA_BWD_MAX_DIMS``), bf16 runs the bf16
+tensor-core kernels and float32 the float32 tensor-core kernels (the
+three-way split), both of which read each row's log-sum-exp from the
+forward (``flash_attention(..., return_lse=True)``); wider heads the
+CUDA-core kernels, which recompute it.  They replace no TPU kernel:
 JAX cannot differentiate the Pallas one, and the port's training path
 needs this gradient.
 """
@@ -56,11 +57,14 @@ from .. import _build
 _VP = ctypes.c_void_p
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 WGMMA_MAX_HEAD_DIM = 256    # Q resident in shared memory, 64-column boxes
-# the backward's tensor-core route: dK and dV accumulators in registers
-WGMMA_BWD_MAX_HEAD_DIM = 128
-# the float32 tensor-core routes, both directions: three bf16 planes of Q
-# (or K and V) resident in shared memory beside a tile of the others'
-WGMMA_F32_MAX_HEAD_DIM = 128
+# (q's head dim, v's width) limits of the tensor-core kernels past the bf16
+# forward.  The float32 routes, both directions: three bf16 planes of Q (or
+# K and V) resident in shared memory beside tiles of the others', which at
+# D = 192 fit with 32-key tiles (forward) or one buffer of the operand read
+# first (backward).  The bf16 backward: dK and dV accumulators in
+# registers, 96 + 64 a thread at (192, 128); D = 256 would take 256.
+WGMMA_F32_MAX_DIMS = (192, 128)
+WGMMA_BWD_MAX_DIMS = (192, 128)
 TENSOR_CORE_ROUTES = ("wgmma", "wgmma_f32")
 _SHAPE_ARGS = [_VP, _VP, _VP, _VP, *[ctypes.c_int] * 7,
                ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
@@ -109,27 +113,33 @@ def route(dtype: torch.dtype, head_dim: int,
     """The forward kernel that takes (compute dtype, q's head dim, v's
     width, which defaults to the head dim): ``"wgmma"`` (bf16 tensor
     cores, head dim up to 256), ``"wgmma_f32"`` (float32 on the tensor
-    cores, both dims up to 128) or ``"cuda_cores"`` (float32 CUDA cores)."""
+    cores, head dim up to 192 and width up to 128) or ``"cuda_cores"``
+    (float32 CUDA cores)."""
     value_dim = head_dim if value_dim is None else value_dim
     if dtype == torch.bfloat16 and head_dim <= WGMMA_MAX_HEAD_DIM:
         return "wgmma"
-    if dtype == torch.float32 and max(head_dim,
-                                      value_dim) <= WGMMA_F32_MAX_HEAD_DIM:
+    if dtype == torch.float32 and _within(head_dim, value_dim,
+                                          WGMMA_F32_MAX_DIMS):
         return "wgmma_f32"
     return "cuda_cores"
 
 
 def route_bwd(dtype: torch.dtype, head_dim: int, value_dim: int) -> str:
-    """The backward kernels that take (dtype, head_dim, value_dim):
-    ``"wgmma"`` (bf16 tensor cores, both dims up to 128), ``"wgmma_f32"``
-    (float32 on the tensor cores, both dims up to 128) or ``"cuda_cores"``
-    (float32 CUDA cores)."""
-    widest = max(head_dim, value_dim)
-    if dtype == torch.bfloat16 and widest <= WGMMA_BWD_MAX_HEAD_DIM:
+    """The backward kernels that take (dtype, head_dim, value_dim), both
+    tensor-core routes up to head dim 192 and width 128: ``"wgmma"`` (bf16
+    tensor cores), ``"wgmma_f32"`` (float32 on the tensor cores) or
+    ``"cuda_cores"`` (float32 CUDA cores)."""
+    if dtype == torch.bfloat16 and _within(head_dim, value_dim,
+                                           WGMMA_BWD_MAX_DIMS):
         return "wgmma"
-    if dtype == torch.float32 and widest <= WGMMA_F32_MAX_HEAD_DIM:
+    if dtype == torch.float32 and _within(head_dim, value_dim,
+                                          WGMMA_F32_MAX_DIMS):
         return "wgmma_f32"
     return "cuda_cores"
+
+
+def _within(head_dim: int, value_dim: int, limits) -> bool:
+    return head_dim <= limits[0] and value_dim <= limits[1]
 
 
 def kernel_ready(t: torch.Tensor) -> bool:
@@ -236,11 +246,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``csrc/flash_attn_bwd.cu`` and ``csrc/flash_attn_bwd_f32.cu``, on the
     route :func:`route_bwd` names:
 
-    * ``"wgmma"`` (all five bf16, D and Dv <= 128): the bf16 tensor-core
-      kernels, which need ``lse``, the forward's log-sum-exp
+    * ``"wgmma"`` (all five bf16, D <= 192 and Dv <= 128): the bf16
+      tensor-core kernels, which need ``lse``, the forward's log-sum-exp
       (``flash_attention(..., return_lse=True)``, float32 (B, Hq, Sq));
-    * ``"wgmma_f32"`` (any other dtypes, read in float32, D and Dv <=
-      128): the float32 tensor-core kernels (three bf16 planes of each
+    * ``"wgmma_f32"`` (any other dtypes, read in float32, D <= 192 and Dv
+      <= 128): the float32 tensor-core kernels (three bf16 planes of each
       operand, six products), which need ``lse`` too;
     * ``"cuda_cores"`` (wider heads): the float32 CUDA-core kernels,
       which recompute the log-sum-exp and ignore ``lse``; they read bf16 as

@@ -4,12 +4,13 @@ Dispatches on the device of ``q``: a CPU tensor takes the plain version on
 the reference's CPU route (``ref.mha`` up to 1,024 keys, else
 ``ref.mha_chunked`` with ``block_k = min(512, Sk)``), a CUDA tensor
 launches a CUDA kernel (``kernel.py``: the bf16 tensor-core kernel in
-bf16; in float32 with both head dims up to 128 the float32 tensor-core
-kernel, which reaches float32 accuracy on the bf16 tensor cores by a
-three-way bf16 split of its operands; the float32 CUDA-core kernel for
-wider heads).  ``backend="torch"`` takes the plain version's route on any
-device.  A tensor the kernels cannot read as it lies
-(``kernel.kernel_ready``) is copied first (``kernel.ready_copy``).
+bf16; in float32 with q's head dim up to 192 and v's width up to 128 (MLA's
+Dk 192 / Dv 128 among them) the float32 tensor-core kernel, which reaches
+float32 accuracy on the bf16 tensor cores by a three-way bf16 split of its
+operands; the float32 CUDA-core kernel for wider heads).
+``backend="torch"`` takes the plain version's route on any device.  A
+tensor the kernels cannot read as it lies (``kernel.kernel_ready``) is
+copied first (``kernel.ready_copy``).
 float16 and mixed dtypes run in float32 on a float32 route, returning q's
 dtype (``kernel.compute_dtype``), as the reference's ``mha`` computes
 them.  ``Dv != Dk`` (MLA, off the dense path) takes the reference's own route to
@@ -26,8 +27,8 @@ forward is the same kernel and whose backward is the backward kernel
 ``BWD_LAUNCHES`` counts its calls and ``BWD_ROUTE_LAUNCHES`` the same calls
 by route (``kernel.route_bwd``).  Its forward also writes each row's
 log-sum-exp (on the tensor-core forwards), which the backward's
-tensor-core routes (``wgmma`` in bf16, ``wgmma_f32`` in float32, head dims
-up to 128) read.  CPU tensors and ``backend="torch"``
+tensor-core routes (``wgmma`` in bf16, ``wgmma_f32`` in float32, head dim
+up to 192 and value width up to 128) read.  CPU tensors and ``backend="torch"``
 differentiate the plain route under ordinary autograd, as the reference's
 CPU route does.  A forward that needs no gradient is unchanged.
 """

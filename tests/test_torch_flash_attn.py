@@ -192,20 +192,22 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
     assert not pk.kernel_ready(q.transpose(2, 3))
 
 
-@pytest.mark.parametrize("D", [1, 36, 80, 128, 136, 256, 300])
+@pytest.mark.parametrize("D", [1, 36, 80, 128, 136, 192, 193, 256, 300])
 def test_kernel_route_and_ready_copy(D):
-    """bf16 up to D = 256 takes the bf16 tensor-core kernel, float32 with
-    both head dims up to 128 the float32 tensor-core kernel, a wider
-    float32 head (or v) and a bf16 head past 256 the CUDA-core kernel;
-    ``ready_copy`` pads rows to a multiple of 8 elements and keeps the
-    values."""
+    """bf16 up to D = 256 takes the bf16 tensor-core kernel, float32 with q's
+    head dim up to 192 and v's width up to 128 (MLA's 192 / 128) the
+    float32 tensor-core kernel, a wider float32 head or v and a bf16 head
+    past 256 the CUDA-core kernel; ``ready_copy`` pads rows to a multiple
+    of 8 elements and keeps the values."""
     assert pk.route(torch.bfloat16, D) == ("wgmma" if D <= 256
                                            else "cuda_cores")
     assert pk.route(torch.float32, D) == ("wgmma_f32" if D <= 128
                                           else "cuda_cores")
     assert pk.route(torch.float32, D, 129) == "cuda_cores"
-    assert pk.route(torch.float32, D, 64) == ("wgmma_f32" if D <= 128
+    assert pk.route(torch.float32, D, 64) == ("wgmma_f32" if D <= 192
                                               else "cuda_cores")
+    assert pk.route(torch.float32, D, 128) == ("wgmma_f32" if D <= 192
+                                               else "cuda_cores")
     t = torch.from_numpy(np.random.default_rng(D).standard_normal(
         (2, 3, 5, D)).astype(np.float32)).transpose(1, 2)
     c = pk.ready_copy(t)

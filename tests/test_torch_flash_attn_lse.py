@@ -8,13 +8,19 @@ CPU, against the JAX package:
 * a plain transcription of the route's equations (``_wgmma_equations``: P
   from the forward's log-sum-exp, ``delta = rowsum(dO * O)``, the rows that
   see no key found by their index, the ragged key tail padded with zero
-  keys and masked, dK and dV summed over the group in head order) against
-  ``jax.vjp`` of ``mha``;
+  keys and masked, dQ summed over the streamed key tiles and dK and dV
+  over the streamed query tiles in order (64 rows, 32 at D = 192: the
+  kernels' ``stream_rows``), dK and dV summed over the group in head
+  order) against ``jax.vjp`` of ``mha`` and, at the wide heads, against
+  ``ref.mha_vjp``;
 * ``kernel.route_bwd`` and the wrapper's refusal of the tensor-core
-  routes (``wgmma``, ``wgmma_f32``) without a log-sum-exp.
+  routes (``wgmma``, ``wgmma_f32``) without a log-sum-exp, at MLA's heads
+  too.
 
 Shapes cover GQA, causal with Sq > Sk (rows that see no key), ragged keys
-and queries, D = 80 and 96, and Dv != D without the mask.  Tolerances:
+and queries, D = 80 and 96, Dv != D without the mask, MLA's Dk 192 / Dv
+128 and D = 256 (past the routes' limits; the equations hold there as
+well).  Tolerances:
 float32 ``F32_TOL = 1e-5`` of each gradient's (or output's) largest
 magnitude (the same float32 math in another order; exp2 of a log2-domain
 log-sum-exp for exp of a max-shifted logit); the log-sum-exp within
@@ -37,7 +43,14 @@ F32_TOL = 1e-5
 LSE_ATOL = 1e-5
 BF16_TOL = 2e-2
 LOG2E = 1.4426950408889634
-TILE = 64     # the key tile the dQ kernel streams (its ragged tail is padded)
+PLAIN_TOL = 1e-4   # the wide heads against ref.mha_vjp (chip_smoke.py's)
+
+
+def _tile(D):
+    """Rows of the tiles the bf16 kernels stream (csrc/flash_attn_bwd.cu:
+    stream_rows): the dQ kernel's keys (its ragged tail padded with zero
+    keys) and the dK/dV kernel's queries."""
+    return 64 if D <= 128 else 32
 
 # (B, Hq, Hkv, Sq, Sk, Dk, Dv, causal)
 SHAPES = [
@@ -47,7 +60,11 @@ SHAPES = [
     (1, 4, 1, 70, 70, 80, 80, True),      # Zamba2's depth, a group of 4
     (1, 2, 2, 50, 90, 96, 96, True),      # Phi-3's depth, ragged
     (1, 4, 2, 33, 70, 96, 64, False),     # Dv != D, no mask
+    (1, 4, 2, 40, 70, 192, 128, True),    # MLA's Dk 192 / Dv 128, ragged
+    (1, 2, 1, 50, 40, 192, 128, True),    # MLA's heads, ten rows see no key
+    (1, 2, 2, 33, 45, 256, 256, False),   # D = 256, no mask
 ]
+WIDE = [s for s in SHAPES if s[5] > 128]
 
 
 def _inputs(shape, seed):
@@ -85,14 +102,16 @@ def _close(got, want, tol, what):
 
 
 def _wgmma_equations(q, k, v, out, dout, lse, causal):
-    """(dq, dk, dv) as the tensor-core route computes them, in float32,
-    untiled but for the key tail: the keys padded with zero rows to a
-    multiple of TILE (TMA's fill) and masked there."""
+    """(dq, dk, dv) as the tensor-core route computes them, in float32: the
+    keys padded with zero rows to a multiple of the streamed tile (TMA's
+    fill) and masked there, dQ summed over the key tiles and each head's
+    dK and dV over the query tiles, in order."""
     B, Hq, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
     group = Hq // Hkv
     scale = 1.0 / D ** 0.5
-    pad = (-Sk) % TILE
+    tile = _tile(D)
+    pad = (-Sk) % tile
     kp, vp = (F.pad(t.float(), (0, 0, 0, pad)).repeat_interleave(group, 1)
               for t in (k, v))
     qf, of, dof = q.float(), out.float(), dout.float()
@@ -111,9 +130,20 @@ def _wgmma_equations(q, k, v, out, dout, lse, causal):
     delta = (dof * of).sum(-1)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vp)
     ds = torch.where(blind[:, None], 0.0, p * (dp - delta[..., None]))
-    dq = scale * torch.einsum("bhqk,bhkd->bhqd", ds, kp)
-    dk_h = scale * torch.einsum("bhqk,bhqd->bhkd", ds, qf)
-    dv_h = torch.einsum("bhqk,bhqd->bhkd", p_dv, dof)
+    dq = torch.zeros((B, Hq, Sq, D))
+    for t0 in range(0, Sk + pad, tile):      # the dQ kernel's key tiles
+        dq += torch.einsum("bhqk,bhkd->bhqd", ds[..., t0:t0 + tile],
+                           kp[:, :, t0:t0 + tile])
+    dq = scale * dq
+    dk_h = torch.zeros((B, Hq, Sk + pad, D))
+    dv_h = torch.zeros((B, Hq, Sk + pad, v.shape[-1]))
+    for q0 in range(0, Sq, tile):            # the dK/dV kernel's query tiles
+        rows = slice(q0, q0 + tile)
+        dk_h += torch.einsum("bhqk,bhqd->bhkd", ds[:, :, rows],
+                             qf[:, :, rows])
+        dv_h += torch.einsum("bhqk,bhqd->bhkd", p_dv[:, :, rows],
+                             dof[:, :, rows])
+    dk_h = scale * dk_h
     dk, dv = (torch.zeros((B, Hkv, Sk + pad, t.shape[-1])) for t in (k, v))
     for g in range(group):                   # the reduce kernel's order
         dk += dk_h[:, g::group]
@@ -175,13 +205,27 @@ def test_wgmma_equations_match_reference_vjp_bf16(shape):
     _close(got, want, BF16_TOL, shape)
 
 
+@pytest.mark.parametrize("shape", WIDE, ids=str)
+def test_wgmma_equations_match_plain_vjp_wide(shape):
+    """At MLA's heads and at 256, the tiled equations against the plain
+    version of the backward kernel, ``ref.mha_vjp``, within 1e-4."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(shape, 4))
+    causal = shape[-1]
+    out, lse = pr.mha_lse(q, k, v, causal=causal)
+    got = _wgmma_equations(q, k, v, out, do, lse, causal)
+    want = pr.mha_vjp(q, k, v, do, causal=causal)
+    _close(got, [w.numpy() for w in want], PLAIN_TOL, shape)
+
+
 def test_route_bwd_names_the_tensor_core_route():
     bf16, f32 = torch.bfloat16, torch.float32
     for d, dv in ((128, 128), (96, 96), (80, 80), (64, 64), (16, 16),
-                  (96, 64), (1, 128)):
+                  (96, 64), (1, 128), (192, 128), (160, 64), (129, 1),
+                  (64, 128)):
         assert pk.route_bwd(bf16, d, dv) == "wgmma"
         assert pk.route_bwd(f32, d, dv) == "wgmma_f32"
-    for d, dv in ((192, 128), (256, 256), (128, 129)):
+    for d, dv in ((256, 256), (128, 129), (193, 128), (192, 129),
+                  (288, 128), (64, 192)):
         assert pk.route_bwd(bf16, d, dv) == "cuda_cores"
         assert pk.route_bwd(f32, d, dv) == "cuda_cores"
 
@@ -196,6 +240,24 @@ def test_wgmma_route_needs_the_forward_lse():
     with pytest.raises(ValueError, match="log-sum-exp"):
         pk.flash_attention_bwd(q, k, v, out, dout,
                                torch.zeros(B, Hq, S, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_wide_tensor_core_routes_need_the_forward_lse(dtype):
+    """At MLA's heads (Dk 192, Dv 128) both tensor-core routes read the
+    forward's log-sum-exp, and the wrapper refuses a call without it."""
+    B, Hq, Hkv, S = 1, 4, 2, 16
+    q = torch.zeros(B, Hq, S, 192, dtype=dtype)
+    out, dout = (torch.zeros(B, Hq, S, 128, dtype=dtype) for _ in range(2))
+    k = torch.zeros(B, Hkv, S, 192, dtype=dtype)
+    v = torch.zeros(B, Hkv, S, 128, dtype=dtype)
+    which = pk.route_bwd(dtype, 192, 128)
+    assert which == ("wgmma" if dtype == torch.bfloat16 else "wgmma_f32")
+    with pytest.raises(ValueError, match=f"{which} route needs"):
+        pk.flash_attention_bwd(q, k, v, out, dout)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        pk.flash_attention_bwd(q, k, v, out, dout,
+                               torch.zeros(B, Hq, S + 1))
 
 
 def test_f32_tensor_core_route_needs_the_forward_lse():

@@ -14,6 +14,14 @@ attention whose matrix products are each the six partial products
   ``mha`` (the forward's float32 tolerance), and the backward's equations
   with every product so taken (S, dP, dV, dQ, dK; P and dS split) within
   ``F32_TOL`` of ``jax.vjp`` of the reference's ``mha``.
+* The kernels' tiling of those products (``_forward_tiled``,
+  ``_backward_tiled``): the forward's online softmax over key tiles of 64
+  (32 at D = 192), each tile's P V into a fresh accumulator added to O in
+  float32; the backward's dQ over key tiles and dK, dV over query tiles of
+  32 rows, each tile's products fresh, dQ's 64 columns at a time at D =
+  192; within 2e-5 (forward) and ``F32_TOL`` (backward) of the
+  reference, and 1e-4 of the plain ``ref.mha_vjp``, at MLA's Dk 192 / Dv
+  128 and at 256.
 
 The kernels themselves are held to the plain versions on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
@@ -36,7 +44,12 @@ SHAPES = [
     (2, 4, 2, 37, 53, 36, 36, True),      # ragged keys and queries, D = 36
     (1, 2, 2, 50, 90, 96, 96, True),      # Phi-3's depth, ragged
     (1, 4, 1, 33, 70, 128, 64, False),    # Dv != D, no mask
+    (1, 4, 2, 40, 70, 192, 128, True),    # MLA's Dk 192 / Dv 128, ragged
+    (1, 2, 1, 50, 40, 192, 128, True),    # MLA's heads, ten rows see no key
+    (1, 2, 2, 33, 45, 256, 256, False),   # D = 256, no mask
 ]
+WIDE = [s for s in SHAPES if s[5] > 128]
+PLAIN_TOL = 1e-4   # the backward against ref.mha_vjp (chip_smoke.py's)
 
 
 def _inputs(shape, seed):
@@ -109,6 +122,86 @@ def _backward(q, k, v, out, dout, lse, causal):
     return dq, dk, dv
 
 
+def _key_tile(D):
+    """Keys a tile of the float32 forward (csrc/flash_attn_f32.cu: KB)."""
+    return 64 if D <= 128 else 32
+
+
+# Rows of the float32 backward's streamed tiles (csrc/flash_attn_bwd_f32.cu:
+# F3_KV_QT, F3_DQ_KT).
+STREAM_ROWS = 32
+
+
+def _forward_tiled(q, k, v, causal):
+    """(out, lse) as the float32 forward kernel computes them: the online
+    softmax over key tiles (log2 domain, masked logits -1e30, keys past Sk
+    -inf), S of a tile from six products, P V of a tile from six products
+    into a fresh accumulator, added to the rescaled O in float32."""
+    B, Hq, Sq, D = q.shape
+    group = Hq // k.shape[1]
+    Sk, Dv = k.shape[2], v.shape[-1]
+    kr, vr = (t.repeat_interleave(group, 1) for t in (k, v))
+    vis, _ = _mask(Sq, Sk, causal)
+    m = torch.full((B, Hq, Sq, 1), pr.NEG_INF)
+    l = torch.zeros((B, Hq, Sq, 1))
+    o = torch.zeros((B, Hq, Sq, Dv))
+    kb = _key_tile(D)
+    for k0 in range(0, Sk, kb):
+        keys = slice(k0, k0 + kb)
+        x = _six("bhqd,bhkd->bhqk", q, kr[:, :, keys]) * (D ** -0.5
+                                                            * pr.LOG2E)
+        x = torch.where(vis[:, keys], x, pr.NEG_INF)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _six("bhqk,bhkd->bhqd", p, vr[:, :, keys])
+        m = m_new
+    return o / torch.clamp(l, min=1e-30), (m + torch.log2(l))[..., 0]
+
+
+def _backward_tiled(q, k, v, out, dout, lse, causal):
+    """(dq, dk, dv) as the float32 backward kernels take the products: dQ
+    over key tiles (each tile's six products fresh, CW columns at a time:
+    all of them up to D = 128, 64 at D = 192), each head's dK and dV over
+    query tiles (each tile's six products fresh), added in float32 in
+    order; then dK and dV summed over the group in head order."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = D ** -0.5
+    rows = STREAM_ROWS
+    cw = D if D <= 128 else 64
+    kr, vr = (t.repeat_interleave(group, 1) for t in (k, v))
+    vis, blind = _mask(Sq, Sk, causal)
+    delta = (dout * out).sum(-1)
+    dq = torch.zeros_like(q)
+    for k0 in range(0, Sk, rows):            # the dQ kernel's key tiles
+        keys = slice(k0, k0 + rows)
+        x = _six("bhqd,bhkd->bhqk", q, kr[:, :, keys]) * (scale * pr.LOG2E)
+        p = torch.where(vis[:, keys], torch.exp2(x - lse[..., None]), 0.0)
+        dp = _six("bhqd,bhkd->bhqk", dout, vr[:, :, keys])
+        ds = torch.where(blind[:, None], 0.0, p * (dp - delta[..., None]))
+        for c0 in range(0, D, cw):
+            dq[..., c0:c0 + cw] += _six("bhqk,bhkd->bhqd", ds,
+                                        kr[:, :, keys, c0:c0 + cw])
+    dk_h = torch.zeros((B, Hq, Sk, D))
+    dv_h = torch.zeros((B, Hq, Sk, v.shape[-1]))
+    for q0 in range(0, Sq, rows):            # the dK/dV kernel's query tiles
+        qs = slice(q0, q0 + rows)
+        x = _six("bhqd,bhkd->bhqk", q[:, :, qs], kr) * (scale * pr.LOG2E)
+        p = torch.where(vis[qs], torch.exp2(x - lse[:, :, qs, None]), 0.0)
+        p_dv = torch.where(blind[qs, None], 1.0 / Sk, p)
+        dp = _six("bhqd,bhkd->bhqk", dout[:, :, qs], vr)
+        ds = torch.where(blind[qs, None], 0.0,
+                         p * (dp - delta[:, :, qs, None]))
+        dk_h += _six("bhqk,bhqd->bhkd", ds, q[:, :, qs])
+        dv_h += _six("bhqk,bhqd->bhkd", p_dv, dout[:, :, qs])
+    dk = sum(scale * dk_h[:, g::group] for g in range(group))
+    dv = sum(dv_h[:, g::group] for g in range(group))
+    return scale * dq, dk, dv
+
+
 @pytest.mark.parametrize("scale", [1e-3, 1.0, 1e3], ids=str)
 def test_split3_bf16_sums_back_to_float32(scale):
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
@@ -164,3 +257,44 @@ def test_backward_from_six_products_matches_reference_vjp(shape):
         scale = float(np.abs(w).max()) or 1.0
         np.testing.assert_allclose(g.numpy(), w, rtol=F32_TOL,
                                    atol=F32_TOL * scale, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_tiled_forward_matches_reference(shape):
+    """The float32 forward kernel's tiling (32-key tiles at D = 192) within
+    2e-5 of the reference's ``mha`` and of ``ref.mha_lse``."""
+    q, k, v, _ = _inputs(shape, 4)
+    causal = shape[-1]
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out, lse = _forward_tiled(tq, tk, tv, causal)
+    want = jax.jit(fr.mha, static_argnames="causal")(q, k, v, causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=ATTN_TOL,
+                               atol=ATTN_TOL)
+    plain, plain_lse = pr.mha_lse(tq, tk, tv, causal=causal)
+    torch.testing.assert_close(out, plain, rtol=ATTN_TOL, atol=ATTN_TOL)
+    seen = ~_mask(shape[3], shape[4], causal)[1]
+    torch.testing.assert_close(lse[..., seen], plain_lse[..., seen], rtol=0,
+                               atol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("shape", WIDE, ids=str)
+def test_tiled_backward_matches_reference_vjp_wide(shape):
+    """The float32 backward kernels' tiling at MLA's heads and at 256 (32-row
+    tiles, dQ's fresh accumulators 64 columns wide) within ``F32_TOL`` of
+    ``jax.vjp`` of the reference's ``mha`` and ``PLAIN_TOL`` of the plain
+    ``ref.mha_vjp``."""
+    q, k, v, do = _inputs(shape, 5)
+    causal = shape[-1]
+    mha = jax.jit(fr.mha, static_argnames="causal")
+    _, vjp = jax.vjp(lambda a, b, c: mha(a, b, c, causal=causal), q, k, v)
+    want = [np.asarray(g, np.float32) for g in vjp(do)]
+    tq, tk, tv, td = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = _forward_tiled(tq, tk, tv, causal)
+    got = _backward_tiled(tq, tk, tv, out, td, lse, causal)
+    plain = pr.mha_vjp(tq, tk, tv, td, causal=causal)
+    for g, w, p, name in zip(got, want, plain, ("dq", "dk", "dv")):
+        scale = float(np.abs(w).max()) or 1.0
+        np.testing.assert_allclose(g.numpy(), w, rtol=F32_TOL,
+                                   atol=F32_TOL * scale, err_msg=name)
+        torch.testing.assert_close(g, p, rtol=PLAIN_TOL,
+                                   atol=PLAIN_TOL * scale)

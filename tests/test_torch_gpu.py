@@ -1051,7 +1051,11 @@ GRAD_SHAPES = [(1, 4, 2, 64, 64, 32, 32, True),
                (1, 4, 1, 77, 200, 256, 256, True),
                (1, 32, 4, 1025, 1025, 128, 128, True),
                (1, 8, 8, 257, 257, 80, 80, True),
-               (1, 8, 2, 200, 300, 96, 64, False)]
+               (1, 8, 2, 200, 300, 96, 64, False),
+               (1, 2, 1, 160, 128, 192, 128, True),
+               (1, 4, 2, 77, 200, 160, 64, False),
+               (1, 4, 1, 64, 64, 288, 128, True),
+               (1, 4, 2, 64, 64, 192, 136, True)]
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -1069,15 +1073,16 @@ def _grads(q, k, v, dout, causal):
                          ids=str)
 @pytest.mark.parametrize("shape", GRAD_SHAPES, ids=str)
 def test_flash_attention_backward_kernel_matches_plain(shape, dtype):
-    """Every route against the plain version, reruns bitwise; both head
-    dims up to 128 take the tensor-core routes (bf16, or float32 by the
-    three-way split), wider heads the CUDA-core route."""
+    """Every route against the plain version, reruns bitwise; a head dim
+    up to 192 and a value width up to 128 take the tensor-core routes
+    (bf16, or float32 by the three-way split), wider heads the CUDA-core
+    route."""
     from repro_torch.kernels.flash_attn import kernel as attn_kernel
     from repro_torch.kernels.flash_attn import ref as attn_ref
     dev = cuda_or_skip()
     B, Hq, Hkv, Sq, Sk, D, Dv, causal = shape
     route = attn_kernel.route_bwd(dtype, D, Dv)
-    assert route == ("cuda_cores" if max(D, Dv) > 128
+    assert route == ("cuda_cores" if D > 192 or Dv > 128
                      else "wgmma" if dtype == torch.bfloat16
                      else "wgmma_f32")
     rng = np.random.default_rng(0)
@@ -1222,14 +1227,19 @@ def test_train_step_on_card_matches_plain(arch):
 # products): forward, log-sum-exp, backward ------------------------------
 
 # (B, Hq, Hkv, Sq, Sk, D, Dv, causal): GQA, ragged keys, rows that see no
-# key (Sq > Sk), not causal, D = 16, 36, 64, 96, 128, Dv != D.
+# key (Sq > Sk), not causal, D = 16, 36, 64, 96, 128, Dv != D; then MLA's
+# Dk 192 / Dv 128 (the wide instances: 32-key tiles forward, 16-row tiles
+# backward), with rows that see no key, and D = 160 with Dv = 64.
 F32_TC_SHAPES = [(1, 8, 2, 100, 130, 16, 16, True),
                  (2, 4, 2, 37, 53, 36, 36, True),
                  (1, 8, 2, 300, 100, 64, 64, True),
                  (1, 6, 3, 65, 200, 96, 96, False),
                  (1, 32, 4, 1025, 1025, 128, 128, True),
                  (1, 4, 1, 77, 200, 128, 64, True),
-                 (2, 4, 4, 129, 1, 32, 32, True)]
+                 (2, 4, 4, 129, 1, 32, 32, True),
+                 (1, 16, 16, 300, 300, 192, 128, True),
+                 (1, 2, 1, 160, 128, 192, 128, True),
+                 (1, 4, 2, 77, 200, 160, 64, False)]
 
 
 def _f32_inputs(shape, seed, dtypes=(torch.float32,) * 4):
