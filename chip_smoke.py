@@ -11,8 +11,8 @@ Phases, each timed on its own line; any failure exits non-zero:
    libraries with ``cuobjdump``: every instance of the attention kernels on
    the tensor cores (the bf16 forward and backward, and the float32 forward
    and backward, which reach float32 accuracy on the bf16 tensor cores by
-   a three-way bf16 split) and of the bf16 SSD walk must hold ``HGMMA``
-   (Hopper's warpgroup tensor-core instruction);
+   a three-way bf16 split) and of the bf16 and float32 SSD walks must hold
+   ``HGMMA`` (Hopper's warpgroup tensor-core instruction);
 2. hold each fabric kernel bitwise against its plain PyTorch version on the
    card: ``segmented_cummax`` on random inputs at the engine's sizes and
    flag densities, and with NaNs (which hold to their segment's end, as
@@ -138,22 +138,26 @@ Phases, each timed on its own line; any failure exits non-zero:
     the reference run's top-2 margin is under twice that step's logit gap
     (printed);
 14. ``ssd_vs_plain``: hold the SSD chunked-scan kernels (bf16: the
-    tensor-core walk; float32: the CUDA-core route) to the plain
-    ``ssd_chunked``, and the final state they return to the plain
-    ``ssd_final_state``, at Zamba2-2.7B's heads (80 of P = 64, N = 64),
+    tensor-core walk up to N = 256; float32: the float32 tensor-core walk
+    up to N = 128, each of its cases rerun bitwise; past those states the
+    CUDA-core route, which a float32 and a bf16 case (N = 320) still take)
+    to the plain ``ssd_chunked``, and the final state they return to the
+    plain ``ssd_final_state``, at Zamba2-2.7B's heads (80 of P = 64, N = 64),
     Mamba2-130M's (24 of P = 64, N = 128) and the reference's grouped shape
     (8 heads over 4 groups) for L = 1, 37, 64, 100 and 2,048 at batch 1 and
     2 (float32 at the reference's 5e-5/5e-4, bf16 at 2e-2), requested
-    chunks of 1, 16, 32 and 63 (the bf16 walk runs them as 64), a large-decay
+    chunks of 1, 16, 32 and 63 (both walks run them as 64), a large-decay
     case per head shape (``A * dt`` summing past 100 within a chunk: finite
     and within tolerance), P = 100-128 and N = 200-256 at a requested chunk
     of 128, float16 and mixed dtypes of x, B and C (read in float32, the
-    CUDA-core route, at 2e-2), and, at L <= 100 in float32, to the
+    float32 walk, at 2e-2), and, at L <= 100 in float32, to the
     sequential ``ssd_scan`` too;
 15. ``ssm_serve_golden``: Mamba2-130M at full size and Zamba2-2.7B at full
     width cut to 6 layers (one shared-block application), float32, numpy
     weights, held to ``tests/torch_golden/serve_ssm.json`` (CPU JAX) as
-    phase 12 holds Yi-6B;
+    phase 12 holds Yi-6B, with the SSD launch counts by route set to 0
+    just before and read just after: every one on the float32 tensor-core
+    walk;
 16. ``ssm_serve_main_path``: Zamba2-2.7B at full width and depth in bf16
     through phase 13's batcher mix, ``greedy_decode`` and checks, with the
     ``ssd_scan`` and ``flash_attention`` launch counts set to 0 just before
@@ -165,8 +169,10 @@ Phases, each timed on its own line; any failure exits non-zero:
     path's shape, random inputs, in bf16 and float32, beside one SDPA
     backward), beside the bound of the card (and, for flash attention,
     one ``scaled_dot_product_attention`` call as the library's time; no
-    single PyTorch call computes the SSD scan); the float32 SSD route is
-    timed on those inputs in float32, the float32 attention's tensor-core
+    single PyTorch call computes the SSD scan); the float32 SSD walk is
+    timed at that shape on random float32 inputs beside its and its plain
+    version's distance from float64, the float32 SSD's CUDA-core route at
+    ``SSD_CUDA_CORE_SHAPE`` (N = 256), the float32 attention's tensor-core
     kernel at that shape on random float32 inputs, each float32 attention
     row beside its and its plain version's largest distance from float64
     (``f64_err``, ``plain_f64_err``), the float32 tensor-core kernels
@@ -174,8 +180,8 @@ Phases, each timed on its own line; any failure exits non-zero:
     heads, Dk 192, Dv 128, 511 positions: the widest heads of the main
     paths; the ``_wide`` rows), the CUDA-core kernels (forward and
     backward, float32) at ``CUDA_CORE_SHAPE`` (D = 256, past the
-    tensor-core routes of float32 and of the backward), the SSD
-    walk with 32 and with 64 P columns a CTA, and ``jsq_scan`` through both
+    tensor-core routes of float32 and of the backward), both SSD
+    walks with 32 and with 64 P columns a CTA, and ``jsq_scan`` through both
     walks, beside its longest walked prefix and the device time a walked
     step; the launch floor, one 1-element ``add_`` timed the same way; and
     the bf16 attention kernel at each ``ATTN_ZOO`` shape (random inputs)
@@ -378,8 +384,10 @@ def device_ms(fn, reps: int, kernel_re: str, per_call: int = 0):
     after one warm-up call (None when the trace holds no device time).
     With ``per_call``, each trace follows a warm-up trace of one call, and
     one that holds other than ``per_call`` x ``reps`` launches of them is
-    printed with its counts and taken again, up to three traces; None if
-    none holds them all."""
+    printed with its counts and taken again, up to three traces; if none
+    holds them all, the mean over the calls the last one held (its launches
+    over ``per_call``; traces on the card have come back short of launches
+    from the first calls), which is printed too."""
     tries = 3
     import re
     import torch
@@ -405,7 +413,11 @@ def device_ms(fn, reps: int, kernel_re: str, per_call: int = 0):
               f"{per_call * reps} launches matching {kernel_re!r}: "
               + ", ".join(f"{e.key[:70]} x{e.count}" for e in hits),
               flush=True)
-    return None
+    if n < per_call or total_us <= 0:
+        return None
+    print(f"device_ms: the mean over the {n / per_call:g} calls the last "
+          f"trace held", flush=True)
+    return total_us / (n / per_call) / 1e3
 
 
 def cuda_once(fn):
@@ -528,7 +540,8 @@ TC_KERNELS = (("flash_attn", "flash_attention_wgmma_kernel"),
               ("flash_attn_bwd", "attn_bwd_dq_wgmma_kernel"),
               ("flash_attn_bwd_f32", "attn_bwd_dkv_f32_kernel"),
               ("flash_attn_bwd_f32", "attn_bwd_dq_f32_kernel"),
-              ("ssd_scan", "ssd_wgmma_kernel"))
+              ("ssd_scan", "ssd_wgmma_kernel"),
+              ("ssd_scan_f32", "ssd_wgmma_f32_kernel"))
 
 
 def sass_check(build):
@@ -1490,10 +1503,16 @@ SSD_DECAY = 100.0      # A scaled so that A * dt sums past 100 in a chunk
 # kernel tiles P and N and runs chunks of 64), for L = 37 and 500.
 SSD_WIDE = ((4, 128, 1, 256), (6, 100, 2, 200))
 SSD_WIDE_CHUNK = 128
-# Requested chunks below 64, which the bf16 walk runs as chunks of 64 (and
-# the float32 route as asked), at Zamba2-2.7B's and the grouped heads, L =
-# 301 (ragged), with and without the large decay.
+# bf16 past the bf16 walk's N (the CUDA-core route), (H, P, G, N), for L =
+# 37 and 500 at a requested chunk of 64.
+SSD_WIDE_BF16 = (2, 64, 1, 320)
+# Requested chunks below 64, which both tensor-core walks run as chunks of
+# 64, at Zamba2-2.7B's and the grouped heads, L = 301 (ragged), with and
+# without the large decay.
 SSD_SHORT_CHUNKS = (1, 16, 32, 63)
+# The float32 CUDA-core route's timing row: Mamba2-130M's heads with a
+# state past the float32 walk's N (no main path reaches it).
+SSD_CUDA_CORE_SHAPE = (1, 2048, 24, 64, 1, 256)
 # float16 and mixed dtypes of (x, B, C), (B, L, H, P, G, N), at HALF_TOL.
 SSD_HALF_SHAPES = ((1, 64, 2, 16, 1, 16), (1, 100, 80, 64, 1, 64))
 
@@ -2058,14 +2077,16 @@ def serve_golden_phase(dev):
 def ssm_golden_phase(dev):
     """ssm_serve_golden: Mamba2-130M at full size and Zamba2-2.7B at full
     width cut to 6 layers, float32, numpy weights, held to the CPU JAX
-    golden ``serve_ssm.json`` as serve_golden holds Yi-6B.  Returns the
-    float32 attention launches by route and the float32 SSD route's
-    launches, counted from 0."""
+    golden ``serve_ssm.json`` as serve_golden holds Yi-6B.  Every float32
+    SSD launch (N = 64 and 128) must take the float32 tensor-core walk.
+    Returns the float32 attention launches by route and the float32 SSD
+    walk's launches, counted from 0."""
     import torch
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     golden = json.loads(SSM_GOLDEN.read_text())
     with Phase("ssm_serve_golden"):
-        ssd_ops.ROUTE_LAUNCHES["cuda_cores"] = 0
+        routes = ssd_ops.ROUTE_LAUNCHES
+        routes.update(dict.fromkeys(routes, 0))
         reset_attn_routes()
         for rec in golden["models"]:
             model, params = golden_model(rec, dev)
@@ -2074,10 +2095,13 @@ def ssm_golden_phase(dev):
             del params
             torch.cuda.empty_cache()
         n = f32_routes("ssm_serve_golden")
-        n_ssd = ssd_ops.ROUTE_LAUNCHES["cuda_cores"]
-        check(n_ssd > 0, "ssm_serve_golden: the float32 SSD route never ran")
-        print(f"ssm_serve_golden: the float32 SSD route launched {n_ssd} "
-              f"times", flush=True)
+        n_ssd = routes["wgmma_f32"]
+        check(n_ssd > 0 and routes["cuda_cores"] == 0
+              and routes["wgmma"] == 0,
+              f"ssm_serve_golden: SSD launches by route {dict(routes)}: "
+              f"every one must take the float32 tensor-core walk")
+        print(f"ssm_serve_golden: SSD launches by route {dict(routes)}",
+              flush=True)
     return n, n_ssd
 
 
@@ -2618,11 +2642,20 @@ def ssd_inputs(B, L, H, P, G, N, dtype, gen, dev, decay=1.0):
             C.to(dev, dtype))
 
 
+def ssd_expected_route(dtype: str, N: int) -> str:
+    """The route an SSD case must take: the bf16 walk up to N = 256, the
+    float32 walk up to N = 128, else the CUDA cores."""
+    if dtype == "bfloat16":
+        return "wgmma" if N <= 256 else "cuda_cores"
+    return "wgmma_f32" if N <= 128 else "cuda_cores"
+
+
 def ssd_phase(dev, errs):
-    """ssd_vs_plain: the SSD kernel against the plain ``ssd_chunked`` on the
-    card at SSD_HEADS x SSD_LENS x batch 1-2, float32 and bf16, with a
+    """ssd_vs_plain: the SSD kernels against the plain ``ssd_chunked`` on
+    the card at SSD_HEADS x SSD_LENS x batch 1-2, float32 and bf16, with a
     large-decay case at each head shape, and against the sequential oracle
-    ``ssd_scan`` at L <= 100 in float32."""
+    ``ssd_scan`` at L <= 100 in float32; each case's route checked, every
+    float32 walk's rerun bitwise equal."""
     import torch
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -2639,12 +2672,15 @@ def ssd_phase(dev, errs):
                   for H, P, G, N in SSD_WIDE for L in (37, 500)
                   for dt in ("float32", "bfloat16")
                   for decay in (1.0, SSD_DECAY)]
+        cases += [(1, L, *SSD_WIDE_BF16, "bfloat16", decay, 64)
+                  for L in (37, 500) for decay in (1.0, SSD_DECAY)]
         cases += [(1, 301, H, P, G, N, dt, decay, chunk)
                   for H, P, G, N in (SSD_HEADS[0], SSD_HEADS[2])
                   for chunk in SSD_SHORT_CHUNKS
                   for dt in ("float32", "bfloat16")
                   for decay in (1.0, SSD_DECAY)]
         n_seq = 0
+        n_route = dict.fromkeys(ssd_ops.ROUTE_LAUNCHES, 0)
         for B, L, H, P, G, N, dt, decay, chunk in cases:
             args = ssd_inputs(B, L, H, P, G, N, getattr(torch, dt), gen, dev,
                               decay)
@@ -2654,13 +2690,15 @@ def ssd_phase(dev, errs):
                                        final_state=True)
             torch.cuda.synchronize()
             which = ssd_kernel.route(args[0].dtype, N)
-            check(which == ("wgmma" if dt == "bfloat16" and N <= 256
-                            else "cuda_cores")
+            check(which == ssd_expected_route(dt, N)
                   and ssd_ops.ROUTE_LAUNCHES[which] == routes[which] + 1,
                   f"ssd_scan {dt} N={N}: took the wrong route")
+            n_route[which] += 1
             err = max_abs_err(got.float(), want.float())
             herr = max_abs_err(got_h, want_h)
-            key = "ssd_scan" if dt == "bfloat16" else "ssd_scan_f32"
+            key = {"wgmma": "ssd_scan", "wgmma_f32": "ssd_scan_f32"}.get(
+                which, f"ssd_scan_{'f32' if dt == 'float32' else 'bf16'}"
+                       f"_cuda_cores")
             errs[key] = max(errs[key], err, herr)
             atol, rtol = SSD_TOL[dt]
             tag = (f"ssd_scan {(B, L, H, P, G, N)} {dt} decay {decay} "
@@ -2679,6 +2717,11 @@ def ssd_phase(dev, errs):
             if (B, L, H, P, G, N) == cases[0][:6]:
                 check(torch.equal(ssd_ops.ssd(*args, chunk=chunk), got),
                       f"{tag}: y differs without the final state")
+            if which == "wgmma_f32":
+                again, again_h = ssd_ops.ssd(*args, chunk=chunk,
+                                             final_state=True)
+                check(torch.equal(again, got) and torch.equal(again_h, got_h),
+                      f"{tag}: a rerun differs")
             line = (f"{tag}: max_abs_err {err:.3g}, final state {herr:.3g} "
                     f"(tolerance atol={atol}, rtol={rtol})")
             if decay != 1.0:
@@ -2693,53 +2736,112 @@ def ssd_phase(dev, errs):
                 line += f"; vs sequential scan {serr:.3g}"
                 n_seq += 1
             print(line, flush=True)
+        check(all(n_route.values()), f"ssd_vs_plain: a route never ran: "
+              f"{n_route}")
         print(f"ssd_vs_plain: {len(cases)} cases (y and the final state), "
-              f"{n_seq} also against the sequential scan; largest "
-              f"max_abs_err bf16 {errs['ssd_scan']:.3g}, float32 "
-              f"{errs['ssd_scan_f32']:.3g}", flush=True)
+              f"{n_seq} also against the sequential scan, by route "
+              f"{n_route}; largest max_abs_err bf16 walk "
+              f"{errs['ssd_scan']:.3g}, float32 walk "
+              f"{errs['ssd_scan_f32']:.3g}, CUDA cores float32 "
+              f"{errs['ssd_scan_f32_cuda_cores']:.3g} and bf16 "
+              f"{errs['ssd_scan_bf16_cuda_cores']:.3g}", flush=True)
         for shape in SSD_HALF_SHAPES:
             for dts in HALF_MIXED:
                 x, dt, A, Bm, C = ssd_inputs(*shape, torch.float32, gen, dev)
                 x, Bm, C = (t.to(getattr(torch, d))
                             for t, d in zip((x, Bm, C), dts))
-                before = ssd_ops.ROUTE_LAUNCHES["cuda_cores"]
+                before = ssd_ops.ROUTE_LAUNCHES["wgmma_f32"]
                 got = ssd_ops.ssd(x, dt, A, Bm, C)
                 want = ssd_ops.ssd(x, dt, A, Bm, C, backend="torch")
                 torch.cuda.synchronize()
                 err = max_abs_err(got.float(), want.float())
-                check(ssd_ops.ROUTE_LAUNCHES["cuda_cores"] == before + 1
+                check(ssd_ops.ROUTE_LAUNCHES["wgmma_f32"] == before + 1
                       and got.dtype == x.dtype
                       and bool(torch.isfinite(got).all())
                       and torch.allclose(got.float(), want.float(),
                                          atol=HALF_TOL, rtol=HALF_TOL),
                       f"ssd_scan {shape} {dts}: kernel != plain "
                       f"(max_abs_err {err})")
-                print(f"ssd_scan {shape} {dts} (cuda_cores, read in "
+                print(f"ssd_scan {shape} {dts} (wgmma_f32, read in "
                       f"float32): max_abs_err {err:.3g} (tolerance "
                       f"atol=rtol={HALF_TOL})", flush=True)
+
+
+def ssd64(x, dt, A, Bm, C):
+    """(y, h_L): the SSD scan's chunked closed form (``ref.ssd_chunked``,
+    chunks of 64, ``ref.ssd_final_state``) in float64 on the card.  The
+    yardstick of the float32 rows' ``f64_err``."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    Q = 64
+    L, rep = x.shape[1], x.shape[2] // Bm.shape[2]
+    x, dt, Bm, C = ssd_ref.pad_to_chunk(Q, *(t.double()
+                                            for t in (x, dt, Bm, C)))
+    A = A.double()
+    Bh, Ch = (t.repeat_interleave(rep, dim=2) for t in (Bm, C))
+    causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+    h = torch.zeros((x.shape[0], x.shape[2], Bm.shape[3], x.shape[3]),
+                    dtype=torch.float64, device=x.device)
+    ys = []
+    for c0 in range(0, x.shape[1], Q):
+        r = slice(c0, c0 + Q)
+        xc, dtc, Bc, Cc = x[:, r], dt[:, r], Bh[:, r], Ch[:, r]
+        lam = torch.cumsum(A * dtc, dim=1)                 # (B, Q, H)
+        lh = lam.movedim(1, 2)
+        diff = lh[..., :, None] - lh[..., None, :]
+        s = (torch.einsum("bihn,bjhn->bhij", Cc, Bc)
+             * torch.where(causal, torch.exp(torch.where(causal, diff, 0.0)),
+                           0.0) * dtc.movedim(1, 2)[..., None, :])
+        ys.append(torch.exp(lam)[..., None]
+                  * torch.einsum("bihn,bhnp->bihp", Cc, h)
+                  + torch.einsum("bhij,bjhp->bihp", s, xc))
+        w = torch.exp(lam[:, -1:] - lam) * dtc
+        h = (torch.exp(lam[:, -1])[..., None, None] * h
+             + torch.einsum("bjhn,bjhp->bhnp", Bc, w[..., None] * xc))
+    return torch.cat(ys, dim=1)[:, :L], h
 
 
 def ssd_timing(rec, errs, launches, f32_launches):
     """The ssd_scan rows of the ``kernels`` line, at the largest input the
     serving main paths gave the kernel (a prefill: y and the final state):
-    the bf16 tensor-core walk on it (and its device time with 32 and with
-    64 P columns a CTA), and the float32 CUDA-core route on the same input
-    in float32, each beside its plain version."""
+    the bf16 tensor-core walk on it, the float32 tensor-core walk at the
+    same shape on random float32 x, B and C (the recorded dt and A; bf16
+    values would leave the lower two of the three bf16 parts it splits each
+    operand into zero), each walk's device time with 32 and with 64 P
+    columns a CTA, and the float32 CUDA-core route at SSD_CUDA_CORE_SHAPE
+    (random inputs; no main path reaches it); each beside its plain
+    version, the float32 rows beside their and the plain version's largest
+    distance from float64 (``f64_err``, ``plain_f64_err``: ``ssd64``)."""
     import torch
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     (x, dt, A, Bm, C), kw = rec.largest
     kw = {key: val for key, val in kw.items() if key != "backend"}
-    Bsz, L, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
     chunk = kw.get("chunk", 64)
+    gen = torch.Generator().manual_seed(5)
+    f32 = [torch.randn(t.shape, generator=gen).to(t.device)
+           for t in (x, Bm, C)]
+    cc = ssd_inputs(*SSD_CUDA_CORE_SHAPE, torch.float32, gen, x.device)
     rows = []
-    for name, kernel_re, dtype, n in (
-            ("ssd_scan", r"\bssd_wgmma_kernel<", torch.bfloat16, launches),
-            ("ssd_scan_f32", r"\bssd_(chunk_state|state_carry|chunk_out)",
-             torch.float32, f32_launches)):
-        x_, Bm_, C_ = (t.to(dtype) for t in (x, Bm, C))
-        args = (x_, dt, A, Bm_, C_)
+    # (name, kernels' names, route, launches, inputs); a call launches one
+    # kernel of a walk, three of the CUDA-core route, and a profiler trace
+    # short of them is taken again (device_ms's per_call).
+    for name, kernel_re, route, n, args in (
+            ("ssd_scan", r"\bssd_wgmma_kernel<", "wgmma", launches,
+             (x.bfloat16(), dt, A, Bm.bfloat16(), C.bfloat16())),
+            ("ssd_scan_f32", r"\bssd_wgmma_f32_kernel<", "wgmma_f32",
+             f32_launches, (f32[0], dt, A, f32[1], f32[2])),
+            ("ssd_scan_f32_cuda_cores",
+             r"\bssd_(chunk_state|state_carry|chunk_out)", "cuda_cores", 0,
+             tuple(cc))):
+        per_call = 3 if route == "cuda_cores" else 1
+        x_, dt_, A_, Bm_, C_ = args
+        Bsz, L, H, P = x_.shape
+        G, N = Bm_.shape[2], Bm_.shape[3]
+        dtype = x_.dtype
+        check(ssd_kernel.route(dtype, N) == route,
+              f"{name}: {tuple(x_.shape)} N={N} takes the "
+              f"{ssd_kernel.route(dtype, N)} route")
         got = ssd_ops.ssd(*args, **kw)
         want = ssd_ops.ssd(*args, backend="torch", **kw)
         got = got if isinstance(got, tuple) else (got,)
@@ -2751,13 +2853,22 @@ def ssd_timing(rec, errs, launches, f32_launches):
             check(torch.allclose(g.float(), w.float(), atol=atol, rtol=rtol),
                   f"{name}: kernel != plain on the main path's largest "
                   f"input")
+        f64 = {}
+        if dtype == torch.float32:
+            exact = ssd64(*args)
+            f64 = dict(f64_err=max(max_abs_err(g.double(), e)
+                                   for g, e in zip(got, exact)),
+                       plain_f64_err=max(max_abs_err(w.double(), e)
+                                         for w, e in zip(want, exact)))
+            del exact
         ms = cuda_ms(lambda: ssd_ops.ssd(*args, **kw), 20)
-        dev_ms = device_ms(lambda: ssd_ops.ssd(*args, **kw), 20, kernel_re)
+        dev_ms = device_ms(lambda: ssd_ops.ssd(*args, **kw), 20, kernel_re,
+                           per_call)
         plain_ms = cuda_ms(lambda: ssd_ops.ssd(*args, backend="torch",
                                                **kw), 5)
         esize = x_.element_size()
         nbytes = (2 * Bsz * L * H * P * esize + 2 * Bsz * L * G * N * esize
-                  + Bsz * L * H * dt.element_size() + H * 4)
+                  + Bsz * L * H * dt_.element_size() + H * 4)
         if kw.get("final_state"):
             nbytes += Bsz * H * N * P * 4
         # Per (batch, head) and chunk of r rows: C.B^T and S.x over the
@@ -2777,21 +2888,26 @@ def ssd_timing(rec, errs, launches, f32_launches):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
         row = dict(
             name=name, route="cuda",
-            source="src/repro_torch/csrc/ssd_scan.cu",
+            source="src/repro_torch/csrc/" + (
+                "ssd_scan_f32.cu" if route == "wgmma_f32" else "ssd_scan.cu"),
             replaces="src/repro/kernels/ssd_scan/kernel.py:66",
             launches=n, max_abs_err=err, ms=ms, device_ms=dev_ms,
             plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None, n=int(Bsz * L * H),
-            shape=[Bsz, L, H, P, G, N])
-        if dtype == torch.bfloat16:
-            # The split walk (32 P columns a CTA) against the unsplit one.
+            shape=[Bsz, L, H, P, G, N], **f64)
+        if route != "cuda_cores":
+            # A walk with 32 and with 64 P columns a CTA (64: N <= 128 in
+            # bf16, N <= 64 in float32).
+            widest = 128 if route == "wgmma" else 64
             row["device_ms_by_ptile"] = {
                 pt: device_ms(lambda: ssd_kernel.ssd_scan(
                     *args, chunk=chunk, final_state=True, ptile=pt), 20,
-                    kernel_re)
-                for pt in (32, 64) if pt == 32 or N <= 128}
+                    kernel_re, per_call)
+                for pt in (32, 64) if pt == 32 or N <= widest}
         rows.append(row)
+        del got, want
+    del f32, cc
     return rows
 
 
@@ -3603,7 +3719,8 @@ def main() -> int:
             "flash_attention_f32": 0.0, "flash_attention_f32_wide": 0.0,
             "flash_attention_f32_cuda_cores": 0.0,
             "flash_attention_bf16_cuda_cores": 0.0, "ssd_scan": 0.0,
-            "ssd_scan_f32": 0.0, "flash_attention_bwd": 0.0,
+            "ssd_scan_f32": 0.0, "ssd_scan_f32_cuda_cores": 0.0,
+            "ssd_scan_bf16_cuda_cores": 0.0, "flash_attention_bwd": 0.0,
             "flash_attention_bwd_f32": 0.0, "flash_attention_bwd_wide": 0.0,
             "flash_attention_bwd_f32_wide": 0.0,
             "flash_attention_bwd_f32_cuda_cores": 0.0,

@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels
-// (flash_attn.cu, flash_attn_bwd.cu): mbarriers, TMA tile loads and their
-// tensor maps, 128-byte-swizzle wgmma descriptors, the wgmma instructions
-// (float32 += bf16 x bf16) the kernels issue, register hand-over between
-// warpgroups (setmaxnreg), and the three-way bf16 split of the float32
-// routes (split_tile: a float32 tile into three swizzled bf16 planes in
-// shared memory; split3_pair: two float32 values into three register
-// planes).  Each library
-// that includes this header is its own translation unit;
+// (flash_attn.cu, flash_attn_bwd.cu and their float32 routes) and the SSD
+// scan (ssd_scan.cu, ssd_scan_f32.cu): mbarriers, named barriers, TMA tile
+// loads and their tensor maps, 128- and 64-byte-swizzle wgmma descriptors
+// (K-major and MN-major operands), the wgmma instructions (float32 += bf16
+// x bf16) the kernels issue, register hand-over between warpgroups
+// (setmaxnreg), and the three-way bf16 split of the float32 routes
+// (split_tile: a float32 tile into three swizzled bf16 planes in shared
+// memory; split3_pair: two float32 values into three register planes).
+// Each library that includes this header is its own translation unit;
 // kernels/_build.py hashes the header into the key of every library that
 // includes it, so a change here rebuilds them.
 #pragma once
@@ -96,8 +97,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // wgmma.mma_async m64nNk16, float32 += bf16 x bf16: _ss reads A and B from
-// shared memory (both K-major; acc = 0 overwrites D), _rs reads A from
-// registers and B N-major (transposed) from shared memory.
+// shared memory (both K-major; acc = 0 overwrites D), _ss_mn both MN-major,
+// _rs reads A from registers and B N-major (transposed) from shared memory.
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
                                              uint64_t db, int acc) {
   asm volatile(
@@ -150,6 +151,51 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(acc));
+}
+
+// _ss_mn: A and B both MN-major ("transposed") from shared memory.
+__device__ __forceinline__ void wgmma_ss_mn_n32(float (&d)[16], uint64_t da,
+                                                uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss_mn_n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -236,9 +282,17 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
 }
 
 template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int acc) {
+  if constexpr (N == 32) wgmma_ss_mn_n32(d, da, db, acc);
+  else wgmma_ss_mn_n64(d, da, db, acc);
+}
+
+template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
   else wgmma_rs_n192(d, a, db);
 }
@@ -257,6 +311,48 @@ __device__ __forceinline__ void regs_down() {
 // (wgmma reads its shared-memory operands through it); then arrive.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier ID (0 is __syncthreads) over THREADS threads (a multiple of
+// 32): one warpgroup's own barrier.
+template <int ID, int THREADS>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(THREADS) : "memory");
+}
+
+// K-major operand in 64-column boxes with the 128-byte swizzle (rows of 64
+// bf16, 128 bytes, 8-row groups 1,024 bytes apart): k-step kk of 16
+// columns starts 32 bytes further.
+__device__ __forceinline__ uint64_t kmajor(uint32_t box, int kk) {
+  return sw128_desc(box + kk * 32, 16, 1024);
+}
+
+// Byte offset of element (row r, column e < 64) in a 128-byte-swizzled box
+// of rows of 64 bf16 (the pattern TMA's SWIZZLE_128B writes).
+__device__ __forceinline__ uint32_t swz(int r, int e) {
+  return (uint32_t)(r * 128 + ((((e >> 3) ^ (r & 7)) << 4) | ((e & 7) << 1)));
+}
+
+// MN-major operand of PT (32 or 64) bf16 columns a row, k-step kb of 16
+// rows: rows of 64 bytes with the 64-byte swizzle (PT = 32) or of 128 bytes
+// with the 128-byte swizzle (PT = 64), as TMA writes a box of that width;
+// 8-row groups are SBO apart, the next PT-column chunk (never used) LBO.
+// In a row the 16-byte chunk ch sits at chunk ch ^ ((r >> 1) & 3) (64-byte
+// swizzle) or ch ^ (r & 7) (128-byte): mn_chunk.
+template <int PT>
+__device__ __forceinline__ uint64_t mn_desc(uint32_t tile, int kb) {
+  constexpr uint32_t row = PT * 2;
+  const uint32_t addr = tile + kb * 16 * row;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(((64 * row) >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(((8 * row) >> 4) & 0x3FFF) << 32) |
+         ((PT == 32 ? 2ull : 1ull) << 62);
+}
+
+template <int PT>
+__device__ __forceinline__ uint32_t mn_chunk(int r, int ch) {
+  return (uint32_t)(r * PT * 2 +
+                    ((PT == 32 ? ch ^ ((r >> 1) & 3) : ch ^ (r & 7)) << 4));
 }
 
 // ---------------------------------------------------------------------------

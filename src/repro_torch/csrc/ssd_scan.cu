@@ -1,5 +1,7 @@
 // Mamba2 SSD chunked scan (forward) for the H100 (sm_90a): a bf16
-// tensor-core walk (wgmma + TMA, one launch) and a CUDA-core route.
+// tensor-core walk (wgmma + TMA, one launch) and a CUDA-core route; the
+// float32 tensor-core walk is ssd_scan_f32.cu.  Both sources take their
+// Hopper helpers (mbarriers, TMA, wgmma, descriptors) from hopper.cuh.
 //
 // Replaces the Pallas TPU kernel repro/kernels/ssd_scan/kernel.py:ssd_scan
 // (def at :66, pallas_call at :83, body _ssd_kernel at :26-63).  Both routes
@@ -75,8 +77,9 @@
 //     h as N / 64 accumulators of PT / 2 floats a thread.  Shared memory:
 //     136 KB at N = 64, PT = 32 (4 stages); 190 KB at N = 256 (2 stages).
 //
-// ssd_scan_fwd, the CUDA-core route: float32 (the goldens' type, where TF32
-// or bf16 operands would miss the 5e-5 tolerance) and bf16 with N > 256.
+// ssd_scan_fwd, the CUDA-core route: float32 with N > 128 (past
+// ssd_scan_f32.cu's walk; TF32 or bf16 operands would miss the 5e-5
+// tolerance) and bf16 with N > 256.
 // Three launches (a "block per chunk" is one per (chunk, tile of 64 of the
 // P columns)):
 //   1. ssd_chunk_state, one block per (chunk, head, batch): lam and the
@@ -97,10 +100,7 @@
 // cudaFuncAttributeMaxDynamicSharedMemorySize.
 // Domain: any P, N and L; the wrapper passes chunks of at most 64.
 
-#include <cuda.h>          // CUtensorMap and its enums (types only)
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "hopper.cuh"   // mbarriers, TMA loads, wgmma, descriptors
 
 namespace {
 
@@ -440,36 +440,6 @@ constexpr int TC_THREADS = TC_CONSUMERS + 32; // and one producer warp
 constexpr int BOX_BYTES = QT * 128;           // 64 rows x 64 bf16 columns
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
 constexpr float LOG2E = 1.4426950408889634f;
 
 // 2^x on the special-function unit (2 ulp; 2^-inf = 0).
@@ -477,30 +447,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-// Generic-proxy writes to shared memory made visible to the async proxy
-// (wgmma reads its shared operands through it).
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// The consumer warpgroup's own barrier (id 1; 0 is __syncthreads).
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(TC_CONSUMERS) : "memory");
-}
-
-// A box of the 4-D tensor map (coordinates innermost first: column,
-// position, group, batch) into shared memory; completion counts on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
 }
 
 // A box of shared memory into the 4-D tensor map (a bulk async store,
@@ -524,181 +470,6 @@ __device__ __forceinline__ void bulk_wait_read() {
 }
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// K-major operand (rows of 64 bf16, 128 bytes, 8-row groups 1,024 bytes
-// apart): k-step kk of 16 columns starts 32 bytes further.
-__device__ __forceinline__ uint64_t kmajor(uint32_t box, int kk) {
-  return sw128_desc(box + kk * 32, 16, 1024);
-}
-
-// Byte offset of element (row r, column e < 64) in a 128-byte-swizzled box
-// of rows of 64 bf16 (the pattern TMA's SWIZZLE_128B writes).
-__device__ __forceinline__ uint32_t swz(int r, int e) {
-  return (uint32_t)(r * 128 + ((((e >> 3) ^ (r & 7)) << 4) | ((e & 7) << 1)));
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma that owns them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// wgmma.mma_async m64nNk16, float32 += bf16 x bf16.  _ss_t00: A and B from
-// shared memory, both K-major; _ss_t11: both MN-major ("transposed");
-// _rs_t1: A from registers, B MN-major.  acc = 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n32_t00(float (&d)[16],
-                                                 uint64_t da, uint64_t db,
-                                                 int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_ss_n32_t11(float (&d)[16],
-                                                 uint64_t da, uint64_t db,
-                                                 int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32_t1(float (&d)[16],
-                                                const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_ss_n64_t00(float (&d)[32],
-                                                 uint64_t da, uint64_t db,
-                                                 int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_ss_n64_t11(float (&d)[32],
-                                                 uint64_t da, uint64_t db,
-                                                 int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64_t1(float (&d)[32],
-                                                const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int PT>
-__device__ __forceinline__ void mma_ss(float (&d)[PT / 2], uint64_t da,
-                                       uint64_t db, int acc) {
-  if constexpr (PT == 32) wgmma_ss_n32_t00(d, da, db, acc);
-  else wgmma_ss_n64_t00(d, da, db, acc);
-}
-
-template <int PT>
-__device__ __forceinline__ void mma_ss_mn(float (&d)[PT / 2], uint64_t da,
-                                          uint64_t db) {
-  if constexpr (PT == 32) wgmma_ss_n32_t11(d, da, db, 1);
-  else wgmma_ss_n64_t11(d, da, db, 1);
-}
-
-template <int PT>
-__device__ __forceinline__ void mma_rs_mn(float (&d)[PT / 2],
-                                          const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (PT == 32) wgmma_rs_n32_t1(d, a, db);
-  else wgmma_rs_n64_t1(d, a, db);
-}
-
-// MN-major operand of PT (32 or 64) columns a row, k-step kb of 16 rows:
-// rows of 64 bytes with the 64-byte swizzle (PT = 32) or of 128 bytes with
-// the 128-byte swizzle (PT = 64), as TMA writes a box of that width; 8-row
-// groups are SBO apart, the next PT-column chunk (never used) LBO.
-template <int PT>
-__device__ __forceinline__ uint64_t mn_desc(uint32_t tile, int kb) {
-  constexpr uint32_t row = PT * 2;
-  const uint32_t addr = tile + kb * 16 * row;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)(((64 * row) >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)(((8 * row) >> 4) & 0x3FFF) << 32) |
-         ((PT == 32 ? 2ull : 1ull) << 62);
 }
 
 struct TcArgs {
@@ -881,7 +652,7 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   for (int q = tid; q < NB * PT * 128 * 2 / 16; q += TC_CONSUMERS)
     reinterpret_cast<uint4*>(base_ptr + S::H_OFF)[q] = make_uint4(0, 0, 0, 0);
   fence_async_smem();
-  consumers_sync();
+  named_sync<1, TC_CONSUMERS>();
 
   for (int c = 0; c < a.nc; ++c) {
     const int s = c % NS;
@@ -903,17 +674,17 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
     for (int kc = 0; kc < NB; ++kc)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss_n64_t00(gacc, kmajor(stage + S::C_OFF + kc * BOX_BYTES, kk),
-                         kmajor(stage + S::B_OFF + kc * BOX_BYTES, kk),
-                         (kc | kk) ? 1 : 0);
+        wgmma_ss_n64(gacc, kmajor(stage + S::C_OFF + kc * BOX_BYTES, kk),
+                     kmajor(stage + S::B_OFF + kc * BOX_BYTES, kk),
+                     (kc | kk) ? 1 : 0);
 #pragma unroll
     for (int kc = 0; kc < NB; ++kc)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const uint64_t dc = kmajor(stage + S::C_OFF + kc * BOX_BYTES, kk);
-        mma_ss<PT>(yacc, dc, kmajor(sH + kc * PT * 128, kk),
-                   (kc | kk) ? 1 : 0);
-        mma_ss<PT>(yacc, dc, kmajor(sHL + kc * PT * 128, kk), 1);
+        wgmma_ss<PT>(yacc, dc, kmajor(sH + kc * PT * 128, kk),
+                     (kc | kk) ? 1 : 0);
+        wgmma_ss<PT>(yacc, dc, kmajor(sHL + kc * PT * 128, kk), 1);
       }
     wg_commit();
     wg_wait0();
@@ -973,8 +744,8 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
     for (int kb = 0; kb < 4; ++kb) {
       const uint64_t dx = mn_desc<PT>(stage + S::X_OFF, kb);
-      mma_rs_mn<PT>(yacc, ph[kb], dx);
-      mma_rs_mn<PT>(yacc, pl[kb], dx);
+      wgmma_rs<PT>(yacc, ph[kb], dx);
+      wgmma_rs<PT>(yacc, pl[kb], dx);
     }
 #pragma unroll
     for (int m = 0; m < NB; ++m)
@@ -982,8 +753,10 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
       for (int kb = 0; kb < 4; ++kb) {
         const uint64_t da = sw128_desc(
             stage + S::B_OFF + m * BOX_BYTES + kb * 2048, BOX_BYTES, 1024);
-        mma_ss_mn<PT>(hacc[m], da, mn_desc<PT>(stage + S::WH_OFF, kb));
-        mma_ss_mn<PT>(hacc[m], da, mn_desc<PT>(stage + S::WL_OFF, kb));
+        wgmma_ss_mn<PT>(hacc[m], da, mn_desc<PT>(stage + S::WH_OFF, kb),
+                        1);
+        wgmma_ss_mn<PT>(hacc[m], da, mn_desc<PT>(stage + S::WL_OFF, kb),
+                        1);
       }
     wg_commit();
     wg_wait0();
@@ -1021,7 +794,7 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                 __float2bfloat16_rn(__fsub_rn(v, __bfloat162float(hi)));
           }
     fence_async_smem();
-    consumers_sync();
+    named_sync<1, TC_CONSUMERS>();
     if (tid == 0) {
       // Rows past L and columns past P are not written.  The other y
       // tile's store (the chunk before) must have read its tile before
@@ -1052,26 +825,6 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
           }
       }
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
 }
 
 // The tensor map of a 4-D bf16 operand: sizes dims (innermost first, that

@@ -4,12 +4,14 @@ Each ``repro_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled on its own into ``build/repro_torch_kernels/<name>-<hash>.so`` at
 the root of the checkout, where ``<hash>`` covers the source text, the text
 of the ``csrc`` headers it includes (``#include "<header>.cuh"``, such as
-the attention kernels' shared ``hopper.cuh``) and the compiler flags.  The fabric and SSD kernels are built with
+the attention and SSD kernels' shared ``hopper.cuh``) and the compiler
+flags.  The fabric kernels and ``ssd_scan.cu`` are built with
 ``--fmad=false``, so that no multiply-add is contracted and their results
 stay bitwise those of their plain versions; the attention kernels (forward
-and backward), held to a tolerance, let the compiler contract
-(:func:`flags`).  A library that is already there is loaded as it is, so
-only the first use after a change pays for ``nvcc``.  :func:`build_all`
+and backward) and the float32 SSD walk (``ssd_scan_f32``), held to a
+tolerance, let the compiler contract (:func:`flags`).  A library that is
+already there is loaded as it is, so only the first use after a change
+pays for ``nvcc``.  :func:`build_all`
 starts one ``nvcc`` per source at once; :func:`load` builds one source if
 needed and returns its ``ctypes.CDLL``.  ``BUILDS`` counts the ``nvcc``
 runs of this process (the sweep runner's compile-cache misses).
@@ -33,7 +35,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 CONTRACTED = ("flash_attn", "flash_attn_f32", "flash_attn_bwd",
-              "flash_attn_bwd_f32")            # built without --fmad=false
+              "flash_attn_bwd_f32", "ssd_scan_f32")   # without --fmad=false
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILDS = 0

@@ -1,28 +1,32 @@
-"""ctypes binding of the CUDA SSD chunked-scan kernels (``csrc/ssd_scan.cu``).
+"""ctypes binding of the CUDA SSD chunked-scan kernels (``csrc/ssd_scan.cu``
+and ``csrc/ssd_scan_f32.cu``).
 
-The CUDA source replaces the Pallas TPU kernel
-``repro/kernels/ssd_scan/kernel.py:ssd_scan``; its header states the design
-and the bound.  :func:`ssd_scan` launches one of its two routes on CUDA
-tensors on the current stream and raises if a launch fails
-(:func:`route`): bf16 with N <= 256 takes the tensor-core walk
+The CUDA sources replace the Pallas TPU kernel
+``repro/kernels/ssd_scan/kernel.py:ssd_scan``; their headers state the
+design and the bound.  :func:`ssd_scan` launches one of three routes on
+CUDA tensors on the current stream and raises if a launch fails
+(:func:`route`): bf16 with N <= 256 takes the bf16 tensor-core walk
 (``ssd_wgmma_kernel``: one launch, wgmma + TMA, the state kept on chip),
-float32 (the goldens' type, where TF32 would miss the 5e-5 tolerance) and
-bf16 with N > 256 the CUDA-core route (three launches: chunk states, the
-state carry across chunks, the chunk outputs).  Both can return the final
+float32 with N <= 128 the float32 tensor-core walk (``ssd_wgmma_f32_kernel``:
+one launch, the same dataflow, each float32 operand split into three bf16
+parts and each product taken as six exact bf16 products, float32 accuracy
+where TF32 would miss the 5e-5 tolerance), float32 with N > 128 and bf16
+with N > 256 the CUDA-core route (three launches: chunk states, the state
+carry across chunks, the chunk outputs).  All three can return the final
 state.  float16, or x, B and C of mixed dtypes, are cast to float32 (exact
 for float16 and bf16), as the reference's ``ssd_chunked`` casts them, and
-take the float32 route; y is cast back to x's dtype (:func:`compute_dtype`).
-A float32 operand is never rounded to bf16.
+take a float32 route; y is cast back to x's dtype (:func:`compute_dtype`).
+A float32 operand is never rounded to bf16 whole.
 
-The kernel reads x and dt through their (batch, position, head) strides and
+The kernels read x and dt through their (batch, position, head) strides and
 B and C through their (batch, position, group) strides, so the model's
 slices of one projection need no copy; the last axis of x, B and C must be
 contiguous.  The output is a new contiguous (B, L, H, P) tensor in x's
-dtype.  A ragged last chunk is masked in the kernel: any L >= 1 works, and
+dtype.  A ragged last chunk is masked in the kernels: any L >= 1 works, and
 any P and N.  The chunked closed form is the same function for any cut of
 L, so only the order of the float32 sums depends on the chunk: the
 CUDA-core route runs a chunk above ``TILE`` (64, the kernels' row tile) as
-chunks of ``TILE``, and the tensor-core walk runs every chunk as chunks of
+chunks of ``TILE``, and both tensor-core walks run every chunk as chunks of
 ``TILE``.
 """
 from __future__ import annotations
@@ -38,7 +42,8 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64                   # rows of the kernel's chunk tile
-WGMMA_MAX_N = 256           # widest state of the tensor-core walk
+WGMMA_MAX_N = 256           # widest state of the bf16 tensor-core walk
+WGMMA_F32_MAX_N = 128       # widest state of the float32 tensor-core walk
 
 
 def _lib() -> ctypes.CDLL:
@@ -56,6 +61,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _lib_f32() -> ctypes.CDLL:
+    lib = _build.load("ssd_scan_f32")
+    if not getattr(lib, "_typed", False):
+        lib.ssd_scan_wgmma_f32_fwd.argtypes = (
+            [_VP] * 7 + [_I] * 7
+            + [ctypes.POINTER(ctypes.c_longlong), _VP])
+        lib.ssd_scan_wgmma_f32_fwd.restype = _I
+        lib._typed = True
+    return lib
+
+
 def compute_dtype(x: torch.Tensor, B_mat: torch.Tensor,
                   C: torch.Tensor) -> torch.dtype:
     """The dtype the kernels read x, B and C in: bf16 when all three are
@@ -65,28 +81,35 @@ def compute_dtype(x: torch.Tensor, B_mat: torch.Tensor,
 
 
 def route(dtype: torch.dtype, N: int) -> str:
-    """``"wgmma"`` (the bf16 tensor-core walk) or ``"cuda_cores"``."""
-    return ("wgmma" if dtype == torch.bfloat16 and N <= WGMMA_MAX_N
-            else "cuda_cores")
+    """``"wgmma"`` (the bf16 tensor-core walk), ``"wgmma_f32"`` (the
+    float32 one) or ``"cuda_cores"``, for x, B and C read in ``dtype``
+    (:func:`compute_dtype`) and a state of N."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if N <= WGMMA_MAX_N else "cuda_cores"
+    return "wgmma_f32" if N <= WGMMA_F32_MAX_N else "cuda_cores"
 
 
-def p_tile(P: int, N: int, heads: int, sms: int = 132) -> int:
-    """P columns a CTA of the tensor-core walk takes (``heads``: batch x
+def p_tile(P: int, N: int, heads: int, sms: int = 132,
+           dtype: torch.dtype = torch.bfloat16) -> int:
+    """P columns a CTA of a tensor-core walk takes (``heads``: batch x
     heads, a CTA each per tile).  A CTA's walk is a chain of dependent
     steps whose time barely depends on its width, so tiles of 32 pay only
     while they fill idle SMs: 32 when the tiles of 32 fit one CTA an SM,
-    when N > 128 (the state of 64 columns would not fit the registers) or
-    when P <= 32; else 64."""
-    if N > 128 or P <= 32 or heads * -(-P // 32) <= sms:
+    when N is past what a CTA of 64 columns holds (128 for the bf16 walk,
+    64 for the float32 one: registers and shared memory) or when P <= 32;
+    else 64."""
+    widest = 128 if dtype == torch.bfloat16 else 64
+    if N > widest or P <= 32 or heads * -(-P // 32) <= sms:
         return 32
     return 64
 
 
 def _tma_ready(t: torch.Tensor) -> torch.Tensor:
-    """x, B or C as TMA reads it: a 16-byte aligned base and strides of 16
-    bytes along every axis longer than 1; else a contiguous copy with the
-    last axis padded to a multiple of 8 (the zero columns change no
-    product, and the kernel reads only the first ones)."""
+    """x, B or C as a tensor-core walk reads it (TMA, or the float32 walk's
+    16-byte loads): a 16-byte aligned base and strides of 16 bytes along
+    every axis longer than 1; else a contiguous copy with the last axis
+    padded to a multiple of 8 (the zero columns change no product, and the
+    kernels read only the first ones)."""
     ok = t.data_ptr() % 16 == 0 and all(
         (st * t.element_size()) % 16 == 0
         for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
@@ -105,11 +128,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              ptile: Optional[int] = None):
     """x (B, L, H, P); dt (B, L, H); A (H,); B_mat, C (B, L, G, N),
     ``H % G == 0``; all floating point on one CUDA device; chunk, P and N
-    >= 1.  x, B and C all bf16 take the tensor-core walk, else they are
-    read in float32 (:func:`compute_dtype`); dt and A are read in float32.
-    Returns y (B, L, H, P) in x's dtype, and with ``final_state`` also the
-    state after the last position, (B, H, N, P) float32.  ``ptile`` (32 or
-    64) overrides the P columns of a tensor-core CTA (:func:`p_tile`)."""
+    >= 1.  x, B and C all bf16 take the bf16 tensor-core walk, else they
+    are read in float32 (:func:`compute_dtype`) and take the float32 one
+    up to N = 128; wider states take the CUDA-core route (:func:`route`);
+    dt and A are read in float32.  Returns y (B, L, H, P) in x's dtype, and
+    with ``final_state`` also the state after the last position, (B, H, N,
+    P) float32.  ``ptile`` (32 or 64) overrides the P columns of a
+    tensor-core CTA (:func:`p_tile`; 64 needs N <= 128 in bf16, N <= 64 in
+    float32)."""
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B_mat.dim() != 4 \
             or C.shape != B_mat.shape:
         raise ValueError("ssd_scan kernel: x (B, L, H, P), dt (B, L, H), "
@@ -141,7 +167,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("ssd_scan kernel: the last axis of x, B and C and "
                          "A must be contiguous")
     which = route(x.dtype, N)
-    # The walk stores y by TMA: rows of a multiple of 16 bytes.
+    # The bf16 walk stores y by TMA: rows of a multiple of 16 bytes.
     Py = -(-P // 8) * 8 if which == "wgmma" else P
     y = torch.empty((Bsz, L, H, Py), dtype=x.dtype, device=dev)
     hfin = (torch.empty((Bsz, H, N, P), dtype=torch.float32, device=dev)
@@ -149,13 +175,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if y.numel() == 0:
         y = y[..., :P].to(out_dtype)
         return (y, hfin.zero_()) if final_state else y
-    if which == "wgmma":
+    if which in ("wgmma", "wgmma_f32"):
         x, B_mat, C = _tma_ready(x), _tma_ready(B_mat), _tma_ready(C)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        pt = p_tile(P, N, Bsz * H, sms) if ptile is None else int(ptile)
-        if pt not in (32, 64) or (pt == 64 and N > 128):
+        pt = (p_tile(P, N, Bsz * H, sms, x.dtype) if ptile is None
+              else int(ptile))
+        widest = 128 if which == "wgmma" else 64
+        if pt not in (32, 64) or (pt == 64 and N > widest):
             raise ValueError(f"ssd_scan kernel: ptile {pt} (32, or 64 with "
-                             f"N <= 128)")
+                             f"N <= {widest})")
     else:
         nc = -(-L // chunk)
         states = torch.empty((Bsz, H, nc, N, P), dtype=torch.float32,
@@ -170,6 +198,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             err = _lib().ssd_scan_wgmma_fwd(
                 x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(),
                 C.data_ptr(), y.data_ptr(), Py, hptr, Bsz, L, H, G, P, N, pt,
+                strides, stream)
+        elif which == "wgmma_f32":
+            err = _lib_f32().ssd_scan_wgmma_f32_fwd(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(),
+                C.data_ptr(), y.data_ptr(), hptr, Bsz, L, H, G, P, N, pt,
                 strides, stream)
         else:
             err = _lib().ssd_scan_fwd(

@@ -6,15 +6,16 @@ tensors and runs the chunked plain version (``ref.ssd_chunked``, on zero-
 padded inputs) on CPU tensors; ``torch`` runs the chunked plain version on
 any device.  There is no fallback from the kernel to the plain version.
 The kernel masks a ragged last chunk itself, so its inputs are not padded.
-float16 and mixed dtypes run in float32 on the CUDA-core route, returning
-x's dtype (``kernel.compute_dtype``), as the reference's ``ssd_chunked``
+float16 and mixed dtypes run in float32 on a float32 route, returning x's
+dtype (``kernel.compute_dtype``), as the reference's ``ssd_chunked``
 computes them.
 ``final_state=True`` also returns the state after the last position (the
 kernel's own on CUDA tensors, ``ref.ssd_final_state`` on the plain path),
 which prefill hands to decode.
 ``LAUNCHES`` counts the kernel calls made through this wrapper, and
 ``ROUTE_LAUNCHES`` each route's share (``kernel.route``: the bf16
-tensor-core walk, one launch; the CUDA-core route, three launches).
+tensor-core walk and the float32 one, one launch each; the CUDA-core
+route, three launches).
 The kernel has no backward yet: a CUDA call with grad mode on and an input
 that needs a gradient raises ``NotImplementedError`` (``ROADMAP.md`` A4b),
 never taking the plain version instead.  On CPU tensors the plain version
@@ -29,7 +30,7 @@ from . import ref as _ref
 from .._common import resolve_backend
 
 LAUNCHES = 0
-ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}
+ROUTE_LAUNCHES = {"wgmma": 0, "wgmma_f32": 0, "cuda_cores": 0}
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

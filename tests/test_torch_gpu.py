@@ -700,7 +700,8 @@ def test_ssd_kernel_wide_chunk_matches_plain(dtype):
 def test_ssd_kernel_final_state_matches_plain(shape, dtype):
     """``final_state=True``: y and the state after the last position
     against the plain ``ssd_chunked`` and ``ssd_final_state``; bf16 runs
-    the tensor-core walk in one launch, float32 the CUDA-core route."""
+    the bf16 tensor-core walk in one launch, float32 the float32 one up to
+    N = 128 and the CUDA-core route past it."""
     dev = cuda_or_skip()
     torch.backends.cuda.matmul.allow_tf32 = False
     args = _ssd_inputs(shape, dtype, dev, sum(shape) + 1)
@@ -709,7 +710,8 @@ def test_ssd_kernel_final_state_matches_plain(shape, dtype):
     want_y, want_h = ssd_ops.ssd(*args, final_state=True, backend="torch")
     torch.cuda.synchronize()
     which = ssd_kernel.route(dtype, shape[5])
-    assert which == ("wgmma" if dtype == torch.bfloat16 else "cuda_cores")
+    assert which == ("wgmma" if dtype == torch.bfloat16
+                     else "wgmma_f32" if shape[5] <= 128 else "cuda_cores")
     assert ssd_ops.ROUTE_LAUNCHES[which] == before[which] + 1
     assert h.dtype == torch.float32 and h.shape == want_h.shape
     atol, rtol = SSD_TOL[dtype]
@@ -758,6 +760,83 @@ def test_ssd_kernel_p_tiles_match_plain(shape, ptile):
         torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2,
                                    rtol=2e-2)
         torch.testing.assert_close(h, want_h, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("chunk", [1, 16, 32, 63, 128])
+def test_ssd_kernel_f32_short_and_long_chunks_match_plain(chunk):
+    """The float32 walk at a requested chunk other than its 64-row tile,
+    which it runs as chunks of 64 (the same closed form): y and h against
+    the plain ``ssd_chunked`` and ``ssd_final_state`` at the requested
+    chunk, at a ragged L, G > 1 and a large decay, at the float32
+    tolerance."""
+    dev = cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for decay in (1.0, 100.0):
+        args = _ssd_inputs((2, 301, 8, 64, 2, 64), torch.float32, dev,
+                           chunk, decay)
+        before = dict(ssd_ops.ROUTE_LAUNCHES)
+        y, h = ssd_ops.ssd(*args, chunk=chunk, final_state=True)
+        want_y, want_h = ssd_ops.ssd(*args, chunk=chunk, final_state=True,
+                                     backend="torch")
+        torch.cuda.synchronize()
+        assert ssd_ops.ROUTE_LAUNCHES["wgmma_f32"] == before["wgmma_f32"] + 1
+        assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+        torch.testing.assert_close(y, want_y, atol=5e-5, rtol=5e-4)
+        torch.testing.assert_close(h, want_h, atol=5e-5, rtol=5e-4)
+
+
+@pytest.mark.parametrize("ptile", [32, 64])
+@pytest.mark.parametrize("shape", [(1, 2048, 80, 64, 1, 64),
+                                   (2, 130, 24, 64, 1, 128),
+                                   (1, 100, 3, 40, 1, 96),
+                                   (2, 77, 6, 100, 2, 48)], ids=str)
+def test_ssd_kernel_f32_p_tiles_match_plain(shape, ptile):
+    """The float32 walk with 32 and with 64 P columns a CTA (64 only with
+    N <= 64), y and h within the float32 tolerance, a large decay too; a
+    rerun is bitwise equal."""
+    dev = cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if ptile == 64 and shape[5] > 64:
+        args = _ssd_inputs(shape, torch.float32, dev, 5)
+        with pytest.raises(ValueError, match="ptile"):
+            ssd_kernel.ssd_scan(*args, ptile=ptile)
+        return
+    for decay in (1.0, 100.0):
+        args = _ssd_inputs(shape, torch.float32, dev, 5, decay)
+        y, h = ssd_kernel.ssd_scan(*args, final_state=True, ptile=ptile)
+        y2, h2 = ssd_kernel.ssd_scan(*args, final_state=True, ptile=ptile)
+        want_y, want_h = ssd_ops.ssd(*args, final_state=True,
+                                     backend="torch")
+        assert torch.equal(y, y2) and torch.equal(h, h2)
+        assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+        torch.testing.assert_close(y, want_y, atol=5e-5, rtol=5e-4)
+        torch.testing.assert_close(h, want_h, atol=5e-5, rtol=5e-4)
+
+
+@pytest.mark.parametrize("P,N", [(32, 16), (20, 12), (64, 64), (64, 128)])
+def test_ssd_kernel_f32_strided_slices_match_plain(P, N):
+    """The float32 walk on x, B and C sliced from one float32 projection
+    whose rows are multiples of 16 bytes: its 16-byte loads read them
+    through their strides (no copy), with columns past P and N masked."""
+    dev = cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, L, H, G = 2, 77, 4, 2
+    g = torch.Generator().manual_seed(4)
+    proj = torch.randn(B, L, H * P + 2 * G * N + 8, generator=g).to(dev)
+    x = proj[..., :H * P].reshape(B, L, H, P)
+    Bm = proj[..., H * P:H * P + G * N].reshape(B, L, G, N)
+    C = proj[..., H * P + G * N:H * P + 2 * G * N].reshape(B, L, G, N)
+    assert ssd_kernel._tma_ready(x) is x and ssd_kernel._tma_ready(Bm) is Bm
+    dt = (0.01 + torch.rand(B, L, H, generator=g) * 0.2).to(dev)
+    A = -(0.5 + torch.rand(H, generator=g)).to(dev)
+    before = ssd_ops.ROUTE_LAUNCHES["wgmma_f32"]
+    y, h = ssd_ops.ssd(x, dt, A, Bm, C, final_state=True)
+    assert ssd_ops.ROUTE_LAUNCHES["wgmma_f32"] == before + 1
+    want_y, want_h = ssd_ops.ssd(x.contiguous(), dt, A, Bm.contiguous(),
+                                 C.contiguous(), backend="torch",
+                                 final_state=True)
+    torch.testing.assert_close(y, want_y, atol=5e-5, rtol=5e-4)
+    torch.testing.assert_close(h, want_h, atol=5e-5, rtol=5e-4)
 
 
 def test_ssd_kernel_reads_strided_slices():
@@ -940,16 +1019,16 @@ def test_flash_attention_kernel_half_and_mixed_dtypes(shape, dtypes):
                                    (1, 100, 80, 64, 1, 64)], ids=str)
 def test_ssd_kernel_half_and_mixed_dtypes(shape, dtypes):
     """x, B, C in float16 or mixed dtypes: read in float32 (exact), the
-    CUDA-core route, x's dtype out."""
+    float32 tensor-core walk, x's dtype out."""
     dev = cuda_or_skip()
     torch.backends.cuda.matmul.allow_tf32 = False
     x, dt, A, Bm, C = _ssd_inputs(shape, torch.float32, dev, sum(shape))
     x, Bm, C = (t.to(d) for t, d in zip((x, Bm, C), dtypes))
-    before = ssd_ops.ROUTE_LAUNCHES["cuda_cores"]
+    before = ssd_ops.ROUTE_LAUNCHES["wgmma_f32"]
     got = ssd_ops.ssd(x, dt, A, Bm, C)
     want = ssd_ops.ssd(x, dt, A, Bm, C, backend="torch")
     torch.cuda.synchronize()
-    assert ssd_ops.ROUTE_LAUNCHES["cuda_cores"] == before + 1
+    assert ssd_ops.ROUTE_LAUNCHES["wgmma_f32"] == before + 1
     assert got.dtype == dtypes[0] and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)

@@ -126,20 +126,40 @@ def test_ops_final_state_matches_reference(shape):
 
 
 def test_kernel_routes():
-    """The bf16 tensor-core walk takes bf16 with N <= 256; float32 (the
-    goldens) and wider states take the CUDA-core route.  A CTA of the walk
-    takes 32 P columns while those CTAs fit one an SM (Mamba2-130M's 24
-    heads), where N > 128 or P <= 32, else 64 (Zamba2-2.7B's 80 heads)."""
+    """The bf16 tensor-core walk takes bf16 with N <= 256, the float32 one
+    float32 (the goldens; float16 and mixed dtypes read in float32) with N
+    <= 128 (Zamba2-2.7B's 64, Mamba2-130M's 128); wider states take the
+    CUDA-core route.  A CTA of a walk takes 32 P columns while those CTAs
+    fit one an SM (Mamba2-130M's 24 heads), where N is past what a CTA of
+    64 columns holds (128 in bf16, 64 in float32) or P <= 32, else 64
+    (Zamba2-2.7B's 80 heads)."""
     assert ssd_kernel.route(torch.bfloat16, 64) == "wgmma"
     assert ssd_kernel.route(torch.bfloat16, 256) == "wgmma"
     assert ssd_kernel.route(torch.bfloat16, 257) == "cuda_cores"
-    assert ssd_kernel.route(torch.float32, 64) == "cuda_cores"
+    assert ssd_kernel.route(torch.float32, 64) == "wgmma_f32"
+    assert ssd_kernel.route(torch.float32, 128) == "wgmma_f32"
+    assert ssd_kernel.route(torch.float32, 129) == "cuda_cores"
+    assert ssd_kernel.route(torch.float32, 256) == "cuda_cores"
+    assert ssd_kernel.WGMMA_F32_MAX_N == 128
+    assert set(ssd_ops.ROUTE_LAUNCHES) == {"wgmma", "wgmma_f32",
+                                           "cuda_cores"}
+    for dtype in (torch.float16, torch.bfloat16, torch.float32):
+        x = torch.zeros(1, 1, 1, 1, dtype=dtype)
+        f = torch.zeros(1, 1, 1, 1)
+        assert ssd_kernel.route(ssd_kernel.compute_dtype(x, f, f),
+                                64) == "wgmma_f32"
     assert ssd_kernel.p_tile(64, 64, 80) == 64
     assert ssd_kernel.p_tile(64, 128, 24) == 32
     assert ssd_kernel.p_tile(64, 64, 66) == 32
     assert ssd_kernel.p_tile(64, 64, 67) == 64
     assert ssd_kernel.p_tile(64, 256, 400) == 32
     assert ssd_kernel.p_tile(16, 64, 400) == 32
+    f32 = torch.float32
+    assert ssd_kernel.p_tile(64, 64, 80, dtype=f32) == 64
+    assert ssd_kernel.p_tile(64, 64, 66, dtype=f32) == 32
+    assert ssd_kernel.p_tile(64, 128, 24, dtype=f32) == 32
+    assert ssd_kernel.p_tile(64, 128, 400, dtype=f32) == 32
+    assert ssd_kernel.p_tile(16, 64, 400, dtype=f32) == 32
 
 
 @pytest.mark.parametrize("decay", [1.0, 100.0], ids=str)
