@@ -57,8 +57,9 @@ Phases, each timed on its own line; any failure exits non-zero:
    permutation ``permutation(tree, 256, default_rng(1))`` failure-free, and
    fig 3's point (1 % of links failed, ``rho = rho_max``, ``rto_slots=300``,
    G = infinity), through ``loopsim.simulate_megabatch`` for seeds 0-1, one
-   fused dispatch per pipeline identity, with the launch counts set to 0
-   just before each dispatch and read just after.  Every fused result must
+   fused dispatch per pipeline identity (fig 3's point without
+   switch_pkt), with the launch counts set to 0 just before each dispatch
+   and read just after.  Every fused result must
    equal the port's serial ``simulate`` (seed 0) and an ``impl="torch"``
    run (plain versions) on the card bitwise, and seed 0 must match the JAX
    reference's digests in ``tests/torch_golden/loopsim_k8.json``;
@@ -204,8 +205,8 @@ Phases, each timed on its own line; any failure exits non-zero:
     random weights, through phase 13's batcher, ``greedy_decode`` and
     checks (kernel path vs plain path within 0.1, batcher == solo), with
     the flash-attention launch count set to 0 just before and read just
-    after: Qwen3-MoE-30B-A3B cut to 24 of its 48 layers (``QWEN_LAYERS``;
-    15.6 B parameters; ``SERVE_LENS``), DeepSeek-V3 cut to its 3 dense layers and 1 MoE layer
+    after: Qwen3-MoE-30B-A3B cut to 12 of its 48 layers (``QWEN_LAYERS``;
+    8.1 B parameters; ``SERVE_LENS``), DeepSeek-V3 cut to its 3 dense layers and 1 MoE layer
     (15.1 B parameters; prompts of 13-511 tokens), LLaVA-NeXT-34B cut to 20
     of its 60 layers (``greedy_decode`` with 2,880 vision embeds before
     100-token prompts, at the token embeddings' scale), Whisper-small whole
@@ -225,40 +226,62 @@ Phases, each timed on its own line; any failure exits non-zero:
     than keys, ragged keys,
     Whisper's encoder and cross attention (not causal), float16 and mixed
     dtypes; each shape twice, the reruns bitwise equal;
-22. ``train_golden``: Yi-6B at full width, 2 layers, float32, numpy
+22. ``ssd_grad_vs_plain``: hold the SSD scan's backward kernel
+    (``csrc/ssd_scan_bwd.cu``) to its plain version ``ref.ssd_vjp`` at
+    Zamba2-2.7B's, Mamba2-130M's and the grouped heads for L = 1, 37, 64
+    and 2,048 at batch 1 and 2, a large-decay case per head shape (every
+    gradient finite), final-state gradients, requested chunks of 16 and
+    128, P and N past a tile of 64, strided slices of x, B, C and dy,
+    float16 and mixed dtypes; bf16 at 2e-2 of each gradient's largest
+    magnitude, float32 no further from a float64 plain gradient than twice
+    the float32 plain version (plus 4 ulps); every case rerun bitwise; and
+    through ``ops.ssd``'s autograd route (``SSDScan``);
+23. ``train_golden``: Yi-6B at full width, 2 layers, float32, numpy
     weights: two train steps (microbatch 2, a ``batch_for_step`` batch)
-    with AdamW and with Adafactor, held to the CPU JAX golden of
+    with AdamW and with Adafactor, and Mamba2-130M at full width, 2
+    layers, two AdamW steps (the SSD scan's float32 walk and its backward
+    kernel), held to the CPU JAX goldens of
     ``tests/torch_golden/make_train_golden.py`` (losses, gradient norms and
     sampled parameters and optimizer state);
-23. ``train_main_path``: Yi-6B at full width cut to 8 of its 32 layers,
+24. ``train_main_path``: Yi-6B at full width cut to 4 of its 32 layers,
     bf16, 4 sequences of 4,096 tokens a step (one a microbatch), AdamW,
     remat, through ``build_train_step`` and a ``ResilientLoop`` (a
     checkpoint every 2 steps under ``build/``) for 3 steps, with the
-    flash-attention forward and backward launch counts set to 0 just before
-    and read just after (8 layers x 4 microbatches x 2 forwards, the pass
-    and its remat, and 8 x 4 backwards a step); step 1's loss and gradient
-    norm held to a plain run (``backend="torch"``) from the same weights;
-    then a crash after step 2's checkpoint: a second ``ResilientLoop``
-    restores it into zeroed state and runs step 3, whose parameters must
-    equal the uninterrupted run's bitwise (deterministic algorithms on).
-    Each step prints its wall ms, tokens per second, the device ms in each
-    attention kernel and the peak memory;
-24. ``train_zoo_smoke``: one train step of each family that trains on the
-    card (dense, MoE, MLA, VLM, enc-dec) at its smoke config, the kernel
-    path against the plain path; then DeepSeek-V3's smoke config at its own
-    head widths (rope 64 + nope 128 = Dk 192, Dv 128), one float32 and one
-    bf16 step, each kernel path against the plain path, the attention's
-    forward and backward launches counted by route (all on the tensor
-    cores);
-25. ``train_cli``: ``repro_torch.launch.train.main`` on the card, Yi-6B's
-    smoke config for 4 steps, then restarted to 6: it must resume at 4.
+    attention's and the SSD scan's forward and backward launch counts set
+    to 0 just before and read just after (4 layers x 4 microbatches x 2
+    forwards, the pass and its remat, and 4 x 4 backwards a step); step
+    1's loss and gradient norm held to a plain run (``backend="torch"``)
+    from the same weights; then a crash after step 2's checkpoint: a
+    second ``ResilientLoop`` restores it into zeroed state and runs step
+    3, whose parameters must equal the uninterrupted run's bitwise
+    (deterministic algorithms on).  Each step prints its wall ms, tokens
+    per second, the device ms in each kernel and the peak memory;
+25. ``train_ssm_main_path``: the same path for Mamba2-130M whole (24
+    layers, 4 sequences of 2,048 tokens in 2 microbatches) and Zamba2-2.7B
+    at full width cut to 12 of its 54 layers (two applications of the
+    shared block; 4 sequences of 4,096 tokens in 4 microbatches), bf16:
+    every SSD forward on the bf16 walk and every backward on the backward
+    kernel, Zamba2's shared attention on the tensor-core kernels; step 1
+    against the plain path, the restart bitwise;
+26. ``train_zoo_smoke``: one train step of each family that trains on the
+    card (dense, MoE, MLA, VLM, enc-dec, SSM, hybrid) at its smoke config
+    (float32), the kernel path against the plain path; then DeepSeek-V3's
+    smoke config at its own head widths (rope 64 + nope 128 = Dk 192, Dv
+    128), one float32 and one bf16 step, each kernel path against the plain
+    path, the attention's forward and backward launches counted by route
+    (all on the tensor cores);
+27. ``train_cli``: ``repro_torch.launch.train.main`` on the card, Yi-6B's
+    smoke config for 4 steps, then restarted to 6: it must resume at 4;
+28. ``ssd_bwd_timing``: the SSD backward kernel's rows of the ``kernels``
+    line (bf16 at Zamba2-2.7B's train shape, float32 at the SSM golden's;
+    random inputs, held to the plain version first), beside its plain
+    version and the bound (no PyTorch call computes this gradient).
 
-Every main-path run of phases 3, 5, 7-10, 13, 16, 20 and 23 sets the
+Every main-path run of phases 3, 5, 7-10, 13, 16, 20, 24 and 25 sets the
 kernels' launch counts to 0 just before it and reads them just after.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
-"""
+limit, and ``{"ok": true, "device": {...}}"""
 from __future__ import annotations
 
 import dataclasses
@@ -293,13 +316,17 @@ SCHEME_GROUPS = (("flow_ecmp", "host_pkt", "host_dr"), ("switch_pkt",),
                  ("switch_pkt_ar",), ("ofan",))
 SEEDS = (0, 1)            # the fast engine's main path: seeds 0-1
 LOOP_SEEDS = (0, 1)       # the slotted engine's main path: seeds 0-1
-# The slotted engine's fused dispatches: one per pipeline identity.
+# The slotted engine's fused dispatches: one per pipeline identity.  The
+# slot loop is launch-bound, and fig 3's switch_pkt runs 1,600 slots against
+# its point's ~670, so that point left the main path to keep the script
+# within its time (PERF.md §4); switch_pkt still runs on the free point here
+# and on the fast engine's main path.
 LOOP_GROUPS = {
     "free": (("host_pkt", "flow_ecmp", "host_dr"), ("host_pkt_ar",),
              ("host_flowlet_ar",), ("switch_pkt",), ("switch_pkt_ar",),
              ("jsq",), ("ofan",)),
-    "fig3": (("host_pkt",), ("switch_pkt",), ("host_pkt_ar",),
-             ("switch_pkt_ar",), ("ofan",)),
+    "fig3": (("host_pkt",), ("host_pkt_ar",), ("switch_pkt_ar",),
+             ("ofan",)),
 }
 LOOP_MAX_SLOTS = 60_000
 SLOT_KERNELS = ("jsq_pick", "enqueue", "agg_jsq_enqueue")
@@ -1440,10 +1467,10 @@ ZOO_GOLDENS = tuple(ROOT / "tests" / "torch_golden" / n for n in (
     "serve_moe_l2.json", "serve_mla_l1.json", "serve_vlm_l2.json",
     "serve_encdec.json"))
 DEEPSEEK_LAYERS = 4
-# Qwen3-MoE-30B-A3B's serving main path at full width, cut to 24 of its
+# Qwen3-MoE-30B-A3B's serving main path at full width, cut to 12 of its
 # 48 layers to make room for the training phases within the script's time
 # limit.
-QWEN_LAYERS = 24
+QWEN_LAYERS = 12
 DEEPSEEK_LENS = (13, 100, 511, 37)
 LLAVA_LAYERS = 20
 ZOO_LENS = (13, 100, 511, 37)
@@ -2768,37 +2795,13 @@ def ssd_phase(dev, errs):
 
 
 def ssd64(x, dt, A, Bm, C):
-    """(y, h_L): the SSD scan's chunked closed form (``ref.ssd_chunked``,
-    chunks of 64, ``ref.ssd_final_state``) in float64 on the card.  The
+    """(y, h_L): the SSD scan's plain chunked form (``ops.ssd``'s plain
+    route, chunks of 64, and ``ref.ssd_final_state``) in float64 on the
+    card, the plain versions keeping float64 inputs in float64.  The
     yardstick of the float32 rows' ``f64_err``."""
-    import torch
-    from repro_torch.kernels.ssd_scan import ref as ssd_ref
-    Q = 64
-    L, rep = x.shape[1], x.shape[2] // Bm.shape[2]
-    x, dt, Bm, C = ssd_ref.pad_to_chunk(Q, *(t.double()
-                                            for t in (x, dt, Bm, C)))
-    A = A.double()
-    Bh, Ch = (t.repeat_interleave(rep, dim=2) for t in (Bm, C))
-    causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
-    h = torch.zeros((x.shape[0], x.shape[2], Bm.shape[3], x.shape[3]),
-                    dtype=torch.float64, device=x.device)
-    ys = []
-    for c0 in range(0, x.shape[1], Q):
-        r = slice(c0, c0 + Q)
-        xc, dtc, Bc, Cc = x[:, r], dt[:, r], Bh[:, r], Ch[:, r]
-        lam = torch.cumsum(A * dtc, dim=1)                 # (B, Q, H)
-        lh = lam.movedim(1, 2)
-        diff = lh[..., :, None] - lh[..., None, :]
-        s = (torch.einsum("bihn,bjhn->bhij", Cc, Bc)
-             * torch.where(causal, torch.exp(torch.where(causal, diff, 0.0)),
-                           0.0) * dtc.movedim(1, 2)[..., None, :])
-        ys.append(torch.exp(lam)[..., None]
-                  * torch.einsum("bihn,bhnp->bihp", Cc, h)
-                  + torch.einsum("bhij,bjhp->bihp", s, xc))
-        w = torch.exp(lam[:, -1:] - lam) * dtc
-        h = (torch.exp(lam[:, -1])[..., None, None] * h
-             + torch.einsum("bjhn,bjhp->bhnp", Bc, w[..., None] * xc))
-    return torch.cat(ys, dim=1)[:, :L], h
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return ssd_ops.ssd(*(t.double() for t in (x, dt, A, Bm, C)),
+                       backend="torch", final_state=True)
 
 
 def ssd_timing(rec, errs, launches, f32_launches):
@@ -2916,6 +2919,10 @@ def ssd_timing(rec, errs, launches, f32_launches):
 # ---------------------------------------------------------------------------
 
 TRAIN_GOLDEN = ROOT / "tests" / "torch_golden" / "train_yi6b_l2.json"
+# Mamba2-130M at full width, 2 of its 24 layers, float32: the SSD scan's
+# forward (the float32 tensor-core walk) and backward kernels in a train
+# step held to CPU JAX, at the same tolerances as Yi-6B's.
+TRAIN_SSM_GOLDEN = ROOT / "tests" / "torch_golden" / "train_mamba2_l2.json"
 TRAIN_OUT = ROOT / "build" / "chip_smoke_train"
 # attention_grad_vs_plain, (B, Hq, Hkv, Sq, Sk, Dk, Dv, causal): Yi-6B's
 # heads for S = 1-4,096 (the main path's positions), D = 64, 80 (Zamba2's
@@ -2982,8 +2989,10 @@ GOLDEN_MU_NEAR0 = 1e-3
 # TRAIN_BATCH, the config's 4 microbatches, AdamW and remat (policy
 # "nothing"), TRAIN_STEPS steps through ResilientLoop with a checkpoint
 # every 2 steps.  The batch is cut to 4, one sequence a microbatch (8 ran
-# at 3.8 s a step; PERF.md, PR 23), to keep the script near its time.
-TRAIN_LAYERS = 8
+# at 3.8 s a step), and the depth to 4 layers (8 until the SSM training
+# paths came: PERF.md §4 has the seconds it saves), to keep the script
+# within its time.
+TRAIN_LAYERS = 4
 TRAIN_SEQ = 4096
 TRAIN_BATCH = 4
 TRAIN_STEPS = 3
@@ -2993,14 +3002,42 @@ TRAIN_STEPS = 3
 # attention kernels' tiles, the plain version's einsums), through 8 layers
 # and 4 microbatches of 2 x 4,096 tokens.  The card gave a loss gap of
 # 2.4e-5 (of ~11.6) and a relative gradient-norm gap of 3.6e-7: the loss
-# is held within 1e-3 and the gradient norm within 1e-3 relative.
+# is held within 1e-3 and the gradient norm within 1e-3 relative, on the
+# SSM paths too (the SSD scan's kernels against the plain einsums).
 TRAIN_LOSS_ATOL = 1e-3
 TRAIN_GNORM_RTOL = 1e-3
+# train_ssm_main_path, (arch, layers or None for all, seq, global batch):
+# Mamba2-130M whole, 4 sequences of 2,048 tokens (the paper's training
+# context) in its config's 2 microbatches; Zamba2-2.7B at full width cut to
+# 12 of its 54 Mamba layers (two applications of the shared block: its
+# 2.7 B parameters with float32 gradients and AdamW's two float32 moments
+# come to ~38 GB before activations, PERF.md §4), 4 sequences of 4,096
+# tokens in its config's 4 microbatches; bf16, AdamW, remat, through
+# train_path.  Step 1 within TRAIN_LOSS_ATOL and TRAIN_GNORM_RTOL of the
+# plain path, as Yi-6B's.
+TRAIN_SSM = (("mamba2-130m", None, 2048, 4), ("zamba2-2.7b", 12, 4096, 4))
+# ssd_grad_vs_plain: the backward kernel against ref.ssd_vjp at SSD_HEADS
+# for these lengths (1, ragged, one chunk, 32 chunks).  bf16: each gradient
+# within SSD_GRAD_TOL of its largest magnitude (the forward's 2e-2: both
+# round float32 sums to 8 bits).  float32: each gradient no further from
+# the float64 plain gradient (ref.ssd_vjp on float64 inputs) than twice the
+# float32 plain version's distance, plus SSD_GRAD_F32_FLOOR of its largest
+# magnitude (4 units in the last place of float32's 24 bits: the floor of
+# any float32 result, where the plain version happens to round exactly).
+SSD_GRAD_LENS = (1, 37, 64, 2048)
+SSD_GRAD_TOL = 2e-2
+SSD_GRAD_F32_FLOOR = 2.4e-7
+SSD_GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+# The backward's timing rows: bf16 at Zamba2-2.7B's train shape (a
+# microbatch of one 4,096-token sequence), float32 at the SSM golden's
+# (Mamba2-130M, a microbatch of 2 x 128 tokens); (B, L, H, P, G, N).
+SSD_BWD_SHAPE = (1, 4096, 80, 64, 1, 64)
+SSD_BWD_F32_SHAPE = (2, 128, 24, 64, 1, 128)
 # train_zoo_smoke: one train step of each family that trains on the card,
 # at its smoke config (float32), kernel path against plain path: the loss
 # within 1e-5 and the gradient norm within 1e-4, relative.
 TRAIN_ZOO = ("yi-6b", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
-             "llava-next-34b", "whisper-small")
+             "llava-next-34b", "whisper-small", "mamba2-130m", "zamba2-2.7b")
 ZOO_LOSS_RTOL, ZOO_GNORM_RTOL = 1e-5, 1e-4
 # DeepSeek-V3's own attention heads (configs/deepseek_v3_671b.py: rope 64 +
 # nope 128 = Dk 192, Dv 128) on its smoke config, whose heads are cut to
@@ -3009,20 +3046,24 @@ ZOO_LOSS_RTOL, ZOO_GNORM_RTOL = 1e-5, 1e-4
 ZOO_WIDE_HEADS = dict(rope_head_dim=64, nope_head_dim=128, v_head_dim=128)
 
 
-class AttnClock:
-    """While active, times each call of the attention kernels' bindings
-    (``kernel.flash_attention`` and ``kernel.flash_attention_bwd``) with
-    CUDA events on the current stream; ``take()`` returns the device ms of
-    each since the last ``take()``."""
+class KernelClock:
+    """While active, times each call of the kernel bindings named in
+    ``KernelClock.BINDINGS`` (the attention's and the SSD scan's forward and
+    backward, ``kernel.<name>``) with CUDA events on the current stream;
+    ``take()`` returns the device ms and the calls of each since the last
+    ``take()``."""
 
-    NAMES = ("flash_attention", "flash_attention_bwd")
+    BINDINGS = (("flash_attn", "flash_attention"),
+                ("flash_attn", "flash_attention_bwd"),
+                ("ssd_scan", "ssd_scan"), ("ssd_scan", "ssd_scan_bwd"))
 
     def __enter__(self):
+        import importlib
         import torch
-        from repro_torch.kernels.flash_attn import kernel
-        self.kernel = kernel
-        self.orig = {n: getattr(kernel, n) for n in self.NAMES}
-        self.events = {n: [] for n in self.NAMES}
+        self.mods = {n: importlib.import_module(
+            f"repro_torch.kernels.{pkg}.kernel") for pkg, n in self.BINDINGS}
+        self.orig = {n: getattr(self.mods[n], n) for n in self.mods}
+        self.events = {n: [] for n in self.mods}
 
         def timed(name, fn):
             def call(*args, **kw):
@@ -3035,7 +3076,7 @@ class AttnClock:
                 return out
             return call
         for n, fn in self.orig.items():
-            setattr(kernel, n, timed(n, fn))
+            setattr(self.mods[n], n, timed(n, fn))
         return self
 
     def take(self):
@@ -3044,12 +3085,12 @@ class AttnClock:
         out = {n: sum(s.elapsed_time(e) for s, e in ev)
                for n, ev in self.events.items()}
         counts = {n: len(ev) for n, ev in self.events.items()}
-        self.events = {n: [] for n in self.NAMES}
+        self.events = {n: [] for n in self.events}
         return out, counts
 
     def __exit__(self, *exc):
         for n, fn in self.orig.items():
-            setattr(self.kernel, n, fn)
+            setattr(self.mods[n], n, fn)
         return False
 
 
@@ -3142,19 +3183,16 @@ def sample_state(state, path, idx, dev):
 
 def train_golden_check(rec, dev):
     """Two train steps of each of the golden's runs (AdamW, Adafactor) on
-    ``dev`` from ``numpy_reference_params``, held to the golden record.
-    Returns the attention kernels' (forward, backward) launches."""
+    ``dev`` from ``numpy_reference_params``, held to the golden record."""
     import dataclasses as dc
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.interop import (numpy_reference_params,
                                      params_from_reference)
-    from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.models.registry import Model
     from repro_torch.train import data as data_mod
     from repro_torch.train import train_step as ts
-    launches = [attn_ops.LAUNCHES, attn_ops.BWD_LAUNCHES]
     for run in rec["runs"]:
         cfg = dc.replace(get_config(rec["arch"]), n_layers=rec["n_layers"],
                          dtype=rec["dtype"], optimizer=run["optimizer"])
@@ -3222,18 +3260,34 @@ def train_golden_check(rec, dev):
                   + f"; {n_slack} sampled parameters near a zero first "
                     f"moment", flush=True)
         del state, params, step_fn
-    return (attn_ops.LAUNCHES - launches[0],
-            attn_ops.BWD_LAUNCHES - launches[1])
 
 
 def train_golden_phase(dev):
     """train_golden: Yi-6B at full width, 2 layers, float32, numpy weights,
-    two train steps on the card (AdamW, then Adafactor) against the CPU JAX
-    golden.  Returns the float32 attention kernels' (forward, backward)
-    launches."""
+    two train steps on the card (AdamW, then Adafactor), and Mamba2-130M at
+    full width, 2 layers, two AdamW steps, against the CPU JAX goldens,
+    with the attention's and the SSD scan's launch counts set to 0 just
+    before: every float32 attention launch on its tensor-core route, the
+    SSD's forward on the float32 walk and its backward on the CUDA cores.
+    Returns {kernel row: launches}."""
     import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    reset_train_counts()
     with Phase("train_golden"):
-        out = train_golden_check(json.loads(TRAIN_GOLDEN.read_text()), dev)
+        for path in (TRAIN_GOLDEN, TRAIN_SSM_GOLDEN):
+            train_golden_check(json.loads(path.read_text()), dev)
+        out = dict(zip(("flash_attention_f32", "flash_attention_bwd_f32"),
+                       f32_routes("train_golden", bwd=True)))
+        routes = (dict(ssd_ops.ROUTE_LAUNCHES),
+                  dict(ssd_ops.BWD_ROUTE_LAUNCHES))
+        check(routes[0]["wgmma_f32"] == ssd_ops.LAUNCHES > 0
+              and ssd_ops.BWD_LAUNCHES > 0,
+              f"train_golden: SSD launches by route (forward, backward) "
+              f"{routes}")
+        out["ssd_scan_f32"] = ssd_ops.LAUNCHES
+        out["ssd_scan_bwd_f32"] = ssd_ops.BWD_LAUNCHES
+        print(f"train_golden: SSD launches by route (forward, backward) "
+              f"{routes}", flush=True)
     torch.cuda.empty_cache()
     return out
 
@@ -3265,185 +3319,244 @@ def train_batches(cfg, seq_len, global_batch, dev):
     return batches
 
 
-def train_main_phase(dev):
-    """train_main_path (see TRAIN_LAYERS).  First the plain path's step-1
-    loss and gradient norm from the initial weights (no update); then, with
-    ``torch.use_deterministic_algorithms(True)``, the kernel path through
-    ``build_train_step`` and a ResilientLoop for TRAIN_STEPS steps
-    (checkpoints every 2 steps under build/), with the flash-attention
-    launch counts set to 0 just before and read just after; then a crash
+def kernel_layers(cfg):
+    """(attention layers, SSD layers) of a config's forward pass."""
+    if cfg.family == "ssm":
+        return 0, cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every, cfg.n_layers
+    return cfg.n_layers, 0
+
+
+def reset_train_counts():
+    """Set the attention's and the SSD scan's launch counts (forward and
+    backward, in all and by route) to 0."""
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    for ops in (attn_ops, ssd_ops):
+        ops.LAUNCHES = ops.BWD_LAUNCHES = 0
+        for counts in (ops.ROUTE_LAUNCHES, ops.BWD_ROUTE_LAUNCHES):
+            counts.update(dict.fromkeys(counts, 0))
+
+
+def train_counts():
+    """{kernel: (forward launches, backward launches, forward by route,
+    backward by route)} of the attention and the SSD scan."""
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return {name: (ops.LAUNCHES, ops.BWD_LAUNCHES, dict(ops.ROUTE_LAUNCHES),
+                   dict(ops.BWD_ROUTE_LAUNCHES))
+            for name, ops in (("flash_attention", attn_ops),
+                              ("ssd_scan", ssd_ops))}
+
+
+def train_path(dev, phase, cfg, seq, batch):
+    """A training main path of ``cfg`` (bf16, remat) at ``batch`` sequences
+    of ``seq`` tokens a step in the config's microbatches, AdamW: first the
+    plain path's step-1 loss and gradient norm from the initial weights (no
+    update); then, with ``torch.use_deterministic_algorithms(True)``, the
+    kernel path through ``build_train_step`` and a ResilientLoop for
+    TRAIN_STEPS steps (checkpoints every 2 steps under build/), with the
+    attention's and the SSD scan's launch counts set to 0 just before and
+    read just after: each kernel a forward a layer a microbatch and its
+    remat, and a backward, the attention's on the ``wgmma`` route, the SSD's
+    forward on ``wgmma`` and its backward on ``cuda_cores``; step 1 within
+    TRAIN_LOSS_ATOL and TRAIN_GNORM_RTOL of the plain path; then a crash
     after step 2's checkpoint: step 3's checkpoint removed, every state
     tensor zeroed, and a second ResilientLoop restores step 2 and runs step
-    3, whose parameters must equal the uninterrupted run's bitwise.
-    Returns (bf16 forward launches, bf16 backward launches, per-step
-    records)."""
-    import dataclasses as dc
+    3, whose parameters must equal the uninterrupted run's bitwise.  Each
+    step prints its wall ms, tokens per second, each kernel's device ms
+    (CUDA events around its bindings: ``KernelClock``) and the peak memory.
+    Returns ({kernel: (forward, backward launches)}, per-step records)."""
     import shutil
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.models.registry import Model
     from repro_torch.train import checkpoint as ckpt_mod
     from repro_torch.train import fault_tolerance as ft_mod
     from repro_torch.train import train_step as ts
     from repro_torch.train import tree as T
-    layers, seq, batch = TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH
-    cfg = dc.replace(get_config("yi-6b"), n_layers=layers)
     model = Model(cfg)
     tcfg = ts.TrainConfig()
     n_micro = ts.micro_count(model, tcfg)
     batches = train_batches(cfg, seq, batch, dev)
-    with Phase("train_main_path"):
+    n_attn, n_ssd = kernel_layers(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(
+        torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{phase}: {cfg.name} {cfg.dtype}, n_layers={cfg.n_layers}, "
+          f"{n_params:,} parameters drawn in "
+          f"{time.perf_counter() - t0:.1f} s; {batch} x {seq} tokens a step "
+          f"in {n_micro} microbatches, {cfg.optimizer}, remat={cfg.remat} "
+          f"({cfg.remat_policy})", flush=True)
+    params.requires_grad_(True)
+    t0 = time.perf_counter()
+    plain_loss, grads = ts.loss_and_grads(
+        Model(cfg, backend="torch"), params, batches(0), n_micro)
+    plain_gnorm = float(ts.global_norm(grads))
+    plain_loss = float(plain_loss)
+    del grads
+    torch.cuda.empty_cache()
+    print(f"{phase} plain path (backend='torch'), step 1 without update: "
+          f"loss {plain_loss:.6f} grad_norm {plain_gnorm:.6f} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    ckdir = TRAIN_OUT / "ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ftc = ft_mod.FTConfig(ckpt_dir=str(ckdir), ckpt_every=2, keep_last=3)
+    records = []
+    clock = KernelClock()
+
+    def metrics_cb(step, m, dt):
+        ms, calls = clock.take()
+        rec = {"step": step + 1, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "wall_ms": dt * 1e3,
+               "tokens_per_s": batch * seq / dt}
+        rec.update({f"{n}_ms": v for n, v in ms.items() if calls[n]})
+        rec["calls"] = {n: c for n, c in calls.items() if c}
+        rec["max_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        records.append(rec)
+        print(f"{phase} step {rec['step']}: "
+              + " ".join(f"{k}={v:.6g}" if isinstance(v, float)
+                         else f"{k}={v}" for k, v in rec.items()
+                         if k != "step"), flush=True)
+
+    torch.use_deterministic_algorithms(True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        state = ts.make_train_state(model, params, tcfg)
+        step_fn = ts.build_train_step(model, tcfg)
+        reset_train_counts()
         t0 = time.perf_counter()
-        params = model.init_params(
-            torch.Generator(device=dev).manual_seed(0), device=dev)
-        n_params = sum(p.numel() for p in params.parameters())
-        print(f"train_main_path: {cfg.name} {cfg.dtype}, n_layers={layers}, "
-              f"{n_params:,} parameters drawn in "
-              f"{time.perf_counter() - t0:.1f} s; {batch} x {seq} tokens a "
-              f"step in {n_micro} microbatches, {cfg.optimizer}, remat="
-              f"{cfg.remat} ({cfg.remat_policy})", flush=True)
-        params.requires_grad_(True)
-        t0 = time.perf_counter()
-        plain_loss, grads = ts.loss_and_grads(
-            Model(cfg, backend="torch"), params, batches(0), n_micro)
-        plain_gnorm = float(ts.global_norm(grads))
-        plain_loss = float(plain_loss)
-        del grads
-        torch.cuda.empty_cache()
-        print(f"train_main_path plain path (backend='torch'), step 1 "
-              f"without update: loss {plain_loss:.6f} grad_norm "
-              f"{plain_gnorm:.6f} in {time.perf_counter() - t0:.1f} s",
-              flush=True)
-
-        ckdir = TRAIN_OUT / "ckpt"
-        shutil.rmtree(ckdir, ignore_errors=True)
-        ftc = ft_mod.FTConfig(ckpt_dir=str(ckdir), ckpt_every=2, keep_last=3)
-        records = []
-        clock = AttnClock()
-
-        def metrics_cb(step, m, dt):
-            ms, counts = clock.take()
-            rec = {"step": step + 1, "loss": float(m["loss"]),
-                   "grad_norm": float(m["grad_norm"]), "wall_ms": dt * 1e3,
-                   "tokens_per_s": batch * seq / dt,
-                   "attn_fwd_ms": ms["flash_attention"],
-                   "attn_bwd_ms": ms["flash_attention_bwd"],
-                   "attn_calls": counts,
-                   "max_memory_gb": torch.cuda.max_memory_allocated(dev)
-                   / 1e9}
-            records.append(rec)
-            print(f"train_main_path step {rec['step']}: "
-                  + " ".join(f"{k}={v:.6g}" if isinstance(v, float)
-                             else f"{k}={v}" for k, v in rec.items()
-                             if k != "step"), flush=True)
-
-        torch.use_deterministic_algorithms(True)
-        torch.cuda.reset_peak_memory_stats(dev)
-        try:
-            state = ts.make_train_state(model, params, tcfg)
-            step_fn = ts.build_train_step(model, tcfg)
-            attn_ops.LAUNCHES = attn_ops.BWD_LAUNCHES = 0
-            attn_ops.BWD_ROUTE_LAUNCHES.update(wgmma=0, wgmma_f32=0,
-                                               cuda_cores=0)
-            t0 = time.perf_counter()
-            with clock:
-                loop = ft_mod.ResilientLoop(step_fn, state, ftc,
-                                            health_cb=print)
-                loop.run(batches, TRAIN_STEPS, metrics_cb)
-            fwd, bwd = attn_ops.LAUNCHES, attn_ops.BWD_LAUNCHES
-            bwd_routes = dict(attn_ops.BWD_ROUTE_LAUNCHES)
-            print(f"train_main_path: {TRAIN_STEPS} steps and their "
-                  f"checkpoints in {time.perf_counter() - t0:.1f} s; "
-                  f"flash_attention launches: forward {fwd}, backward {bwd} "
-                  f"(by route {bwd_routes})", flush=True)
-            check(bwd_routes == {"wgmma": bwd, "wgmma_f32": 0,
-                                 "cuda_cores": 0},
-                  f"train_main_path: the backward's launches by route "
-                  f"{bwd_routes}; every one of the {bwd} must take the "
-                  f"wgmma route")
+        with clock:
+            loop = ft_mod.ResilientLoop(step_fn, state, ftc, health_cb=print)
+            loop.run(batches, TRAIN_STEPS, metrics_cb)
+        counts = train_counts()
+        print(f"{phase}: {TRAIN_STEPS} steps and their checkpoints in "
+              f"{time.perf_counter() - t0:.1f} s; launches (forward, "
+              f"backward, by route) {counts}", flush=True)
+        for name, layers, fwd_route, bwd_route in (
+                ("flash_attention", n_attn, "wgmma", "wgmma"),
+                ("ssd_scan", n_ssd, "wgmma", "cuda_cores")):
+            fwd, bwd, fr, br = counts[name]
             per_step = layers * n_micro
             check(fwd == TRAIN_STEPS * per_step * 2
-                  and bwd == TRAIN_STEPS * per_step,
-                  f"train_main_path: flash_attention launches {fwd} "
-                  f"forward, {bwd} backward; expected "
+                  and bwd == TRAIN_STEPS * per_step
+                  and fr[fwd_route] == fwd and br[bwd_route] == bwd,
+                  f"{phase}: {name} launches {fwd} forward, {bwd} backward "
+                  f"(by route {fr}, {br}); expected "
                   f"{TRAIN_STEPS * per_step * 2} and {TRAIN_STEPS * per_step}"
                   f" (a forward and its remat, and a backward, a layer a "
-                  f"microbatch)")
-            check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
-                      for r in records), "train_main_path: a loss or "
-                  "gradient norm is not finite")
-            first = records[0]
-            check(abs(first["loss"] - plain_loss) <= TRAIN_LOSS_ATOL
-                  and abs(first["grad_norm"] - plain_gnorm)
-                  <= TRAIN_GNORM_RTOL * plain_gnorm,
-                  f"train_main_path step 1: kernel path loss "
-                  f"{first['loss']} grad_norm {first['grad_norm']}, plain "
-                  f"path {plain_loss} {plain_gnorm}")
-            print(f"train_main_path step 1, kernel vs plain: loss "
-                  f"{first['loss']:.6f} vs {plain_loss:.6f} (|diff| "
-                  f"{abs(first['loss'] - plain_loss):.3g} <= "
-                  f"{TRAIN_LOSS_ATOL}), grad_norm {first['grad_norm']:.6f} "
-                  f"vs {plain_gnorm:.6f} (rel diff "
-                  f"{abs(first['grad_norm'] - plain_gnorm) / plain_gnorm:.3g}"
-                  f" <= {TRAIN_GNORM_RTOL})", flush=True)
-            final = [t.detach().clone() for t in params.parameters()]
+                  f"microbatch), on the {fwd_route} and {bwd_route} routes")
+        check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                  for r in records),
+              f"{phase}: a loss or gradient norm is not finite")
+        first = records[0]
+        check(abs(first["loss"] - plain_loss) <= TRAIN_LOSS_ATOL
+              and abs(first["grad_norm"] - plain_gnorm)
+              <= TRAIN_GNORM_RTOL * plain_gnorm,
+              f"{phase} step 1: kernel path loss {first['loss']} grad_norm "
+              f"{first['grad_norm']}, plain path {plain_loss} {plain_gnorm}")
+        print(f"{phase} step 1, kernel vs plain: loss {first['loss']:.6f} "
+              f"vs {plain_loss:.6f} (|diff| "
+              f"{abs(first['loss'] - plain_loss):.3g} <= {TRAIN_LOSS_ATOL}), "
+              f"grad_norm {first['grad_norm']:.6f} vs {plain_gnorm:.6f} (rel "
+              f"diff {abs(first['grad_norm'] - plain_gnorm) / plain_gnorm:.3g}"
+              f" <= {TRAIN_GNORM_RTOL})", flush=True)
+        final = [t.detach().clone() for t in params.parameters()]
 
-            # a crash after step 2's checkpoint committed
-            shutil.rmtree(ckdir / f"step_{TRAIN_STEPS:08d}")
-            check(ckpt_mod.latest_step(str(ckdir)) == 2,
-                  "train_main_path: step 2's checkpoint is missing")
-            with torch.no_grad():
-                for _, leaf in T.items(state):
-                    for t in T.layers(leaf):
-                        t.zero_()
-            t0 = time.perf_counter()
-            loop2 = ft_mod.ResilientLoop(step_fn, state, ftc,
-                                         health_cb=print)
-            restore_s = time.perf_counter() - t0
-            check(loop2.start_step == 2, "train_main_path: the restart did "
-                  f"not resume at step 2 ({loop2.start_step})")
-            n_before = len(records)
-            with clock:
-                loop2.run(batches, TRAIN_STEPS, metrics_cb)
-            after = list(params.parameters())
-            same = all(torch.equal(a, b) for a, b in zip(final, after))
-            check(same and records[-1]["loss"] == records[n_before - 1][
-                      "loss"],
-                  "train_main_path: the restarted step 3 differs from the "
-                  "uninterrupted run's")
-            print(f"train_main_path restart: restored step 2 in "
-                  f"{restore_s:.1f} s; step 3's parameters bitwise equal to "
-                  f"the uninterrupted run's ({len(after)} tensors, "
-                  f"deterministic algorithms on)", flush=True)
-        finally:
-            torch.use_deterministic_algorithms(False)
-        del state, params, final, loop, loop2, step_fn
-        shutil.rmtree(ckdir, ignore_errors=True)
-        torch.cuda.empty_cache()
-    return fwd, bwd, records
+        # a crash after step 2's checkpoint committed
+        shutil.rmtree(ckdir / f"step_{TRAIN_STEPS:08d}")
+        check(ckpt_mod.latest_step(str(ckdir)) == 2,
+              f"{phase}: step 2's checkpoint is missing")
+        with torch.no_grad():
+            for _, leaf in T.items(state):
+                for t in T.layers(leaf):
+                    t.zero_()
+        t0 = time.perf_counter()
+        loop2 = ft_mod.ResilientLoop(step_fn, state, ftc, health_cb=print)
+        restore_s = time.perf_counter() - t0
+        check(loop2.start_step == 2, f"{phase}: the restart did not resume "
+              f"at step 2 ({loop2.start_step})")
+        n_before = len(records)
+        with clock:
+            loop2.run(batches, TRAIN_STEPS, metrics_cb)
+        after = list(params.parameters())
+        same = all(torch.equal(a, b) for a, b in zip(final, after))
+        check(same and records[-1]["loss"] == records[n_before - 1]["loss"],
+              f"{phase}: the restarted step 3 differs from the "
+              f"uninterrupted run's")
+        print(f"{phase} restart: restored step 2 in {restore_s:.1f} s; step "
+              f"3's parameters bitwise equal to the uninterrupted run's "
+              f"({len(after)} tensors, deterministic algorithms on)",
+              flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del state, params, final, loop, loop2, step_fn
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {n: c[:2] for n, c in counts.items()}, records
+
+
+def train_main_phase(dev):
+    """train_main_path: Yi-6B (see TRAIN_LAYERS) through ``train_path``.
+    Returns (bf16 attention forward launches, backward launches,
+    records)."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    cfg = dc.replace(get_config("yi-6b"), n_layers=TRAIN_LAYERS)
+    with Phase("train_main_path"):
+        counts, records = train_path(dev, "train_main_path", cfg, TRAIN_SEQ,
+                                     TRAIN_BATCH)
+    return (*counts["flash_attention"], records)
+
+
+def train_ssm_phase(dev):
+    """train_ssm_main_path: Mamba2-130M whole and Zamba2-2.7B at full width
+    cut to ZAMBA_TRAIN_LAYERS (see TRAIN_SSM) through ``train_path``.
+    Returns {kernel row: launches} of the bf16 kernels (the SSD scan's
+    forward and backward, and Zamba2's attention forward and backward)."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    rows = {}
+    with Phase("train_ssm_main_path"):
+        for arch, layers, seq, batch in TRAIN_SSM:
+            cfg = get_config(arch)
+            cfg = dc.replace(cfg, n_layers=layers or cfg.n_layers)
+            counts, _ = train_path(dev, f"train_ssm_main_path {arch}", cfg,
+                                   seq, batch)
+            for row, (kernel, i) in (
+                    ("ssd_scan", ("ssd_scan", 0)),
+                    ("ssd_scan_bwd", ("ssd_scan", 1)),
+                    ("flash_attention", ("flash_attention", 0)),
+                    ("flash_attention_bwd", ("flash_attention", 1))):
+                rows[row] = rows.get(row, 0) + counts[kernel][i]
+    return rows
 
 
 def zoo_step(cfg, dev):
     """One train step of ``cfg`` (4 sequences of 64 tokens, the same
     weights) through the kernels and through the plain path: {backend:
-    (loss, gradient norm, forward launches, backward launches)}."""
+    (loss, gradient norm, attention forward launches, attention backward
+    launches, SSD forward launches, SSD backward launches)}."""
     from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models.registry import Model
     from repro_torch.train import train_step as ts
     batches = train_batches(cfg, 64, 4, dev)
     out = {}
+    counts = lambda: (attn_ops.LAUNCHES, attn_ops.BWD_LAUNCHES,
+                      ssd_ops.LAUNCHES, ssd_ops.BWD_LAUNCHES)
     for backend in ("auto", "torch"):
         model = Model(cfg, backend=backend)
         params = model.init_params(0, device=dev)
         tcfg = ts.TrainConfig()
         state = ts.make_train_state(model, params, tcfg)
-        before = (attn_ops.LAUNCHES, attn_ops.BWD_LAUNCHES)
+        before = counts()
         _, m = ts.build_train_step(model, tcfg)(state, batches(0))
         out[backend] = (float(m["loss"]), float(m["grad_norm"]),
-                        attn_ops.LAUNCHES - before[0],
-                        attn_ops.BWD_LAUNCHES - before[1])
+                        *(a - b for a, b in zip(counts(), before)))
     return out
 
 
@@ -3451,36 +3564,53 @@ def train_zoo_phase(dev):
     """train_zoo_smoke: one train step of each family in TRAIN_ZOO at its
     smoke config (float32) through the kernels and through the plain path
     from the same weights; loss and gradient norm within ZOO_*_RTOL, and
-    the forward and backward kernels launched, all on the float32
-    tensor-core route.  Then DeepSeek-V3's smoke config at its own head
+    the forward and backward kernels of its layers launched (attention
+    and SSD scan: ``kernel_layers``), the attention's and the SSD's forward
+    all on their float32 tensor-core routes and the SSD's backward on its
+    CUDA-core route.  Then DeepSeek-V3's smoke config at its own head
     widths (ZOO_WIDE_HEADS: Dk 192, Dv 128), one step in float32 (within
     ZOO_*_RTOL) and one in bf16 (within TRAIN_LOSS_ATOL and
     TRAIN_GNORM_RTOL, the bf16 main path's), each with its attention
     launches by route counted from 0: all on the tensor-core routes.
-    Returns the attention launches by row of the ``kernels`` line."""
+    Returns the attention's and the SSD scan's launches by row of the
+    ``kernels`` line."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     rows = {}
     with Phase("train_zoo_smoke"):
-        reset_attn_routes()
+        reset_train_counts()
         for arch in TRAIN_ZOO:
             cfg = get_config(arch, smoke=True)
             out = zoo_step(cfg, dev)
-            (lk, gk, fk, bk), (lp, gp, fp, bp) = out["auto"], out["torch"]
-            check(fk > 0 and bk > 0 and fp == 0 and bp == 0,
-                  f"train_zoo_smoke {arch}: kernel launches {fk}/{bk}, "
-                  f"plain {fp}/{bp}")
+            (lk, gk, fk, bk, sk, sb), (lp, gp, *plain) = (out["auto"],
+                                                          out["torch"])
+            n_attn, n_ssd = kernel_layers(cfg)
+            check((fk > 0) == (bk > 0) == (n_attn > 0)
+                  and (sk > 0) == (sb > 0) == (n_ssd > 0) and not any(plain),
+                  f"train_zoo_smoke {arch}: kernel launches (attention "
+                  f"forward, backward, SSD forward, backward) "
+                  f"{(fk, bk, sk, sb)}, plain {plain}")
             check(abs(lk - lp) <= ZOO_LOSS_RTOL * abs(lp)
                   and abs(gk - gp) <= ZOO_GNORM_RTOL * gp,
                   f"train_zoo_smoke {arch}: kernel loss {lk} grad_norm {gk}, "
                   f"plain {lp} {gp}")
             print(f"train_zoo_smoke {cfg.name} ({cfg.family}): loss {lk:.6f} "
                   f"vs plain {lp:.6f}, grad_norm {gk:.6f} vs {gp:.6f}; "
-                  f"flash_attention forward {fk}, backward {bk} launches",
-                  flush=True)
+                  f"flash_attention forward {fk}, backward {bk} launches; "
+                  f"ssd_scan forward {sk}, backward {sb}", flush=True)
         rows["flash_attention_f32"], rows["flash_attention_bwd_f32"] = \
             f32_routes("train_zoo_smoke", bwd=True)
+        ssd_routes = (dict(ssd_ops.ROUTE_LAUNCHES),
+                      dict(ssd_ops.BWD_ROUTE_LAUNCHES))
+        check(ssd_routes[0]["wgmma_f32"] == ssd_ops.LAUNCHES > 0
+              and ssd_ops.BWD_LAUNCHES > 0,
+              f"train_zoo_smoke: SSD launches by route (forward, backward) "
+              f"{ssd_routes}: the forward must take the float32 tensor-core "
+              f"walk, and the backward must launch")
+        rows["ssd_scan_f32"] = ssd_ops.LAUNCHES
+        rows["ssd_scan_bwd_f32"] = ssd_ops.BWD_LAUNCHES
         t0 = time.perf_counter()
         wide = dataclasses.replace(get_config("deepseek-v3-671b", smoke=True),
                                    **ZOO_WIDE_HEADS)
@@ -3490,7 +3620,8 @@ def train_zoo_phase(dev):
             cfg = dataclasses.replace(wide, dtype=dtype)
             reset_attn_routes()
             out = zoo_step(cfg, dev)
-            (lk, gk, fk, bk), (lp, gp, fp, bp) = out["auto"], out["torch"]
+            (lk, gk, fk, bk), (lp, gp, fp, bp) = (out["auto"][:4],
+                                                  out["torch"][:4])
             got = (dict(attn_ops.ROUTE_LAUNCHES),
                    dict(attn_ops.BWD_ROUTE_LAUNCHES))
             check(all(r[route] > 0 and sum(r.values()) == r[route]
@@ -3652,24 +3783,252 @@ def attention_bwd_timing(errs, n_micro):
     return rows
 
 
+def ssd_grad_inputs(shape, dtype, gen, dev, decay=1.0, final=False,
+                    strided=False):
+    """``ssd_inputs`` with dy (x's dtype) and, with ``final``, the final
+    state's gradient (float32); with ``strided``, x, B, C and dy are slices
+    of wider tensors, as the model's projections give them."""
+    import torch
+    B, L, H, P, G, N = shape
+    x, dt, A, Bm, C = ssd_inputs(B, L, H, P, G, N, dtype, gen, dev, decay)
+    dy = torch.randn(B, L, H, P, generator=gen).to(dev, dtype)
+    dh = (torch.randn(B, H, N, P, generator=gen).to(dev) if final
+          else None)
+    if strided:
+        proj = torch.zeros(B, L, H * P + 2 * G * N + 8, dtype=dtype,
+                           device=dev)
+        parts = [x.reshape(B, L, -1), Bm.reshape(B, L, -1),
+                 C.reshape(B, L, -1)]
+        views, o = [], 0
+        for t in parts:
+            proj[..., o:o + t.shape[-1]] = t
+            views.append(proj[..., o:o + t.shape[-1]])
+            o += t.shape[-1]
+        x = views[0].reshape(B, L, H, P)
+        Bm, C = (v.reshape(B, L, G, N) for v in views[1:])
+        wide = torch.zeros(B, L, H, P + 3, dtype=dtype, device=dev)
+        wide[..., :P] = dy
+        dy = wide[..., :P]
+        check(not x.is_contiguous() and not dy.is_contiguous(),
+              "ssd_grad_inputs: the strided inputs are contiguous")
+    return (x, dt, A, Bm, C), dy, dh
+
+
+def ssd_grads_check(tag, args, dy, dh, chunk, errs, name, tol=None):
+    """The backward kernel (``kernel.ssd_scan_bwd``) against ``ref.ssd_vjp``
+    on ``args``: finite gradients of the inputs' shapes and dtypes, a rerun
+    bitwise equal; bf16 (or ``tol``) each gradient within SSD_GRAD_TOL of
+    its largest magnitude; float32 each no further from the float64 plain
+    gradient than twice the float32 plain version's distance, plus
+    SSD_GRAD_F32_FLOOR of its largest magnitude.  Returns the printed
+    line's text, the kernel's gradients and, for float32, {"f64_err",
+    "plain_f64_err"}: the kernel's and the float32 plain version's largest
+    distance from the float64 gradients (else {})."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    got = ssd_kernel.ssd_scan_bwd(*args, dy, dh, chunk=chunk)
+    again = ssd_kernel.ssd_scan_bwd(*args, dy, dh, chunk=chunk)
+    want = ssd_ref.ssd_vjp(*args, dy, chunk=chunk, dh_final=dh)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          f"{tag}: a rerun differs")
+    check(all(g.shape == t.shape and g.dtype == t.dtype
+              and bool(torch.isfinite(g).all()) for g, t in zip(got, args)),
+          f"{tag}: a gradient is not finite, or of another shape or dtype")
+    err = max(max_abs_err(g.float(), w.float()) for g, w in zip(got, want))
+    errs[name] = max(errs[name], err)
+    line, f64 = f"{tag}: max_abs_err {err:.3g}", {}
+    if args[0].dtype == torch.float32 and tol is None:
+        exact = ssd_ref.ssd_vjp(*(t.double() for t in args), dy.double(),
+                                chunk=chunk,
+                                dh_final=None if dh is None else dh.double())
+        ke, pe = [], []
+        for g, w, e, what in zip(got, want, exact, SSD_GRAD_NAMES):
+            k_err, p_err = max_abs_err(g.double(), e), max_abs_err(
+                w.double(), e)
+            floor = SSD_GRAD_F32_FLOOR * float(e.abs().max())
+            check(k_err <= 2 * p_err + floor,
+                  f"{tag} {what}: kernel {k_err:.3g} from float64, plain "
+                  f"float32 {p_err:.3g} (floor {floor:.3g})")
+            ke.append(k_err)
+            pe.append(p_err)
+        f64 = dict(f64_err=max(ke), plain_f64_err=max(pe))
+        line += (f"; f64_err {['%.3g' % v for v in ke]} plain_f64_err "
+                 f"{['%.3g' % v for v in pe]} (dx, ddt, dA, dB, dC; each <= "
+                 f"2 x plain + {SSD_GRAD_F32_FLOOR} of its largest)")
+    else:
+        tol = SSD_GRAD_TOL if tol is None else tol
+        for g, w, what in zip(got, want, SSD_GRAD_NAMES):
+            scale = float(w.float().abs().max())
+            e = max_abs_err(g.float(), w.float())
+            check(e <= tol * scale,
+                  f"{tag} {what}: max_abs_err {e:.3g} past {tol} of the "
+                  f"largest magnitude {scale:.3g}")
+        line += f" (tolerance {tol} of each gradient's largest magnitude)"
+    return line, got, f64
+
+
+def ssd_grad_phase(dev, errs):
+    """ssd_grad_vs_plain: the SSD scan's backward kernel against its plain
+    version ``ref.ssd_vjp`` on the card (``ssd_grads_check``) at SSD_HEADS
+    x SSD_GRAD_LENS x batch 1-2 in bf16 and float32, a large-decay case per
+    head shape (A dt summing past 100 in a chunk: every gradient finite),
+    final-state gradients, requested chunks of 16 and 128, P and N past one
+    tile of 64 (SSD_WIDE), strided slices of x, B, C and dy, and float16 and
+    mixed dtypes (read in float32); every case rerun bitwise.  Then through
+    ``ops.ssd``'s autograd route (``SSDScan``), with and without the final
+    state: the same gradients as the binding, and one ``BWD_LAUNCHES``
+    each."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    with Phase("ssd_grad_vs_plain"):
+        gen = torch.Generator().manual_seed(3)
+        cases = [((B, L, *hd), dt, 1.0, 64, False, False)
+                 for hd in SSD_HEADS for L in SSD_GRAD_LENS for B in (1, 2)
+                 for dt in ("float32", "bfloat16")]
+        cases += [((1, 256, *hd), dt, SSD_DECAY, 64, fs, False)
+                  for hd in SSD_HEADS for dt in ("float32", "bfloat16")
+                  for fs in (False, True)]
+        cases += [((2, 300, *SSD_HEADS[0]), dt, 1.0, 64, True, False)
+                  for dt in ("float32", "bfloat16")]
+        cases += [((1, 301, *SSD_HEADS[2]), dt, 1.0, chunk, False, False)
+                  for chunk in (16, 128) for dt in ("float32", "bfloat16")]
+        cases += [((1, 100, *hd), dt, 1.0, 64, True, False)
+                  for hd in SSD_WIDE for dt in ("float32", "bfloat16")]
+        cases += [((2, 100, *SSD_HEADS[1]), dt, 1.0, 64, False, True)
+                  for dt in ("float32", "bfloat16")]
+        for shape, dt, decay, chunk, fs, strided in cases:
+            args, dy, dh = ssd_grad_inputs(shape, getattr(torch, dt), gen,
+                                           dev, decay, fs, strided)
+            tag = (f"ssd_scan_bwd {shape} {dt} decay {decay} chunk {chunk}"
+                   + (" final_state" if fs else "")
+                   + (" strided" if strided else ""))
+            name = "ssd_scan_bwd" + ("_f32" if dt == "float32" else "")
+            line, _, _ = ssd_grads_check(tag, args, dy, dh, chunk, errs,
+                                         name)
+            print(line, flush=True)
+        n_half, half_errs = 0, {"ssd_scan_bwd_f32": 0.0}
+        for shape in SSD_HALF_SHAPES:
+            for dts in HALF_MIXED:
+                args, dy, _ = ssd_grad_inputs(shape, torch.float32, gen, dev)
+                x, dt_, A, Bm, C = args
+                x, Bm, C = (t.to(getattr(torch, d))
+                            for t, d in zip((x, Bm, C), dts))
+                line, _, _ = ssd_grads_check(
+                    f"ssd_scan_bwd {shape} {dts}", (x, dt_, A, Bm, C),
+                    dy.to(x.dtype), None, 64, half_errs, "ssd_scan_bwd_f32",
+                    tol=HALF_TOL)
+                print(line + " (read in float32)", flush=True)
+                n_half += 1
+        n_ops = 0
+        for shape, dt, fs in (((1, 2048, *SSD_HEADS[0]), "bfloat16", False),
+                              ((2, 100, *SSD_HEADS[2]), "float32", True)):
+            args, dy, dh = ssd_grad_inputs(shape, getattr(torch, dt), gen,
+                                           dev, final=fs)
+            _, want, _ = ssd_grads_check(
+                f"ssd_scan_bwd {shape} {dt} via ops", args, dy, dh, 64, errs,
+                "ssd_scan_bwd" + ("_f32" if dt == "float32" else ""))
+            ins = [t.detach().requires_grad_(True) for t in args]
+            before = ssd_ops.BWD_LAUNCHES
+            out = ssd_ops.ssd(*ins, final_state=fs)
+            outs, cots = ((out, (dy, dh)) if fs else ((out,), (dy,)))
+            got = torch.autograd.grad(outs, ins, cots)
+            check(ssd_ops.BWD_LAUNCHES == before + 1
+                  and all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"ssd_scan_bwd {shape} {dt} final_state={fs}: ops.ssd's "
+                  f"autograd route differs from the binding, or did not "
+                  f"launch the backward once")
+            n_ops += 1
+        print(f"ssd_grad_vs_plain: {len(cases)} cases, {n_half} float16 and "
+              f"mixed, {n_ops} through ops.ssd's autograd route; every rerun "
+              f"bitwise; largest max_abs_err bf16 "
+              f"{errs['ssd_scan_bwd']:.3g}, float32 "
+              f"{errs['ssd_scan_bwd_f32']:.3g}, float16 and mixed "
+              f"{half_errs['ssd_scan_bwd_f32']:.3g}", flush=True)
+
+
+def ssd_bwd_timing(errs, launches):
+    """The backward kernel's rows of the ``kernels`` line (random inputs):
+    bf16 at Zamba2-2.7B's train shape (SSD_BWD_SHAPE) and float32 at the
+    SSM golden's (SSD_BWD_F32_SHAPE), each held to ``ref.ssd_vjp`` first
+    (``ssd_grads_check``): the binding's ms (CUDA events), the device ms of
+    its four launches (profiler), the plain version's ms, and the bound:
+    x, dy and dx, B, C, dB and dC, dt and ddt moved once at 3.35 TB/s, or
+    the products at the card's rate for the type (float32 at
+    FP32_SPLIT_FLOP_PER_S): G, dS, S^T dy, dG B and dG^T C over the causal
+    pairs, and per row dh1^T B, h0 dy, dh1 x and the two chunk-state
+    products.  No single PyTorch call computes this gradient (library_ms
+    None).  ``launches``: {row: launches on the main paths}."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    rows = []
+    gen = torch.Generator().manual_seed(7)
+    for name, shape, dtype in (
+            ("ssd_scan_bwd", SSD_BWD_SHAPE, torch.bfloat16),
+            ("ssd_scan_bwd_f32", SSD_BWD_F32_SHAPE, torch.float32)):
+        args, dy, _ = ssd_grad_inputs(shape, dtype, gen, torch.device(
+            "cuda", 0))
+        line, _, f64 = ssd_grads_check(f"{name} {shape}", args, dy, None,
+                                       64, errs, name)
+
+        def call():
+            return ssd_kernel.ssd_scan_bwd(*args, dy)
+        ms = cuda_ms(call, 10)
+        dev_ms = device_ms(call, 10, r"\bssd_bwd_", per_call=4)
+        plain_ms = cuda_ms(lambda: ssd_ref.ssd_vjp(*args, dy), 3)
+        Bsz, L, H, P, G, N = shape
+        es = args[0].element_size()
+        nbytes = (3 * Bsz * L * H * P * es + 4 * Bsz * L * G * N * es
+                  + 2 * Bsz * L * H * 4 + 2 * H * 4)
+        flops = 0
+        for c0 in range(0, L, 64):
+            r = min(64, L - c0)
+            flops += (2 * r * (r + 1) // 2 * (3 * N + 2 * P)
+                      + 10 * r * N * P)
+        flops *= Bsz * H
+        peak = (BF16_FLOP_PER_S if dtype == torch.bfloat16
+                else FP32_SPLIT_FLOP_PER_S)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/ssd_scan_bwd.cu",
+            replaces="none: the port's gradient of src/repro/kernels/"
+                     "ssd_scan/kernel.py:66, whose reference JAX "
+                     "differentiates through ref.ssd_chunked",
+            launches=launches.get(name, 0), max_abs_err=errs[name], ms=ms,
+            device_ms=dev_ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None, n=int(Bsz * L * H), shape=list(shape), **f64))
+        print(f"kernel {name} (cuda_cores route): {line}; ms={ms:.4f} "
+              f"device_ms={dev_ms} plain_ms={plain_ms:.4f} "
+              f"bound_ms={rows[-1]['bound_ms']:.4f} "
+              f"({rows[-1]['bound_by']}) {f64}", flush=True)
+        del args, dy
+        torch.cuda.empty_cache()
+    return rows
+
+
 def training_phases(dev, errs):
-    """The training phases, in order; returns the attention kernels'
-    launches on their main-path runs: {kernel row name: launches} (bf16:
-    the training main path and the wide bf16 zoo step; float32: the golden
-    and the zoo smoke steps, all on the float32 tensor-core route, the
-    ``_wide`` rows at Dk 192)."""
+    """The training phases, in order; returns the attention's and the SSD
+    scan's launches on their main-path runs: {kernel row name: launches}
+    (bf16: the training main paths and the wide bf16 zoo step; float32:
+    the goldens and the zoo smoke steps, the attention all on its float32
+    tensor-core route, the ``_wide`` rows at Dk 192)."""
     import torch
     attention_grad_phase(dev, errs)
     torch.cuda.empty_cache()
-    reset_attn_routes()
-    train_golden_phase(dev)
-    out = dict(zip(("flash_attention_f32", "flash_attention_bwd_f32"),
-                   f32_routes("train_golden", bwd=True)))
+    ssd_grad_phase(dev, errs)
+    torch.cuda.empty_cache()
+    out = train_golden_phase(dev)
     fwd, bwd, _ = train_main_phase(dev)
     out["flash_attention"] = fwd
     out["flash_attention_bwd"] = bwd
-    for row, n in train_zoo_phase(dev).items():
-        out[row] = out.get(row, 0) + n
+    for phase in (train_ssm_phase, train_zoo_phase):
+        for row, n in phase(dev).items():
+            out[row] = out.get(row, 0) + n
     train_cli_phase()
     torch.cuda.empty_cache()
     return out
@@ -3688,7 +4047,8 @@ def main() -> int:
             and LOOP_GOLDEN.is_file() and SFP_GOLDEN.is_file()
             and SERVE_GOLDEN.is_file() and SSM_GOLDEN.is_file()
             and all(p.is_file() for p in ZOO_GOLDENS)
-            and SWEEP_GOLDEN.is_file() and TRAIN_GOLDEN.is_file()):
+            and SWEEP_GOLDEN.is_file() and TRAIN_GOLDEN.is_file()
+            and TRAIN_SSM_GOLDEN.is_file()):
         print("chip_smoke: run from the root of a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -3724,7 +4084,8 @@ def main() -> int:
             "flash_attention_bwd_f32": 0.0, "flash_attention_bwd_wide": 0.0,
             "flash_attention_bwd_f32_wide": 0.0,
             "flash_attention_bwd_f32_cuda_cores": 0.0,
-            "flash_attention_bwd_bf16_cuda_cores": 0.0}
+            "flash_attention_bwd_bf16_cuda_cores": 0.0, "ssd_scan_bwd": 0.0,
+            "ssd_scan_bwd_f32": 0.0}
 
     with Phase("build"):
         for name, log in _build.build_all().items():
@@ -4028,6 +4389,8 @@ def main() -> int:
             k["max_abs_err"] = max(k["max_abs_err"], errs[k["name"]])
     print(f"flash_attention launches with the zoo's and training's: zoo "
           f"{zoo}, training {train}", flush=True)
+    with Phase("ssd_bwd_timing"):
+        kernels += ssd_bwd_timing(errs, train)
     # The float32 tensor-core kernels ran on the main paths (the goldens
     # and the float32 train steps), their wide instances too (MLA's golden
     # and the train steps at Dk 192), and the bf16 backward's wide instance
@@ -4038,8 +4401,10 @@ def main() -> int:
     check(all(launched[n] > 0 for n in (
               "flash_attention_f32", "flash_attention_bwd_f32",
               "flash_attention_f32_wide", "flash_attention_bwd_f32_wide",
-              "flash_attention_bwd_wide")),
-          f"an attention kernel never launched on a main path: {launched}")
+              "flash_attention_bwd_wide", "ssd_scan_bwd",
+              "ssd_scan_bwd_f32")),
+          f"an attention or SSD kernel never launched on a main path: "
+          f"{launched}")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

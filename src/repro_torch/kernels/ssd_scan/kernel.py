@@ -28,6 +28,14 @@ L, so only the order of the float32 sums depends on the chunk: the
 CUDA-core route runs a chunk above ``TILE`` (64, the kernels' row tile) as
 chunks of ``TILE``, and both tensor-core walks run every chunk as chunks of
 ``TILE``.
+
+:func:`ssd_scan_bwd` launches the backward (``csrc/ssd_scan_bwd.cu``, its
+own library): the gradients of x, dt, A, B and C along dy and, optionally,
+the final state's gradient, on one route for now (:func:`route_bwd`: four
+launches on the CUDA cores, float32 arithmetic, no atomics).  It reads its
+inputs as the forward does (strided x, dy, B and C with a contiguous last
+axis, float16 and mixed dtypes in float32, a ragged last chunk masked, a
+chunk above 64 as chunks of 64).
 """
 from __future__ import annotations
 
@@ -72,6 +80,17 @@ def _lib_f32() -> ctypes.CDLL:
     return lib
 
 
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("ssd_scan_bwd")
+    if not getattr(lib, "_typed", False):
+        lib.ssd_scan_bwd.argtypes = (
+            [_I] + [_VP] * 18 + [_I] * 7
+            + [ctypes.POINTER(ctypes.c_longlong), _VP])
+        lib.ssd_scan_bwd.restype = _I
+        lib._typed = True
+    return lib
+
+
 def compute_dtype(x: torch.Tensor, B_mat: torch.Tensor,
                   C: torch.Tensor) -> torch.dtype:
     """The dtype the kernels read x, B and C in: bf16 when all three are
@@ -87,6 +106,12 @@ def route(dtype: torch.dtype, N: int) -> str:
     if dtype == torch.bfloat16:
         return "wgmma" if N <= WGMMA_MAX_N else "cuda_cores"
     return "wgmma_f32" if N <= WGMMA_F32_MAX_N else "cuda_cores"
+
+
+def route_bwd(dtype: torch.dtype, N: int) -> str:
+    """The backward's route for x, B and C read in ``dtype`` and a state of
+    N: ``"cuda_cores"`` (the one route: four launches on the CUDA cores)."""
+    return "cuda_cores"
 
 
 def p_tile(P: int, N: int, heads: int, sms: int = 132,
@@ -218,3 +243,85 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if y.dtype != out_dtype:
         y = y.to(out_dtype)
     return (y, hfin) if final_state else y
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B_mat: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                 dh_final: Optional[torch.Tensor] = None, *,
+                 chunk: int = 64):
+    """(dx, ddt, dA, dB, dC), each in its input's dtype: the gradients of
+    :func:`ssd_scan` at (x, dt, A, B_mat, C) along dy (B, L, H, P) and, if
+    given, along the final state's gradient ``dh_final`` (B, H, N, P).
+    Shapes and devices as :func:`ssd_scan`; the last axis of x, dy, B and C
+    must be contiguous.  Launches on the current stream and raises if a
+    launch fails."""
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B_mat.dim() != 4 \
+            or C.shape != B_mat.shape or dy.shape != x.shape:
+        raise ValueError("ssd_scan_bwd kernel: x and dy (B, L, H, P), dt "
+                         "(B, L, H), A (H,), B and C (B, L, G, N) of one "
+                         "shape")
+    Bsz, L, H, P = x.shape
+    G, N = B_mat.shape[2], B_mat.shape[3]
+    if (tuple(dt.shape) != (Bsz, L, H) or tuple(A.shape) != (H,)
+            or tuple(B_mat.shape[:2]) != (Bsz, L) or G == 0 or H % G):
+        raise ValueError(f"ssd_scan_bwd kernel: shapes x {tuple(x.shape)}, "
+                         f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, B/C "
+                         f"{tuple(B_mat.shape)} do not fit")
+    if dh_final is not None and tuple(dh_final.shape) != (Bsz, H, N, P):
+        raise ValueError(f"ssd_scan_bwd kernel: dh_final "
+                         f"{tuple(dh_final.shape)}, expected "
+                         f"{(Bsz, H, N, P)}")
+    ins = (x, dt, A, B_mat, C, dy) + (() if dh_final is None else (dh_final,))
+    if not all(t.is_floating_point() for t in ins):
+        raise ValueError("ssd_scan_bwd kernel: inputs must be floating "
+                         "point")
+    dev = x.device
+    for t in ins:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError("ssd_scan_bwd kernel: tensors must share one "
+                             "CUDA device")
+    if chunk < 1:
+        raise ValueError(f"ssd_scan_bwd kernel: chunk {chunk} < 1")
+    dtypes = (x.dtype, dt.dtype, A.dtype, B_mat.dtype, C.dtype)
+    cd = compute_dtype(x, B_mat, C)
+    xk, Bk, Ck, dyk = (t if t.dtype == cd else t.to(cd)
+                       for t in (x, B_mat, C, dy))
+    dtk, Ak = dt.float(), A.float().contiguous()
+    if any(t.stride(-1) != 1 for t in (xk, Bk, Ck, dyk) if t.shape[-1] > 1):
+        raise ValueError("ssd_scan_bwd kernel: the last axis of x, dy, B and "
+                         "C must be contiguous")
+    dhk = None if dh_final is None else dh_final.float().contiguous()
+    chunk = min(chunk, TILE)
+    nc = -(-L // chunk) if L else 0
+    dx = torch.empty((Bsz, L, H, P), dtype=cd, device=dev)
+    ddt = torch.empty((Bsz, L, H), dtype=torch.float32, device=dev)
+    dA = torch.empty((H,), dtype=torch.float32, device=dev)
+    dB = torch.empty((Bsz, L, G, N), dtype=cd, device=dev)
+    dC = torch.empty((Bsz, L, G, N), dtype=cd, device=dev)
+    if Bsz * L * H * P * N == 0:
+        outs = (dx.zero_(), ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_())
+    else:
+        f32 = dict(dtype=torch.float32, device=dev)
+        states = torch.empty((Bsz, H, nc, N, P), **f32)
+        dstates = torch.empty((Bsz, H, nc, N, P), **f32)
+        lam_end = torch.empty((Bsz, H, nc), **f32)
+        dBp = torch.empty((Bsz, L, H, N), **f32)
+        dCp = torch.empty((Bsz, L, H, N), **f32)
+        dAp = torch.empty((Bsz, H, nc), dtype=torch.float64, device=dev)
+        strides = (ctypes.c_longlong * 15)(
+            *(s for t in (xk, dtk, Bk, Ck, dyk) for s in t.stride()[:3]))
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = _lib_bwd().ssd_scan_bwd(
+                _DTYPES[cd], xk.data_ptr(), dtk.data_ptr(), Ak.data_ptr(),
+                Bk.data_ptr(), Ck.data_ptr(), dyk.data_ptr(),
+                None if dhk is None else dhk.data_ptr(), dx.data_ptr(),
+                ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                states.data_ptr(), dstates.data_ptr(), lam_end.data_ptr(),
+                dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(), Bsz, L, H, G,
+                P, N, chunk, strides, stream)
+        if err != 0:
+            raise RuntimeError(f"ssd_scan_bwd launch failed: cudaError {err}")
+        outs = (dx, ddt, dA, dB, dC)
+    return tuple(g if g.dtype == d else g.to(d)
+                 for g, d in zip(outs, dtypes))

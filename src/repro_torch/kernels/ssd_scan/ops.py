@@ -16,10 +16,15 @@ which prefill hands to decode.
 ``ROUTE_LAUNCHES`` each route's share (``kernel.route``: the bf16
 tensor-core walk and the float32 one, one launch each; the CUDA-core
 route, three launches).
-The kernel has no backward yet: a CUDA call with grad mode on and an input
-that needs a gradient raises ``NotImplementedError`` (``ROADMAP.md`` A4b),
-never taking the plain version instead.  On CPU tensors the plain version
-differentiates under ordinary autograd.
+
+Gradients: CUDA tensors of which one needs a gradient (with grad mode on)
+go through :class:`SSDScan`, a ``torch.autograd.Function`` whose forward is
+the same kernel and whose backward is the backward kernel
+(``kernel.ssd_scan_bwd``, ``csrc/ssd_scan_bwd.cu``), with or without
+``final_state``; ``BWD_LAUNCHES`` counts its calls and
+``BWD_ROUTE_LAUNCHES`` the same calls by route (``kernel.route_bwd``).  CPU
+tensors and ``backend="torch"`` differentiate the plain version under
+ordinary autograd.
 """
 from __future__ import annotations
 
@@ -31,6 +36,37 @@ from .._common import resolve_backend
 
 LAUNCHES = 0
 ROUTE_LAUNCHES = {"wgmma": 0, "wgmma_f32": 0, "cuda_cores": 0}
+BWD_LAUNCHES = 0
+BWD_ROUTE_LAUNCHES = {"cuda_cores": 0}
+
+
+class SSDScan(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient.  It
+    saves its inputs (not the chunk states: the backward recomputes them)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_mat, C, chunk, final_state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B_mat, C)
+        ctx.chunk = chunk
+        return _kernel.ssd_scan(x, dt, A, B_mat, C, chunk=chunk,
+                                final_state=final_state)
+
+    @staticmethod
+    def backward(ctx, dy, dh=None):
+        global BWD_LAUNCHES
+        x, dt, A, B_mat, C = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        elif dy.stride(-1) != 1:
+            dy = dy.contiguous()
+        grads = _kernel.ssd_scan_bwd(x, dt, A, B_mat, C, dy, dh,
+                                     chunk=ctx.chunk)
+        if x.numel():
+            BWD_LAUNCHES += 1
+            BWD_ROUTE_LAUNCHES[_kernel.route_bwd(
+                _kernel.compute_dtype(x, B_mat, C), B_mat.shape[3])] += 1
+        return (*grads, None, None)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -49,16 +85,15 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return y, _ref.ssd_final_state(x, dt, A, B_mat, C, chunk=chunk)
     if not x.is_cuda:
         raise ValueError(f"ssd: unsupported device {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, A, B_mat, C)):
-        raise NotImplementedError(
-            "ssd: the SSD scan kernel has no backward kernel yet, so Mamba2 "
-            "and Zamba2 do not train on the card (ROADMAP.md A4b); the plain "
-            "version (backend='torch' or CPU tensors) differentiates")
     x, B_mat, C = (t if t.stride(-1) == 1 else t.contiguous()
                    for t in (x, B_mat, C))
-    out = _kernel.ssd_scan(x, dt.float(), A.float().contiguous(), B_mat, C,
-                           chunk=chunk, final_state=final_state)
+    dt, A = dt.float(), A.float().contiguous()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B_mat, C)):
+        out = SSDScan.apply(x, dt, A, B_mat, C, chunk, final_state)
+    else:
+        out = _kernel.ssd_scan(x, dt, A, B_mat, C, chunk=chunk,
+                               final_state=final_state)
     if x.numel():
         LAUNCHES += 1
         ROUTE_LAUNCHES[_kernel.route(_kernel.compute_dtype(x, B_mat, C),

@@ -21,10 +21,12 @@ runs their plain versions on CPU tensors; ``torch`` runs the plain versions
 on any device.  ``loss`` is next-token cross-entropy over the tokens
 (frontend positions excluded), differentiable through every family: the
 trainer turns gradients on for the parameters (created without; their
-module's ``tree()`` gives them as the reference's tree), the
-attention kernel's gradient is its backward kernel on the card, and the
-SSD kernel has none yet (``ROADMAP.md`` A4b).  ``prefill`` and
-``decode_step`` run without autograd, whatever the parameters.
+module's ``tree()`` gives them as the reference's tree), and on the card
+the attention kernel's and the SSD scan kernel's gradients are their
+backward kernels (``flash_attn/ops.FlashAttention``,
+``ssd_scan/ops.SSDScan``; under remat the forward kernels run again).
+``prefill`` and ``decode_step`` run without autograd, whatever the
+parameters.
 """
 from __future__ import annotations
 

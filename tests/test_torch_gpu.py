@@ -1256,26 +1256,78 @@ def test_flash_attention_lse_only_on_the_tensor_core_route():
     assert lse is None and out.shape == q.shape
 
 
-def test_ssd_gradient_on_the_card_raises():
+# (B, L, H, P, G, N, chunk, decay, final_state): Zamba2's heads at a
+# ragged length with the final state's gradient, Mamba2's at 64, the
+# grouped heads at chunk 16, a decay past 100 a chunk, P and N past a
+# tile of 64.
+SSD_GRAD_CASES = [(1, 300, 80, 64, 1, 64, 64, 1.0, True),
+                  (2, 64, 24, 64, 1, 128, 64, 1.0, False),
+                  (1, 301, 8, 64, 4, 32, 16, 1.0, False),
+                  (1, 256, 8, 64, 4, 32, 64, 100.0, True),
+                  (1, 100, 2, 100, 1, 200, 64, 1.0, True)]
+
+
+@pytest.mark.parametrize("case", SSD_GRAD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_ssd_gradient_on_the_card_raises(case, dtype):
+    """The SSD scan's backward kernel against ``ref.ssd_vjp`` on the card:
+    finite (at the large decay too), a rerun bitwise equal; bf16 each
+    gradient within 2e-2 of its largest magnitude, float32 each no further
+    from the float64 plain gradient than twice the float32 plain version's
+    distance plus 2.4e-7 of its largest magnitude (at a decay past 100 the
+    float32 plain dA is 2e-4 of its magnitude from float64); and
+    ``ops.ssd``'s autograd route launches it once with the same result
+    (its name is kept from when the card refused this gradient)."""
     dev = cuda_or_skip()
-    B, L, H, P, G, N = 1, 64, 2, 16, 1, 16
-    x = torch.randn(B, L, H, P, device=dev, requires_grad=True)
-    dt = torch.rand(B, L, H, device=dev) * 0.2 + 0.01
-    A = -torch.rand(H, device=dev) - 0.5
-    Bm, C = (torch.randn(B, L, G, N, device=dev) for _ in range(2))
-    with pytest.raises(NotImplementedError, match="A4b"):
-        ssd_ops.ssd(x, dt, A, Bm, C)
-    with torch.no_grad():                        # no gradient: the kernel
-        ssd_ops.ssd(x, dt, A, Bm, C)
+    B, L, H, P, G, N, chunk, decay, final = case
+    rng = np.random.default_rng(0)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+    x, Bm, C, dy = (t.to(dev, dtype) for t in (
+        f(B, L, H, P), f(B, L, G, N), f(B, L, G, N), f(B, L, H, P)))
+    dt = torch.from_numpy(
+        0.01 + 0.2 * rng.random((B, L, H), dtype=np.float32)).to(dev)
+    A = torch.from_numpy(
+        (-0.5 - rng.random(H, dtype=np.float32)) * decay).to(dev)
+    dh = f(B, H, N, P).to(dev) if final else None
+    args = (x, dt, A, Bm, C)
+    got = ssd_kernel.ssd_scan_bwd(*args, dy, dh, chunk=chunk)
+    again = ssd_kernel.ssd_scan_bwd(*args, dy, dh, chunk=chunk)
+    want = ssd_ref.ssd_vjp(*args, dy, chunk=chunk, dh_final=dh)
+    torch.cuda.synchronize()
+    exact = (ssd_ref.ssd_vjp(*(t.double() for t in args), dy.double(),
+                             chunk=chunk,
+                             dh_final=None if dh is None else dh.double())
+             if dtype == torch.float32 else want)
+    for g, a, w, e, t in zip(got, again, want, exact, args):
+        assert torch.equal(g, a)
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert bool(torch.isfinite(g).all())
+        scale = float(e.abs().max())
+        if dtype == torch.float32:
+            k_err = float((g.double() - e).abs().max())
+            p_err = float((w.double() - e).abs().max())
+            assert k_err <= 2 * p_err + 2.4e-7 * scale
+        else:
+            torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                       atol=2e-2 * scale)
+    ins = [t.detach().requires_grad_(True) for t in args]
+    before = ssd_ops.BWD_LAUNCHES
+    out = ssd_ops.ssd(*ins, chunk=chunk, final_state=final)
+    outs, cots = (out, (dy, dh)) if final else ((out,), (dy,))
+    via_ops = torch.autograd.grad(outs, ins, cots)
+    assert ssd_ops.BWD_LAUNCHES == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(via_ops, got))
 
 
 @pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-30b-a3b",
                                   "deepseek-v3-671b", "llava-next-34b",
-                                  "whisper-small"])
+                                  "whisper-small", "mamba2-130m",
+                                  "zamba2-2.7b"])
 def test_train_step_on_card_matches_plain(arch):
     """One train step of the smoke config (float32) through the kernels and
     through the plain versions on the card: loss within 1e-5 and gradient
-    norm within 1e-4, relative."""
+    norm within 1e-4, relative; the backward kernels of the family's layers
+    (attention, SSD scan) launched."""
     from repro_torch.train import train_step as ts
     dev = cuda_or_skip()
     cfg = get_config(arch, smoke=True)
@@ -1293,10 +1345,10 @@ def test_train_step_on_card_matches_plain(arch):
         model = Model(cfg, backend=backend)
         state = ts.make_train_state(model, model.init_params(0, device=dev),
                                     ts.TrainConfig())
-        before = attn_ops.BWD_LAUNCHES
+        before = attn_ops.BWD_LAUNCHES + ssd_ops.BWD_LAUNCHES
         _, m = ts.build_train_step(model, ts.TrainConfig())(state, batch)
         out[backend] = (float(m["loss"]), float(m["grad_norm"]),
-                        attn_ops.BWD_LAUNCHES - before)
+                        attn_ops.BWD_LAUNCHES + ssd_ops.BWD_LAUNCHES - before)
     assert out["auto"][2] > 0 and out["torch"][2] == 0
     assert abs(out["auto"][0] - out["torch"][0]) <= 1e-5 * out["torch"][0]
     assert abs(out["auto"][1] - out["torch"][1]) <= 1e-4 * out["torch"][1]

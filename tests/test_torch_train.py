@@ -542,29 +542,32 @@ def test_train_cli_refuses_the_production_mesh():
                            "bf16", "--device", "cpu"])
 
 
-def test_train_golden_matches_its_maker():
-    """``tests/torch_golden/train_yi6b_l2.json`` (which ``chip_smoke.py``
-    holds the card's train steps to) carries its maker's configuration and
-    optimizers, and samples every leaf of the train state, of its shape, at
-    the maker's indices (a parameter and its AdamW moments at the same
-    ones).  (Re-deriving its values needs Yi-6B at full
-    width: ``make_train_golden.py``.)"""
+def _train_golden_maker():
     import importlib.util
-    import json
     path = pathlib.Path(__file__).resolve().parent / "torch_golden"
     spec = importlib.util.spec_from_file_location(
         "make_train_golden", path / "make_train_golden.py")
     maker = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(maker)
-    golden = json.loads(maker.OUT.read_text())
+    return maker
+
+
+def _check_train_golden(maker, name):
+    """The golden ``maker.GOLDENS[name]`` carries its maker's configuration
+    and optimizers, and samples every leaf of the train state, of its shape,
+    at the maker's indices (a parameter and its AdamW moments at the same
+    ones)."""
+    import json
+    arch, optimizers, out = maker.GOLDENS[name]
+    golden = json.loads(out.read_text())
     assert (golden["arch"], golden["n_layers"], golden["dtype"],
             golden["seq_len"], golden["global_batch"], golden["microbatch"],
-            golden["n_steps"]) == (maker.ARCH, maker.N_LAYERS, maker.DTYPE,
+            golden["n_steps"]) == (arch, maker.N_LAYERS, maker.DTYPE,
                                    maker.SEQ_LEN, maker.GLOBAL_BATCH,
                                    maker.MICROBATCH, maker.N_STEPS)
-    assert [r["optimizer"] for r in golden["runs"]] == list(maker.OPTIMIZERS)
+    assert [r["optimizer"] for r in golden["runs"]] == list(optimizers)
     for run in golden["runs"]:
-        _, cfg = maker.configs(run["optimizer"])
+        _, cfg = maker.configs(run["optimizer"], arch)
         params = T.map_leaves(lambda sd: torch.empty(sd[0], device="meta"),
                               Model(cfg).param_shapes())
         state = {"opt": opt_mod.make(run["optimizer"]).init(params),
@@ -586,3 +589,20 @@ def test_train_golden_matches_its_maker():
                     assert rec["idx"] == step["state"][
                         "params/" + key]["idx"], p
                 assert np.isfinite(rec["values"]).all(), p
+
+
+def test_train_golden_matches_its_maker():
+    """``tests/torch_golden/train_yi6b_l2.json`` (which ``chip_smoke.py``
+    holds the card's train steps to) matches its maker
+    (``_check_train_golden``).  (Re-deriving its values needs Yi-6B at full
+    width: ``make_train_golden.py``.)"""
+    maker = _train_golden_maker()
+    assert maker.GOLDENS["yi6b"] == (maker.ARCH, maker.OPTIMIZERS, maker.OUT)
+    _check_train_golden(maker, "yi6b")
+
+
+def test_ssm_train_golden_matches_its_maker():
+    """``tests/torch_golden/train_mamba2_l2.json`` (Mamba2-130M at full
+    width, 2 layers: the card's float32 SSD kernels in a train step)
+    matches its maker (``_check_train_golden``)."""
+    _check_train_golden(_train_golden_maker(), "mamba2")

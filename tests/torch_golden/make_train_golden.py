@@ -1,14 +1,17 @@
-"""Write the JAX reference's first two train steps of Yi-6B at full width,
-cut to 2 layers, in float32, which ``chip_smoke.py`` (phase
+"""Write the JAX reference's first two train steps of a model at full
+width, cut to 2 layers, in float32, which ``chip_smoke.py`` (phase
 ``train_golden``) holds the port's train step to on the card (which has no
-JAX): once with the config's AdamW, once with its optimizer replaced by
-Adafactor.
+JAX): Yi-6B (``yi6b``) once with the config's AdamW and once with its
+optimizer replaced by Adafactor, and Mamba2-130M (``mamba2``, 2 of its 24
+layers: the SSD scan's forward and backward kernels in float32) with its
+AdamW.
 
-Run from the repository root on a machine with JAX (CPU is enough, ~1 min,
-~11 GB of memory at the AdamW step):
+Run from the repository root on a machine with JAX (CPU is enough; Yi-6B
+~1 min and ~11 GB of memory at the AdamW step, Mamba2-130M ~20 s), naming
+the goldens to write (default: all):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu \\
-        python tests/torch_golden/make_train_golden.py
+        python tests/torch_golden/make_train_golden.py [yi6b] [mamba2]
 
 Parameters are ``repro_torch.interop.numpy_reference_params(cfg, 0)`` (as in
 ``make_serve_golden.py``: 0.93 B float32 numbers).  The batches are
@@ -23,10 +26,12 @@ moments, the first 16 columns of the rows of the first 4 tokens, which
 the gradient reaches).  ``key`` is the leaf's path below ``params``,
 ``opt/mu`` or ``opt/nu``, so a parameter and its AdamW moments are sampled
 at the same indices: the card's check reads a parameter's first moment to
-find where the update's sign is not determined.  It writes ``tests/torch_golden/train_yi6b_l2.json``.
+find where the update's sign is not determined.  It writes
+``tests/torch_golden/train_yi6b_l2.json`` and ``train_mamba2_l2.json``.
 """
 import dataclasses
 import json
+import sys
 import time
 import zlib
 from pathlib import Path
@@ -43,19 +48,24 @@ from repro.train import train_step as ts
 from repro_torch.configs import get_config
 from repro_torch.interop import numpy_reference_params
 
-OUT = Path(__file__).resolve().parent / "train_yi6b_l2.json"
+HERE = Path(__file__).resolve().parent
+OUT = HERE / "train_yi6b_l2.json"
 ARCH, N_LAYERS, DTYPE = "yi-6b", 2, "float32"
 PARAM_SEED, IDX_SEED = 0, 5
 SEQ_LEN, GLOBAL_BATCH, MICROBATCH, N_STEPS = 128, 4, 2, 2
 N_IDX = 64
 OPTIMIZERS = ("adamw", "adafactor")
+# name: (arch, optimizers, output file)
+GOLDENS = {"yi6b": (ARCH, OPTIMIZERS, OUT),
+           "mamba2": ("mamba2-130m", ("adamw",),
+                      HERE / "train_mamba2_l2.json")}
 
 
-def configs(optimizer):
+def configs(optimizer, arch=ARCH):
     """(reference config, port config) of the golden's model."""
     cut = dict(n_layers=N_LAYERS, dtype=DTYPE, optimizer=optimizer)
-    return (dataclasses.replace(ref_config(ARCH), **cut),
-            dataclasses.replace(get_config(ARCH), **cut))
+    return (dataclasses.replace(ref_config(arch), **cut),
+            dataclasses.replace(get_config(arch), **cut))
 
 
 def data_config(vocab):
@@ -108,8 +118,8 @@ def snapshot(state, tokens):
     return out
 
 
-def run(optimizer):
-    rcfg, pcfg = configs(optimizer)
+def run(optimizer, arch=ARCH):
+    rcfg, pcfg = configs(optimizer, arch)
     model = Model(rcfg)
     params = jax.tree_util.tree_map(
         jnp.asarray, numpy_reference_params(pcfg, PARAM_SEED))
@@ -133,21 +143,23 @@ def run(optimizer):
             "warmup_steps": tcfg.warmup_steps}
 
 
-def main():
-    t0 = time.time()
-    runs = []
-    for optimizer in OPTIMIZERS:
-        runs.append(run(optimizer))
-        jax.clear_caches()
-    rec = {"arch": ARCH, "n_layers": N_LAYERS, "dtype": DTYPE,
-           "param_seed": PARAM_SEED, "seq_len": SEQ_LEN,
-           "global_batch": GLOBAL_BATCH, "microbatch": MICROBATCH,
-           "n_steps": N_STEPS, "runs": runs,
-           "made_by": "tests/torch_golden/make_train_golden.py (CPU JAX)"}
-    OUT.write_text(json.dumps(rec, separators=(",", ":")) + "\n")
-    print(f"wrote {OUT} ({OUT.stat().st_size:,} bytes) in "
-          f"{time.time() - t0:.0f} s")
+def main(names):
+    for name in names or GOLDENS:
+        arch, optimizers, out = GOLDENS[name]
+        t0 = time.time()
+        runs = []
+        for optimizer in optimizers:
+            runs.append(run(optimizer, arch))
+            jax.clear_caches()
+        rec = {"arch": arch, "n_layers": N_LAYERS, "dtype": DTYPE,
+               "param_seed": PARAM_SEED, "seq_len": SEQ_LEN,
+               "global_batch": GLOBAL_BATCH, "microbatch": MICROBATCH,
+               "n_steps": N_STEPS, "runs": runs,
+               "made_by": "tests/torch_golden/make_train_golden.py (CPU JAX)"}
+        out.write_text(json.dumps(rec, separators=(",", ":")) + "\n")
+        print(f"wrote {out} ({out.stat().st_size:,} bytes) in "
+              f"{time.time() - t0:.0f} s")
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
