@@ -11,8 +11,9 @@ Phases, each timed on its own line; any failure exits non-zero:
    libraries with ``cuobjdump``: every instance of the attention kernels on
    the tensor cores (the bf16 forward and backward, and the float32 forward
    and backward, which reach float32 accuracy on the bf16 tensor cores by
-   a three-way bf16 split) and of the bf16 and float32 SSD walks must hold
-   ``HGMMA`` (Hopper's warpgroup tensor-core instruction);
+   a three-way bf16 split), of the bf16 and float32 SSD walks and of the
+   bf16 SSD backward's two tensor-core launches must hold ``HGMMA``
+   (Hopper's warpgroup tensor-core instruction);
 2. hold each fabric kernel bitwise against its plain PyTorch version on the
    card: ``segmented_cummax`` on random inputs at the engine's sizes and
    flag densities, and with NaNs (which hold to their segment's end, as
@@ -226,8 +227,11 @@ Phases, each timed on its own line; any failure exits non-zero:
     than keys, ragged keys,
     Whisper's encoder and cross attention (not causal), float16 and mixed
     dtypes; each shape twice, the reruns bitwise equal;
-22. ``ssd_grad_vs_plain``: hold the SSD scan's backward kernel
-    (``csrc/ssd_scan_bwd.cu``) to its plain version ``ref.ssd_vjp`` at
+22. ``ssd_grad_vs_plain``: hold the SSD scan's backward kernels (bf16 with
+    N <= 128 on the tensor cores, ``csrc/ssd_scan_bwd_wgmma.cu``; the rest,
+    N 200 and 256 among them, on the CUDA cores, ``csrc/ssd_scan_bwd.cu``;
+    each case's calls counted by route) to their plain version
+    ``ref.ssd_vjp`` at
     Zamba2-2.7B's, Mamba2-130M's and the grouped heads for L = 1, 37, 64
     and 2,048 at batch 1 and 2, a large-decay case per head shape (every
     gradient finite), final-state gradients, requested chunks of 16 and
@@ -261,8 +265,9 @@ Phases, each timed on its own line; any failure exits non-zero:
     at full width cut to 12 of its 54 layers (two applications of the
     shared block; 4 sequences of 4,096 tokens in 4 microbatches), bf16:
     every SSD forward on the bf16 walk and every backward on the backward
-    kernel, Zamba2's shared attention on the tensor-core kernels; step 1
-    against the plain path, the restart bitwise;
+    kernel's tensor-core route (``BWD_ROUTE_LAUNCHES["wgmma"]``), Zamba2's
+    shared attention on the tensor-core kernels; step 1 against the plain
+    path, the restart bitwise;
 26. ``train_zoo_smoke``: one train step of each family that trains on the
     card (dense, MoE, MLA, VLM, enc-dec, SSM, hybrid) at its smoke config
     (float32), the kernel path against the plain path; then DeepSeek-V3's
@@ -272,10 +277,14 @@ Phases, each timed on its own line; any failure exits non-zero:
     (all on the tensor cores);
 27. ``train_cli``: ``repro_torch.launch.train.main`` on the card, Yi-6B's
     smoke config for 4 steps, then restarted to 6: it must resume at 4;
-28. ``ssd_bwd_timing``: the SSD backward kernel's rows of the ``kernels``
-    line (bf16 at Zamba2-2.7B's train shape, float32 at the SSM golden's;
-    random inputs, held to the plain version first), beside its plain
-    version and the bound (no PyTorch call computes this gradient).
+28. ``ssd_bwd_timing``: the SSD backward kernels' rows of the ``kernels``
+    line (bf16 at Zamba2-2.7B's train shape on the tensor cores, beside the
+    CUDA-core route's device ms by launch on the same inputs and both
+    routes' distance from a float64 gradient of the same bf16 inputs;
+    float32 at the SSM golden's and bf16 at N = 256 on the CUDA cores;
+    random inputs, held to the plain version first), each with its device
+    ms by launch, beside its plain version and the bound (no PyTorch call
+    computes this gradient).
 
 Every main-path run of phases 3, 5, 7-10, 13, 16, 20, 24 and 25 sets the
 kernels' launch counts to 0 just before it and reads them just after.
@@ -405,7 +414,8 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernel_re: str, per_call: int = 0):
+def device_ms(fn, reps: int, kernel_re: str, per_call: int = 0,
+              split: bool = False):
     """Mean device milliseconds per call of the CUDA kernels whose names
     match ``kernel_re``, from a ``torch.profiler`` trace of ``reps`` calls
     after one warm-up call (None when the trace holds no device time).
@@ -414,7 +424,9 @@ def device_ms(fn, reps: int, kernel_re: str, per_call: int = 0):
     printed with its counts and taken again, up to three traces; if none
     holds them all, the mean over the calls the last one held (its launches
     over ``per_call``; traces on the card have come back short of launches
-    from the first calls), which is printed too."""
+    from the first calls), which is printed too.  With ``split``, returns
+    (that mean, {kernel: mean device ms per launch}) from the same trace,
+    the match of ``kernel_re`` naming the kernel."""
     tries = 3
     import re
     import torch
@@ -422,6 +434,16 @@ def device_ms(fn, reps: int, kernel_re: str, per_call: int = 0):
     fn()
     torch.cuda.synchronize()
     pat = re.compile(kernel_re)
+
+    def result(ms):
+        if not split:
+            return ms
+        us, n = {}, {}
+        for e in hits:
+            k = pat.search(e.key).group(0)
+            us[k] = us.get(k, 0.0) + getattr(e, "device_time_total", 0.0)
+            n[k] = n.get(k, 0) + e.count
+        return ms, {k: us[k] / n[k] / 1e3 for k in us if n[k]}
     for attempt in range(tries if per_call else 1):
         if per_call:
             with profile(activities=[ProfilerActivity.CUDA]):
@@ -435,16 +457,16 @@ def device_ms(fn, reps: int, kernel_re: str, per_call: int = 0):
         total_us = sum(getattr(e, "device_time_total", 0.0) for e in hits)
         n = sum(e.count for e in hits)
         if not per_call or n == per_call * reps:
-            return total_us / reps / 1e3 if total_us > 0 else None
+            return result(total_us / reps / 1e3 if total_us > 0 else None)
         print(f"device_ms: trace {attempt + 1} of {tries} held {n} of the "
               f"{per_call * reps} launches matching {kernel_re!r}: "
               + ", ".join(f"{e.key[:70]} x{e.count}" for e in hits),
               flush=True)
     if n < per_call or total_us <= 0:
-        return None
+        return result(None)
     print(f"device_ms: the mean over the {n / per_call:g} calls the last "
           f"trace held", flush=True)
-    return total_us / (n / per_call) / 1e3
+    return result(total_us / (n / per_call) / 1e3)
 
 
 def cuda_once(fn):
@@ -568,7 +590,9 @@ TC_KERNELS = (("flash_attn", "flash_attention_wgmma_kernel"),
               ("flash_attn_bwd_f32", "attn_bwd_dkv_f32_kernel"),
               ("flash_attn_bwd_f32", "attn_bwd_dq_f32_kernel"),
               ("ssd_scan", "ssd_wgmma_kernel"),
-              ("ssd_scan_f32", "ssd_wgmma_f32_kernel"))
+              ("ssd_scan_f32", "ssd_wgmma_f32_kernel"),
+              ("ssd_scan_bwd_wgmma", "ssd_bwdw_states"),
+              ("ssd_scan_bwd_wgmma", "ssd_bwdw_chunk"))
 
 
 def sass_check(build):
@@ -2677,6 +2701,14 @@ def ssd_expected_route(dtype: str, N: int) -> str:
     return "wgmma_f32" if N <= 128 else "cuda_cores"
 
 
+def ssd_expected_bwd_route(dtype: str, N: int, P: int) -> str:
+    """The route an SSD backward case must take: the tensor cores for bf16
+    up to N = 128 and P = 256, else the CUDA cores (float32, float16 and
+    mixed dtypes too)."""
+    return ("wgmma" if dtype == "bfloat16" and N <= 128 and P <= 256
+            else "cuda_cores")
+
+
 def ssd_phase(dev, errs):
     """ssd_vs_plain: the SSD kernels against the plain ``ssd_chunked`` on
     the card at SSD_HEADS x SSD_LENS x batch 1-2, float32 and bf16, with a
@@ -3028,11 +3060,19 @@ SSD_GRAD_LENS = (1, 37, 64, 2048)
 SSD_GRAD_TOL = 2e-2
 SSD_GRAD_F32_FLOOR = 2.4e-7
 SSD_GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+# bf16 heads (H, P, G, N) on the tensor-core backward at P other than 64: a
+# P box masked below 64 columns, P boxes of 64 (2 to 4 a head) with a ragged
+# last one, and N = 128 with P = 256, its largest shared memory.
+SSD_BWD_P_HEADS = ((4, 32, 2, 64), (4, 100, 1, 128), (6, 128, 2, 64),
+                   (2, 256, 1, 128))
 # The backward's timing rows: bf16 at Zamba2-2.7B's train shape (a
 # microbatch of one 4,096-token sequence), float32 at the SSM golden's
 # (Mamba2-130M, a microbatch of 2 x 128 tokens); (B, L, H, P, G, N).
 SSD_BWD_SHAPE = (1, 4096, 80, 64, 1, 64)
 SSD_BWD_F32_SHAPE = (2, 128, 24, 64, 1, 128)
+# The backward's four launches on either route in a profiler trace (launches
+# 2 and 4, csrc/ssd_bwd_carry.cuh, are the two routes' shared kernels).
+SSD_BWD_KERNELS = r"\bssd_bwdw?_\w+"
 # train_zoo_smoke: one train step of each family that trains on the card,
 # at its smoke config (float32), kernel path against plain path: the loss
 # within 1e-5 and the gradient norm within 1e-4, relative.
@@ -3359,8 +3399,8 @@ def train_path(dev, phase, cfg, seq, batch):
     TRAIN_STEPS steps (checkpoints every 2 steps under build/), with the
     attention's and the SSD scan's launch counts set to 0 just before and
     read just after: each kernel a forward a layer a microbatch and its
-    remat, and a backward, the attention's on the ``wgmma`` route, the SSD's
-    forward on ``wgmma`` and its backward on ``cuda_cores``; step 1 within
+    remat, and a backward, each on its ``wgmma`` route (every bf16 SSD
+    backward on the tensor cores); step 1 within
     TRAIN_LOSS_ATOL and TRAIN_GNORM_RTOL of the plain path; then a crash
     after step 2's checkpoint: step 3's checkpoint removed, every state
     tensor zeroed, and a second ResilientLoop restores step 2 and runs step
@@ -3438,7 +3478,7 @@ def train_path(dev, phase, cfg, seq, batch):
               f"backward, by route) {counts}", flush=True)
         for name, layers, fwd_route, bwd_route in (
                 ("flash_attention", n_attn, "wgmma", "wgmma"),
-                ("ssd_scan", n_ssd, "wgmma", "cuda_cores")):
+                ("ssd_scan", n_ssd, "wgmma", "wgmma")):
             fwd, bwd, fr, br = counts[name]
             per_step = layers * n_micro
             check(fwd == TRAIN_STEPS * per_step * 2
@@ -3814,23 +3854,55 @@ def ssd_grad_inputs(shape, dtype, gen, dev, decay=1.0, final=False,
     return (x, dt, A, Bm, C), dy, dh
 
 
+def ssd_bwd_cuda_cores(args, dy, dh=None, chunk=64):
+    """``kernel.ssd_scan_bwd`` on its CUDA-core route whatever ``route_bwd``
+    names (``route_bwd`` held at ``"cuda_cores"`` for the call): the
+    CUDA-core kernel on the tensor cores' inputs, the yardstick of the bf16
+    timing row."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    orig = ssd_kernel.route_bwd
+    ssd_kernel.route_bwd = lambda *a, **k: "cuda_cores"
+    try:
+        return ssd_kernel.ssd_scan_bwd(*args, dy, dh, chunk=chunk)
+    finally:
+        ssd_kernel.route_bwd = orig
+
+
+def rel_errs(got, exact):
+    """Each gradient's largest distance from ``exact`` over the largest
+    magnitude of ``exact`` (over 1 where it is 0), as
+    ``tools/ssd_bwd_rounding.py`` measures them."""
+    return [max_abs_err(g.double(), e) / (float(e.abs().max()) or 1.0)
+            for g, e in zip(got, exact)]
+
+
 def ssd_grads_check(tag, args, dy, dh, chunk, errs, name, tol=None):
     """The backward kernel (``kernel.ssd_scan_bwd``) against ``ref.ssd_vjp``
-    on ``args``: finite gradients of the inputs' shapes and dtypes, a rerun
-    bitwise equal; bf16 (or ``tol``) each gradient within SSD_GRAD_TOL of
-    its largest magnitude; float32 each no further from the float64 plain
-    gradient than twice the float32 plain version's distance, plus
-    SSD_GRAD_F32_FLOOR of its largest magnitude.  Returns the printed
+    on ``args``: both calls launched on the route ``ssd_expected_bwd_route``
+    names (the binding's ``BWD_ROUTE_LAUNCHES``), finite gradients of the inputs' shapes and dtypes, a
+    rerun bitwise equal; bf16 (or ``tol``) each gradient within
+    SSD_GRAD_TOL of its largest magnitude; float32 each no further from the
+    float64 plain gradient than twice the float32 plain version's distance,
+    plus SSD_GRAD_F32_FLOOR of its largest magnitude.  Returns the printed
     line's text, the kernel's gradients and, for float32, {"f64_err",
     "plain_f64_err"}: the kernel's and the float32 plain version's largest
     distance from the float64 gradients (else {})."""
     import torch
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    x, _, _, Bm, C = args
+    cd = str(ssd_kernel.compute_dtype(x, Bm, C)).split(".")[-1]
+    route = ssd_expected_bwd_route(cd, Bm.shape[3], x.shape[3])
+    before = dict(ssd_kernel.BWD_ROUTE_LAUNCHES)
     got = ssd_kernel.ssd_scan_bwd(*args, dy, dh, chunk=chunk)
     again = ssd_kernel.ssd_scan_bwd(*args, dy, dh, chunk=chunk)
+    counts = {r: n - before[r]
+              for r, n in ssd_kernel.BWD_ROUTE_LAUNCHES.items()}
     want = ssd_ref.ssd_vjp(*args, dy, chunk=chunk, dh_final=dh)
     torch.cuda.synchronize()
+    check(counts[route] == 2 and sum(counts.values()) == 2,
+          f"{tag}: backward launches by route {counts}, expected both on "
+          f"{route}")
     check(all(torch.equal(g, a) for g, a in zip(got, again)),
           f"{tag}: a rerun differs")
     check(all(g.shape == t.shape and g.dtype == t.dtype
@@ -3838,7 +3910,7 @@ def ssd_grads_check(tag, args, dy, dh, chunk, errs, name, tol=None):
           f"{tag}: a gradient is not finite, or of another shape or dtype")
     err = max(max_abs_err(g.float(), w.float()) for g, w in zip(got, want))
     errs[name] = max(errs[name], err)
-    line, f64 = f"{tag}: max_abs_err {err:.3g}", {}
+    line, f64 = f"{tag} ({route}): max_abs_err {err:.3g}", {}
     if args[0].dtype == torch.float32 and tol is None:
         exact = ssd_ref.ssd_vjp(*(t.double() for t in args), dy.double(),
                                 chunk=chunk,
@@ -3875,11 +3947,15 @@ def ssd_grad_phase(dev, errs):
     x SSD_GRAD_LENS x batch 1-2 in bf16 and float32, a large-decay case per
     head shape (A dt summing past 100 in a chunk: every gradient finite),
     final-state gradients, requested chunks of 16 and 128, P and N past one
-    tile of 64 (SSD_WIDE), strided slices of x, B, C and dy, and float16 and
+    tile of 64 (SSD_WIDE), bf16 heads of P 32 to 256 on the tensor cores
+    (SSD_BWD_P_HEADS, ragged, with the final state), strided slices of x, B, C and dy, and float16 and
     mixed dtypes (read in float32); every case rerun bitwise.  Then through
     ``ops.ssd``'s autograd route (``SSDScan``), with and without the final
     state: the same gradients as the binding, and one ``BWD_LAUNCHES``
-    each."""
+    each, on its route.  bf16 with N <= 128 takes the tensor cores
+    (``ssd_expected_bwd_route``), the bf16 SSD_WIDE cases (N 200 and 256)
+    and every float32 case the CUDA cores: each case's launches are counted
+    by route (the binding's ``BWD_ROUTE_LAUNCHES``)."""
     import torch
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     with Phase("ssd_grad_vs_plain"):
@@ -3898,13 +3974,18 @@ def ssd_grad_phase(dev, errs):
                   for hd in SSD_WIDE for dt in ("float32", "bfloat16")]
         cases += [((2, 100, *SSD_HEADS[1]), dt, 1.0, 64, False, True)
                   for dt in ("float32", "bfloat16")]
+        cases += [((1, 301, *hd), "bfloat16", 1.0, 64, True, False)
+                  for hd in SSD_BWD_P_HEADS]
         for shape, dt, decay, chunk, fs, strided in cases:
             args, dy, dh = ssd_grad_inputs(shape, getattr(torch, dt), gen,
                                            dev, decay, fs, strided)
             tag = (f"ssd_scan_bwd {shape} {dt} decay {decay} chunk {chunk}"
                    + (" final_state" if fs else "")
                    + (" strided" if strided else ""))
-            name = "ssd_scan_bwd" + ("_f32" if dt == "float32" else "")
+            route = ssd_expected_bwd_route(dt, shape[5], shape[3])
+            name = ("ssd_scan_bwd_f32" if dt == "float32" else
+                    "ssd_scan_bwd" if route == "wgmma" else
+                    "ssd_scan_bwd_cuda_cores")
             line, _, _ = ssd_grads_check(tag, args, dy, dh, chunk, errs,
                                          name)
             print(line, flush=True)
@@ -3931,35 +4012,49 @@ def ssd_grad_phase(dev, errs):
                 "ssd_scan_bwd" + ("_f32" if dt == "float32" else ""))
             ins = [t.detach().requires_grad_(True) for t in args]
             before = ssd_ops.BWD_LAUNCHES
+            routes = dict(ssd_ops.BWD_ROUTE_LAUNCHES)
+            route = ssd_expected_bwd_route(dt, shape[5], shape[3])
             out = ssd_ops.ssd(*ins, final_state=fs)
             outs, cots = ((out, (dy, dh)) if fs else ((out,), (dy,)))
             got = torch.autograd.grad(outs, ins, cots)
             check(ssd_ops.BWD_LAUNCHES == before + 1
+                  and ssd_ops.BWD_ROUTE_LAUNCHES == {
+                      **routes, route: routes[route] + 1}
                   and all(torch.equal(g, w) for g, w in zip(got, want)),
                   f"ssd_scan_bwd {shape} {dt} final_state={fs}: ops.ssd's "
                   f"autograd route differs from the binding, or did not "
-                  f"launch the backward once")
+                  f"launch the backward once on {route} (by route "
+                  f"{ssd_ops.BWD_ROUTE_LAUNCHES})")
             n_ops += 1
         print(f"ssd_grad_vs_plain: {len(cases)} cases, {n_half} float16 and "
-              f"mixed, {n_ops} through ops.ssd's autograd route; every rerun "
-              f"bitwise; largest max_abs_err bf16 "
-              f"{errs['ssd_scan_bwd']:.3g}, float32 "
+              f"mixed, {n_ops} through ops.ssd's autograd route; every case "
+              f"on its route, every rerun bitwise; largest max_abs_err bf16 "
+              f"on the tensor cores {errs['ssd_scan_bwd']:.3g}, on the CUDA "
+              f"cores {errs['ssd_scan_bwd_cuda_cores']:.3g}, float32 "
               f"{errs['ssd_scan_bwd_f32']:.3g}, float16 and mixed "
               f"{half_errs['ssd_scan_bwd_f32']:.3g}", flush=True)
 
 
 def ssd_bwd_timing(errs, launches):
-    """The backward kernel's rows of the ``kernels`` line (random inputs):
-    bf16 at Zamba2-2.7B's train shape (SSD_BWD_SHAPE) and float32 at the
-    SSM golden's (SSD_BWD_F32_SHAPE), each held to ``ref.ssd_vjp`` first
-    (``ssd_grads_check``): the binding's ms (CUDA events), the device ms of
-    its four launches (profiler), the plain version's ms, and the bound:
-    x, dy and dx, B, C, dB and dC, dt and ddt moved once at 3.35 TB/s, or
-    the products at the card's rate for the type (float32 at
+    """The backward kernel's rows of the ``kernels`` line (random inputs),
+    each held to ``ref.ssd_vjp`` first (``ssd_grads_check``): bf16 at
+    Zamba2-2.7B's train shape (SSD_BWD_SHAPE) on the tensor cores, float32
+    at the SSM golden's (SSD_BWD_F32_SHAPE) and bf16 at N = 256
+    (SSD_CUDA_CORE_SHAPE, launches 0: no main path reaches it) on the CUDA
+    cores: the binding's ms (CUDA events), the device ms of its four
+    launches (profiler) in all and by launch, the plain version's ms, and
+    the bound: x, dy and dx, B, C, dB and dC, dt and ddt moved once at 3.35
+    TB/s, or the products at the card's rate for the type (float32 at
     FP32_SPLIT_FLOP_PER_S): G, dS, S^T dy, dG B and dG^T C over the causal
     pairs, and per row dh1^T B, h0 dy, dh1 x and the two chunk-state
-    products.  No single PyTorch call computes this gradient (library_ms
-    None).  ``launches``: {row: launches on the main paths}."""
+    products.  The bf16 tensor-core row also holds the CUDA-core route's
+    device ms by launch on the same inputs (``ssd_bwd_cuda_cores``) and
+    the float64 yardstick: ``ref.ssd_vjp`` in float64 on the same bf16
+    inputs, ``f64_err`` (the tensor cores), ``cuda_cores_f64_err`` and
+    ``plain_f64_err`` (the float32 plain version) the largest over the five
+    gradients of ``rel_errs``, each also by gradient.  No single PyTorch
+    call computes this gradient (library_ms None).  ``launches``: {row:
+    launches on the main paths}."""
     import torch
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
@@ -3967,18 +4062,36 @@ def ssd_bwd_timing(errs, launches):
     gen = torch.Generator().manual_seed(7)
     for name, shape, dtype in (
             ("ssd_scan_bwd", SSD_BWD_SHAPE, torch.bfloat16),
-            ("ssd_scan_bwd_f32", SSD_BWD_F32_SHAPE, torch.float32)):
+            ("ssd_scan_bwd_f32", SSD_BWD_F32_SHAPE, torch.float32),
+            ("ssd_scan_bwd_cuda_cores", SSD_CUDA_CORE_SHAPE, torch.bfloat16)):
         args, dy, _ = ssd_grad_inputs(shape, dtype, gen, torch.device(
             "cuda", 0))
-        line, _, f64 = ssd_grads_check(f"{name} {shape}", args, dy, None,
-                                       64, errs, name)
+        line, got, f64 = ssd_grads_check(f"{name} {shape}", args, dy, None,
+                                         64, errs, name)
+        Bsz, L, H, P, G, N = shape
+        route = ssd_expected_bwd_route(str(dtype).split(".")[-1], N, P)
 
         def call():
             return ssd_kernel.ssd_scan_bwd(*args, dy)
         ms = cuda_ms(call, 10)
-        dev_ms = device_ms(call, 10, r"\bssd_bwd_", per_call=4)
+        dev_ms, by_launch = device_ms(call, 10, SSD_BWD_KERNELS, per_call=4,
+                                      split=True)
+        extra = {}
+        if route == "wgmma":
+            extra["cuda_cores_device_ms_by_launch"] = device_ms(
+                lambda: ssd_bwd_cuda_cores(args, dy), 10, SSD_BWD_KERNELS,
+                per_call=4, split=True)[1]
+            exact = ssd_ref.ssd_vjp(*(t.double() for t in args), dy.double())
+            by = {"f64_err": rel_errs(got, exact),
+                  "cuda_cores_f64_err": rel_errs(
+                      ssd_bwd_cuda_cores(args, dy), exact),
+                  "plain_f64_err": rel_errs(ssd_ref.ssd_vjp(*args, dy),
+                                            exact)}
+            del exact
+            f64 = {k: max(v) for k, v in by.items()}
+            f64.update({f"{k}_by_grad": dict(zip(SSD_GRAD_NAMES, v))
+                        for k, v in by.items()})
         plain_ms = cuda_ms(lambda: ssd_ref.ssd_vjp(*args, dy), 3)
-        Bsz, L, H, P, G, N = shape
         es = args[0].element_size()
         nbytes = (3 * Bsz * L * H * P * es + 4 * Bsz * L * G * N * es
                   + 2 * Bsz * L * H * 4 + 2 * H * 4)
@@ -3993,7 +4106,9 @@ def ssd_bwd_timing(errs, launches):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
         rows.append(dict(
             name=name, route="cuda",
-            source="src/repro_torch/csrc/ssd_scan_bwd.cu",
+            source="src/repro_torch/csrc/" + (
+                "ssd_scan_bwd_wgmma.cu" if route == "wgmma"
+                else "ssd_scan_bwd.cu"),
             replaces="none: the port's gradient of src/repro/kernels/"
                      "ssd_scan/kernel.py:66, whose reference JAX "
                      "differentiates through ref.ssd_chunked",
@@ -4001,12 +4116,15 @@ def ssd_bwd_timing(errs, launches):
             device_ms=dev_ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None, n=int(Bsz * L * H), shape=list(shape), **f64))
-        print(f"kernel {name} (cuda_cores route): {line}; ms={ms:.4f} "
-              f"device_ms={dev_ms} plain_ms={plain_ms:.4f} "
+            library_ms=None, n=int(Bsz * L * H), shape=list(shape),
+            kernel_route=route, device_ms_by_launch=by_launch, **extra,
+            **f64))
+        print(f"kernel {name} ({route} route): {line}; ms={ms:.4f} "
+              f"device_ms={dev_ms} by launch {by_launch} "
+              f"plain_ms={plain_ms:.4f} "
               f"bound_ms={rows[-1]['bound_ms']:.4f} "
-              f"({rows[-1]['bound_by']}) {f64}", flush=True)
-        del args, dy
+              f"({rows[-1]['bound_by']}) {extra} {f64}", flush=True)
+        del args, dy, got
         torch.cuda.empty_cache()
     return rows
 
@@ -4085,7 +4203,7 @@ def main() -> int:
             "flash_attention_bwd_f32_wide": 0.0,
             "flash_attention_bwd_f32_cuda_cores": 0.0,
             "flash_attention_bwd_bf16_cuda_cores": 0.0, "ssd_scan_bwd": 0.0,
-            "ssd_scan_bwd_f32": 0.0}
+            "ssd_scan_bwd_f32": 0.0, "ssd_scan_bwd_cuda_cores": 0.0}
 
     with Phase("build"):
         for name, log in _build.build_all().items():

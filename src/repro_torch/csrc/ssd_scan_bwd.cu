@@ -1,4 +1,8 @@
-// Mamba2 SSD chunked scan, backward, for the H100 (sm_90a), on CUDA cores.
+// Mamba2 SSD chunked scan, backward, for the H100 (sm_90a), on CUDA cores:
+// the route "cuda_cores" of kernels/ssd_scan/kernel.py:route_bwd, which
+// takes float32 (float16 and mixed dtypes read in float32) and bf16 past N
+// 128 or P 256; bf16 within those runs on the tensor cores
+// (ssd_scan_bwd_wgmma.cu, route "wgmma").
 //
 // Replaces no Pallas kernel: the JAX package differentiates its chunked
 // closed form (repro/kernels/ssd_scan/ref.py:ssd_chunked) with XLA and has
@@ -39,16 +43,18 @@
 //   1. ssd_bwd_states, a block per (chunk, tile of 64 of P, head, batch):
 //      lam, each chunk's state sum_j w_j B_j x_j^T and its term of dh,
 //      sum_i e^{lam_i} C_i dy_i^T (two 64-deep products a tile of N);
-//   2. ssd_bwd_carry, a thread per state element (n, p) of a (batch, head):
-//      the forward carry writes each chunk's start state h0 over its chunk
-//      state, the reverse carry (from the final state's gradient, or 0)
-//      each chunk's end gradient dh1 over its dh term;
+//   2. ssd_bwd_carry (ssd_bwd_carry.cuh, shared with the wgmma route), a
+//      thread per 4 state elements (n, p) of a (batch, head): the forward
+//      carry writes each chunk's start state h0 over its chunk state, the
+//      reverse carry (from the final state's gradient, or 0) each chunk's
+//      end gradient dh1 over its dh term;
 //   3. ssd_bwd_chunk, a block per (chunk, head, batch): the equations
 //      above, P and N taken in tiles of 64; dx, ddt written, per-head dB and
 //      dC to a float32 scratch (B, L, H, N), the chunk's share of dA to a
 //      float64 scratch;
-//   4. ssd_bwd_reduce: the fixed-order sums of dB and dC over a group's
-//      heads and of dA over batch and chunks (in float64).
+//   4. ssd_bwd_reduce (ssd_bwd_carry.cuh, a head a run): the fixed-order
+//      sums of dB and dC over a group's heads and of dA over batch and
+//      chunks (in float64).
 // No atomics: every sum is taken in one fixed order, so reruns are bitwise
 // equal.  A block's 256 threads each own a 4 x 4 patch of a 64 x 64 product
 // (operands staged as float in shared memory, float4 reads, fmaf sums, as
@@ -73,6 +79,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "ssd_bwd_carry.cuh"   // launches 2 and 4, shared with the wgmma route
 
 namespace {
 
@@ -268,29 +276,6 @@ ssd_bwd_states(Args a) {
     }
   }
   if (tid == 0 && p0 == 0) a.le[bh * a.nc + c] = lam_end;
-}
-
-__global__ void __launch_bounds__(THREADS)
-ssd_bwd_carry(Args a) {
-  const long long np = (long long)a.N * a.P;
-  const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const long long bh = (long long)blockIdx.z * a.H + blockIdx.y;
-  if (e >= np) return;
-  float* hs = a.hs + bh * a.nc * np + e;
-  float* ds = a.ds + bh * a.nc * np + e;
-  const float* le = a.le + bh * a.nc;
-  float hc = 0.f;
-  for (int c = 0; c < a.nc; ++c) {
-    const float s = hs[c * np];
-    hs[c * np] = hc;
-    hc = __fadd_rn(__fmul_rn(expf(le[c]), hc), s);
-  }
-  float dh = a.dhf != nullptr ? a.dhf[bh * np + e] : 0.f;
-  for (int c = a.nc - 1; c >= 0; --c) {
-    const float u = ds[c * np];
-    ds[c * np] = dh;
-    dh = __fadd_rn(__fmul_rn(expf(le[c]), dh), u);
-  }
 }
 
 template <typename T>
@@ -532,31 +517,6 @@ ssd_bwd_chunk(Args a) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-ssd_bwd_reduce(Args a) {
-  const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (blockIdx.y == 2) {                // dA: over batch, then chunks
-    if (e >= a.H) return;
-    double acc = 0.0;
-    for (int b = 0; b < a.Bsz; ++b)
-      for (int c = 0; c < a.nc; ++c)
-        acc += a.dAp[((long long)b * a.H + e) * a.nc + c];
-    a.dA[e] = (float)acc;
-    return;
-  }
-  const long long total = (long long)a.Bsz * a.L * a.G * a.N;
-  if (e >= total) return;
-  const int rep = a.H / a.G;
-  const long long n = e % a.N, rest = e / a.N;
-  const long long g = rest % a.G, bl = rest / a.G;
-  const float* src = (blockIdx.y == 0 ? a.dBp : a.dCp) +
-                     (bl * a.H + g * rep) * a.N + n;
-  double acc = 0.0;
-  for (int k = 0; k < rep; ++k) acc += src[(long long)k * a.N];
-  store1(static_cast<T*>(blockIdx.y == 0 ? a.dB : a.dC) + e, (float)acc);
-}
-
-template <typename T>
 int launch(Args& a, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
@@ -575,20 +535,16 @@ int launch(Args& a, cudaStream_t stream) {
                       states_smem_bytes(), stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long np = (long long)a.N * a.P;
-  ssd_bwd_carry<<<dim3((unsigned)((np + THREADS - 1) / THREADS), a.H, a.Bsz),
-                  THREADS, 0, stream>>>(a);
-  err = cudaGetLastError();
+  err = launch_carry(a.hs, a.ds, a.le, a.dhf, a.Bsz, a.H, a.N, a.P, a.nc,
+                     stream);
   if (err != cudaSuccess) return (int)err;
   ssd_bwd_chunk<T><<<dim3(a.nc, a.H, a.Bsz), THREADS, chunk_smem_bytes(),
                      stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  long long total = (long long)a.Bsz * a.L * a.G * a.N;
-  if (total < a.H) total = a.H;
-  ssd_bwd_reduce<T><<<dim3((unsigned)((total + THREADS - 1) / THREADS), 3),
-                      THREADS, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  return (int)launch_reduce(a.dBp, a.dCp, a.dAp, static_cast<T*>(a.dB),
+                            static_cast<T*>(a.dC), a.dA, a.Bsz, a.L, a.H,
+                            a.G, a.N, a.nc, a.H, stream);
 }
 
 }  // namespace

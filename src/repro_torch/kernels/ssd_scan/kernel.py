@@ -29,13 +29,18 @@ CUDA-core route runs a chunk above ``TILE`` (64, the kernels' row tile) as
 chunks of ``TILE``, and both tensor-core walks run every chunk as chunks of
 ``TILE``.
 
-:func:`ssd_scan_bwd` launches the backward (``csrc/ssd_scan_bwd.cu``, its
-own library): the gradients of x, dt, A, B and C along dy and, optionally,
-the final state's gradient, on one route for now (:func:`route_bwd`: four
-launches on the CUDA cores, float32 arithmetic, no atomics).  It reads its
-inputs as the forward does (strided x, dy, B and C with a contiguous last
-axis, float16 and mixed dtypes in float32, a ragged last chunk masked, a
-chunk above 64 as chunks of 64).
+:func:`ssd_scan_bwd` launches the backward: the gradients of x, dt, A, B
+and C along dy and, optionally, the final state's gradient, on one of two
+routes (:func:`route_bwd`), each four launches with no atomics (chunk
+states, the carries of h and dh across chunks, a block per chunk, the
+fixed-order sums): bf16 with N <= 128 and P <= 256 on the tensor cores
+(``csrc/ssd_scan_bwd_wgmma.cu``: wgmma + TMA, every float32 operand split
+into bf16 high and low parts, a block per (chunk, run of heads of one
+group)), the rest on the CUDA cores in float32 (``csrc/ssd_scan_bwd.cu``).
+Both read their inputs as the forward does (strided x, dy, B and C with a
+contiguous last axis, float16 and mixed dtypes in float32 on the CUDA
+cores, a ragged last chunk masked; the CUDA cores run a chunk above 64 as
+chunks of 64, the tensor cores every chunk as chunks of 64).
 """
 from __future__ import annotations
 
@@ -52,6 +57,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64                   # rows of the kernel's chunk tile
 WGMMA_MAX_N = 256           # widest state of the bf16 tensor-core walk
 WGMMA_F32_MAX_N = 128       # widest state of the float32 tensor-core walk
+WGMMA_BWD_MAX_N = 128       # widest state of the bf16 tensor-core backward
+WGMMA_BWD_MAX_P = 256       # widest head of it (x and dy stay on chip)
+# Backward launches by route, counted where :func:`ssd_scan_bwd` launches.
+BWD_ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}
 
 
 def _lib() -> ctypes.CDLL:
@@ -91,6 +100,16 @@ def _lib_bwd() -> ctypes.CDLL:
     return lib
 
 
+def _lib_bwd_wgmma() -> ctypes.CDLL:
+    lib = _build.load("ssd_scan_bwd_wgmma")
+    if not getattr(lib, "_typed", False):
+        lib.ssd_scan_bwd_wgmma.argtypes = (
+            [_VP] * 18 + [_I] * 7 + [ctypes.POINTER(ctypes.c_longlong), _VP])
+        lib.ssd_scan_bwd_wgmma.restype = _I
+        lib._typed = True
+    return lib
+
+
 def compute_dtype(x: torch.Tensor, B_mat: torch.Tensor,
                   C: torch.Tensor) -> torch.dtype:
     """The dtype the kernels read x, B and C in: bf16 when all three are
@@ -108,10 +127,27 @@ def route(dtype: torch.dtype, N: int) -> str:
     return "wgmma_f32" if N <= WGMMA_F32_MAX_N else "cuda_cores"
 
 
-def route_bwd(dtype: torch.dtype, N: int) -> str:
-    """The backward's route for x, B and C read in ``dtype`` and a state of
-    N: ``"cuda_cores"`` (the one route: four launches on the CUDA cores)."""
+def route_bwd(dtype: torch.dtype, N: int, P: int) -> str:
+    """The backward's route for x, B and C read in ``dtype``, a state of N
+    and a head of P: ``"wgmma"`` (the tensor cores) for bf16 with N <=
+    ``WGMMA_BWD_MAX_N`` and P <= ``WGMMA_BWD_MAX_P``, else ``"cuda_cores"``
+    (float32 arithmetic on the CUDA cores)."""
+    if (dtype == torch.bfloat16 and N <= WGMMA_BWD_MAX_N
+            and P <= WGMMA_BWD_MAX_P):
+        return "wgmma"
     return "cuda_cores"
+
+
+def heads_per_cta(Bsz: int, L: int, H: int, G: int, sms: int = 132) -> int:
+    """Heads a block of the tensor-core backward takes (consecutive heads
+    of one group, which share B and C: their dB and dC are summed in the
+    block): the most, up to 8, that divide the group's heads and still
+    leave at least four blocks an SM, else 1."""
+    rep, nc = H // G, -(-L // TILE)
+    for d in range(min(8, rep), 1, -1):
+        if rep % d == 0 and Bsz * nc * (H // d) >= 4 * sms:
+            return d
+    return 1
 
 
 def p_tile(P: int, N: int, heads: int, sms: int = 132,
@@ -253,8 +289,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     :func:`ssd_scan` at (x, dt, A, B_mat, C) along dy (B, L, H, P) and, if
     given, along the final state's gradient ``dh_final`` (B, H, N, P).
     Shapes and devices as :func:`ssd_scan`; the last axis of x, dy, B and C
-    must be contiguous.  Launches on the current stream and raises if a
-    launch fails."""
+    must be contiguous.  Takes :func:`route_bwd`'s route, launches on the
+    current stream, counts the launch in ``BWD_ROUTE_LAUNCHES`` and raises
+    if a launch fails."""
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B_mat.dim() != 4 \
             or C.shape != B_mat.shape or dy.shape != x.shape:
         raise ValueError("ssd_scan_bwd kernel: x and dy (B, L, H, P), dt "
@@ -291,7 +328,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("ssd_scan_bwd kernel: the last axis of x, dy, B and "
                          "C must be contiguous")
     dhk = None if dh_final is None else dh_final.float().contiguous()
-    chunk = min(chunk, TILE)
+    which = route_bwd(cd, N, P)
+    chunk = TILE if which == "wgmma" else min(chunk, TILE)
     nc = -(-L // chunk) if L else 0
     dx = torch.empty((Bsz, L, H, P), dtype=cd, device=dev)
     ddt = torch.empty((Bsz, L, H), dtype=torch.float32, device=dev)
@@ -300,28 +338,44 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dC = torch.empty((Bsz, L, G, N), dtype=cd, device=dev)
     if Bsz * L * H * P * N == 0:
         outs = (dx.zero_(), ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_())
+        return tuple(g if g.dtype == d else g.to(d)
+                     for g, d in zip(outs, dtypes))
+    f32 = dict(dtype=torch.float32, device=dev)
+    if which == "wgmma":
+        xk, Bk, Ck, dyk = (_tma_ready(t) for t in (xk, Bk, Ck, dyk))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        hpc = heads_per_cta(Bsz, L, H, G, sms)
+        parts = H // hpc
     else:
-        f32 = dict(dtype=torch.float32, device=dev)
-        states = torch.empty((Bsz, H, nc, N, P), **f32)
-        dstates = torch.empty((Bsz, H, nc, N, P), **f32)
-        lam_end = torch.empty((Bsz, H, nc), **f32)
-        dBp = torch.empty((Bsz, L, H, N), **f32)
-        dCp = torch.empty((Bsz, L, H, N), **f32)
-        dAp = torch.empty((Bsz, H, nc), dtype=torch.float64, device=dev)
-        strides = (ctypes.c_longlong * 15)(
-            *(s for t in (xk, dtk, Bk, Ck, dyk) for s in t.stride()[:3]))
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
+        parts = H
+    states = torch.empty((Bsz, H, nc, N, P), **f32)
+    dstates = torch.empty((Bsz, H, nc, N, P), **f32)
+    lam_end = torch.empty((Bsz, H, nc), **f32)
+    dBp = torch.empty((Bsz, L, parts, N), **f32)
+    dCp = torch.empty((Bsz, L, parts, N), **f32)
+    dAp = torch.empty((Bsz, H, nc), dtype=torch.float64, device=dev)
+    strides = (ctypes.c_longlong * 15)(
+        *(s for t in (xk, dtk, Bk, Ck, dyk) for s in t.stride()[:3]))
+    ptrs = (xk.data_ptr(), dtk.data_ptr(), Ak.data_ptr(), Bk.data_ptr(),
+            Ck.data_ptr(), dyk.data_ptr(),
+            None if dhk is None else dhk.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            states.data_ptr(), dstates.data_ptr(), lam_end.data_ptr(),
+            dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if which == "wgmma":
+            err = _lib_bwd_wgmma().ssd_scan_bwd_wgmma(
+                *ptrs, Bsz, L, H, G, P, N, hpc, strides, stream)
+        else:
             err = _lib_bwd().ssd_scan_bwd(
-                _DTYPES[cd], xk.data_ptr(), dtk.data_ptr(), Ak.data_ptr(),
-                Bk.data_ptr(), Ck.data_ptr(), dyk.data_ptr(),
-                None if dhk is None else dhk.data_ptr(), dx.data_ptr(),
-                ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-                states.data_ptr(), dstates.data_ptr(), lam_end.data_ptr(),
-                dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(), Bsz, L, H, G,
-                P, N, chunk, strides, stream)
-        if err != 0:
-            raise RuntimeError(f"ssd_scan_bwd launch failed: cudaError {err}")
-        outs = (dx, ddt, dA, dB, dC)
+                _DTYPES[cd], *ptrs, Bsz, L, H, G, P, N, chunk, strides,
+                stream)
+        if err == 0:
+            BWD_ROUTE_LAUNCHES[which] += 1
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd ({which}) launch failed: "
+                           f"cudaError {err}")
+    outs = (dx, ddt, dA, dB, dC)
     return tuple(g if g.dtype == d else g.to(d)
                  for g, d in zip(outs, dtypes))

@@ -20,9 +20,12 @@ route, three launches).
 Gradients: CUDA tensors of which one needs a gradient (with grad mode on)
 go through :class:`SSDScan`, a ``torch.autograd.Function`` whose forward is
 the same kernel and whose backward is the backward kernel
-(``kernel.ssd_scan_bwd``, ``csrc/ssd_scan_bwd.cu``), with or without
-``final_state``; ``BWD_LAUNCHES`` counts its calls and
-``BWD_ROUTE_LAUNCHES`` the same calls by route (``kernel.route_bwd``).  CPU
+(``kernel.ssd_scan_bwd``: bf16 with N <= 128 on the tensor cores,
+``csrc/ssd_scan_bwd_wgmma.cu``; the rest on the CUDA cores,
+``csrc/ssd_scan_bwd.cu``), with or without ``final_state``;
+``BWD_ROUTE_LAUNCHES`` is the binding's own count of its launches by route
+(``kernel.BWD_ROUTE_LAUNCHES``, counted where it launches) and
+``BWD_LAUNCHES`` counts the launches made from :class:`SSDScan`.  CPU
 tensors and ``backend="torch"`` differentiate the plain version under
 ordinary autograd.
 """
@@ -37,7 +40,7 @@ from .._common import resolve_backend
 LAUNCHES = 0
 ROUTE_LAUNCHES = {"wgmma": 0, "wgmma_f32": 0, "cuda_cores": 0}
 BWD_LAUNCHES = 0
-BWD_ROUTE_LAUNCHES = {"cuda_cores": 0}
+BWD_ROUTE_LAUNCHES = _kernel.BWD_ROUTE_LAUNCHES
 
 
 class SSDScan(torch.autograd.Function):
@@ -60,12 +63,10 @@ class SSDScan(torch.autograd.Function):
             dy = torch.zeros_like(x)
         elif dy.stride(-1) != 1:
             dy = dy.contiguous()
+        launched = sum(BWD_ROUTE_LAUNCHES.values())
         grads = _kernel.ssd_scan_bwd(x, dt, A, B_mat, C, dy, dh,
                                      chunk=ctx.chunk)
-        if x.numel():
-            BWD_LAUNCHES += 1
-            BWD_ROUTE_LAUNCHES[_kernel.route_bwd(
-                _kernel.compute_dtype(x, B_mat, C), B_mat.shape[3])] += 1
+        BWD_LAUNCHES += sum(BWD_ROUTE_LAUNCHES.values()) - launched
         return (*grads, None, None)
 
 

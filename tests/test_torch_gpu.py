@@ -1319,6 +1319,76 @@ def test_ssd_gradient_on_the_card_raises(case, dtype):
     assert all(torch.equal(a, b) for a, b in zip(via_ops, got))
 
 
+# (B, L, H, P, G, N, chunk, final_state, strided): bf16 on the backward's
+# tensor-core route at Zamba2-2.7B's and Mamba2-130M's train shapes, a
+# requested chunk of 128 over a ragged length with the final state's
+# gradient, strided slices of x, B, C and dy, heads of P 32, 100, 128 and
+# 256 (a masked P box, 2 to 4 boxes, N = 128 with P = 256); then N = 200,
+# past the route's 128, on the CUDA cores.
+SSD_BWD_ROUTE_CASES = [(1, 4096, 80, 64, 1, 64, 64, False, False),
+                       (2, 2048, 24, 64, 1, 128, 64, False, False),
+                       (1, 301, 8, 64, 4, 32, 128, True, False),
+                       (2, 100, 24, 64, 1, 128, 64, False, True),
+                       (1, 301, 4, 32, 2, 64, 64, True, False),
+                       (1, 301, 4, 100, 1, 128, 64, True, False),
+                       (1, 301, 6, 128, 2, 64, 64, True, False),
+                       (1, 301, 2, 256, 1, 128, 64, True, False),
+                       (1, 100, 2, 64, 1, 200, 64, True, False)]
+
+
+@pytest.mark.parametrize("case", SSD_BWD_ROUTE_CASES, ids=str)
+def test_ssd_gradient_bf16_routes(case):
+    """bf16 SSD gradients on the route ``kernel.route_bwd`` names (the
+    tensor cores up to N = 128, the CUDA cores past it) against
+    ``ref.ssd_vjp``: each gradient within 2e-2 of its largest magnitude,
+    finite, a rerun bitwise equal; ``ops.ssd``'s autograd route gives the
+    same gradients and counts one ``BWD_ROUTE_LAUNCHES`` on that route."""
+    dev = cuda_or_skip()
+    B, L, H, P, G, N, chunk, final, strided = case
+    route = "wgmma" if N <= 128 else "cuda_cores"
+    assert ssd_kernel.route_bwd(torch.bfloat16, N, P) == route
+    rng = np.random.default_rng(1)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+    x, Bm, C, dy = (t.to(dev, torch.bfloat16) for t in (
+        f(B, L, H, P), f(B, L, G, N), f(B, L, G, N), f(B, L, H, P)))
+    if strided:
+        proj = torch.zeros(B, L, H * P + 2 * G * N + 8, dtype=torch.bfloat16,
+                           device=dev)
+        proj[..., :H * P] = x.reshape(B, L, -1)
+        proj[..., H * P:H * P + G * N] = Bm.reshape(B, L, -1)
+        proj[..., H * P + G * N:H * P + 2 * G * N] = C.reshape(B, L, -1)
+        x = proj[..., :H * P].reshape(B, L, H, P)
+        Bm = proj[..., H * P:H * P + G * N].reshape(B, L, G, N)
+        C = proj[..., H * P + G * N:H * P + 2 * G * N].reshape(B, L, G, N)
+        wide = torch.zeros(B, L, H, P + 3, dtype=torch.bfloat16, device=dev)
+        wide[..., :P] = dy
+        dy = wide[..., :P]
+        assert not x.is_contiguous() and not dy.is_contiguous()
+    dt = torch.from_numpy(
+        0.01 + 0.2 * rng.random((B, L, H), dtype=np.float32)).to(dev)
+    A = torch.from_numpy(-0.5 - rng.random(H, dtype=np.float32)).to(dev)
+    dh = f(B, H, N, P).to(dev) if final else None
+    args = (x, dt, A, Bm, C)
+    got = ssd_kernel.ssd_scan_bwd(*args, dy, dh, chunk=chunk)
+    again = ssd_kernel.ssd_scan_bwd(*args, dy, dh, chunk=chunk)
+    want = ssd_ref.ssd_vjp(*args, dy, chunk=chunk, dh_final=dh)
+    torch.cuda.synchronize()
+    for g, a, w, t in zip(got, again, want, args):
+        assert torch.equal(g, a)
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=2e-2 * float(w.float().abs().max()))
+    ins = [t.detach().requires_grad_(True) for t in args]
+    before = dict(ssd_ops.BWD_ROUTE_LAUNCHES)
+    out = ssd_ops.ssd(*ins, chunk=chunk, final_state=final)
+    outs, cots = (out, (dy, dh)) if final else ((out,), (dy,))
+    via_ops = torch.autograd.grad(outs, ins, cots)
+    assert ssd_ops.BWD_ROUTE_LAUNCHES == {**before,
+                                          route: before[route] + 1}
+    assert all(torch.equal(a, b) for a, b in zip(via_ops, got))
+
+
 @pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-30b-a3b",
                                   "deepseek-v3-671b", "llava-next-34b",
                                   "whisper-small", "mamba2-130m",

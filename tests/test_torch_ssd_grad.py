@@ -188,12 +188,14 @@ def test_large_decay_reference_nan_port_finite():
     _close(got, seq, F32_TOL, "large decay")
 
 
-def _formulas(x, dt, A, Bm, C, dy, *, chunk=64, dh_final=None):
+def _formulas(x, dt, A, Bm, C, dy, *, chunk=64, dh_final=None,
+              dtype=torch.float64):
     """The backward kernel's equations (``csrc/ssd_scan_bwd.cu``'s header)
-    in float64, chunk by chunk, the last chunk ragged (masked, not padded),
-    chunks above 64 run as 64: the carry of the chunks' start states h0,
-    then the reverse walk carrying dh as the forward carries h."""
-    x, dt, A, Bm, C, dy = (t.double() for t in (x, dt, A, Bm, C, dy))
+    in ``dtype`` (float64, or float32 as the CUDA-core kernel computes),
+    chunk by chunk, the last chunk ragged (masked, not padded), chunks above
+    64 run as 64: the carry of the chunks' start states h0, then the reverse
+    walk carrying dh as the forward carries h."""
+    x, dt, A, Bm, C, dy = (t.to(dtype) for t in (x, dt, A, Bm, C, dy))
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
@@ -204,7 +206,7 @@ def _formulas(x, dt, A, Bm, C, dy, *, chunk=64, dh_final=None):
     dBh, dCh = torch.zeros_like(Bh), torch.zeros_like(Ch)
     for b in range(Bsz):
         for h in range(H):
-            h0s, lams, hc = [], [], torch.zeros(N, P, dtype=torch.float64)
+            h0s, lams, hc = [], [], torch.zeros(N, P, dtype=dtype)
             for r in rows:
                 lam = torch.cumsum(A[h] * dt[b, r, h], 0)
                 w = torch.exp(lam[-1] - lam) * dt[b, r, h]
@@ -212,8 +214,8 @@ def _formulas(x, dt, A, Bm, C, dy, *, chunk=64, dh_final=None):
                 lams.append(lam)
                 hc = (torch.exp(lam[-1]) * hc
                       + (Bh[b, r, h] * w[:, None]).T @ x[b, r, h])
-            dh = (torch.zeros(N, P, dtype=torch.float64) if dh_final is None
-                  else dh_final[b, h].double())
+            dh = (torch.zeros(N, P, dtype=dtype) if dh_final is None
+                  else dh_final[b, h].to(dtype))
             for c in reversed(range(len(rows))):
                 r, lam, h0, dh1 = rows[c], lams[c], h0s[c], dh
                 xc, dyc, dtc = x[b, r, h], dy[b, r, h], dt[b, r, h]
@@ -277,6 +279,11 @@ def _plain_forward(x, dt, A, B_mat, C, *, chunk, final_state, ptile=None):
 
 
 def _plain_backward(x, dt, A, B_mat, C, dy, dh_final=None, *, chunk):
+    """The binding's stand-in: the plain gradient, counted by route where
+    the binding counts its launch."""
+    ssd_kernel.BWD_ROUTE_LAUNCHES[ssd_kernel.route_bwd(
+        ssd_kernel.compute_dtype(x, B_mat, C), B_mat.shape[3],
+        x.shape[3])] += 1
     return tref.ssd_vjp(x, dt, A, B_mat, C, dy, chunk=chunk,
                         dh_final=dh_final)
 
@@ -286,8 +293,10 @@ def test_ssdscan_backward_wiring(monkeypatch, final_state):
     """``SSDScan`` with the kernel bindings replaced by their plain
     versions, on CPU tensors: the gradients of every tensor input equal
     autograd of the plain path, in each input's dtype; the backward returns
-    one gradient per forward argument, None for chunk and final_state; the
-    backward counters count its call."""
+    one gradient per forward argument, None for chunk and final_state;
+    ``BWD_LAUNCHES`` counts the launch the binding counted, by
+    ``kernel.route_bwd``'s route (bf16 here: ``"wgmma"``), and
+    ``ops.BWD_ROUTE_LAUNCHES`` shows the binding's count."""
     monkeypatch.setattr(ssd_kernel, "ssd_scan", _plain_forward)
     monkeypatch.setattr(ssd_kernel, "ssd_scan_bwd", _plain_backward)
     x, dt, A, Bm, C, dy, dh = (torch.from_numpy(a) for a in _inputs(
@@ -301,8 +310,9 @@ def test_ssdscan_backward_wiring(monkeypatch, final_state):
     outs = outs if final_state else (outs,)
     got = torch.autograd.grad(outs, ins, cots, retain_graph=True)
     assert ssd_ops.BWD_LAUNCHES == before[0] + 1
-    assert ssd_ops.BWD_ROUTE_LAUNCHES["cuda_cores"] == \
-        before[1]["cuda_cores"] + 1
+    # bf16 x, B and C with N = 6: the tensor-core route's count
+    assert ssd_ops.BWD_ROUTE_LAUNCHES == {**before[1], "wgmma":
+                                          before[1]["wgmma"] + 1}
     raw = outs[0].grad_fn.apply(*cots)
     assert len(raw) == 7 and raw[5] is None and raw[6] is None
     want = tref.ssd_vjp(*ins, dy.bfloat16(), chunk=16,
@@ -310,6 +320,21 @@ def test_ssdscan_backward_wiring(monkeypatch, final_state):
     for g, w, t in zip(got, want, ins):
         assert g.dtype == t.dtype
         assert torch.equal(g, w)
+
+
+def test_binding_counts_only_its_launches():
+    """``kernel.ssd_scan_bwd`` counts a launch by route where it launches:
+    a call it refuses (CPU tensors, here) counts nothing, on either route,
+    and neither does ``ops.BWD_ROUTE_LAUNCHES``, the same counts."""
+    x, dt, A, Bm, C, dy, _ = (torch.from_numpy(a) for a in _inputs(
+        (1, 40, 4, 8, 2, 6), 5))
+    before = dict(ssd_kernel.BWD_ROUTE_LAUNCHES)
+    for cast in (torch.Tensor.bfloat16, torch.Tensor.float):
+        with pytest.raises(ValueError, match="CUDA"):
+            ssd_kernel.ssd_scan_bwd(cast(x), dt, A, cast(Bm), cast(C),
+                                    cast(dy))
+    assert ssd_kernel.BWD_ROUTE_LAUNCHES == before
+    assert ssd_ops.BWD_ROUTE_LAUNCHES == before
 
 
 def _old_ssd_chunked(x, dt, A, B_mat, C, chunk=64):

@@ -129,7 +129,8 @@ def test_kernel_routes():
     """The bf16 tensor-core walk takes bf16 with N <= 256, the float32 one
     float32 (the goldens; float16 and mixed dtypes read in float32) with N
     <= 128 (Zamba2-2.7B's 64, Mamba2-130M's 128); wider states take the
-    CUDA-core route.  A CTA of a walk takes 32 P columns while those CTAs
+    CUDA-core route; the backward's tensor-core route takes bf16 with N <=
+    128 and P <= 256, in runs of up to 8 heads a block.  A CTA of a walk takes 32 P columns while those CTAs
     fit one an SM (Mamba2-130M's 24 heads), where N is past what a CTA of
     64 columns holds (128 in bf16, 64 in float32) or P <= 32, else 64
     (Zamba2-2.7B's 80 heads)."""
@@ -143,6 +144,24 @@ def test_kernel_routes():
     assert ssd_kernel.WGMMA_F32_MAX_N == 128
     assert set(ssd_ops.ROUTE_LAUNCHES) == {"wgmma", "wgmma_f32",
                                            "cuda_cores"}
+    # The backward: bf16 on the tensor cores up to N = 128 (Mamba2-130M's)
+    # and P = 256, the rest (float32, float16 and mixed dtypes, wider
+    # states or heads) on the CUDA cores.
+    assert ssd_kernel.WGMMA_BWD_MAX_N == 128
+    assert ssd_kernel.WGMMA_BWD_MAX_P == 256
+    assert ssd_kernel.route_bwd(torch.bfloat16, 64, 64) == "wgmma"
+    assert ssd_kernel.route_bwd(torch.bfloat16, 128, 64) == "wgmma"
+    assert ssd_kernel.route_bwd(torch.bfloat16, 128, 256) == "wgmma"
+    assert ssd_kernel.route_bwd(torch.bfloat16, 32, 1) == "wgmma"
+    assert ssd_kernel.route_bwd(torch.bfloat16, 129, 64) == "cuda_cores"
+    assert ssd_kernel.route_bwd(torch.bfloat16, 64, 257) == "cuda_cores"
+    assert ssd_kernel.route_bwd(torch.float32, 64, 64) == "cuda_cores"
+    assert set(ssd_ops.BWD_ROUTE_LAUNCHES) == {"wgmma", "cuda_cores"}
+    # The binding counts its own launches; ops reads the same counts.
+    assert ssd_ops.BWD_ROUTE_LAUNCHES is ssd_kernel.BWD_ROUTE_LAUNCHES
+    assert ssd_kernel.heads_per_cta(1, 4096, 80, 1) == 8     # Zamba2-2.7B
+    assert ssd_kernel.heads_per_cta(2, 2048, 24, 1) == 2     # Mamba2-130M
+    assert ssd_kernel.heads_per_cta(1, 64, 8, 4) == 1
     for dtype in (torch.float16, torch.bfloat16, torch.float32):
         x = torch.zeros(1, 1, 1, 1, dtype=dtype)
         f = torch.zeros(1, 1, 1, 1)

@@ -1,6 +1,7 @@
-"""Card time of the SSD scan's routes at ``chip_smoke.py``'s timing shape,
-for comparing two trees of the port on one card, and a bitwise check of
-the bf16 walk between two trees.
+"""Card time of the SSD scan's routes at ``chip_smoke.py``'s timing shape
+and of its backward's at the SSM train shapes, for comparing two trees of
+the port on one card, and a bitwise check of the bf16 walk and of the
+backward between two trees.
 
     python3 tools/ssd_times.py [--src SRC] [--reps N] [--tag TAG]
                                [--save FILE | --compare FILE]
@@ -18,18 +19,23 @@ route; a trace short of them is taken again, up to three times, else
 null), for bf16 (the bf16 walk, 32 and 64 P columns a CTA) and float32
 (the route ``kernel.route`` names for the tree: the float32 walk at 32 and
 64 P columns, or the CUDA-core route), each result held to the plain
-version first (bf16 2e-2; float32 5e-5 / 5e-4).  ``--save FILE`` writes
-the bf16 walk's outputs (y and the final state, both P tiles) at three
-shapes (Zamba2-2.7B's, a ragged grouped one, Mamba2-130M's N = 128) and
-``--compare FILE`` holds this tree's to a saved file bitwise.  It prints
-the card's name and power limit, then one JSON line.  It needs a CUDA card
-and exits 2 without one.
+version first (bf16 2e-2; float32 5e-5 / 5e-4).  Then the backward
+(``kernel.ssd_scan_bwd``, bf16, random dy) at Zamba2-2.7B's and
+Mamba2-130M's train shapes, ``BWD_SHAPES``, on the route the tree takes
+(named from the kernels in the trace), held to the plain ``ref.ssd_vjp``
+at 2e-2 of each gradient's largest magnitude first: ``chip_smoke.
+device_ms`` of its four launches, in all and by launch.  ``--save FILE``
+writes the bf16 walk's outputs (y and the final state, both P tiles) at
+three shapes (Zamba2-2.7B's, a ragged grouped one, Mamba2-130M's N = 128)
+and the backward's at ``BWD_BITWISE`` (both routes), and ``--compare
+FILE`` holds this tree's to a saved file bitwise.  It prints the card's
+name and power limit, then one JSON line.  It needs a CUDA card and exits
+2 without one.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -42,24 +48,14 @@ KERNELS = {"wgmma": (r"\bssd_wgmma_kernel<", 1),
            "wgmma_f32": (r"\bssd_wgmma_f32_kernel<", 1),
            "cuda_cores": (r"\bssd_(chunk_state|state_carry|chunk_out)", 3)}
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (5e-5, 5e-4)}
-
-
-def device_ms(fn, reps, route):
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    pat, per_call = KERNELS[route]
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if re.search(pat, e.key)]
-        if sum(e.count for e in hits) == per_call * reps:
-            return sum(e.device_time_total for e in hits) / reps / 1e3
-    return None
+# (B, L, H, P, G, N): a microbatch of Zamba2-2.7B's and of Mamba2-130M's
+# training main path.
+BWD_SHAPES = ((1, 4096, 80, 64, 1, 64), (2, 2048, 24, 64, 1, 128))
+# (B, L, H, P, G, N, dtype, final state) of the backward's bitwise check:
+# bf16 on the tensor cores, bf16 past N = 128 and float32 on the CUDA cores.
+BWD_BITWISE = ((1, 301, 8, 64, 2, 64, "bfloat16", True),
+               (1, 301, 4, 100, 2, 200, "bfloat16", True),
+               (2, 301, 8, 64, 2, 64, "float32", True))
 
 
 def inputs(shape, dtype, seed):
@@ -88,6 +84,8 @@ def main() -> int:
         print("ssd_times: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(args.src).resolve()))
+    sys.path.insert(1, str(ROOT))
+    from chip_smoke import SSD_BWD_KERNELS, device_ms
     from repro_torch.kernels.ssd_scan import kernel, ops
     torch.backends.cuda.matmul.allow_tf32 = False
     N = SHAPE[5]
@@ -107,9 +105,32 @@ def main() -> int:
                                       rtol=rtol) for g, w in zip(got, want)):
                 raise RuntimeError(f"{name} {route} ptile {pt}: kernel != "
                                    f"plain")
+            pat, per_call = KERNELS[route]
             rows.append(dict(dtype=name, route=route, ptile=pt,
-                             device_ms=device_ms(call, args.reps, route)))
+                             device_ms=device_ms(call, args.reps, pat,
+                                                 per_call=per_call)))
         del a
+    from repro_torch.kernels.ssd_scan import ref
+    for i, shape in enumerate(BWD_SHAPES):
+        a = inputs(shape, torch.bfloat16, 200 + i)
+        dy = torch.randn(a[0].shape, generator=torch.Generator().manual_seed(
+            300 + i)).to("cuda", torch.bfloat16)
+
+        def call():
+            return kernel.ssd_scan_bwd(*a, dy)
+        want = ref.ssd_vjp(*a, dy)
+        for g, w in zip(call(), want):
+            scale = float(w.float().abs().max())
+            if float((g.float() - w.float()).abs().max()) > 2e-2 * scale:
+                raise RuntimeError(f"backward {shape}: kernel != plain")
+        total, by = device_ms(call, args.reps, SSD_BWD_KERNELS, per_call=4,
+                              split=True)
+        route = ("wgmma" if any(k.startswith("ssd_bwdw_") for k in by)
+                 else "cuda_cores")
+        rows.append(dict(dtype="bfloat16", route=f"bwd_{route}",
+                         shape=list(shape), device_ms=total,
+                         device_ms_by_launch=by))
+        del a, dy, want
     bitwise = None
     if args.save or args.compare:
         outs = []
@@ -118,6 +139,13 @@ def main() -> int:
             for pt in (32, 64):
                 outs.append([t.cpu() for t in kernel.ssd_scan(
                     *a, final_state=True, ptile=pt)])
+        for i, (*shape, dt, fs) in enumerate(BWD_BITWISE):
+            a = inputs(shape, getattr(torch, dt), 400 + i)
+            g = torch.Generator().manual_seed(500 + i)
+            dy = torch.randn(a[0].shape, generator=g).to("cuda", a[0].dtype)
+            dh = (torch.randn(shape[0], shape[2], shape[5], shape[3],
+                              generator=g).cuda() if fs else None)
+            outs.append([t.cpu() for t in kernel.ssd_scan_bwd(*a, dy, dh)])
         if args.save:
             torch.save(outs, args.save)
         else:
@@ -130,7 +158,7 @@ def main() -> int:
                           text=True, timeout=60).stdout.strip()
     print(card)
     print(json.dumps({"tag": args.tag, "src": args.src, "rows": rows,
-                      "bf16_bitwise_to_saved": bitwise}))
+                      "bitwise_to_saved": bitwise}))
     return 0
 
 
